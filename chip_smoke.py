@@ -3,13 +3,26 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `qwen3_asr_tpu_torch/csrc` (into
-`build/torch_kernels/`), holds each kernel against its plain PyTorch twin
-at the shapes of the main path, then drives the main path once through
-`Qwen3ASR.transcribe` at the full Qwen3-ASR-0.6B width with seeded random
-weights (int4 decode weights, int8 KV cache): three int16 requests of 5 s,
-30 s and 92 s with EOS disabled. It checks that every parameter and cache
-tensor is on the GPU, that each kernel ran on the main path (launch counts),
-and that the main path's tokens agree with the twins' on the 5 s request.
+`build/torch_kernels/`) and holds each kernel against its plain PyTorch
+twin at the shapes of the main paths: flash attention (K2) single and
+batched, the decode step (K1), and the batched decode step (K3), which must
+equal K1 run on each row's slab bit for bit. Then, at the full
+Qwen3-ASR-0.6B width with seeded random weights (int4 decode weights, int8
+KV cache, EOS disabled), it drives three paths, each with the launch counts
+set to 0 just before it and read just after:
+
+1. `Qwen3ASR.transcribe` on three int16 requests of 5 s, 30 s and 92 s;
+2. the continuous-batching engine on 8 requests admitted in two groups of
+   4 (the second mid-flight), whose tokens must equal `transcribe_batch`'s
+   on the same groups (that closed-batch reference is a window of its own,
+   its counts reset before it and checked after it);
+3. `ASRServer` in continuous mode behind the HTTP front end: 4 concurrent
+   `/v1/transcribe` requests, one SSE `/v1/audio/transcriptions` request
+   and `/healthz`.
+
+It checks that every parameter and cache tensor of path 1 is on the GPU,
+that each kernel of a path ran there (launch counts), and that tokens agree
+with the twins' on a 5 s request of paths 1 and 2.
 
 Output: diagnostic lines, then one JSON line with the kernels' errors and
 times, then, as the last line, {"ok": true, "device": {...}}. Exits non-zero
@@ -49,6 +62,7 @@ CACHE_CODE_FRAC, CACHE_SCALE_RTOL = 0.01, 1e-2
 MEGA_LAYER_REL = 1e-2
 FLOOR_STEPS = 3         # steps on which the twin also runs on the CPU
 REQUESTS = ((5, 64), (30, 128), (92, 323))   # (seconds, max_tokens)
+MEGA_BATCH_S, MEGA_BATCH_STEPS = 1664, 16   # K3 phase: pool context, steps vs K1
 
 
 def log(*a):
@@ -82,17 +96,20 @@ def pcm(seconds: float, seed: int = 0):
     return (a * 32768.0).clip(-32768, 32767).astype(np.int16)
 
 
-def phase_flash(causal: bool, T: int, NH: int, NKV: int, D: int, valid: int):
+def phase_flash(causal: bool, T: int, NH: int, NKV: int, D: int, valid):
+    """K2 vs its plain version on a batch of len(valid) items (keys at
+    index >= valid[b] masked)."""
     import numpy as np
     import torch
 
     from qwen3_asr_tpu_torch.ops import flash_attention as fa
 
-    g = torch.Generator(device="cuda").manual_seed(T)
-    q = torch.randn(1, T, NH, D, generator=g, device="cuda").to(torch.bfloat16)
-    k = torch.randn(1, T, NKV, D, generator=g, device="cuda").to(torch.bfloat16)
-    v = torch.randn(1, T, NKV, D, generator=g, device="cuda").to(torch.bfloat16)
-    vl = torch.tensor([valid], dtype=torch.int32, device="cuda")
+    B = len(valid)
+    g = torch.Generator(device="cuda").manual_seed(T + B)
+    q = torch.randn(B, T, NH, D, generator=g, device="cuda").to(torch.bfloat16)
+    k = torch.randn(B, T, NKV, D, generator=g, device="cuda").to(torch.bfloat16)
+    v = torch.randn(B, T, NKV, D, generator=g, device="cuda").to(torch.bfloat16)
+    vl = torch.tensor(valid, dtype=torch.int32, device="cuda")
     scale = 1.0 / float(np.sqrt(D))
     out = fa.flash_attention_batch(q, k, v, vl, causal=causal, scale=scale)
     ref = fa.flash_attention_ref(q, k, v, vl, causal=causal, scale=scale)
@@ -105,7 +122,7 @@ def phase_flash(causal: bool, T: int, NH: int, NKV: int, D: int, valid: int):
     plain = cuda_ms(lambda: fa.flash_attention_ref(q, k, v, vl, causal=causal,
                                                    scale=scale), 5)
     name = "causal" if causal else "bidirectional"
-    log(f"phase flash {name} T={T} NH={NH} NKV={NKV} D={D} valid={valid}: "
+    log(f"phase flash {name} B={B} T={T} NH={NH} NKV={NKV} D={D} valid={valid}: "
         f"max_abs_err={err:.3e} worst |err| / (atol + rtol |ref|) "
         f"{ratio:.4f}; kernel {ms:.4f} ms, twin {plain:.4f} ms")
     if not ratio <= 1.0:
@@ -254,36 +271,172 @@ def phase_mega_layers(dcfg, pack, got, ref, pos: int, tok) -> list[float]:
     return rels
 
 
-def check_tokens_vs_twins(asr, samples, tokens):
+def _filled_pool(dcfg, S: int, pos, seed: int):
+    """(k, v, k_s, v_s) [B, L, S, ...]: slab b's rows < pos[b] filled as
+    _filled_cache fills them."""
+    import torch
+
+    slabs = [_filled_cache(dcfg, S, int(p),
+                           torch.Generator(device="cuda").manual_seed(seed + b))
+             for b, p in enumerate(pos)]
+    return [torch.stack([s[i] for s in slabs]) for i in range(4)]
+
+
+def _spread(B: int):
+    """B cache positions spread over 64 .. 1600."""
+    import numpy as np
+
+    return [int(p) for p in np.linspace(64, 1600, B).round()]
+
+
+def phase_mega_batch(dcfg, pack):
+    """K3 at full width, S = MEGA_BATCH_S, B = 8 rows at spread positions.
+    (a) 16 teacher-forced steps against K1 run on each row's slab copy:
+    tokens, h and every layer's fresh K/V rows and scales torch.equal on
+    every step and row. (b) 4 steps against the plain version under the
+    megakernel phase's rules (near-tie tokens, h rel L2 <= MEGA_H_REL on
+    every row-step and bit-exact on at least half, the cache rule).
+    (c) ms/step at B = 1, 4, 8, 16 beside K1's, and the plain version's at
+    B = 8."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops import megakernel as mk
+    from qwen3_asr_tpu_torch.ops import megakernel_batch as mb
+
+    S, B = MEGA_BATCH_S, 8
+    pos0 = _spread(B)
+    pool = _filled_pool(dcfg, S, pos0, 100)
+    singles = [[t[b].clone() for t in pool] for b in range(B)]
+    step = mb.BatchDecodeStep(pack, dcfg, *pool)
+    k1 = [mk.DecodeStep(pack, dcfg, *singles[b]) for b in range(B)]
+    out = torch.empty(B, dtype=torch.int32, device="cuda")
+    one = torch.empty(1, dtype=torch.int32, device="cuda")
+    toks = torch.arange(1000, 1000 + B, dtype=torch.int32, device="cuda")
+    n_equal = 0
+    for i in range(MEGA_BATCH_STEPS):
+        pos = [p + i for p in pos0]
+        step(toks, torch.tensor(pos, dtype=torch.int32, device="cuda"), out,
+             (min(pos), max(pos)))
+        for b in range(B):
+            k1[b](toks[b:b + 1], pos[b], one)
+            same = (torch.equal(out[b:b + 1], one) and torch.equal(step.h[b:b + 1], k1[b].h)
+                    and all(torch.equal(t[b, :, pos[b]], s[:, pos[b]])
+                            for t, s in zip(pool, singles[b])))
+            if not same:
+                raise AssertionError(f"K3 row {b} differs from K1 on its slab at "
+                                     f"step {i} (pos {pos[b]})")
+            n_equal += 1
+        toks = out.clone()
+    # no stray writes: every row of every slab, not only the fresh ones
+    for b in range(B):
+        for i, (t, s) in enumerate(zip(pool, singles[b])):
+            if not torch.equal(t[b], s):
+                raise AssertionError(f"K3 cache pool tensor {i}, slab {b} differs "
+                                     f"from K1's slab after {MEGA_BATCH_STEPS} steps")
+    log(f"phase K3 vs K1 S={S} B={B} pos={pos0[0]}..{pos0[-1]}: "
+        f"{n_equal}/{MEGA_BATCH_STEPS * B} row-steps torch.equal (token, h, "
+        f"fresh K/V rows and scales of all {dcfg.n_layers} layers); whole "
+        f"cache pool torch.equal to the K1 slabs after the last step")
+
+    # (b) against the plain version, teacher-forced on its tokens
+    ref = [t.clone() for t in pool]
+    base = MEGA_BATCH_STEPS
+    rels, mism, worst_gap, max_err = [], 0, 0.0, 0.0
+    for i in range(4):
+        pos = [p + base + i for p in pos0]
+        step(toks, torch.tensor(pos, dtype=torch.int32, device="cuda"), out,
+             (min(pos), max(pos)))
+        nxt = []
+        for b in range(B):
+            rb = [t[b] for t in ref]
+            rt, rh, logits = mk.mega_decode_step_i8_ref(
+                pack, dcfg, toks[b:b + 1], pos[b], *rb, return_logits=True)
+            torch.cuda.synchronize()
+            max_err = max(max_err, float((step.h[b] - rh[0]).abs().max()))
+            rels.append(_rel(step.h[b:b + 1], rh))
+            got_t, want_t = int(out[b]), int(rt[0])
+            if got_t != want_t:
+                mism += 1
+                worst_gap = max(worst_gap, float(logits[want_t] - logits[got_t]))
+            bad = _bad_cache_layers([t[b] for t in pool], rb, pos[b])
+            if bad and (rels[-1] == 0.0 or bad[0] == 0):
+                raise AssertionError(f"K3 vs plain, step {i} row {b}: fresh cache "
+                                     f"rows of layers {bad} differ")
+            for a, r in zip(pool, ref):
+                r[b, :, pos[b]] = a[b, :, pos[b]]
+            nxt.append(rt)
+        toks = torch.cat(nxt)
+    n_exact = sum(r == 0.0 for r in rels)
+    log(f"phase K3 vs plain, 4 steps x {B} rows: max_abs_err(h)={max_err:.3e} "
+        f"rel_l2(h) max {max(rels):.4f}, bit-exact on {n_exact}/{len(rels)}; "
+        f"token mismatches {mism} (worst plain logit gap {worst_gap:.4f})")
+    if worst_gap > NEAR_TIE_TOL:
+        raise AssertionError("K3 tokens disagree with the plain version")
+    if not max(rels) <= MEGA_H_REL or 2 * n_exact < len(rels):
+        raise AssertionError(f"K3 h vs plain: rel_l2 max {max(rels)}, "
+                             f"{n_exact}/{len(rels)} bit-exact")
+
+    # (c) times at the spread positions
+    times = {}
+    pos_end = max(pos) + 1
+    for nb in (1, 4, 8, 16):
+        p_b = _spread(nb) if nb > 1 else [pos0[B // 2]]
+        pl = _filled_pool(dcfg, S, p_b, 200) if nb != B else pool
+        st = mb.BatchDecodeStep(pack, dcfg, *pl)
+        o = torch.empty(nb, dtype=torch.int32, device="cuda")
+        tk = torch.full((nb,), 1000, dtype=torch.int32, device="cuda")
+        pd = torch.tensor([min(p, pos_end) for p in p_b], dtype=torch.int32,
+                          device="cuda")
+        bounds = (int(pd.min()), int(pd.max()))
+        times[nb] = cuda_ms(lambda: st(tk, pd, o, bounds), 20)
+        del pl, st
+    single = cuda_ms(lambda: k1[B // 2](toks[:1], pos0[B // 2] + base + 4, one), 20)
+    plain = cuda_ms(lambda: mb.mega_decode_step_batch_ref(
+        pack, dcfg, toks, [p + base + 4 for p in pos0], *ref), 1, warmup=1)
+    log(f"phase K3 times (ms/step): " + ", ".join(
+        f"B={nb} {t:.4f}" for nb, t in times.items())
+        + f"; K1 {single:.4f} (B x K1 at B=8: {8 * single:.4f}); "
+        f"plain at B=8 {plain:.4f}")
+    return max_err, times[8], plain, times, single
+
+
+def check_tokens_vs_twins(asr, samples, tokens, mel_bucket: int = 0):
     """The kernel path's tokens on one request vs the twins, teacher-forced
-    on those tokens: each is the twin's argmax or within NEAR_TIE_TOL."""
+    on those tokens: each is the twin's argmax or within NEAR_TIE_TOL.
+    mel_bucket > 0: the frontend is the bucketed batched one (the serving
+    path), with the flash kernel's plain version in its encoder too."""
     import numpy as np
     import torch
 
     from qwen3_asr_tpu.text.prompt import audio_start_pos, build_asr_prompt
     from qwen3_asr_tpu_torch.audio.mel import mel_device
     from qwen3_asr_tpu_torch.models import decoder as dmod
-    from qwen3_asr_tpu_torch.models.e2e import _pad_pcm, expected_n_audio
-    from qwen3_asr_tpu_torch.models.encoder import encode
+    from qwen3_asr_tpu_torch.models import encoder as emod
+    from qwen3_asr_tpu_torch.models.e2e import _pad_pcm
     from qwen3_asr_tpu_torch.ops import flash_attention as fa
     from qwen3_asr_tpu_torch.ops import megakernel as mk
+    from qwen3_asr_tpu_torch.pipeline.asr import frontend_feats_batch
 
     cfg, dcfg, dec = asr.cfg, asr.cfg.decoder, asr.params["decoder"]
-    buf, n_frames = _pad_pcm(samples)
-    mel = mel_device(torch.from_numpy(buf).cuda(), asr.filters_t, n_frames).T
-    feats = encode(asr.params["encoder"], cfg.encoder, mel, n_frames)
-    prompt = build_asr_prompt(expected_n_audio(n_frames), dcfg)
-    off, P = audio_start_pos(prompt, dcfg), len(prompt)
-    S = -(-(P + len(tokens)) // 128) * 128
-    cache = dmod.init_kv_cache(dcfg, S, "cuda")
-    h0 = dmod.embed_with_audio(dec, torch.tensor(prompt, device="cuda"), feats,
-                               feats.shape[0], off)
     kernel_flash = dmod.flash_attention_batch
-    dmod.flash_attention_batch = fa.flash_attention_ref   # the twin
+    dmod.flash_attention_batch = emod.flash_attention_batch = fa.flash_attention_ref
     try:
+        if mel_bucket:
+            feats, n_audio = frontend_feats_batch(asr, [samples], mel_bucket)[0]
+        else:
+            buf, n_frames = _pad_pcm(samples)
+            mel = mel_device(torch.from_numpy(buf).cuda(), asr.filters_t, n_frames).T
+            feats = emod.encode(asr.params["encoder"], cfg.encoder, mel, n_frames)
+            n_audio = feats.shape[0]
+        prompt = build_asr_prompt(n_audio, dcfg)
+        off, P = audio_start_pos(prompt, dcfg), len(prompt)
+        S = -(-(P + len(tokens)) // 128) * 128
+        cache = dmod.init_kv_cache(dcfg, S, "cuda")
+        h0 = dmod.embed_with_audio(dec, torch.tensor(prompt, device="cuda"), feats,
+                                   n_audio, off)
         h = dmod.decoder_forward(dec, dcfg, h0, cache, P)
     finally:
-        dmod.flash_attention_batch = kernel_flash
+        dmod.flash_attention_batch = emod.flash_attention_batch = kernel_flash
     logits = [dmod.lm_logits(dec, dcfg, h[P - 1])]
     L, DKV = dcfg.n_layers, dcfg.n_kv_heads * dcfg.head_dim
     k3, v3 = cache["k"].view(L, S, DKV), cache["v"].view(L, S, DKV)
@@ -304,6 +457,222 @@ def check_tokens_vs_twins(asr, samples, tokens):
         raise AssertionError("main-path tokens disagree with the twins")
 
 
+ENGINE_REQUESTS = (5, 10, 15, 30, 30, 60, 92, 92)   # seconds; two groups of 4
+ENGINE_KW = dict(pool=8, round_tokens=64, mel_bucket=500)
+ENGINE_S, ENGINE_TOKENS = 1536, 128
+
+
+def counts() -> dict:
+    """Launch counts of the three kernels' wrappers."""
+    from qwen3_asr_tpu_torch.ops import flash_attention as fa
+    from qwen3_asr_tpu_torch.ops import megakernel as mk
+    from qwen3_asr_tpu_torch.ops import megakernel_batch as mb
+
+    return {"flash": fa.flash_attention_batch.launches,
+            "mega": mk.mega_decode_step_i8.launches,
+            "mega_batch": mb.mega_decode_step_batch.launches}
+
+
+def reset_counts() -> None:
+    from qwen3_asr_tpu_torch.ops import flash_attention as fa
+    from qwen3_asr_tpu_torch.ops import megakernel as mk
+    from qwen3_asr_tpu_torch.ops import megakernel_batch as mb
+
+    fa.flash_attention_batch.launches = 0
+    mk.mega_decode_step_i8.launches = 0
+    mb.mega_decode_step_batch.launches = 0
+
+
+def encoder_calls(groups) -> int:
+    """Batched encoder calls of the bucketed frontend (one per distinct
+    mel bucket of each admitted or transcribed group)."""
+    from qwen3_asr_tpu_torch.audio.mel import num_mel_frames
+
+    b = ENGINE_KW["mel_bucket"]
+    return sum(len({-(-num_mel_frames(len(x)) // b) for x in g}) for g in groups)
+
+
+def check_launches(what: str, got: dict, k3_steps: int, groups) -> None:
+    """K3 = k3_steps; K2 = 28 per batched prefill (one per group) + 18 per
+    batched encoder call; no K1 on these paths."""
+    from qwen3_asr_tpu.config import ASRModelConfig
+
+    cfg = ASRModelConfig()
+    want = {"flash": cfg.decoder.n_layers * len(groups)
+            + cfg.encoder.n_layers * encoder_calls(groups),
+            "mega": 0, "mega_batch": k3_steps}
+    log(f"launches on the {what}: {got} (want {want})")
+    if got != want:
+        raise AssertionError(f"{what}: launch counts {got} != {want}")
+
+
+def check_request(what: str, tokens, V: int) -> None:
+    if len(tokens) != ENGINE_TOKENS or not all(0 <= t < V for t in tokens):
+        raise AssertionError(f"{what}: {len(tokens)} tokens or one out of range")
+
+
+def phase_engine(asr):
+    """The continuous engine driven directly, so its admissions are fixed:
+    the first 4 requests, one round, the other 4 (admitted mid-flight),
+    then rounds until all are done. Every request ends with ENGINE_TOKENS
+    in-range tokens equal to transcribe_batch's on the same group of 4;
+    one request's tokens hold against the plain versions. Launch counts
+    are checked over two windows, each reset just before it: the engine's
+    run (rounds x round_tokens K3 steps) and the closed-batch reference
+    (max_tokens - 1 steps per group). -> (pool tokens/s, the two windows'
+    summed counts)."""
+    import torch
+
+    from qwen3_asr_tpu_torch.pipeline.asr import TranscribeParams
+    from qwen3_asr_tpu_torch.pipeline.engine import ContinuousEngine
+
+    audio = [pcm(sec, i) for i, sec in enumerate(ENGINE_REQUESTS)]
+    groups = [audio[:4], audio[4:]]
+    eng = ContinuousEngine(asr, max_tokens=ENGINE_TOKENS, s_pool=ENGINE_S, **ENGINE_KW)
+    torch.cuda.synchronize()
+    reset_counts()
+    done, round_s = {}, []
+    t0 = time.perf_counter()
+    eng.admit(list(range(4)), groups[0])
+    for i in range(64):
+        if i == 1:
+            eng.admit(list(range(4, 8)), groups[1])
+        t1 = time.perf_counter()
+        done.update(eng.run_round())
+        round_s.append(time.perf_counter() - t1)
+        if not eng.n_active():
+            break
+    wall = time.perf_counter() - t0
+    engine_launches = counts()
+    check_launches("engine path", engine_launches,
+                   eng.n_rounds * ENGINE_KW["round_tokens"], groups)
+    V = asr.cfg.decoder.vocab_size
+    decode_tokens = sum(len(r.tokens) - 1 for r in done.values())
+    log(f"phase engine: {len(done)} requests ({', '.join(map(str, ENGINE_REQUESTS))} s), "
+        f"pool {eng.pool}, S={eng.S}, {eng.n_rounds} rounds of {eng.round_tokens}; "
+        f"wall {wall * 1e3:.1f} ms, rounds {sum(round_s) * 1e3:.1f} ms; pool decode "
+        f"{decode_tokens / sum(round_s):.1f} tokens/s ({decode_tokens} tokens); "
+        f"stats {eng.stats()}")
+    log("  request wall ms (admission to completion): " + ", ".join(
+        f"{ENGINE_REQUESTS[k]} s {done[k].t_total_ms:.1f}" for k in sorted(done)))
+    if sorted(done) != list(range(8)):
+        raise AssertionError(f"engine completed {sorted(done)}")
+    params = TranscribeParams(max_tokens=ENGINE_TOKENS, mel_bucket=ENGINE_KW["mel_bucket"])
+    torch.cuda.synchronize()
+    reset_counts()
+    refs = [asr.transcribe_batch(group, params) for group in groups]
+    closed_launches = counts()
+    check_launches("closed-batch path", closed_launches,
+                   len(groups) * (ENGINE_TOKENS - 1), groups)
+    for g, ref in enumerate(refs):
+        for j, r in enumerate(ref):
+            k = 4 * g + j
+            check_request(f"engine request {k}", done[k].tokens, V)
+            if done[k].tokens != r.tokens:
+                raise AssertionError(f"engine request {k} ({ENGINE_REQUESTS[k]} s) "
+                                     f"differs from transcribe_batch")
+    log("  engine tokens equal transcribe_batch's on both groups of 4")
+    check_tokens_vs_twins(asr, audio[0], done[0].tokens[:16],
+                          mel_bucket=ENGINE_KW["mel_bucket"])
+    return decode_tokens / sum(round_s), {
+        k: engine_launches[k] + closed_launches[k] for k in engine_launches}
+
+
+def wav_bytes(samples) -> bytes:
+    import io
+    import struct
+
+    import numpy as np
+
+    pcm16 = np.asarray(samples, "<i2")
+    buf = io.BytesIO()
+    buf.write(b"RIFF" + struct.pack("<I", 36 + pcm16.nbytes) + b"WAVEfmt ")
+    buf.write(struct.pack("<IHHIIHH", 16, 1, 1, 16000, 32000, 2, 16))
+    buf.write(b"data" + struct.pack("<I", pcm16.nbytes) + pcm16.tobytes())
+    return buf.getvalue()
+
+
+def phase_http(asr):
+    """ASRServer (continuous pool) behind serve_http on 127.0.0.1, port 0:
+    4 WAVs posted at once to /v1/transcribe, one SSE request to
+    /v1/audio/transcriptions, then /healthz."""
+    import json
+    import threading
+    import urllib.request
+
+    from qwen3_asr_tpu_torch.pipeline.asr import TranscribeParams
+    from qwen3_asr_tpu_torch.serve import ASRServer, serve_http
+
+    server = ASRServer(asr, TranscribeParams(max_tokens=ENGINE_TOKENS,
+                                             mel_bucket=ENGINE_KW["mel_bucket"]),
+                       continuous=True, pool=ENGINE_KW["pool"],
+                       round_tokens=ENGINE_KW["round_tokens"], engine_context=ENGINE_S)
+    eng, groups = server._engine, []
+    admit = eng.admit
+
+    def recording_admit(tickets, samples):
+        groups.append(list(samples))
+        return admit(tickets, samples)
+
+    eng.admit = recording_admit
+    httpd = serve_http(server, "127.0.0.1", 0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def post(path, body, ctype="audio/wav"):
+        req = urllib.request.Request(base + path, data=body, headers={"Content-Type": ctype})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read()
+
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        replies = [None] * 4
+
+        def one(i, sec):
+            t1 = time.perf_counter()
+            replies[i] = post("/v1/transcribe", wav_bytes(pcm(sec, 10 + i)))
+            replies[i] += ((time.perf_counter() - t1) * 1e3,)
+
+        threads = [threading.Thread(target=one, args=(i, sec))
+                   for i, sec in enumerate((5, 15, 30, 92))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        boundary = "chipsmokeboundary"
+        body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+                f"filename=\"a.wav\"\r\n\r\n").encode() + wav_bytes(pcm(15, 20)) + (
+            f"\r\n--{boundary}\r\nContent-Disposition: form-data; name=\"stream\""
+            f"\r\n\r\ntrue\r\n--{boundary}--\r\n").encode()
+        code, sse = post("/v1/audio/transcriptions", body,
+                         f"multipart/form-data; boundary={boundary}")
+        wall = time.perf_counter() - t0
+        got = counts()
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+    data = [line[6:] for line in sse.decode().split("\n") if line.startswith("data: ")]
+    kinds = [json.loads(d)["type"] for d in data[:-1]]
+    log(f"phase http: /v1/transcribe x4 at once (5, 15, 30, 92 s): codes "
+        f"{[r[0] for r in replies]}, ms {[round(r[2], 1) for r in replies]}; SSE "
+        f"{code}, {kinds.count('transcript.text.delta')} deltas, last events "
+        f"{kinds[-1:] + data[-1:]}; wall {wall * 1e3:.1f} ms; healthz {health}")
+    if any(r[0] != 200 for r in replies) or code != 200:
+        raise AssertionError("an HTTP request was not answered 200")
+    if data[-1] != "[DONE]" or kinds[-1] != "transcript.text.done":
+        raise AssertionError("the SSE stream did not end with done, [DONE]")
+    if health["status"] != "ok" or health["engine"]["completed"] < 5:
+        raise AssertionError(f"healthz: {health}")
+    check_launches("HTTP path", got,
+                   health["engine"]["rounds"] * ENGINE_KW["round_tokens"], groups)
+    return got
+
+
 def main() -> int:
     import torch
 
@@ -312,8 +681,7 @@ def main() -> int:
         return 2
     from qwen3_asr_tpu.config import ASRModelConfig
     from qwen3_asr_tpu_torch.models import generate as gen_mod
-    from qwen3_asr_tpu_torch.ops import build, megakernel as mk
-    from qwen3_asr_tpu_torch.ops import flash_attention as fa
+    from qwen3_asr_tpu_torch.ops import build
     from qwen3_asr_tpu_torch.ops.support import has_cuda_kernels
     from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams
     from qwen3_asr_tpu_torch.runtime.params import assert_on_device
@@ -333,8 +701,10 @@ def main() -> int:
     if not has_cuda_kernels():
         raise RuntimeError("the kernel library's probe failed on this device")
 
-    f_c = phase_flash(True, 1280, 16, 8, 128, 1216)
-    f_b = phase_flash(False, 1196, 14, 14, 64, 1196)
+    f_c = phase_flash(True, 1280, 16, 8, 128, [1216])
+    f_b = phase_flash(False, 1196, 14, 14, 64, [1196])
+    f_cb = phase_flash(True, 1280, 16, 8, 128, [1216, 904, 512, 77])
+    f_bb = phase_flash(False, 1235, 14, 14, 64, [1235, 1196, 650, 130])
 
     t0 = time.perf_counter()
     asr = Qwen3ASR(quantize="int4", kv_cache="int8", device="cuda")
@@ -358,16 +728,14 @@ def main() -> int:
     asr.transcribe(pcm(5, 1), TranscribeParams(max_tokens=8))   # warm-up
     torch.cuda.synchronize()
 
-    fa.flash_attention_batch.launches = 0
-    mk.mega_decode_step_i8.launches = 0
+    reset_counts()
     results = []
     for seconds, max_tokens in REQUESTS:
         t0 = time.perf_counter()
         r = asr.transcribe(pcm(seconds), TranscribeParams(max_tokens=max_tokens))
         torch.cuda.synchronize()
         results.append((seconds, max_tokens, (time.perf_counter() - t0) * 1e3, r))
-    launches = {"flash": fa.flash_attention_batch.launches,
-                "mega": mk.mega_decode_step_i8.launches}
+    launches = counts()
     gen_mod.init_kv_cache = make_cache
     for seconds, max_tokens, ms, r in results:
         log(f"request {seconds} s: {ms:.1f} ms, {len(r.tokens)} tokens "
@@ -389,7 +757,8 @@ def main() -> int:
     want_mega = sum(mt - 1 for _, mt in REQUESTS)
     log(f"launches on the main path: flash {launches['flash']} (want "
         f"{want_flash}), megakernel steps {launches['mega']} (want {want_mega})")
-    if launches["flash"] != want_flash or launches["mega"] != want_mega:
+    if (launches["flash"] != want_flash or launches["mega"] != want_mega
+            or launches["mega_batch"]):
         raise AssertionError(f"launch counts {launches}")
     V = asr.cfg.decoder.vocab_size
     for seconds, max_tokens, _, r in results:
@@ -399,17 +768,29 @@ def main() -> int:
             raise AssertionError(f"{seconds} s request: token out of range")
     check_tokens_vs_twins(asr, pcm(5), results[0][3].tokens[:16])
 
+    k3 = phase_mega_batch(asr.cfg.decoder, asr.params["decoder"]["mega"])
+    engine_tps, engine_launches = phase_engine(asr)
+    http_launches = phase_http(asr)
+    total = {k: launches[k] + engine_launches[k] + http_launches[k] for k in launches}
+    log(f"pool decode {engine_tps:.1f} tokens/s; launches over the three paths {total}")
+
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "qwen3_asr_tpu_torch/csrc/flash_attention.cu",
          "replaces": "qwen3_asr_tpu/ops/pallas_attention.py:32",
-         "launches": launches["flash"], "max_abs_err": max(f_c[0], f_b[0]),
+         "launches": total["flash"],
+         "max_abs_err": max(f[0] for f in (f_c, f_b, f_cb, f_bb)),
          "ms": f_c[1], "plain_ms": f_c[2]},
         {"name": "mega_decode_step_i8", "route": "cuda",
          "source": "qwen3_asr_tpu_torch/csrc/megakernel.cu",
          "replaces": "qwen3_asr_tpu/ops/megakernel.py:460",
-         "launches": launches["mega"], "max_abs_err": m[0],
+         "launches": total["mega"], "max_abs_err": m[0],
          "ms": m[1], "plain_ms": m[2]},
+        {"name": "mega_decode_step_batch", "route": "cuda",
+         "source": "qwen3_asr_tpu_torch/csrc/megakernel_batch.cu",
+         "replaces": "qwen3_asr_tpu/ops/megakernel_batch.py:110",
+         "launches": total["mega_batch"], "max_abs_err": k3[0],
+         "ms": k3[1], "plain_ms": k3[2]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

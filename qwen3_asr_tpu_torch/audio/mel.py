@@ -1,8 +1,9 @@
 """Log-mel spectrogram frontend on the device.
 
 Port of qwen3_asr_tpu/audio/mel.py (`generate_mel_filters`, `reflect_pad`,
-`num_mel_frames`, `_dft_tables` copied as numpy; `_mel_device` as
-`mel_device`). Semantics: reflect-pad n_fft/2 -> periodic Hann(400), hop 160
+`num_mel_frames`, `_dft_tables` copied as numpy; `_mel_device` and
+`_mel_device_batch` as `mel_device`; `log_mel_spectrogram_padded` and
+`log_mel_spectrogram_padded_batch`, the bucketed frontends). Semantics: reflect-pad n_fft/2 -> periodic Hann(400), hop 160
 -> real DFT power (201 bins, as two f32 matmuls with TF32 off) -> Slaney
 mel filterbank -> log10 -> clamp to (max - 8) -> (x + 4) / 4.
 """
@@ -107,23 +108,88 @@ def filters_t(filters: np.ndarray, device) -> torch.Tensor:
 
 
 def mel_device(padded: torch.Tensor, filters_t: torch.Tensor,
-               n_frames: int) -> torch.Tensor:
+               n_frames: int, n_valid=None) -> torch.Tensor:
     """`padded` [(n_frames + 2) * HOP] int16 or f32 (int16 is scaled by
-    1/32768 on the device) -> log-mel [n_frames, n_mels] f32. Frames are
-    rows [i, i+1] of the [n_frames + 2, HOP] view plus the first 80 samples
-    of row i+2, as in the JAX package."""
+    1/32768 on the device), or a batch [B, (n_frames + 2) * HOP] -> log-mel
+    [n_frames, n_mels] f32 (or [B, n_frames, n_mels]). Frames are rows
+    [i, i+1] of the [n_frames + 2, HOP] view plus the first 80 samples of
+    row i+2, as in the JAX package; the max that floors the log is taken
+    per item. `n_valid` (an int, or [B] int32 for a batch): frames at index
+    >= n_valid are set to exactly 0.0, the zero-fill the bucketed encoder's
+    chunk padding expects."""
     hann, cos_t, sin_t = _dft_device(padded.device)
     if padded.dtype == torch.int16:
         padded = padded.float() / 32768.0
-    rows = padded.reshape(n_frames + 2, HOP_LENGTH)
-    frames = torch.cat([rows[:n_frames], rows[1:n_frames + 1],
-                        rows[2:n_frames + 2, :N_FFT - 2 * HOP_LENGTH]], dim=1)
-    frames = frames * hann[None, :]
+    rows = padded.reshape(*padded.shape[:-1], n_frames + 2, HOP_LENGTH)
+    frames = torch.cat([rows[..., :n_frames, :], rows[..., 1:n_frames + 1, :],
+                        rows[..., 2:n_frames + 2, :N_FFT - 2 * HOP_LENGTH]],
+                       dim=-1)
+    frames = frames * hann
     with full_f32():
         re = frames @ cos_t
         im = frames @ sin_t
         power = re * re + im * im
         mel = power @ filters_t
     logmel = torch.log10(torch.clamp(mel, min=_LOG_FLOOR))
-    mmax = logmel.max() - 8.0
-    return (torch.maximum(logmel, mmax) + 4.0) / 4.0
+    mmax = logmel.amax(dim=(-2, -1), keepdim=True) - 8.0
+    out = (torch.maximum(logmel, mmax) + 4.0) / 4.0
+    if n_valid is not None:
+        nv = torch.as_tensor(n_valid, device=out.device).reshape(-1, 1, 1)
+        idx = torch.arange(n_frames, device=out.device)[None, :, None]
+        out = torch.where(idx < nv, out, torch.zeros((), device=out.device))
+        out = out.reshape(*padded.shape[:-1], n_frames, -1)
+    return out
+
+
+def _padded_buffer(samples: np.ndarray, n_frames: int, dev_frames: int,
+                   dtype) -> np.ndarray:
+    """Reflect-padded PCM in a zeroed [(dev_frames + 2) * HOP] buffer,
+    holding only the samples the first n_frames frames can see (frames
+    past them must stay all-zero so they cannot move the max)."""
+    padded = reflect_pad(samples.astype(dtype))
+    buf = np.zeros((dev_frames + 2) * HOP_LENGTH, dtype=dtype)
+    n_copy = min((n_frames - 1) * HOP_LENGTH + N_FFT, len(padded), len(buf))
+    buf[:n_copy] = padded[:n_copy]
+    return buf
+
+
+def _as_pcm(samples) -> np.ndarray:
+    samples = np.asarray(samples)
+    return samples if samples.dtype == np.int16 else samples.astype(np.float32)
+
+
+def log_mel_spectrogram_padded_batch(samples_list, filters_t: torch.Tensor,
+                                     bucket: int
+                                     ) -> tuple[torch.Tensor, list[int]]:
+    """Batched bucketed log-mel -> ([B, n_mels, F_b] on the device of
+    `filters_t`, true frame counts). F_b is the largest item's frame count
+    rounded up to `bucket`; one upload and one mel pass for the batch.
+    Frames past an item's true count are 0.0."""
+    prepped = [_as_pcm(s) for s in samples_list]
+    n_frames = [num_mel_frames(len(s)) for s in prepped]
+    if min(n_frames) <= 0 or bucket <= 0:
+        raise ValueError(f"need n_frames > 0 and bucket > 0 "
+                         f"(got {n_frames}, {bucket})")
+    F_b = -(-max(n_frames) // bucket) * bucket
+    dt = (np.int16 if all(s.dtype == np.int16 for s in prepped)
+          else np.float32)
+    buf = np.stack([
+        _padded_buffer(s.astype(np.float32) / 32768.0
+                       if s.dtype == np.int16 and dt == np.float32 else s,
+                       nf, F_b, dt)
+        for s, nf in zip(prepped, n_frames)])
+    dev = filters_t.device
+    out = mel_device(torch.from_numpy(buf).to(dev), filters_t, F_b,
+                     torch.tensor(n_frames, dtype=torch.int32, device=dev))
+    return out.transpose(1, 2), n_frames
+
+
+def log_mel_spectrogram_padded(samples, filters_t: torch.Tensor,
+                               bucket: int) -> tuple[torch.Tensor, int]:
+    """Bucketed log-mel of one utterance -> ([n_mels, F_b] on the device,
+    true n_frames), F_b = n_frames rounded up to `bucket`, frames past the
+    true count 0.0 (not sliced off: the padded shape is what the bucketed
+    encoder takes)."""
+    mel, n_frames = log_mel_spectrogram_padded_batch([samples], filters_t,
+                                                     bucket)
+    return mel[0], n_frames[0]

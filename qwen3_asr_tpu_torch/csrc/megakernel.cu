@@ -33,136 +33,18 @@
 // roundings at the same places, quantization with round-half-even
 // (rintf) and IEEE division. Only reduction orders of f32 sums (RMS, softmax)
 // differ.
-#include <cuda_pipeline.h>
-
-#include "common.cuh"
-
-// The C entry point's arguments (plain structs with external linkage: a type
-// from the anonymous namespace would hide the extern "C" functions).
-struct MegaPtrs {
-  const void* embd;        // [V, H] bf16 token embedding (for token input)
-  const void* attn_norm;   // [L, H] f32
-  const void* ffn_norm;    // [L, H] f32
-  const void* q_norm;      // [L, D] f32
-  const void* k_norm;      // [L, D] f32
-  const void* out_norm;    // [H] f32
-  const void* qkv_q;       // [L, H/2, DQ+2DKV] packed int4
-  const void* qkv_s;       // [L, H/g_qkv, DQ+2DKV] f32
-  const void* wo_q;        // [L, DQ/2, H]
-  const void* wo_s;
-  const void* gu_q;        // [L, H/2, 2FF]
-  const void* gu_s;
-  const void* wd_q;        // [L, FF/2, H]
-  const void* wd_s;
-  const void* head_q;      // [H/2, Vp]
-  const void* head_s;      // [H/g_head, Vp]
-  void* k_cache;           // [L, S, DKV] int8
-  void* v_cache;
-  void* k_scale;           // [L, S, NKV] f32
-  void* v_scale;
-  const void* token_in;    // [1] int32, or null when x_in is given
-  const void* x_in;        // [H] bf16, or null
-  void* token_out;         // [1] int32
-  void* h_out;             // [H] f32: hidden state before the final norm
-  void* scratch;           // qw_mega_scratch_bytes(dims) bytes
-};
-
-struct MegaDims {
-  int L, H, NH, NKV, D, FF, V, Vp, S, pos;
-  int g_qkv, g_wo, g_gu, g_wd, g_head;
-  float eps, rope_coef, scale;
-};
+//
+// This file holds K1's GEMV and its C entry point; the other kernels and the
+// launch sequence live in megakernel.cuh, shared with the batched step
+// (megakernel_batch.cu), which launches them with one block row per sequence.
+#include "megakernel.cuh"
 
 namespace {
 
-constexpr int NORM_THREADS = 1024;
-constexpr int NORM_MAX = 4096;     // widest row the norm/quant kernels take
 constexpr int GEMV_COLS = 64;      // output columns per GEMV block
 constexpr int GEMV_THREADS = 256;  // 4 threads x 16 columns, 64 row slices
 constexpr int GEMV_SLICES = GEMV_THREADS / (GEMV_COLS / 16);
 constexpr int GEMV_MAX_GROUP = 1024;
-constexpr int ATTN_THREADS = 256;
-constexpr int ATTN_ROWS = 64;      // cache rows per attn_partial block
-constexpr int ARGMAX_THREADS = 256;
-constexpr int ARGMAX_COLS = 4096;  // vocab columns per argmax block
-
-// -- per-row RMSNorm + residual + int8 quantization ------------------------
-//
-// x = base (+ bf16(sum_g terms[g]) when terms is given, rounded to bf16),
-// y = bf16(rms(x) * w) (or x when w is null), then xq = rint(y / sx) with
-// sx = max(amax / 127, 1e-12). `base` is a bf16 row, or the embedding row of
-// *token when token is non-null.
-__global__ void __launch_bounds__(NORM_THREADS) norm_quant(
-    const __nv_bfloat16* __restrict__ base, const __nv_bfloat16* __restrict__ embd,
-    const int* __restrict__ token, const float* __restrict__ terms, int n_g,
-    int N, const float* __restrict__ w, float eps, __nv_bfloat16* __restrict__ x_out,
-    float* __restrict__ h_out, int8_t* __restrict__ xq, float* __restrict__ sx_out) {
-  __shared__ float xs[NORM_MAX];
-  __shared__ float red[32];
-  if (token) base = embd + (size_t)token[0] * N;
-  float sq = 0.f;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    float x = bf2f(base[n]);
-    if (terms) {
-      float t = terms[n];
-      for (int g = 1; g < n_g; ++g) t += terms[(size_t)g * N + n];
-      x = bf16_round(x + bf16_round(t));
-    }
-    if (x_out) x_out[n] = __float2bfloat16_rn(x);
-    if (h_out) h_out[n] = x;
-    xs[n] = x;
-    sq += x * x;
-  }
-  float r = 1.f;
-  if (w) {
-    const float tot = block_sum(sq, red);
-    r = rsqrtf(tot / (float)N + eps);
-  }
-  float amax = 0.f;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    float y = xs[n];
-    if (w) y = bf16_round(y * r * w[n]);
-    xs[n] = y;
-    amax = fmaxf(amax, fabsf(y));
-  }
-  amax = block_max(amax, red);
-  const float sx = fmaxf(amax * (1.f / 127.f), 1e-12f);
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    const float qv = fminf(fmaxf(rintf(xs[n] / sx), -127.f), 127.f);
-    xq[n] = (int8_t)qv;
-  }
-  if (threadIdx.x == 0) *sx_out = sx;
-}
-
-// -- SwiGLU activation + int8 quantization ---------------------------------
-//
-// gu = bf16(sum_g terms[g]) over [2FF]; act = bf16(silu(gate) * up) in f32.
-__global__ void __launch_bounds__(NORM_THREADS) silu_quant(
-    const float* __restrict__ terms, int n_g, int FF, int8_t* __restrict__ xq,
-    float* __restrict__ sx_out) {
-  __shared__ float xs[NORM_MAX];
-  __shared__ float red[32];
-  const int N2 = 2 * FF;
-  float amax = 0.f;
-  for (int n = threadIdx.x; n < FF; n += blockDim.x) {
-    float g = terms[n], u = terms[FF + n];
-    for (int k = 1; k < n_g; ++k) {
-      g += terms[(size_t)k * N2 + n];
-      u += terms[(size_t)k * N2 + FF + n];
-    }
-    g = bf16_round(g);
-    u = bf16_round(u);
-    const float a = bf16_round((g * (1.f / (1.f + expf(-g)))) * u);
-    xs[n] = a;
-    amax = fmaxf(amax, fabsf(a));
-  }
-  amax = block_max(amax, red);
-  const float sx = fmaxf(amax * (1.f / 127.f), 1e-12f);
-  for (int n = threadIdx.x; n < FF; n += blockDim.x) {
-    xq[n] = (int8_t)fminf(fmaxf(rintf(xs[n] / sx), -127.f), 127.f);
-  }
-  if (threadIdx.x == 0) *sx_out = sx;
-}
 
 // -- int4 GEMV with fused group scales ---------------------------------------
 //
@@ -216,357 +98,11 @@ __global__ void __launch_bounds__(GEMV_THREADS) gemv_i4(
   }
 }
 
-// -- attention ------------------------------------------------------------------
-//
-// Split over cache rows: attn_partial blocks (kvh, c) each take ATTN_ROWS
-// rows < pos for the GROUP q heads that share KV head kvh and write the
-// chunk's max m, unscaled sum l = sum exp(s - m) and o = sum exp(s - m) *
-// v_scale * v; attn_combine (one block per KV head) merges the chunks with
-// the fresh column, writes the bf16 attention rows and the fresh int8 K/V
-// row at pos. Partial layout: part[kvh][c][j] = {m, l, o[D]}.
-
-// q (times the softmax scale), k and v of KV head kvh into vec[nvec][D]
-// (nvec = GROUP: the q heads only; GROUP + 2: q, k, v): bf16(sum of the
-// QKV group terms), RMSNorm of q (q_norm) and k (k_norm), NEOX RoPE at pos.
-__device__ void prep_qkv(const float* __restrict__ terms, int n_g,
-                         const float* __restrict__ qn, const float* __restrict__ kn,
-                         const MegaDims& d, int kvh, int nvec, float* vec) {
-  const int D = d.D, GROUP = d.NH / d.NKV;
-  const int DQ = d.NH * D, DKV = d.NKV * D, NQKV = DQ + 2 * DKV;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int i = tid; i < nvec * D; i += blockDim.x) {
-    const int j = i / D, e = i % D;
-    int col;
-    if (j < GROUP) col = (kvh * GROUP + j) * D + e;
-    else if (j == GROUP) col = DQ + kvh * D + e;
-    else col = DQ + DKV + kvh * D + e;
-    float t = terms[col];
-    for (int g = 1; g < n_g; ++g) t += terms[(size_t)g * NQKV + col];
-    vec[i] = bf16_round(t);
-  }
-  __syncthreads();
-  const int n_norm = min(nvec, GROUP + 1);  // q heads and k; v is not normed
-  for (int j = warp; j < n_norm; j += nwarps) {
-    float* x = vec + j * D;
-    const float* w = j < GROUP ? qn : kn;
-    float s = 0.f;
-    for (int e = lane; e < D; e += 32) s += x[e] * x[e];
-    s = warp_sum(s);
-    const float r = rsqrtf(s / (float)D + d.eps);
-    __syncwarp();
-    for (int e = lane; e < D; e += 32) x[e] = x[e] * r * w[e];
-  }
-  __syncthreads();
-  const int half = D / 2;
-  for (int i = tid; i < n_norm * half; i += blockDim.x) {
-    const int j = i / half, e = i % half;
-    float* x = vec + j * D;
-    const float inv = expf((float)e * d.rope_coef);
-    const float ang = (float)d.pos * inv;
-    const float c = cosf(ang), s = sinf(ang);
-    const float x1 = x[e], x2 = x[e + half];
-    float y1 = x1 * c - x2 * s, y2 = x2 * c + x1 * s;
-    if (j < GROUP) {
-      y1 *= d.scale;
-      y2 *= d.scale;
-    }
-    x[e] = y1;
-    x[e + half] = y2;
-  }
-  __syncthreads();
-}
-
-// The chunk's K and V rows are copied into shared memory with cp.async
-// (16-byte pieces, all in flight at once) while q is prepared; everything
-// after reads shared memory. Dynamic shared memory: kv[2][ATTN_ROWS][D]
-// int8, then floats q[GROUP][D], p[GROUP][ATTN_ROWS], ml[2 * GROUP],
-// kss[ATTN_ROWS], vss[ATTN_ROWS].
-__global__ void __launch_bounds__(ATTN_THREADS) attn_partial(
-    const float* __restrict__ terms, int n_g, const float* __restrict__ qn,
-    const float* __restrict__ kn, MegaDims d, const int8_t* __restrict__ kc,
-    const int8_t* __restrict__ vc, const float* __restrict__ ksc,
-    const float* __restrict__ vsc, float* __restrict__ part) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int D = d.D, NKV = d.NKV, GROUP = d.NH / NKV, DKV = NKV * D;
-  const int kvh = blockIdx.x, c = blockIdx.y;
-  const int r0 = c * ATTN_ROWS, nr = min(ATTN_ROWS, d.pos - r0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  int8_t* kv = reinterpret_cast<int8_t*>(smem_raw);   // [2][ATTN_ROWS][D]
-  float* q = reinterpret_cast<float*>(smem_raw + 2 * ATTN_ROWS * D);
-  float* p = q + GROUP * D;             // [GROUP][ATTN_ROWS]
-  float* ml = p + GROUP * ATTN_ROWS;    // m[GROUP], l[GROUP]
-  float* kss = ml + 2 * GROUP;          // [ATTN_ROWS]
-  float* vss = kss + ATTN_ROWS;         // [ATTN_ROWS]
-
-  const int d16 = D / 16;
-  for (int i = tid; i < 2 * nr * d16; i += blockDim.x) {
-    const int which = i / (nr * d16), rem = i % (nr * d16);
-    const int r = rem / d16, piece = rem % d16;
-    const int8_t* src = (which ? vc : kc) + (size_t)(r0 + r) * DKV + kvh * D + piece * 16;
-    __pipeline_memcpy_async(kv + (which * ATTN_ROWS + r) * D + piece * 16, src, 16);
-  }
-  __pipeline_commit();
-  for (int r = tid; r < nr; r += blockDim.x) {
-    kss[r] = ksc[(size_t)(r0 + r) * NKV + kvh];
-    vss[r] = vsc[(size_t)(r0 + r) * NKV + kvh];
-  }
-  prep_qkv(terms, n_g, qn, kn, d, kvh, GROUP, q);
-  __pipeline_wait_prior(0);
-  __syncthreads();
-  const int8_t* ks_rows = kv;
-  const int8_t* vs_rows = kv + ATTN_ROWS * D;
-
-  // scores times the row's k scale: one warp per row, 4 bytes per lane
-  for (int r = warp; r < nr; r += nwarps) {
-    const int8_t* kr = ks_rows + r * D;
-    for (int j = 0; j < GROUP; ++j) {
-      const float* qj = q + j * D;
-      float s = 0.f;
-      for (int e = 4 * lane; e < D; e += 128) {
-        const char4 k4 = *reinterpret_cast<const char4*>(kr + e);
-        s += qj[e] * (float)k4.x + qj[e + 1] * (float)k4.y + qj[e + 2] * (float)k4.z +
-             qj[e + 3] * (float)k4.w;
-      }
-      s = warp_sum(s);
-      if (lane == 0) p[j * ATTN_ROWS + r] = s * kss[r];
-    }
-  }
-  __syncthreads();
-
-  // per q head (one warp each): chunk max, p = exp(s - m), unscaled sum,
-  // then the row's v scale folded into p
-  for (int j = warp; j < GROUP; j += nwarps) {
-    float* pj = p + j * ATTN_ROWS;
-    float mx = QW_NEG;
-    for (int r = lane; r < nr; r += 32) mx = fmaxf(mx, pj[r]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int r = lane; r < nr; r += 32) {
-      const float e = expf(pj[r] - mx);
-      sum += e;
-      pj[r] = e * vss[r];
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      ml[j] = mx;
-      ml[GROUP + j] = sum;
-    }
-  }
-  __syncthreads();
-
-  float* out = part + ((size_t)kvh * gridDim.y + c) * GROUP * (D + 2);
-  for (int pr = tid; pr < GROUP * D; pr += blockDim.x) {
-    const int j = pr / D, e = pr % D;
-    const float* pj = p + j * ATTN_ROWS;
-    float o = 0.f;
-    for (int r = 0; r < nr; ++r) o = fmaf(pj[r], (float)vs_rows[r * D + e], o);
-    out[j * (D + 2) + 2 + e] = o;
-  }
-  if (tid < GROUP) {
-    out[tid * (D + 2)] = ml[tid];
-    out[tid * (D + 2) + 1] = ml[GROUP + tid];
-  }
-}
-
-// Dynamic shared memory: vec[(GROUP + 2) * D], misc[3 * GROUP].
-__global__ void __launch_bounds__(ATTN_THREADS) attn_combine(
-    const float* __restrict__ terms, int n_g, const float* __restrict__ qn,
-    const float* __restrict__ kn, MegaDims d, const float* __restrict__ part,
-    int nchunks, int8_t* __restrict__ kc, int8_t* __restrict__ vc,
-    float* __restrict__ ksc, float* __restrict__ vsc,
-    __nv_bfloat16* __restrict__ attn_out) {
-  extern __shared__ float smem[];
-  const int D = d.D, NKV = d.NKV, GROUP = d.NH / NKV, DKV = NKV * D;
-  const int kvh = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  float* vec = smem;                          // q heads, k, v
-  float* misc = vec + (GROUP + 2) * D;        // p_fresh[GROUP], m[GROUP], den[GROUP]
-  prep_qkv(terms, n_g, qn, kn, d, kvh, GROUP + 2, vec);
-  const float* kf = vec + GROUP * D;
-  const float* vf = kf + D;
-  const float* pk = part + (size_t)kvh * nchunks * GROUP * (D + 2);
-
-  // per q head (one warp each): fresh score, overall max, denominator
-  for (int j = warp; j < GROUP; j += nwarps) {
-    float sf = 0.f;
-    for (int e = lane; e < D; e += 32) sf += vec[j * D + e] * kf[e];
-    sf = warp_sum(sf);
-    float mx = sf;
-    for (int c = lane; c < nchunks; c += 32)
-      mx = fmaxf(mx, pk[((size_t)c * GROUP + j) * (D + 2)]);
-    mx = warp_max(mx);
-    float den = 0.f;
-    for (int c = lane; c < nchunks; c += 32) {
-      const float* pc = pk + ((size_t)c * GROUP + j) * (D + 2);
-      den += pc[1] * expf(pc[0] - mx);
-    }
-    den = warp_sum(den);
-    const float pf = expf(sf - mx);
-    if (lane == 0) {
-      misc[j] = pf;
-      misc[GROUP + j] = mx;
-      misc[2 * GROUP + j] = den + pf;
-    }
-  }
-  __syncthreads();
-
-  for (int pr = tid; pr < GROUP * D; pr += blockDim.x) {
-    const int j = pr / D, e = pr % D;
-    const float mx = misc[GROUP + j];
-    float o = 0.f;
-    for (int c = 0; c < nchunks; ++c) {
-      const float* pc = pk + ((size_t)c * GROUP + j) * (D + 2);
-      o = fmaf(pc[2 + e], expf(pc[0] - mx), o);
-    }
-    const float res = (o + misc[j] * vf[e]) / misc[2 * GROUP + j];
-    attn_out[(kvh * GROUP + j) * D + e] = __float2bfloat16_rn(res);
-  }
-
-  // quantize the fresh K and V rows of this head (warps 0 and 1) into
-  // cache row pos; the partial blocks read only rows < pos
-  if (warp < 2) {
-    const float* x = warp == 0 ? kf : vf;
-    int8_t* dst = (warp == 0 ? kc : vc) + (size_t)d.pos * DKV + kvh * D;
-    float amax = 0.f;
-    for (int e = lane; e < D; e += 32) amax = fmaxf(amax, fabsf(x[e]));
-    amax = warp_max(amax);
-    const float s = fmaxf(amax * (1.f / 127.f), 1e-12f);
-    for (int e = lane; e < D; e += 32) {
-      dst[e] = (int8_t)fminf(fmaxf(rintf(x[e] / s), -127.f), 127.f);
-    }
-    if (lane == 0) (warp == 0 ? ksc : vsc)[(size_t)d.pos * NKV + kvh] = s;
-  }
-}
-
-// -- lm-head argmax -----------------------------------------------------------
-//
-// logits[n] = sum_g terms[g, n] for n < V (padding columns masked); pass 1
-// reduces each block's columns to (max, first index), pass 2 the blocks.
-__global__ void __launch_bounds__(ARGMAX_THREADS) argmax_partial(
-    const float* __restrict__ terms, int n_g, int Vp, int V,
-    float* __restrict__ pmax, int* __restrict__ pidx) {
-  __shared__ float bm[ARGMAX_THREADS];
-  __shared__ int bi[ARGMAX_THREADS];
-  float best = QW_NEG;
-  int idx = 0x7fffffff;
-  const int c0 = blockIdx.x * ARGMAX_COLS;
-  const int c1 = min(c0 + ARGMAX_COLS, V);
-  for (int n = c0 + threadIdx.x; n < c1; n += blockDim.x) {
-    float t = terms[n];
-    for (int g = 1; g < n_g; ++g) t += terms[(size_t)g * Vp + n];
-    if (t > best) {  // ascending n per thread: keeps the first index on ties
-      best = t;
-      idx = n;
-    }
-  }
-  bm[threadIdx.x] = best;
-  bi[threadIdx.x] = idx;
-  __syncthreads();
-  for (int o = blockDim.x / 2; o > 0; o >>= 1) {
-    if (threadIdx.x < o) {
-      const float m2 = bm[threadIdx.x + o];
-      const int i2 = bi[threadIdx.x + o];
-      if (m2 > bm[threadIdx.x] || (m2 == bm[threadIdx.x] && i2 < bi[threadIdx.x])) {
-        bm[threadIdx.x] = m2;
-        bi[threadIdx.x] = i2;
-      }
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    pmax[blockIdx.x] = bm[0];
-    pidx[blockIdx.x] = bi[0];
-  }
-}
-
-__global__ void __launch_bounds__(ARGMAX_THREADS) argmax_final(
-    const float* __restrict__ pmax, const int* __restrict__ pidx, int nb,
-    int* __restrict__ token_out) {
-  __shared__ float bm[ARGMAX_THREADS];
-  __shared__ int bi[ARGMAX_THREADS];
-  float best = QW_NEG;
-  int idx = 0x7fffffff;
-  for (int b = threadIdx.x; b < nb; b += blockDim.x) {
-    if (pmax[b] > best || (pmax[b] == best && pidx[b] < idx)) {
-      best = pmax[b];
-      idx = pidx[b];
-    }
-  }
-  bm[threadIdx.x] = best;
-  bi[threadIdx.x] = idx;
-  __syncthreads();
-  for (int o = blockDim.x / 2; o > 0; o >>= 1) {
-    if (threadIdx.x < o) {
-      const float m2 = bm[threadIdx.x + o];
-      const int i2 = bi[threadIdx.x + o];
-      if (m2 > bm[threadIdx.x] || (m2 == bm[threadIdx.x] && i2 < bi[threadIdx.x])) {
-        bm[threadIdx.x] = m2;
-        bi[threadIdx.x] = i2;
-      }
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) token_out[0] = bi[0] == 0x7fffffff ? 0 : bi[0];
-}
-
-// -- scratch layout -------------------------------------------------------------
-
-struct Scratch {
-  __nv_bfloat16 *x, *h1, *attn;
-  int8_t* xq;
-  float* sx;
-  float* terms;
-  float* part;   // attn_partial output, [NKV][n_attn_chunks(S)][GROUP][D + 2]
-  float* pmax;
-  int* pidx;
-};
-
-size_t align_up(size_t n) { return (n + 255) & ~(size_t)255; }
-
-int n_argmax_blocks(const MegaDims& d) { return (d.V + ARGMAX_COLS - 1) / ARGMAX_COLS; }
-
-int n_attn_chunks(int rows) { return (rows + ATTN_ROWS - 1) / ATTN_ROWS; }
-
-size_t terms_floats(const MegaDims& d) {
-  const int DQ = d.NH * d.D, DKV = d.NKV * d.D;
-  size_t m = (size_t)(d.H / d.g_qkv) * (DQ + 2 * DKV);
-  m = m > (size_t)(DQ / d.g_wo) * d.H ? m : (size_t)(DQ / d.g_wo) * d.H;
-  m = m > (size_t)(d.H / d.g_gu) * 2 * d.FF ? m : (size_t)(d.H / d.g_gu) * 2 * d.FF;
-  m = m > (size_t)(d.FF / d.g_wd) * d.H ? m : (size_t)(d.FF / d.g_wd) * d.H;
-  m = m > (size_t)(d.H / d.g_head) * d.Vp ? m : (size_t)(d.H / d.g_head) * d.Vp;
-  return m;
-}
-
-size_t layout(const MegaDims& d, char* base, Scratch* s) {
-  const int DQ = d.NH * d.D;
-  int widest = d.H > DQ ? d.H : DQ;
-  widest = widest > d.FF ? widest : d.FF;
-  size_t off = 0;
-  auto take = [&](size_t bytes) {
-    char* p = base ? base + off : nullptr;
-    off += align_up(bytes);
-    return p;
-  };
-  s->x = (__nv_bfloat16*)take(2 * (size_t)d.H);
-  s->h1 = (__nv_bfloat16*)take(2 * (size_t)d.H);
-  s->attn = (__nv_bfloat16*)take(2 * (size_t)DQ);
-  s->xq = (int8_t*)take((size_t)widest);
-  s->sx = (float*)take(4);
-  s->terms = (float*)take(4 * terms_floats(d));
-  s->part = (float*)take(4 * (size_t)d.NH * n_attn_chunks(d.S) * (d.D + 2));
-  s->pmax = (float*)take(4 * (size_t)n_argmax_blocks(d));
-  s->pidx = (int*)take(4 * (size_t)n_argmax_blocks(d));
-  return off;
-}
-
 }  // namespace
 
 extern "C" size_t qw_mega_scratch_bytes(const MegaDims* d) {
   Scratch s;
-  return layout(*d, nullptr, &s);
+  return layout(*d, 1, nullptr, &s);
 }
 
 // One decode step. Everything runs on `stream`; nothing is allocated and the
@@ -574,79 +110,17 @@ extern "C" size_t qw_mega_scratch_bytes(const MegaDims* d) {
 extern "C" int qw_mega_decode_step_i8(const MegaPtrs* p, const MegaDims* dp, void* stream) {
   const MegaDims d = *dp;
   cudaStream_t st = (cudaStream_t)stream;
-  const int DQ = d.NH * d.D, DKV = d.NKV * d.D, NQKV = DQ + 2 * DKV;
-  if (d.H > NORM_MAX || DQ > NORM_MAX || d.FF > NORM_MAX) return (int)cudaErrorInvalidValue;
-  if (d.NH % d.NKV || d.D % 16 || d.pos < 1 || d.pos >= d.S) return (int)cudaErrorInvalidValue;
-  const int gs[5] = {d.g_qkv, d.g_wo, d.g_gu, d.g_wd, d.g_head};
-  for (int g : gs) if (g <= 0 || g % 2 || g > GEMV_MAX_GROUP) return (int)cudaErrorInvalidValue;
-  if (NQKV % GEMV_COLS || d.H % GEMV_COLS || (2 * d.FF) % GEMV_COLS || d.Vp % GEMV_COLS)
+  if (!dims_ok(d, GEMV_COLS, GEMV_MAX_GROUP)) return (int)cudaErrorInvalidValue;
+  if (attn_partial_smem(d) > 48 * 1024 || attn_combine_smem(d) > 48 * 1024)
     return (int)cudaErrorInvalidValue;
-
   Scratch s;
-  layout(d, (char*)p->scratch, &s);
-  const int GROUP = d.NH / d.NKV, nchunks = n_attn_chunks(d.pos);
-  const size_t smem_partial = 2 * (size_t)ATTN_ROWS * d.D +
-      sizeof(float) * ((size_t)GROUP * (d.D + ATTN_ROWS + 2) + 2 * ATTN_ROWS);
-  const size_t smem_combine = sizeof(float) * ((size_t)(GROUP + 2) * d.D + 3 * GROUP);
-  if (smem_partial > 48 * 1024 || smem_combine > 48 * 1024) return (int)cudaErrorInvalidValue;
-
-  const __nv_bfloat16* embd = (const __nv_bfloat16*)p->embd;
-  const float* attn_norm = (const float*)p->attn_norm;
-  const float* ffn_norm = (const float*)p->ffn_norm;
-  const float* q_norm = (const float*)p->q_norm;
-  const float* k_norm = (const float*)p->k_norm;
-  int8_t* kc = (int8_t*)p->k_cache;
-  int8_t* vc = (int8_t*)p->v_cache;
-  float* ksc = (float*)p->k_scale;
-  float* vsc = (float*)p->v_scale;
-
+  layout(d, 1, (char*)p->scratch, &s);
   auto gemv = [&](const void* wq, const void* ws, size_t l, int n_in, int N, int G) {
     const uint8_t* q = (const uint8_t*)wq + l * (size_t)(n_in / 2) * N;
     const float* sc = (const float*)ws + l * (size_t)(n_in / G) * N;
     gemv_i4<<<dim3(N / GEMV_COLS, n_in / G), GEMV_THREADS, 0, st>>>(
         s.xq, s.sx, q, sc, G, N, s.terms);
   };
-
-  for (int l = 0; l < d.L; ++l) {
-    // x = embedding row (layer 0) or h1 + bf16(wd); xq = quant(bf16(rms(x) * attn_norm))
-    if (l == 0) {
-      norm_quant<<<1, NORM_THREADS, 0, st>>>(
-          (const __nv_bfloat16*)p->x_in, embd, (const int*)p->token_in, nullptr, 0,
-          d.H, attn_norm, d.eps, s.x, nullptr, s.xq, s.sx);
-    } else {
-      norm_quant<<<1, NORM_THREADS, 0, st>>>(
-          s.h1, nullptr, nullptr, s.terms, d.FF / d.g_wd, d.H,
-          attn_norm + (size_t)l * d.H, d.eps, s.x, nullptr, s.xq, s.sx);
-    }
-    gemv(p->qkv_q, p->qkv_s, l, d.H, NQKV, d.g_qkv);
-    const float* qn = q_norm + (size_t)l * d.D;
-    const float* kn = k_norm + (size_t)l * d.D;
-    int8_t* kl = kc + (size_t)l * d.S * DKV;
-    int8_t* vl = vc + (size_t)l * d.S * DKV;
-    float* ksl = ksc + (size_t)l * d.S * d.NKV;
-    float* vsl = vsc + (size_t)l * d.S * d.NKV;
-    attn_partial<<<dim3(d.NKV, nchunks), ATTN_THREADS, smem_partial, st>>>(
-        s.terms, d.H / d.g_qkv, qn, kn, d, kl, vl, ksl, vsl, s.part);
-    attn_combine<<<d.NKV, ATTN_THREADS, smem_combine, st>>>(
-        s.terms, d.H / d.g_qkv, qn, kn, d, s.part, nchunks, kl, vl, ksl, vsl, s.attn);
-    norm_quant<<<1, NORM_THREADS, 0, st>>>(s.attn, nullptr, nullptr, nullptr, 0, DQ,
-                                           nullptr, d.eps, nullptr, nullptr, s.xq, s.sx);
-    gemv(p->wo_q, p->wo_s, l, DQ, d.H, d.g_wo);
-    norm_quant<<<1, NORM_THREADS, 0, st>>>(s.x, nullptr, nullptr, s.terms, DQ / d.g_wo,
-                                           d.H, ffn_norm + (size_t)l * d.H, d.eps, s.h1,
-                                           nullptr, s.xq, s.sx);
-    gemv(p->gu_q, p->gu_s, l, d.H, 2 * d.FF, d.g_gu);
-    silu_quant<<<1, NORM_THREADS, 0, st>>>(s.terms, d.H / d.g_gu, d.FF, s.xq, s.sx);
-    gemv(p->wd_q, p->wd_s, l, d.FF, d.H, d.g_wd);
-  }
-  // final norm (h_out = the pre-norm hidden state), int4 lm head, argmax
-  norm_quant<<<1, NORM_THREADS, 0, st>>>(s.h1, nullptr, nullptr, s.terms, d.FF / d.g_wd,
-                                         d.H, (const float*)p->out_norm, d.eps, nullptr,
-                                         (float*)p->h_out, s.xq, s.sx);
-  gemv(p->head_q, p->head_s, 0, d.H, d.Vp, d.g_head);
-  const int nb = n_argmax_blocks(d);
-  argmax_partial<<<nb, ARGMAX_THREADS, 0, st>>>(s.terms, d.H / d.g_head, d.Vp, d.V,
-                                                s.pmax, s.pidx);
-  argmax_final<<<1, ARGMAX_THREADS, 0, st>>>(s.pmax, s.pidx, nb, (int*)p->token_out);
+  decode_step(p, d, nullptr, 1, s, st, gemv);
   return (int)cudaGetLastError();
 }

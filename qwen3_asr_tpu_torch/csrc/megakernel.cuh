@@ -1,0 +1,637 @@
+// Device code shared by the single-sequence decode step (megakernel.cu, K1)
+// and the batched one (megakernel_batch.cu, K3): the per-row norm /
+// quantization kernels, attention and the lm-head argmax of one Qwen3 decode
+// step on int4 weights and an int8 KV cache.
+//
+// Every kernel here works on one sequence ("row") per block index along its
+// row axis and never mixes rows, so the batched step computes each row with
+// the same instructions and the same f32 summation orders as the
+// single-sequence step: K3's rows equal K1 run on the row's slab alone, bit
+// for bit. K1 launches them with one row (row strides unused, `pos_arr` null
+// and the position taken from MegaDims::pos); K3 passes per-row strides and a
+// device array of positions.
+#pragma once
+
+#include <cuda_pipeline.h>
+
+#include "common.cuh"
+
+// The C entry points' arguments (plain structs with external linkage: a type
+// from the anonymous namespace would hide the extern "C" functions). For the
+// batched step every activation pointer is [B, ...] and the caches are
+// [B, L, S, ...]: slab b is a single-sequence cache.
+struct MegaPtrs {
+  const void* embd;        // [V, H] bf16 token embedding (for token input)
+  const void* attn_norm;   // [L, H] f32
+  const void* ffn_norm;    // [L, H] f32
+  const void* q_norm;      // [L, D] f32
+  const void* k_norm;      // [L, D] f32
+  const void* out_norm;    // [H] f32
+  const void* qkv_q;       // [L, H/2, DQ+2DKV] packed int4
+  const void* qkv_s;       // [L, H/g_qkv, DQ+2DKV] f32
+  const void* wo_q;        // [L, DQ/2, H]
+  const void* wo_s;
+  const void* gu_q;        // [L, H/2, 2FF]
+  const void* gu_s;
+  const void* wd_q;        // [L, FF/2, H]
+  const void* wd_s;
+  const void* head_q;      // [H/2, Vp]
+  const void* head_s;      // [H/g_head, Vp]
+  void* k_cache;           // [L, S, DKV] int8
+  void* v_cache;
+  void* k_scale;           // [L, S, NKV] f32
+  void* v_scale;
+  const void* token_in;    // [1] int32, or null when x_in is given
+  const void* x_in;        // [H] bf16, or null
+  void* token_out;         // [1] int32
+  void* h_out;             // [H] f32: hidden state before the final norm
+  void* scratch;           // qw_mega_scratch_bytes(dims) bytes
+};
+
+// pos: the cache row the step writes (K1), or the host's upper bound of the
+// rows' positions, which sizes the attention grid (K3).
+struct MegaDims {
+  int L, H, NH, NKV, D, FF, V, Vp, S, pos;
+  int g_qkv, g_wo, g_gu, g_wd, g_head;
+  float eps, rope_coef, scale;
+};
+
+namespace {
+
+constexpr int NORM_THREADS = 1024;
+constexpr int NORM_MAX = 4096;     // widest row the norm/quant kernels take
+constexpr int ATTN_THREADS = 256;
+constexpr int ATTN_ROWS = 64;      // cache rows per attn_partial block
+constexpr int ARGMAX_THREADS = 256;
+constexpr int ARGMAX_COLS = 4096;  // vocab columns per argmax block
+
+__host__ __device__ inline int n_attn_chunks(int rows) {
+  return (rows + ATTN_ROWS - 1) / ATTN_ROWS;
+}
+
+inline size_t align_up(size_t n) { return (n + 255) & ~(size_t)255; }
+
+inline int n_argmax_blocks(const MegaDims& d) { return (d.V + ARGMAX_COLS - 1) / ARGMAX_COLS; }
+
+// floats of one row's GEMV group terms: the largest [in/G, out] product
+inline size_t terms_floats(const MegaDims& d) {
+  const int DQ = d.NH * d.D, DKV = d.NKV * d.D;
+  size_t m = (size_t)(d.H / d.g_qkv) * (DQ + 2 * DKV);
+  m = m > (size_t)(DQ / d.g_wo) * d.H ? m : (size_t)(DQ / d.g_wo) * d.H;
+  m = m > (size_t)(d.H / d.g_gu) * 2 * d.FF ? m : (size_t)(d.H / d.g_gu) * 2 * d.FF;
+  m = m > (size_t)(d.FF / d.g_wd) * d.H ? m : (size_t)(d.FF / d.g_wd) * d.H;
+  m = m > (size_t)(d.H / d.g_head) * d.Vp ? m : (size_t)(d.H / d.g_head) * d.Vp;
+  return m;
+}
+
+inline int widest_row(const MegaDims& d) {
+  const int DQ = d.NH * d.D;
+  int w = d.H > DQ ? d.H : DQ;
+  return w > d.FF ? w : d.FF;
+}
+
+// The checks both entry points make on their dimensions.
+inline bool dims_ok(const MegaDims& d, int gemv_cols, int max_group) {
+  const int DQ = d.NH * d.D, DKV = d.NKV * d.D, NQKV = DQ + 2 * DKV;
+  if (d.H > NORM_MAX || DQ > NORM_MAX || d.FF > NORM_MAX) return false;
+  if (d.NH % d.NKV || d.D % 16 || d.pos < 1 || d.pos >= d.S) return false;
+  const int gs[5] = {d.g_qkv, d.g_wo, d.g_gu, d.g_wd, d.g_head};
+  for (int g : gs) if (g <= 0 || g % 4 || g > max_group) return false;
+  if (NQKV % gemv_cols || d.H % gemv_cols || (2 * d.FF) % gemv_cols || d.Vp % gemv_cols)
+    return false;
+  return true;
+}
+
+inline size_t attn_partial_smem(const MegaDims& d) {
+  const int GROUP = d.NH / d.NKV;
+  return 2 * (size_t)ATTN_ROWS * d.D +
+         sizeof(float) * ((size_t)GROUP * (d.D + ATTN_ROWS + 2) + 2 * ATTN_ROWS);
+}
+
+inline size_t attn_combine_smem(const MegaDims& d) {
+  const int GROUP = d.NH / d.NKV;
+  return sizeof(float) * ((size_t)(GROUP + 2) * d.D + 3 * GROUP);
+}
+
+__device__ __forceinline__ int row_pos(const int* pos_arr, int row, const MegaDims& d) {
+  return pos_arr ? pos_arr[row] : d.pos;
+}
+
+// -- per-row RMSNorm + residual + int8 quantization ------------------------
+//
+// Block = row. x = base (+ bf16(sum_g terms[g]) when terms is given, rounded
+// to bf16), y = bf16(rms(x) * w) (or x when w is null), then xq = rint(y /
+// sx) with sx = max(amax / 127, 1e-12). `base` is a bf16 [N] row, or the
+// embedding row of token[row] when token is non-null. Row strides: N for
+// base / x_out / h_out, ts for terms, qs for xq.
+__global__ void __launch_bounds__(NORM_THREADS) norm_quant(
+    const __nv_bfloat16* __restrict__ base, const __nv_bfloat16* __restrict__ embd,
+    const int* __restrict__ token, const float* __restrict__ terms, int n_g,
+    int N, const float* __restrict__ w, float eps, __nv_bfloat16* __restrict__ x_out,
+    float* __restrict__ h_out, int8_t* __restrict__ xq, float* __restrict__ sx_out,
+    size_t ts, size_t qs) {
+  __shared__ float xs[NORM_MAX];
+  __shared__ float red[32];
+  const int row = blockIdx.x;
+  if (token) base = embd + (size_t)token[row] * N;
+  else base += (size_t)row * N;
+  if (terms) terms += row * ts;
+  if (x_out) x_out += (size_t)row * N;
+  if (h_out) h_out += (size_t)row * N;
+  xq += row * qs;
+  float sq = 0.f;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    float x = bf2f(base[n]);
+    if (terms) {
+      float t = terms[n];
+      for (int g = 1; g < n_g; ++g) t += terms[(size_t)g * N + n];
+      x = bf16_round(x + bf16_round(t));
+    }
+    if (x_out) x_out[n] = __float2bfloat16_rn(x);
+    if (h_out) h_out[n] = x;
+    xs[n] = x;
+    sq += x * x;
+  }
+  float r = 1.f;
+  if (w) {
+    const float tot = block_sum(sq, red);
+    r = rsqrtf(tot / (float)N + eps);
+  }
+  float amax = 0.f;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    float y = xs[n];
+    if (w) y = bf16_round(y * r * w[n]);
+    xs[n] = y;
+    amax = fmaxf(amax, fabsf(y));
+  }
+  amax = block_max(amax, red);
+  const float sx = fmaxf(amax * (1.f / 127.f), 1e-12f);
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    const float qv = fminf(fmaxf(rintf(xs[n] / sx), -127.f), 127.f);
+    xq[n] = (int8_t)qv;
+  }
+  if (threadIdx.x == 0) sx_out[row] = sx;
+}
+
+// -- SwiGLU activation + int8 quantization ---------------------------------
+//
+// Block = row. gu = bf16(sum_g terms[g]) over [2FF]; act = bf16(silu(gate) *
+// up) in f32.
+__global__ void __launch_bounds__(NORM_THREADS) silu_quant(
+    const float* __restrict__ terms, int n_g, int FF, int8_t* __restrict__ xq,
+    float* __restrict__ sx_out, size_t ts, size_t qs) {
+  __shared__ float xs[NORM_MAX];
+  __shared__ float red[32];
+  const int row = blockIdx.x;
+  terms += row * ts;
+  xq += row * qs;
+  const int N2 = 2 * FF;
+  float amax = 0.f;
+  for (int n = threadIdx.x; n < FF; n += blockDim.x) {
+    float g = terms[n], u = terms[FF + n];
+    for (int k = 1; k < n_g; ++k) {
+      g += terms[(size_t)k * N2 + n];
+      u += terms[(size_t)k * N2 + FF + n];
+    }
+    g = bf16_round(g);
+    u = bf16_round(u);
+    const float a = bf16_round((g * (1.f / (1.f + expf(-g)))) * u);
+    xs[n] = a;
+    amax = fmaxf(amax, fabsf(a));
+  }
+  amax = block_max(amax, red);
+  const float sx = fmaxf(amax * (1.f / 127.f), 1e-12f);
+  for (int n = threadIdx.x; n < FF; n += blockDim.x) {
+    xq[n] = (int8_t)fminf(fmaxf(rintf(xs[n] / sx), -127.f), 127.f);
+  }
+  if (threadIdx.x == 0) sx_out[row] = sx;
+}
+
+// -- attention ------------------------------------------------------------------
+//
+// Split over cache rows: attn_partial blocks (kvh, c, row) each take
+// ATTN_ROWS cache rows < pos for the GROUP q heads that share KV head kvh and
+// write the chunk's max m, unscaled sum l = sum exp(s - m) and o = sum
+// exp(s - m) * v_scale * v; attn_combine blocks (kvh, row) merge the row's
+// chunks with the fresh column, write the bf16 attention rows and the fresh
+// int8 K/V row at pos. Partial layout: part[row][kvh][c][j] = {m, l, o[D]}
+// with cstride (the partial grid's chunk count) chunks per (row, kvh). The
+// caches' row strides are slab_kv (K/V bytes) and slab_s (scale floats).
+
+// q (times the softmax scale), k and v of KV head kvh into vec[nvec][D]
+// (nvec = GROUP: the q heads only; GROUP + 2: q, k, v): bf16(sum of the
+// QKV group terms), RMSNorm of q (q_norm) and k (k_norm), NEOX RoPE at pos.
+__device__ void prep_qkv(const float* __restrict__ terms, int n_g,
+                         const float* __restrict__ qn, const float* __restrict__ kn,
+                         const MegaDims& d, int pos, int kvh, int nvec, float* vec) {
+  const int D = d.D, GROUP = d.NH / d.NKV;
+  const int DQ = d.NH * D, DKV = d.NKV * D, NQKV = DQ + 2 * DKV;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (int i = tid; i < nvec * D; i += blockDim.x) {
+    const int j = i / D, e = i % D;
+    int col;
+    if (j < GROUP) col = (kvh * GROUP + j) * D + e;
+    else if (j == GROUP) col = DQ + kvh * D + e;
+    else col = DQ + DKV + kvh * D + e;
+    float t = terms[col];
+    for (int g = 1; g < n_g; ++g) t += terms[(size_t)g * NQKV + col];
+    vec[i] = bf16_round(t);
+  }
+  __syncthreads();
+  const int n_norm = min(nvec, GROUP + 1);  // q heads and k; v is not normed
+  for (int j = warp; j < n_norm; j += nwarps) {
+    float* x = vec + j * D;
+    const float* w = j < GROUP ? qn : kn;
+    float s = 0.f;
+    for (int e = lane; e < D; e += 32) s += x[e] * x[e];
+    s = warp_sum(s);
+    const float r = rsqrtf(s / (float)D + d.eps);
+    __syncwarp();
+    for (int e = lane; e < D; e += 32) x[e] = x[e] * r * w[e];
+  }
+  __syncthreads();
+  const int half = D / 2;
+  for (int i = tid; i < n_norm * half; i += blockDim.x) {
+    const int j = i / half, e = i % half;
+    float* x = vec + j * D;
+    const float inv = expf((float)e * d.rope_coef);
+    const float ang = (float)pos * inv;
+    const float c = cosf(ang), s = sinf(ang);
+    const float x1 = x[e], x2 = x[e + half];
+    float y1 = x1 * c - x2 * s, y2 = x2 * c + x1 * s;
+    if (j < GROUP) {
+      y1 *= d.scale;
+      y2 *= d.scale;
+    }
+    x[e] = y1;
+    x[e + half] = y2;
+  }
+  __syncthreads();
+}
+
+// The chunk's K and V rows are copied into shared memory with cp.async
+// (16-byte pieces, all in flight at once) while q is prepared; everything
+// after reads shared memory. A chunk at or past the row's pos exits (the
+// grid is sized for the largest pos of the batch). Dynamic shared memory:
+// kv[2][ATTN_ROWS][D] int8, then floats q[GROUP][D], p[GROUP][ATTN_ROWS],
+// ml[2 * GROUP], kss[ATTN_ROWS], vss[ATTN_ROWS].
+__global__ void __launch_bounds__(ATTN_THREADS) attn_partial(
+    const float* __restrict__ terms, int n_g, const float* __restrict__ qn,
+    const float* __restrict__ kn, MegaDims d, const int8_t* __restrict__ kc,
+    const int8_t* __restrict__ vc, const float* __restrict__ ksc,
+    const float* __restrict__ vsc, float* __restrict__ part,
+    const int* __restrict__ pos_arr, size_t ts, size_t slab_kv, size_t slab_s) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int D = d.D, NKV = d.NKV, GROUP = d.NH / NKV, DKV = NKV * D;
+  const int kvh = blockIdx.x, c = blockIdx.y, row = blockIdx.z;
+  const int pos = row_pos(pos_arr, row, d);
+  const int r0 = c * ATTN_ROWS;
+  if (r0 >= pos) return;
+  const int nr = min(ATTN_ROWS, pos - r0);
+  terms += row * ts;
+  kc += row * slab_kv;
+  vc += row * slab_kv;
+  ksc += row * slab_s;
+  vsc += row * slab_s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  int8_t* kv = reinterpret_cast<int8_t*>(smem_raw);   // [2][ATTN_ROWS][D]
+  float* q = reinterpret_cast<float*>(smem_raw + 2 * ATTN_ROWS * D);
+  float* p = q + GROUP * D;             // [GROUP][ATTN_ROWS]
+  float* ml = p + GROUP * ATTN_ROWS;    // m[GROUP], l[GROUP]
+  float* kss = ml + 2 * GROUP;          // [ATTN_ROWS]
+  float* vss = kss + ATTN_ROWS;         // [ATTN_ROWS]
+
+  const int d16 = D / 16;
+  for (int i = tid; i < 2 * nr * d16; i += blockDim.x) {
+    const int which = i / (nr * d16), rem = i % (nr * d16);
+    const int r = rem / d16, piece = rem % d16;
+    const int8_t* src = (which ? vc : kc) + (size_t)(r0 + r) * DKV + kvh * D + piece * 16;
+    __pipeline_memcpy_async(kv + (which * ATTN_ROWS + r) * D + piece * 16, src, 16);
+  }
+  __pipeline_commit();
+  for (int r = tid; r < nr; r += blockDim.x) {
+    kss[r] = ksc[(size_t)(r0 + r) * NKV + kvh];
+    vss[r] = vsc[(size_t)(r0 + r) * NKV + kvh];
+  }
+  prep_qkv(terms, n_g, qn, kn, d, pos, kvh, GROUP, q);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  const int8_t* ks_rows = kv;
+  const int8_t* vs_rows = kv + ATTN_ROWS * D;
+
+  // scores times the row's k scale: one warp per row, 4 bytes per lane
+  for (int r = warp; r < nr; r += nwarps) {
+    const int8_t* kr = ks_rows + r * D;
+    for (int j = 0; j < GROUP; ++j) {
+      const float* qj = q + j * D;
+      float s = 0.f;
+      for (int e = 4 * lane; e < D; e += 128) {
+        const char4 k4 = *reinterpret_cast<const char4*>(kr + e);
+        s += qj[e] * (float)k4.x + qj[e + 1] * (float)k4.y + qj[e + 2] * (float)k4.z +
+             qj[e + 3] * (float)k4.w;
+      }
+      s = warp_sum(s);
+      if (lane == 0) p[j * ATTN_ROWS + r] = s * kss[r];
+    }
+  }
+  __syncthreads();
+
+  // per q head (one warp each): chunk max, p = exp(s - m), unscaled sum,
+  // then the row's v scale folded into p
+  for (int j = warp; j < GROUP; j += nwarps) {
+    float* pj = p + j * ATTN_ROWS;
+    float mx = QW_NEG;
+    for (int r = lane; r < nr; r += 32) mx = fmaxf(mx, pj[r]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int r = lane; r < nr; r += 32) {
+      const float e = expf(pj[r] - mx);
+      sum += e;
+      pj[r] = e * vss[r];
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      ml[j] = mx;
+      ml[GROUP + j] = sum;
+    }
+  }
+  __syncthreads();
+
+  float* out = part + (((size_t)row * NKV + kvh) * gridDim.y + c) * GROUP * (D + 2);
+  for (int pr = tid; pr < GROUP * D; pr += blockDim.x) {
+    const int j = pr / D, e = pr % D;
+    const float* pj = p + j * ATTN_ROWS;
+    float o = 0.f;
+    for (int r = 0; r < nr; ++r) o = fmaf(pj[r], (float)vs_rows[r * D + e], o);
+    out[j * (D + 2) + 2 + e] = o;
+  }
+  if (tid < GROUP) {
+    out[tid * (D + 2)] = ml[tid];
+    out[tid * (D + 2) + 1] = ml[GROUP + tid];
+  }
+}
+
+// Block (kvh, row). Dynamic shared memory: vec[(GROUP + 2) * D], misc[3 *
+// GROUP]. Reads the row's n_attn_chunks(pos) partials; attn_out row stride
+// is DQ.
+__global__ void __launch_bounds__(ATTN_THREADS) attn_combine(
+    const float* __restrict__ terms, int n_g, const float* __restrict__ qn,
+    const float* __restrict__ kn, MegaDims d, const float* __restrict__ part,
+    int cstride, int8_t* __restrict__ kc, int8_t* __restrict__ vc,
+    float* __restrict__ ksc, float* __restrict__ vsc,
+    __nv_bfloat16* __restrict__ attn_out, const int* __restrict__ pos_arr, size_t ts,
+    size_t slab_kv, size_t slab_s) {
+  extern __shared__ float smem[];
+  const int D = d.D, NKV = d.NKV, GROUP = d.NH / NKV, DKV = NKV * D;
+  const int kvh = blockIdx.x, row = blockIdx.y;
+  const int pos = row_pos(pos_arr, row, d);
+  const int nchunks = n_attn_chunks(pos);
+  terms += row * ts;
+  kc += row * slab_kv;
+  vc += row * slab_kv;
+  ksc += row * slab_s;
+  vsc += row * slab_s;
+  attn_out += (size_t)row * d.NH * D;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  float* vec = smem;                          // q heads, k, v
+  float* misc = vec + (GROUP + 2) * D;        // p_fresh[GROUP], m[GROUP], den[GROUP]
+  prep_qkv(terms, n_g, qn, kn, d, pos, kvh, GROUP + 2, vec);
+  const float* kf = vec + GROUP * D;
+  const float* vf = kf + D;
+  const float* pk = part + ((size_t)row * NKV + kvh) * cstride * GROUP * (D + 2);
+
+  // per q head (one warp each): fresh score, overall max, denominator
+  for (int j = warp; j < GROUP; j += nwarps) {
+    float sf = 0.f;
+    for (int e = lane; e < D; e += 32) sf += vec[j * D + e] * kf[e];
+    sf = warp_sum(sf);
+    float mx = sf;
+    for (int c = lane; c < nchunks; c += 32)
+      mx = fmaxf(mx, pk[((size_t)c * GROUP + j) * (D + 2)]);
+    mx = warp_max(mx);
+    float den = 0.f;
+    for (int c = lane; c < nchunks; c += 32) {
+      const float* pc = pk + ((size_t)c * GROUP + j) * (D + 2);
+      den += pc[1] * expf(pc[0] - mx);
+    }
+    den = warp_sum(den);
+    const float pf = expf(sf - mx);
+    if (lane == 0) {
+      misc[j] = pf;
+      misc[GROUP + j] = mx;
+      misc[2 * GROUP + j] = den + pf;
+    }
+  }
+  __syncthreads();
+
+  for (int pr = tid; pr < GROUP * D; pr += blockDim.x) {
+    const int j = pr / D, e = pr % D;
+    const float mx = misc[GROUP + j];
+    float o = 0.f;
+    for (int c = 0; c < nchunks; ++c) {
+      const float* pc = pk + ((size_t)c * GROUP + j) * (D + 2);
+      o = fmaf(pc[2 + e], expf(pc[0] - mx), o);
+    }
+    const float res = (o + misc[j] * vf[e]) / misc[2 * GROUP + j];
+    attn_out[(kvh * GROUP + j) * D + e] = __float2bfloat16_rn(res);
+  }
+
+  // quantize the fresh K and V rows of this head (warps 0 and 1) into
+  // cache row pos; the partial blocks read only rows < pos
+  if (warp < 2) {
+    const float* x = warp == 0 ? kf : vf;
+    int8_t* dst = (warp == 0 ? kc : vc) + (size_t)pos * DKV + kvh * D;
+    float amax = 0.f;
+    for (int e = lane; e < D; e += 32) amax = fmaxf(amax, fabsf(x[e]));
+    amax = warp_max(amax);
+    const float s = fmaxf(amax * (1.f / 127.f), 1e-12f);
+    for (int e = lane; e < D; e += 32) {
+      dst[e] = (int8_t)fminf(fmaxf(rintf(x[e] / s), -127.f), 127.f);
+    }
+    if (lane == 0) (warp == 0 ? ksc : vsc)[(size_t)pos * NKV + kvh] = s;
+  }
+}
+
+// -- lm-head argmax -----------------------------------------------------------
+//
+// logits[n] = sum_g terms[g, n] for n < V (padding columns masked); pass 1
+// (blocks (x, row)) reduces each block's columns to (max, first index),
+// pass 2 (block = row) the blocks.
+__global__ void __launch_bounds__(ARGMAX_THREADS) argmax_partial(
+    const float* __restrict__ terms, int n_g, int Vp, int V,
+    float* __restrict__ pmax, int* __restrict__ pidx, size_t ts) {
+  __shared__ float bm[ARGMAX_THREADS];
+  __shared__ int bi[ARGMAX_THREADS];
+  const int row = blockIdx.y;
+  terms += row * ts;
+  float best = QW_NEG;
+  int idx = 0x7fffffff;
+  const int c0 = blockIdx.x * ARGMAX_COLS;
+  const int c1 = min(c0 + ARGMAX_COLS, V);
+  for (int n = c0 + threadIdx.x; n < c1; n += blockDim.x) {
+    float t = terms[n];
+    for (int g = 1; g < n_g; ++g) t += terms[(size_t)g * Vp + n];
+    if (t > best) {  // ascending n per thread: keeps the first index on ties
+      best = t;
+      idx = n;
+    }
+  }
+  bm[threadIdx.x] = best;
+  bi[threadIdx.x] = idx;
+  __syncthreads();
+  for (int o = blockDim.x / 2; o > 0; o >>= 1) {
+    if (threadIdx.x < o) {
+      const float m2 = bm[threadIdx.x + o];
+      const int i2 = bi[threadIdx.x + o];
+      if (m2 > bm[threadIdx.x] || (m2 == bm[threadIdx.x] && i2 < bi[threadIdx.x])) {
+        bm[threadIdx.x] = m2;
+        bi[threadIdx.x] = i2;
+      }
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    pmax[(size_t)row * gridDim.x + blockIdx.x] = bm[0];
+    pidx[(size_t)row * gridDim.x + blockIdx.x] = bi[0];
+  }
+}
+
+__global__ void __launch_bounds__(ARGMAX_THREADS) argmax_final(
+    const float* __restrict__ pmax, const int* __restrict__ pidx, int nb,
+    int* __restrict__ token_out) {
+  __shared__ float bm[ARGMAX_THREADS];
+  __shared__ int bi[ARGMAX_THREADS];
+  const int row = blockIdx.x;
+  pmax += (size_t)row * nb;
+  pidx += (size_t)row * nb;
+  float best = QW_NEG;
+  int idx = 0x7fffffff;
+  for (int b = threadIdx.x; b < nb; b += blockDim.x) {
+    if (pmax[b] > best || (pmax[b] == best && pidx[b] < idx)) {
+      best = pmax[b];
+      idx = pidx[b];
+    }
+  }
+  bm[threadIdx.x] = best;
+  bi[threadIdx.x] = idx;
+  __syncthreads();
+  for (int o = blockDim.x / 2; o > 0; o >>= 1) {
+    if (threadIdx.x < o) {
+      const float m2 = bm[threadIdx.x + o];
+      const int i2 = bi[threadIdx.x + o];
+      if (m2 > bm[threadIdx.x] || (m2 == bm[threadIdx.x] && i2 < bi[threadIdx.x])) {
+        bm[threadIdx.x] = m2;
+        bi[threadIdx.x] = i2;
+      }
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) token_out[row] = bi[0] == 0x7fffffff ? 0 : bi[0];
+}
+
+// -- scratch layout -------------------------------------------------------------
+
+// Per-row activations of B rows: row b of each array at b * (its row size).
+struct Scratch {
+  __nv_bfloat16 *x, *h1, *attn;  // [B][H], [B][H], [B][DQ]
+  int8_t* xq;                    // [B][widest_row]
+  float* sx;                     // [B]
+  float* terms;                  // [B][terms_floats]
+  float* part;                   // [B][NKV][n_attn_chunks(S)][GROUP][D + 2]
+  float* pmax;                   // [B][n_argmax_blocks]
+  int* pidx;
+};
+
+inline size_t layout(const MegaDims& d, int B, char* base, Scratch* s) {
+  const int DQ = d.NH * d.D;
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    char* p = base ? base + off : nullptr;
+    off += align_up(bytes);
+    return p;
+  };
+  s->x = (__nv_bfloat16*)take(2 * (size_t)B * d.H);
+  s->h1 = (__nv_bfloat16*)take(2 * (size_t)B * d.H);
+  s->attn = (__nv_bfloat16*)take(2 * (size_t)B * DQ);
+  s->xq = (int8_t*)take((size_t)B * widest_row(d));
+  s->sx = (float*)take(4 * (size_t)B);
+  s->terms = (float*)take(4 * (size_t)B * terms_floats(d));
+  s->part = (float*)take(4 * (size_t)B * d.NH * n_attn_chunks(d.S) * (d.D + 2));
+  s->pmax = (float*)take(4 * (size_t)B * n_argmax_blocks(d));
+  s->pidx = (int*)take(4 * (size_t)B * n_argmax_blocks(d));
+  return off;
+}
+
+// One decode step of B rows: the launch sequence both entry points share.
+// `gemv(wq, ws, layer, n_in, N, G)` launches the int4 product of all B rows
+// of s.xq (row scales s.sx) into s.terms; pos_arr is null for K1.
+template <typename Gemv>
+void decode_step(const MegaPtrs* p, const MegaDims& d, const int* pos_arr, int B,
+                 const Scratch& s, cudaStream_t st, Gemv gemv) {
+  const int DQ = d.NH * d.D, DKV = d.NKV * d.D;
+  const int nchunks = n_attn_chunks(d.pos);
+  const size_t ts = terms_floats(d), qs = (size_t)widest_row(d);
+  const size_t slab_kv = (size_t)d.L * d.S * DKV, slab_s = (size_t)d.L * d.S * d.NKV;
+  const size_t smem_partial = attn_partial_smem(d), smem_combine = attn_combine_smem(d);
+
+  const __nv_bfloat16* embd = (const __nv_bfloat16*)p->embd;
+  const float* attn_norm = (const float*)p->attn_norm;
+  const float* ffn_norm = (const float*)p->ffn_norm;
+  const float* q_norm = (const float*)p->q_norm;
+  const float* k_norm = (const float*)p->k_norm;
+  int8_t* kc = (int8_t*)p->k_cache;
+  int8_t* vc = (int8_t*)p->v_cache;
+  float* ksc = (float*)p->k_scale;
+  float* vsc = (float*)p->v_scale;
+
+  for (int l = 0; l < d.L; ++l) {
+    // x = embedding row (layer 0) or h1 + bf16(wd); xq = quant(bf16(rms(x) * attn_norm))
+    if (l == 0) {
+      norm_quant<<<B, NORM_THREADS, 0, st>>>(
+          (const __nv_bfloat16*)p->x_in, embd, (const int*)p->token_in, nullptr, 0,
+          d.H, attn_norm, d.eps, s.x, nullptr, s.xq, s.sx, ts, qs);
+    } else {
+      norm_quant<<<B, NORM_THREADS, 0, st>>>(
+          s.h1, nullptr, nullptr, s.terms, d.FF / d.g_wd, d.H,
+          attn_norm + (size_t)l * d.H, d.eps, s.x, nullptr, s.xq, s.sx, ts, qs);
+    }
+    gemv(p->qkv_q, p->qkv_s, l, d.H, DQ + 2 * DKV, d.g_qkv);
+    const float* qn = q_norm + (size_t)l * d.D;
+    const float* kn = k_norm + (size_t)l * d.D;
+    int8_t* kl = kc + (size_t)l * d.S * DKV;
+    int8_t* vl = vc + (size_t)l * d.S * DKV;
+    float* ksl = ksc + (size_t)l * d.S * d.NKV;
+    float* vsl = vsc + (size_t)l * d.S * d.NKV;
+    attn_partial<<<dim3(d.NKV, nchunks, B), ATTN_THREADS, smem_partial, st>>>(
+        s.terms, d.H / d.g_qkv, qn, kn, d, kl, vl, ksl, vsl, s.part, pos_arr, ts,
+        slab_kv, slab_s);
+    attn_combine<<<dim3(d.NKV, B), ATTN_THREADS, smem_combine, st>>>(
+        s.terms, d.H / d.g_qkv, qn, kn, d, s.part, nchunks, kl, vl, ksl, vsl, s.attn,
+        pos_arr, ts, slab_kv, slab_s);
+    norm_quant<<<B, NORM_THREADS, 0, st>>>(s.attn, nullptr, nullptr, nullptr, 0, DQ,
+                                           nullptr, d.eps, nullptr, nullptr, s.xq, s.sx,
+                                           ts, qs);
+    gemv(p->wo_q, p->wo_s, l, DQ, d.H, d.g_wo);
+    norm_quant<<<B, NORM_THREADS, 0, st>>>(s.x, nullptr, nullptr, s.terms, DQ / d.g_wo,
+                                           d.H, ffn_norm + (size_t)l * d.H, d.eps, s.h1,
+                                           nullptr, s.xq, s.sx, ts, qs);
+    gemv(p->gu_q, p->gu_s, l, d.H, 2 * d.FF, d.g_gu);
+    silu_quant<<<B, NORM_THREADS, 0, st>>>(s.terms, d.H / d.g_gu, d.FF, s.xq, s.sx, ts,
+                                           qs);
+    gemv(p->wd_q, p->wd_s, l, d.FF, d.H, d.g_wd);
+  }
+  // final norm (h_out = the pre-norm hidden state), int4 lm head, argmax
+  norm_quant<<<B, NORM_THREADS, 0, st>>>(s.h1, nullptr, nullptr, s.terms, d.FF / d.g_wd,
+                                         d.H, (const float*)p->out_norm, d.eps, nullptr,
+                                         (float*)p->h_out, s.xq, s.sx, ts, qs);
+  gemv(p->head_q, p->head_s, 0, d.H, d.Vp, d.g_head);
+  const int nb = n_argmax_blocks(d);
+  argmax_partial<<<dim3(nb, B), ARGMAX_THREADS, 0, st>>>(s.terms, d.H / d.g_head, d.Vp,
+                                                         d.V, s.pmax, s.pidx, ts);
+  argmax_final<<<B, ARGMAX_THREADS, 0, st>>>(s.pmax, s.pidx, nb, (int*)p->token_out);
+}
+
+}  // namespace

@@ -1,0 +1,162 @@
+// One greedy decode step of up to 16 sequences at once: int4 weights, int8
+// KV cache, each sequence at its own position.
+//
+// Replaces: qwen3_asr_tpu/ops/megakernel_batch.py::_mega_batch_kernel in its
+// int4-weight / resident-KV mode (entry mega_decode_step_batch). It computes
+// what the Pallas body computes (megakernel_batch.py:351-567): for each row b
+// the single-sequence step of megakernel.cu at position pos[b] on cache slab
+// b, with per-row activation quantization scales, per-row RoPE, masks and
+// first-index argmax. Rows never mix.
+//
+// What bounds it on an H100: the single-sequence step streams ~0.30 GB of
+// int4 weights per token; B sequences stepping together read those bytes
+// once, so the weight term per token falls as 1/B while each row's own int8
+// cache (~2 KB of K/V per layer per cached row) is read by that row alone.
+// The one kernel that differs from megakernel.cu is the GEMV, which becomes
+// a skinny int4 GEMM: a block takes 64 output columns of one 512-row scale
+// group for all B rows, each thread expands the nibbles of 4 columns x 4
+// rows once (32-bit loads from two byte rows, a byte transpose with
+// __byte_perm) and feeds them to one dp4a per (batch row, column). Register
+// pressure is what shapes it: 16 rows x 4 columns = 64 int32 sums a thread
+// (16 columns, as K1's thread holds, would take 256). Everything else is the
+// launch sequence of megakernel.cuh with one block row per sequence:
+// attention launches a block per (KV head, 64-row chunk, sequence) over the
+// host's upper bound of the positions, and chunks at or past a row's own
+// position exit at once.
+//
+// Numerics: each row equals megakernel.cu run on that row alone, bit for
+// bit. The int4 products are int32 sums, exact in any order; the f32 group
+// terms are formed as K1 forms them, `f32(dot) * (sx_b * s_g)`, and the rest
+// is the same device code.
+#include "megakernel.cuh"
+
+namespace {
+
+constexpr int BGEMV_COLS = 64;       // output columns per block
+constexpr int BGEMV_THREADS = 256;   // 16 column quads x 16 row slices
+constexpr int BGEMV_SLICES = BGEMV_THREADS / (BGEMV_COLS / 4);
+constexpr int BGEMV_WARPS = BGEMV_THREADS / 32;
+constexpr int BGEMV_MAX_ROWS = 16;   // batch rows per block (and per launch)
+constexpr int BGEMV_MAX_GROUP = 1024;
+constexpr int BGEMV_SMEM = 32768;    // max(xs [BT][G] int8, part [warps][BT][64] int32)
+
+// Block (x, g): columns [64x, 64x+64) of scale group g, for all B <= BT rows.
+// terms[b][g][n] = f32(sum_{r in group g} xq[b][r] * w4[r][n]) * (sx[b] *
+// s[g][n]). Thread t owns columns 4 (t % 16) .. +3 and row quads q = t / 16,
+// t / 16 + 16, ... of the group; a quad is byte rows 2q and 2q+1 (weight
+// rows 4q .. 4q+3). Nibbles are expanded as (nibble << 4) in a signed byte,
+// i.e. 16 x the weight, so the sums are 16 x the dot product (exact: |sum| <
+// 2^24) and are shifted back before scaling.
+template <int BT>
+__global__ void __launch_bounds__(BGEMV_THREADS) gemv_i4_batch(
+    const int8_t* __restrict__ xq, size_t qs, const float* __restrict__ sx,
+    const uint8_t* __restrict__ wq, const float* __restrict__ ws, int G, int N,
+    float* __restrict__ terms, size_t ts, int B) {
+  __shared__ __align__(16) unsigned char smem[BGEMV_SMEM];
+  int8_t* xs = reinterpret_cast<int8_t*>(smem);   // [BT][G]
+  int* part = reinterpret_cast<int*>(smem);       // [warps][BT][64], after the loop
+  const int g = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cq = tid % (BGEMV_COLS / 4), slice = tid / (BGEMV_COLS / 4);
+  const int col0 = blockIdx.x * BGEMV_COLS + cq * 4;
+  for (int i = tid; i < BT * G; i += blockDim.x) {
+    const int b = i / G, r = i % G;
+    xs[i] = b < B ? xq[b * qs + (size_t)g * G + r] : (int8_t)0;
+  }
+  __syncthreads();
+
+  int acc[BT][4];
+#pragma unroll
+  for (int b = 0; b < BT; ++b)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[b][c] = 0;
+  const uint8_t* wg = wq + (size_t)g * (G / 2) * N + col0;
+  const int* xs32 = reinterpret_cast<const int*>(xs);
+  const int nq = G / 4;
+#pragma unroll 4
+  for (int q = slice; q < nq; q += BGEMV_SLICES) {
+    const uint32_t a = *reinterpret_cast<const uint32_t*>(wg + (size_t)(2 * q) * N);
+    const uint32_t c = *reinterpret_cast<const uint32_t*>(wg + (size_t)(2 * q + 1) * N);
+    // 16 x weight of rows 4q (a lo), 4q+1 (a hi), 4q+2 (c lo), 4q+3 (c hi),
+    // four columns per word
+    const uint32_t alo = (a << 4) & 0xf0f0f0f0u, ahi = a & 0xf0f0f0f0u;
+    const uint32_t clo = (c << 4) & 0xf0f0f0f0u, chi = c & 0xf0f0f0f0u;
+    const uint32_t p01 = __byte_perm(alo, ahi, 0x5140), p23 = __byte_perm(alo, ahi, 0x7362);
+    const uint32_t q01 = __byte_perm(clo, chi, 0x5140), q23 = __byte_perm(clo, chi, 0x7362);
+    // column word k: bytes = rows 4q .. 4q+3 of column col0 + k
+    const int w[4] = {(int)__byte_perm(p01, q01, 0x5410), (int)__byte_perm(p01, q01, 0x7632),
+                      (int)__byte_perm(p23, q23, 0x5410), (int)__byte_perm(p23, q23, 0x7632)};
+#pragma unroll
+    for (int b = 0; b < BT; ++b) {
+      const int xw = xs32[b * nq + q];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[b][k] = __dp4a(w[k], xw, acc[b][k]);
+    }
+  }
+  // lanes l and l ^ 16 hold the same columns: fold them, then one partial
+  // per warp into shared memory (which no longer holds xs)
+#pragma unroll
+  for (int b = 0; b < BT; ++b)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[b][k] += __shfl_xor_sync(0xffffffffu, acc[b][k], 16);
+  __syncthreads();
+  if (lane < 16) {
+#pragma unroll
+    for (int b = 0; b < BT; ++b)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) part[(warp * BT + b) * BGEMV_COLS + cq * 4 + k] = acc[b][k];
+  }
+  __syncthreads();
+  for (int i = tid; i < B * BGEMV_COLS; i += blockDim.x) {
+    const int b = i / BGEMV_COLS, nn = i % BGEMV_COLS;
+    int tot = 0;
+    for (int v = 0; v < BGEMV_WARPS; ++v) tot += part[(v * BT + b) * BGEMV_COLS + nn];
+    const int n = blockIdx.x * BGEMV_COLS + nn;
+    terms[b * ts + (size_t)g * N + n] = (float)(tot >> 4) * (sx[b] * ws[(size_t)g * N + n]);
+  }
+}
+
+template <int BT>
+void launch_gemv(dim3 grid, cudaStream_t st, const int8_t* xq, size_t qs, const float* sx,
+                 const uint8_t* wq, const float* ws, int G, int N, float* terms, size_t ts,
+                 int B) {
+  gemv_i4_batch<BT><<<grid, BGEMV_THREADS, 0, st>>>(xq, qs, sx, wq, ws, G, N, terms, ts, B);
+}
+
+}  // namespace
+
+extern "C" size_t qw_mega_batch_scratch_bytes(const MegaDims* d, int B) {
+  Scratch s;
+  return layout(*d, B, nullptr, &s);
+}
+
+// One decode step of B sequences. p's activation pointers are [B, ...] (the
+// token input [B] int32 or x_in [B, H] bf16; token_out [B]; h_out [B, H]),
+// its caches [B, L, S, ...]; pos [B] int32 on the device, each in [1, S) and
+// at most dp->pos, which sizes the attention grid. Everything runs on
+// `stream`; nothing is allocated and the host is never waited on. Returns a
+// cudaError_t code.
+extern "C" int qw_mega_decode_step_batch_i8(const MegaPtrs* p, const MegaDims* dp,
+                                            const int* pos, int B, void* stream) {
+  const MegaDims d = *dp;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (B < 1 || B > BGEMV_MAX_ROWS || !pos) return (int)cudaErrorInvalidValue;
+  if (!dims_ok(d, BGEMV_COLS, BGEMV_MAX_GROUP)) return (int)cudaErrorInvalidValue;
+  if (attn_partial_smem(d) > 48 * 1024 || attn_combine_smem(d) > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  Scratch s;
+  layout(d, B, (char*)p->scratch, &s);
+  const size_t qs = (size_t)widest_row(d), ts = terms_floats(d);
+  auto gemv = [&](const void* wq, const void* ws, size_t l, int n_in, int N, int G) {
+    const uint8_t* q = (const uint8_t*)wq + l * (size_t)(n_in / 2) * N;
+    const float* sc = (const float*)ws + l * (size_t)(n_in / G) * N;
+    const dim3 grid(N / BGEMV_COLS, n_in / G);
+    if (B <= 1) launch_gemv<1>(grid, st, s.xq, qs, s.sx, q, sc, G, N, s.terms, ts, B);
+    else if (B <= 2) launch_gemv<2>(grid, st, s.xq, qs, s.sx, q, sc, G, N, s.terms, ts, B);
+    else if (B <= 4) launch_gemv<4>(grid, st, s.xq, qs, s.sx, q, sc, G, N, s.terms, ts, B);
+    else if (B <= 8) launch_gemv<8>(grid, st, s.xq, qs, s.sx, q, sc, G, N, s.terms, ts, B);
+    else launch_gemv<16>(grid, st, s.xq, qs, s.sx, q, sc, G, N, s.terms, ts, B);
+  };
+  decode_step(p, d, pos, B, s, st, gemv);
+  return (int)cudaGetLastError();
+}

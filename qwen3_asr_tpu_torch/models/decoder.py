@@ -2,7 +2,8 @@
 
 Port of qwen3_asr_tpu/models/decoder.py: `rms_norm`, `rope_neox`,
 `init_kv_cache` (int8 rows + per-(row, head) f32 scales), `_quantize_kv_rows`,
-`embed_with_audio`, `decoder_forward(prefill=True)` and `lm_logits` (the
+`embed_with_audio`, `decoder_forward(prefill=True)`,
+`decoder_prefill_batch`, and `lm_logits` / `lm_logits_block` (the
 `lm_head_pc` branch). Attention in the prefill is the flash kernel
 (`ops/flash_attention.py`), causal with the prompt's valid length. The
 decode branch of `decoder_forward` is not ported: decode steps run through
@@ -87,6 +88,45 @@ def embed_with_audio(dec_params: dict, tokens: torch.Tensor,
     return h
 
 
+def _prefill_layers(dec_params: dict, cfg: DecoderConfig, h: torch.Tensor,
+                    valid: torch.Tensor, on_rows) -> torch.Tensor:
+    """The prefill's layer stack on prompt blocks h [B, P, hidden]: every
+    matmul runs once on the flattened [B * P] rows, attention is the flash
+    kernel, causal, keys at index >= valid[b] masked. Calls on_rows(l, k, v)
+    with each layer's fresh rows [B, P, n_kv, head_dim] in h's dtype;
+    returns the hidden states [B, P, hidden]."""
+    B, P, _ = h.shape
+    NH, NKV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dq, dkv = NH * D, NKV * D
+    scale = 1.0 / float(np.sqrt(D))
+    positions = torch.arange(P, device=h.device, dtype=torch.int32)
+    eps = cfg.rms_norm_eps
+    layers = dec_params["layers"]
+
+    def leaf(key, l):
+        return {k: v[l] for k, v in layers[key].items()}
+
+    def flat(x, key, l):
+        """x [B, P, in] @ an int8pc leaf, on the flattened rows."""
+        return _pc(x.reshape(B * P, x.shape[-1]), leaf(key, l)).reshape(B, P, -1)
+
+    for l in range(cfg.n_layers):
+        x = rms_norm(h, layers["attn_norm"][l], eps)
+        qkv = flat(x, "wqkv", l)
+        q = qkv[..., :dq].reshape(B, P, NH, D)
+        k = qkv[..., dq:dq + dkv].reshape(B, P, NKV, D)
+        v = qkv[..., dq + dkv:].reshape(B, P, NKV, D)
+        q = rope_neox(rms_norm(q, layers["q_norm"][l], eps), positions, cfg.rope_theta)
+        k = rope_neox(rms_norm(k, layers["k_norm"][l], eps), positions, cfg.rope_theta)
+        attn = flash_attention_batch(q, k, v, valid, causal=True, scale=scale)
+        h1 = h + flat(attn.reshape(B, P, dq), "wo", l)
+        gu = flat(rms_norm(h1, layers["ffn_norm"][l], eps), "w_gate_up", l)
+        ffn = gu.shape[-1] // 2
+        h = h1 + flat(silu(gu[..., :ffn]) * gu[..., ffn:], "w_down", l)
+        on_rows(l, k, v)
+    return h
+
+
 def decoder_forward(dec_params: dict, cfg: DecoderConfig, h: torch.Tensor,
                     cache: dict, n_valid: int, prefill: bool = True
                     ) -> torch.Tensor:
@@ -98,41 +138,41 @@ def decoder_forward(dec_params: dict, cfg: DecoderConfig, h: torch.Tensor,
         raise NotImplementedError("decode steps run through "
                                   "ops/megakernel.py::mega_decode_step_i8")
     T = h.shape[0]
-    NH, NKV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    dq, dkv = NH * D, NKV * D
-    scale = 1.0 / float(np.sqrt(D))
-    positions = torch.arange(T, device=h.device, dtype=torch.int32)
     valid = torch.full((1,), n_valid, dtype=torch.int32, device=h.device)
-    eps = cfg.rms_norm_eps
-    layers = dec_params["layers"]
 
-    def leaf(key, l):
-        return {k: v[l] for k, v in layers[key].items()}
-
-    for l in range(cfg.n_layers):
-        x = rms_norm(h, layers["attn_norm"][l], eps)
-        qkv = _pc(x, leaf("wqkv", l))
-        q = qkv[:, :dq].reshape(T, NH, D)
-        k = qkv[:, dq:dq + dkv].reshape(T, NKV, D)
-        v = qkv[:, dq + dkv:].reshape(T, NKV, D)
-        q = rope_neox(rms_norm(q, layers["q_norm"][l], eps), positions, cfg.rope_theta)
-        k = rope_neox(rms_norm(k, layers["k_norm"][l], eps), positions, cfg.rope_theta)
-        attn = flash_attention_batch(q[None], k[None], v[None], valid,
-                                     causal=True, scale=scale)[0]
-        h1 = h + _pc(attn.reshape(T, dq), leaf("wo", l))
-        xn = rms_norm(h1, layers["ffn_norm"][l], eps)
-        gu = _pc(xn, leaf("w_gate_up", l))
-        ffn = gu.shape[-1] // 2
-        h = h1 + _pc(silu(gu[:, :ffn]) * gu[:, ffn:], leaf("w_down", l))
-        for name, rows in (("k", k), ("v", v)):
+    def write(l, k, v):
+        for name, rows in (("k", k[0]), ("v", v[0])):
             q8, s = _quantize_kv_rows(rows)
             cache[name][l, :T] = q8
             cache[name + "_s"][l, :T] = s
-    return h
+
+    return _prefill_layers(dec_params, cfg, h[None], valid, write)[0]
+
+
+def decoder_prefill_batch(dec_params: dict, cfg: DecoderConfig,
+                          h: torch.Tensor, kv_valid_len: torch.Tensor
+                          ) -> tuple[torch.Tensor, dict]:
+    """Batched prefill: h [B, P, hidden] prompt embeddings (prompts
+    left-aligned, positions 0 .. P-1 shared), kv_valid_len [B] int32 the
+    real prompt lengths -> (hidden [B, P, hidden], rows {"k", "v"}: [L, B,
+    P, n_kv, head_dim] fresh cache rows in h's dtype, which the caller
+    quantizes into its cache)."""
+    valid = torch.as_tensor(kv_valid_len, dtype=torch.int32,
+                            device=h.device).reshape(-1)
+    ks, vs = [], []
+    h = _prefill_layers(dec_params, cfg, h, valid,
+                        lambda l, k, v: (ks.append(k), vs.append(v)))
+    return h, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
 def lm_logits(dec_params: dict, cfg: DecoderConfig, h_last: torch.Tensor) -> torch.Tensor:
     """Tied lm head on one row through the int8pc copy: [hidden] -> [vocab] f32."""
-    x = rms_norm(h_last, dec_params["output_norm"], cfg.rms_norm_eps)
-    head = dec_params["lm_head_pc"]
-    return _pc(x[None].float(), head)[0]
+    return lm_logits_block(dec_params, cfg, h_last[None])[0]
+
+
+def lm_logits_block(dec_params: dict, cfg: DecoderConfig,
+                    h: torch.Tensor) -> torch.Tensor:
+    """Tied lm head over a block of rows through the int8pc copy: [T,
+    hidden] -> [T, vocab] f32."""
+    x = rms_norm(h, dec_params["output_norm"], cfg.rms_norm_eps)
+    return _pc(x.float(), dec_params["lm_head_pc"])

@@ -12,9 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from qwen3_asr_tpu.config import HOP_LENGTH, N_FFT, ASRModelConfig
+from qwen3_asr_tpu.config import ASRModelConfig
 from qwen3_asr_tpu.text.prompt import audio_start_pos, build_asr_prompt
-from qwen3_asr_tpu_torch.audio.mel import mel_device, num_mel_frames, reflect_pad
+from qwen3_asr_tpu_torch.audio.mel import _padded_buffer, mel_device, num_mel_frames
 from qwen3_asr_tpu_torch.models.encoder import chunk_output_len, encode
 from qwen3_asr_tpu_torch.models.generate import generate_greedy
 
@@ -28,12 +28,7 @@ def expected_n_audio(n_frames: int, chunk: int = 100) -> int:
 def _pad_pcm(samples: np.ndarray) -> tuple[np.ndarray, int]:
     """Reflect-pad PCM into the fixed mel framing buffer (host)."""
     n_frames = num_mel_frames(len(samples))
-    padded = reflect_pad(samples)
-    need = (n_frames + 2) * HOP_LENGTH
-    buf = np.zeros(need, dtype=samples.dtype)
-    n_copy = min((n_frames - 1) * HOP_LENGTH + N_FFT, len(padded), need)
-    buf[:n_copy] = padded[:n_copy]
-    return buf, n_frames
+    return _padded_buffer(samples, n_frames, n_frames, samples.dtype), n_frames
 
 
 def upload(arrays: list[np.ndarray], device) -> list[torch.Tensor]:

@@ -1,7 +1,9 @@
-"""Greedy generation: the int8pc prefill, then the int4 decode step loop.
+"""Greedy generation: the int8pc prefill, then the int4 decode step loop,
+for one sequence or a batch in lockstep.
 
 Port of the megakernel branch of qwen3_asr_tpu/models/generate.py:36-178
-with an int8 KV cache. Its rules stay: the cache holds S = P + max_tokens
+with an int8 KV cache, and of `prefill_batch_mega_cache` /
+`generate_greedy_batch_mega` (:465-578), the batched path. Its rules stay: the cache holds S = P + max_tokens
 rounded up to 128 rows; the token consumed by step i sits at position
 pos = n_prompt + i - 1; the loop stops at EOS or max_tokens; n_kept counts
 the tokens before the first EOS. The loop never needs the host for a token
@@ -18,14 +20,21 @@ import torch
 
 from qwen3_asr_tpu.config import DecoderConfig
 from qwen3_asr_tpu_torch.models.decoder import (
+    _quantize_kv_rows,
     decoder_forward,
+    decoder_prefill_batch,
     embed_with_audio,
     init_kv_cache,
     lm_logits,
+    lm_logits_block,
 )
 from qwen3_asr_tpu_torch.ops.megakernel import (
     DecodeStep,
     mega_decode_step_i8_ref,
+)
+from qwen3_asr_tpu_torch.ops.megakernel_batch import (
+    BatchDecodeStep,
+    mega_decode_step_batch_ref,
 )
 
 EOS_CHECK_EVERY = 16   # decode steps between the host's reads of the tokens
@@ -39,7 +48,7 @@ def generate_greedy(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
     -> (out_tokens [max_tokens] int32 on the host, n_kept). Tokens at index
     >= n_kept are filler; EOS is not counted."""
     P = tokens.shape[0]
-    S = -(-(P + max_tokens) // 128) * 128
+    S = cache_rows(P, max_tokens)
     dev = tokens.device
     L, NKV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     cache = init_kv_cache(cfg, S, dev)
@@ -74,3 +83,86 @@ def generate_greedy(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
     host = out.cpu().numpy()
     hits = np.flatnonzero(host[:i] == eos)
     return host, int(hits[0]) if hits.size else i
+
+
+def cache_rows(P: int, max_tokens: int) -> int:
+    """Cache rows for a prompt bucket P and a token budget: P + max_tokens
+    rounded up to 128."""
+    return -(-(P + max_tokens) // 128) * 128
+
+
+def prefill_batch_mega_cache(dec_params: dict, cfg: DecoderConfig,
+                             tokens: torch.Tensor, n_prompt, audio: torch.Tensor,
+                             n_audio, audio_offset: int, S: int):
+    """Batched prefill into the batched decode step's cache layout.
+    tokens [B, P] int32 on the device (prompts left-aligned and padded to
+    P), n_prompt / n_audio host sequences of B ints, audio [B, N, hidden]
+    (the first n_audio[b] rows of item b are spliced over its audio_pad
+    rows). -> (first tokens int32 [B] on the device, k, v [B, L, S, n_kv *
+    head_dim] int8, k_s, v_s [B, L, S, n_kv] f32), rows >= P zero."""
+    B, P = tokens.shape
+    L, NKV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    n_prompt = np.asarray(n_prompt, np.int64).reshape(-1)
+    h0 = torch.stack([
+        embed_with_audio(dec_params, tokens[b], audio[b], int(n_audio[b]),
+                         audio_offset) for b in range(B)])
+    valid = torch.from_numpy(n_prompt.astype(np.int32)).to(tokens.device)
+    h, rows = decoder_prefill_batch(dec_params, cfg, h0, valid)
+    h_last = h[torch.arange(B, device=h.device), valid.long() - 1]
+    first = torch.argmax(lm_logits_block(dec_params, cfg, h_last),
+                         dim=-1).to(torch.int32)
+    out = []
+    for name in ("k", "v"):
+        q8, sc = _quantize_kv_rows(rows[name])          # [L, B, P, NKV(, D)]
+        c = torch.zeros(B, L, S, NKV * D, dtype=torch.int8, device=h.device)
+        cs = torch.zeros(B, L, S, NKV, dtype=torch.float32, device=h.device)
+        c[:, :, :P] = q8.transpose(0, 1).reshape(B, L, P, NKV * D)
+        cs[:, :, :P] = sc.transpose(0, 1)
+        out += [c, cs]
+    return first, out[0], out[2], out[1], out[3]
+
+
+def generate_greedy_batch_mega(dec_params: dict, cfg: DecoderConfig,
+                               tokens: torch.Tensor, n_prompt, audio: torch.Tensor,
+                               n_audio, audio_offset: int, max_tokens: int
+                               ) -> tuple[np.ndarray, np.ndarray]:
+    """Batched greedy generation, B <= 16 sequences in lockstep through the
+    batched decode step (the int4 weights are read once per step for the
+    batch). Arguments as in prefill_batch_mega_cache. A finished row keeps
+    stepping with its outputs frozen (zeros after its EOS) until every row
+    is done or the budget runs out; the host reads the done flags every
+    EOS_CHECK_EVERY steps. -> (out [B, max_tokens] int32, n_kept [B]) on
+    the host."""
+    B, P = tokens.shape
+    dev = tokens.device
+    S = cache_rows(P, max_tokens)
+    n_prompt = np.asarray(n_prompt, np.int64).reshape(-1)
+    first, k, v, ks, vs = prefill_batch_mega_cache(
+        dec_params, cfg, tokens, n_prompt, audio, n_audio, audio_offset, S)
+    eos = cfg.eos_token_id
+    out = torch.zeros(B, max_tokens, dtype=torch.int32, device=dev)
+    out[:, 0] = first
+    done = first == eos
+    nk = (~done).to(torch.int32)
+    cur = first
+    pack = dec_params["mega"]
+    n_prompt_d = torch.from_numpy(n_prompt.astype(np.int32)).to(dev)
+    if dev.type == "cuda":
+        step = BatchDecodeStep(pack, cfg, k, v, ks, vs)
+        nxt = torch.empty(B, dtype=torch.int32, device=dev)
+    for i in range(1, max_tokens):
+        if (i - 1) % EOS_CHECK_EVERY == 0 and bool(done.all()):
+            break
+        pos = n_prompt + i - 1
+        if dev.type == "cuda":
+            step(cur, n_prompt_d + (i - 1), nxt, (int(pos.min()), int(pos.max())))
+            new = nxt
+        else:
+            new = mega_decode_step_batch_ref(pack, cfg, cur, pos, k, v, ks, vs)[0]
+        new = torch.where(done, cur, new)
+        out[:, i] = torch.where(done, out[:, i], new)
+        hit = new == eos
+        nk = torch.where(done, nk, torch.where(hit, i, i + 1).to(torch.int32))
+        done = done | hit
+        cur = new
+    return out.cpu().numpy(), nk.cpu().numpy()

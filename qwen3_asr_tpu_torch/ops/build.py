@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels (`csrc/*.cu`) into one shared library.
 
 The sources are compiled at first use with `nvcc` for `sm_90a` (plain C
-entry points, no PyTorch headers) into `build/torch_kernels/` at the root of
-the checkout, under a name keyed by a hash of the sources and flags, and
-loaded with `ctypes`. Nothing here runs at import time: the CPU tests import
+entry points, no PyTorch headers), one `nvcc` process per source, all
+started together, and linked into `build/torch_kernels/` at the root of the
+checkout under a name keyed by a hash of the sources and flags, then loaded
+with `ctypes`. Nothing here runs at import time: the CPU tests import
 every module on a machine with no `nvcc`.
 """
 
@@ -21,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -60,15 +61,27 @@ def library() -> ctypes.CDLL:
             nvcc = _nvcc()
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             t0 = time.perf_counter()
+            tag = f"{so.stem}.tmp{os.getpid()}"
+            cus = sorted(CSRC.glob("*.cu"))
+            objs = [BUILD_DIR / f"{tag}.{cu.stem}.o" for cu in cus]
+            cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o),
+                     str(cu)] for cu, o in zip(cus, objs)]
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for c in cmds]
+            outs = [p.communicate()[0] for p in procs]
             tmp = so.with_suffix(f".tmp{os.getpid()}")
-            cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cu]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            (BUILD_DIR / "nvcc.log").write_text(
-                " ".join(cmd) + "\n" + res.stdout + res.stderr)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                                   f"{res.stderr[-4000:]}")
+            link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+            res = None
+            if all(p.returncode == 0 for p in procs):
+                res = subprocess.run(link, capture_output=True, text=True)
+                outs.append(res.stdout + res.stderr)
+            (BUILD_DIR / "nvcc.log").write_text("\n".join(
+                " ".join(c) + "\n" + o for c, o in zip(cmds + [link], outs)))
+            for o in objs:
+                o.unlink(missing_ok=True)
+            if res is None or res.returncode != 0:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(outs)[-4000:])
             os.replace(tmp, so)
             build_seconds = time.perf_counter() - t0
         _lib = ctypes.CDLL(str(so))

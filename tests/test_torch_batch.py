@@ -1,0 +1,311 @@
+"""The port's batched path vs the JAX package at the tiny config: the
+bucketed batched mel and encoder, the batched prefill, the batched prefill
+into the batched step's caches, the lockstep batched greedy loop, and
+`transcribe_batch`.
+
+Tolerances, each with its reason:
+- mel: atol 1e-4 (the same f32 DFT and filterbank products, summed in
+  another order);
+- encoder, f32 weights: rtol 1e-4, atol 1e-4 as tests/test_torch_encoder.py
+  (the port's attention is the flash kernel's plain version, the JAX CPU
+  path masked XLA attention: the same f32 softmax in another order);
+- prefill, bf16: hidden states relative L2 < 1e-2 on the prompt rows,
+  layer 0's fresh rows bit-equal and the first greedy token equal, as
+  tests/test_torch_decoder.py (XLA's excess precision moves later layers'
+  last bits);
+- caches: the first token equal; layer 0's codes within one step on at most
+  1% of entries and its scales at rtol 1e-2; every layer's dequantized rows
+  relative L2 < 1e-2; rows past the prompt bucket zero;
+- greedy tokens, n_kept and transcripts: equal (the JAX batched megakernel
+  in interpret mode).
+
+The prefill and cache tests use the JAX package's own init, as
+tests/test_torch_decoder.py does. Under that init the token embedding
+decides every greedy token (each row repeats its last prompt token), so
+the token tests draw the decoder's matrices GAIN times wider. There the
+JAX CPU program's excess precision moves the prefill's hidden states by
+~2% relative L2, and on some draws a near tie (a logit gap under 0.2)
+flips a token; seed 7 has none on these inputs, and its tokens are held
+equal.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qwen3_asr_tpu.audio import mel as jmel
+from qwen3_asr_tpu.config import tiny_asr_config
+from qwen3_asr_tpu.models import decoder as jdec
+from qwen3_asr_tpu.models import encoder as jenc
+from qwen3_asr_tpu.models import generate as jgen
+from qwen3_asr_tpu.pipeline import asr as jasr_mod
+from qwen3_asr_tpu.parallel.mesh import batched_transcribe_step
+from qwen3_asr_tpu.runtime.params import init_encoder_params
+from qwen3_asr_tpu.text.prompt import audio_start_pos, build_asr_prompt
+from qwen3_asr_tpu_torch.audio import mel as tmel
+from qwen3_asr_tpu_torch.models import decoder as tdec
+from qwen3_asr_tpu_torch.models import encoder as tenc
+from qwen3_asr_tpu_torch.models import generate as tgen
+from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams
+from qwen3_asr_tpu_torch.runtime.params import from_jax_params, to_torch
+
+from helpers import make_byte_vocab
+
+MAX_TOKENS = 8
+BUCKET = 200   # mel frames (2 s)
+GAIN = 3
+
+
+def pcm(seconds, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000
+    a = 0.3 * np.sin(2 * np.pi * (220 + 110 * seed) * t) + 0.05 * rng.standard_normal(t.shape)
+    return (a * 32768.0).clip(-32768, 32767).astype(np.int16)
+
+
+AUDIO = [pcm(1.0, 0), pcm(2.5, 1), pcm(0.7, 2)]
+
+
+def jax_and_port(seed=7, gain=1):
+    """(JAX Qwen3ASR with int4 decode weights and the int8 KV cache, the
+    port's Qwen3ASR holding the same weights), on the CPU. The decoder's
+    matrices are drawn `gain` times wider than the package's init, so the
+    layers, not the token embedding, decide the greedy tokens."""
+    from qwen3_asr_tpu.audio import generate_mel_filters
+    from qwen3_asr_tpu.ops.megakernel import pack_megakernel_params
+    from qwen3_asr_tpu.pipeline.asr import Qwen3ASR as JaxASR
+    from qwen3_asr_tpu.runtime import params as jparams
+    from qwen3_asr_tpu.text.bpe import BPETokenizer
+
+    cfg = tiny_asr_config()
+    p = jax.tree.map(np.asarray, jparams.init_asr_params(cfg, seed, jnp.bfloat16))
+    lay = p["decoder"]["layers"]
+    for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        lay[k] = (lay[k].astype(np.float32) * gain).astype(lay[k].dtype)
+    p["decoder"] = jax.tree.map(np.asarray, jparams.fuse_decoder_params(
+        jparams.quantize_decoder_params(p["decoder"], "int8pc")))
+    j = JaxASR(dtype=jnp.bfloat16, quantize="int4", kv_int8=True)
+    j.cfg, j.mel_filters = cfg, generate_mel_filters()
+    j.tokenizer = BPETokenizer(make_byte_vocab(cfg.decoder.vocab_size, {}), [])
+    j.params = jax.tree.map(jnp.asarray, p)
+    j.params["decoder"]["mega"] = pack_megakernel_params(
+        j.params["decoder"], cfg.decoder, int4=True)
+    t = Qwen3ASR(device="cpu")
+    t.cfg, t.params, t.tokenizer = cfg, from_jax_params(p, cfg), j.tokenizer
+    t.filters_t = tmel.filters_t(tmel.generate_mel_filters(), "cpu")
+    return j, t
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return jax_and_port()
+
+
+@pytest.fixture(scope="module")
+def wide():
+    return jax_and_port(gain=GAIN)
+
+
+def test_mel_padded_batch_matches_jax():
+    filters = tmel.generate_mel_filters()
+    want, nf_j = jmel.log_mel_spectrogram_padded_batch(AUDIO, filters, BUCKET)
+    got, nf_t = tmel.log_mel_spectrogram_padded_batch(
+        AUDIO, tmel.filters_t(filters, "cpu"), BUCKET)
+    assert nf_t == nf_j and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
+    for b, n in enumerate(nf_t):   # frames past the true count are exactly 0
+        assert not got[b, :, n:].any()
+    one, n1 = tmel.log_mel_spectrogram_padded(AUDIO[1], tmel.filters_t(filters, "cpu"),
+                                              BUCKET)
+    w1, m1 = jmel.log_mel_spectrogram_padded(AUDIO[1], filters, BUCKET)
+    assert n1 == m1
+    np.testing.assert_allclose(one.numpy(), np.asarray(w1), atol=1e-4, rtol=0)
+
+
+def test_encoder_padded_batch_matches_jax():
+    cfg = tiny_asr_config().encoder
+    p = jax.tree.map(np.asarray,
+                     init_encoder_params(cfg, jax.random.PRNGKey(5), jnp.float32))
+    rng = np.random.default_rng(5)
+    for k in ("bq", "bk", "bv", "bo", "b_up", "b_down"):
+        p["layers"][k] = (0.02 * rng.standard_normal(p["layers"][k].shape)
+                          ).astype(np.float32)
+    tp = jax.tree.map(lambda a: to_torch(a), p)
+    mel_b, n_frames = jmel.log_mel_spectrogram_padded_batch(
+        AUDIO, tmel.generate_mel_filters(), BUCKET)
+    want, na_j = jenc.encode_audio_padded_batch(p, cfg, mel_b, n_frames)
+    got, na_t = tenc.encode_audio_padded_batch(
+        tp, cfg, torch.from_numpy(np.asarray(mel_b)), n_frames)
+    assert na_t == na_j and got.shape == want.shape
+    for b, n in enumerate(na_t):
+        np.testing.assert_allclose(got[b, :n].numpy(), np.asarray(want)[b, :n],
+                                   rtol=1e-4, atol=1e-4)
+    # one utterance through the bucketed encoder = its exact-shape encode
+    one, n1 = tenc.encode_audio_padded(tp, cfg, torch.from_numpy(np.asarray(mel_b[1])),
+                                       n_frames[1])
+    exact = tenc.encode(tp, cfg, torch.from_numpy(np.asarray(mel_b[1]))[:, :n_frames[1]],
+                        n_frames[1])
+    np.testing.assert_allclose(one[:n1].numpy(), exact.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def _prompts(dcfg):
+    """Three left-aligned prompts of a 48-row bucket with spliced audio."""
+    B, P, off = 3, 48, 9
+    n_prompt = np.array([40, 25, 48])
+    n_audio = np.array([20, 10, 30])
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, dcfg.vocab_size - 10, (B, P)).astype(np.int32)
+    audio = (rng.standard_normal((B, 32, dcfg.hidden_size)) * 0.05).astype(np.float32)
+    return toks, n_prompt, n_audio, audio, off
+
+
+def _embed_jax(jd, toks, audio, n_audio, off):
+    return jnp.stack([jdec.embed_with_audio(jd, jnp.asarray(t),
+                                            jnp.asarray(a, jnp.bfloat16), int(n), off)
+                      for t, a, n in zip(toks, audio, n_audio)])
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+
+def test_decoder_prefill_batch_matches_jax(pair):
+    j, t = pair
+    dcfg = j.cfg.decoder
+    toks, n_prompt, n_audio, audio, off = _prompts(dcfg)
+    h0 = _embed_jax(j.params["decoder"], toks, audio, n_audio, off)
+    hj, rows_j = jdec.decoder_prefill_batch(
+        j.params["decoder"], dcfg, h0, jnp.arange(toks.shape[1], dtype=jnp.int32),
+        jnp.asarray(n_prompt, jnp.int32))
+    ht, rows_t = tdec.decoder_prefill_batch(
+        t.params["decoder"], dcfg, torch.from_numpy(np.asarray(h0, np.float32)).to(
+            torch.bfloat16), torch.from_numpy(n_prompt.astype(np.int32)))
+    for b, n in enumerate(n_prompt):
+        assert _rel(ht[b, :n].float(), hj[b, :n]) < 1e-2, b
+        for name in ("k", "v"):
+            got, want = rows_t[name][:, b, :n].float().numpy(), rows_j[name][:, b, :n]
+            np.testing.assert_array_equal(got[0], np.asarray(want[0], np.float32))
+            assert _rel(got, want) < 1e-2, (b, name)
+    last = n_prompt - 1
+    lj = jdec.lm_logits_block(j.params["decoder"], dcfg, hj[np.arange(3), last])
+    lt = tdec.lm_logits_block(t.params["decoder"], dcfg, ht[np.arange(3), last])
+    np.testing.assert_array_equal(lt.argmax(-1).numpy(), np.asarray(lj).argmax(-1))
+
+
+def test_prefill_batch_mega_cache_matches_jax(pair):
+    j, t = pair
+    dcfg = j.cfg.decoder
+    toks, n_prompt, n_audio, audio, off = _prompts(dcfg)
+    S = 128
+    fj, kj, vj, ksj, vsj = jgen.prefill_batch_mega_cache(
+        j.params["decoder"], dcfg, jnp.asarray(toks), jnp.asarray(n_prompt, jnp.int32),
+        jnp.asarray(audio, jnp.bfloat16), jnp.asarray(n_audio, jnp.int32), off, S)
+    ft, kt, vt, kst, vst = tgen.prefill_batch_mega_cache(
+        t.params["decoder"], dcfg, torch.from_numpy(toks), n_prompt,
+        torch.from_numpy(audio).to(torch.bfloat16), n_audio, off, S)
+    np.testing.assert_array_equal(ft.numpy(), np.asarray(fj))
+    P = toks.shape[1]
+    for q_t, s_t, q_j, s_j in ((kt, kst, kj, ksj), (vt, vst, vj, vsj)):
+        s_j = np.asarray(s_j).transpose(0, 1, 3, 2)        # [B, L, S, NKV]
+        q_j = np.asarray(q_j)
+        assert not q_t[:, :, P:].any() and not s_t[:, :, P:].any()
+        for b, n in enumerate(n_prompt):
+            d = np.abs(q_t[b, 0, :n].numpy().astype(int) - q_j[b, 0, :n].astype(int))
+            assert d.max() <= 1 and (d > 0).mean() <= 0.01, b
+            np.testing.assert_allclose(s_t[b, 0, :n].numpy(), s_j[b, 0, :n], rtol=1e-2)
+            NKV = dcfg.n_kv_heads
+            deq_t = (q_t[b, :, :n].float().reshape(dcfg.n_layers, n, NKV, -1)
+                     * s_t[b, :, :n, :, None]).numpy()
+            deq_j = (q_j[b, :, :n].astype(np.float32).reshape(dcfg.n_layers, n, NKV, -1)
+                     * s_j[b, :, :n, :, None])
+            assert _rel(deq_t, deq_j) < 1e-2, b
+
+
+def _greedy_jax(j, dcfg, toks, n_prompt, audio, n_audio, off):
+    out, nk = jgen.generate_greedy_batch_mega(
+        j.params["decoder"], dcfg, jnp.asarray(toks), jnp.asarray(n_prompt, jnp.int32),
+        jnp.asarray(audio, jnp.bfloat16), jnp.asarray(n_audio, jnp.int32), off,
+        MAX_TOKENS, interpret=True)
+    return np.asarray(out), np.asarray(nk)
+
+
+def test_generate_greedy_batch_mega_matches_jax(wide):
+    """Tokens and n_kept equal, free-running and then with an EOS that stops
+    each row at its own step."""
+    j, t = wide
+    dcfg = dataclasses.replace(j.cfg.decoder, eos_token_id=-1)
+    toks, n_prompt, n_audio, audio, off = _prompts(dcfg)
+    args = (torch.from_numpy(toks), n_prompt, torch.from_numpy(audio).to(torch.bfloat16),
+            n_audio, off, MAX_TOKENS)
+    out_t, nk_t = tgen.generate_greedy_batch_mega(t.params["decoder"], dcfg, *args)
+    out_j, nk_j = _greedy_jax(j, dcfg, toks, n_prompt, audio, n_audio, off)
+    np.testing.assert_array_equal(out_t, out_j)
+    np.testing.assert_array_equal(nk_t, nk_j)
+    assert (nk_t == MAX_TOKENS).all()
+
+    # an EOS that the rows first emit at different steps, none at step 0
+    def first(e):
+        return [int(np.flatnonzero(r == e)[0]) if (r == e).any() else MAX_TOKENS
+                for r in out_t]
+
+    eos = next(int(e) for e in out_t[0, 1:]
+               if min(first(e)) >= 1 and len(set(first(e))) > 1)
+    want_nk = first(eos)
+    dcfg = dataclasses.replace(dcfg, eos_token_id=eos)
+    out_t, nk_t = tgen.generate_greedy_batch_mega(t.params["decoder"], dcfg, *args)
+    out_j, nk_j = _greedy_jax(j, dcfg, toks, n_prompt, audio, n_audio, off)
+    np.testing.assert_array_equal(out_t, out_j)
+    np.testing.assert_array_equal(nk_t, nk_j)
+    assert nk_t.tolist() == want_nk
+    for b, n in enumerate(want_nk):     # the EOS, then frozen (zero) outputs
+        if n < MAX_TOKENS:
+            assert out_t[b, n] == eos and not out_t[b, n + 1:].any()
+
+
+def _jax_transcribe_batch(j, audios, mel_bucket):
+    """The JAX package's transcribe_batch with the batched megakernel in
+    interpret mode (its CPU default is the vmapped XLA step)."""
+    dcfg = j.cfg.decoder
+    feats = jasr_mod.frontend_feats_batch(j, audios, mel_bucket)
+    prompts = [build_asr_prompt(f[1], dcfg) for f in feats]
+    P = -(-max(len(p) for p in prompts) // 128) * 128
+    B = len(audios)
+    toks = np.full((B, P), dcfg.pad_token_id, np.int32)
+    for b, p in enumerate(prompts):
+        toks[b, :len(p)] = p
+    cap = max(int(f[0].shape[0]) for f in feats)
+    audio = jnp.zeros((B, cap, dcfg.hidden_size), jnp.bfloat16)
+    for b, f in enumerate(feats):
+        audio = audio.at[b, :f[0].shape[0]].set(f[0].astype(jnp.bfloat16))
+    out, nk = batched_transcribe_step(
+        j.params["decoder"], dcfg, jnp.asarray(toks),
+        jnp.asarray([len(p) for p in prompts], jnp.int32), audio,
+        jnp.asarray([f[1] for f in feats], jnp.int32),
+        audio_start_pos(prompts[0], dcfg), MAX_TOKENS, cache_dtype=jnp.int8,
+        _mega_interpret=True)
+    out, nk = np.asarray(out), np.asarray(nk)
+    return [[int(x) for x in out[b, :nk[b]]] for b in range(B)]
+
+
+@pytest.mark.parametrize("mel_bucket", [BUCKET, 0])
+def test_transcribe_batch_matches_jax(wide, mel_bucket):
+    j, t = wide
+    want = _jax_transcribe_batch(j, AUDIO, mel_bucket)
+    res = t.transcribe_batch(AUDIO, TranscribeParams(max_tokens=MAX_TOKENS,
+                                                     mel_bucket=mel_bucket))
+    assert all(r.success for r in res)
+    assert [r.tokens for r in res] == want
+    assert len({tuple(w) for w in want}) > 1   # the rows differ
+
+
+def test_transcribe_batch_reports_bad_inputs(pair, tmp_path):
+    _, t = pair
+    res = t.transcribe_batch([str(tmp_path / "missing.wav"), AUDIO[0]],
+                             TranscribeParams(max_tokens=4, mel_bucket=BUCKET))
+    assert not res[0].success and "Failed to load audio" in res[0].error_msg
+    assert res[1].success and len(res[1].tokens) <= 4

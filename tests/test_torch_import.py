@@ -41,6 +41,7 @@ def test_every_module_imports():
 @pytest.mark.parametrize("src,replaces", [
     ("flash_attention.cu", "pallas_attention.py::_flash_kernel"),
     ("megakernel.cu", "megakernel.py::_mega_kernel"),
+    ("megakernel_batch.cu", "megakernel_batch.py::_mega_batch_kernel"),
 ])
 def test_kernel_sources_are_hand_written_cuda(src, replaces):
     text = (PKG / "csrc" / src).read_text()
@@ -64,19 +65,25 @@ def test_build_hash_tracks_sources():
     h = build.source_hash()
     assert h == build.source_hash() and len(h) == 16
     names = {p.name for p in build._sources()}
-    assert {"flash_attention.cu", "megakernel.cu", "probe.cu"} <= names
+    assert {"flash_attention.cu", "megakernel.cu", "megakernel.cuh",
+            "megakernel_batch.cu", "probe.cu"} <= names
 
 
 def test_non_cpu_tensor_never_reaches_a_twin():
     """A tensor off the CPU launches the kernel or raises: the meta device
     has no kernel, so the wrappers must raise rather than run the twin."""
     from qwen3_asr_tpu_torch.ops.flash_attention import flash_attention_batch
+    from qwen3_asr_tpu_torch.ops.megakernel_batch import mega_decode_step_batch
     from qwen3_asr_tpu_torch.ops.support import has_cuda_kernels, require_cuda
 
     q = torch.empty(1, 8, 2, 64, device="meta", dtype=torch.bfloat16)
     with pytest.raises(RuntimeError, match="CUDA"):
         flash_attention_batch(q, q[:, :, :1], q[:, :, :1], [8], causal=True,
                               scale=0.125)
+    k = torch.empty(2, 1, 8, 16, device="meta", dtype=torch.int8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mega_decode_step_batch({}, None, torch.zeros(2, dtype=torch.int32), [1, 2],
+                               k, k, k.float(), k.float())
     with pytest.raises(RuntimeError):
         require_cuda(torch.zeros(1), "x")
     if not torch.cuda.is_available():
