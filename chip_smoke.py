@@ -5,24 +5,33 @@
 Builds the port's CUDA kernels from `qwen3_asr_tpu_torch/csrc` (into
 `build/torch_kernels/`) and holds each kernel against its plain PyTorch
 twin at the shapes of the main paths: flash attention (K2) single and
-batched, the decode step (K1), and the batched decode step (K3), which must
-equal K1 run on each row's slab bit for bit. Then, at the full
-Qwen3-ASR-0.6B width with seeded random weights (int4 decode weights, int8
-KV cache, EOS disabled), it drives three paths, each with the launch counts
+batched (timed beside `scaled_dot_product_attention` at the same shapes),
+the decode step (K1), the batched decode step (K3), which must equal K1 run
+on each row's slab bit for bit, the Q8_0 products K5 / K6 / K7 at the decode
+step's T = 1 and a 5 s prompt's T, and the decode attention K4 with a bf16
+and an int8 cache. Then, at the full Qwen3-ASR-0.6B width with seeded random
+weights (EOS disabled), it drives four paths, each with the launch counts
 set to 0 just before it and read just after:
 
-1. `Qwen3ASR.transcribe` on three int16 requests of 5 s, 30 s and 92 s;
-2. the continuous-batching engine on 8 requests admitted in two groups of
+1. `Qwen3ASR(quantize="int4", kv_cache="int8").transcribe` on three int16
+   requests of 5 s, 30 s and 92 s;
+2. the per-layer decode step: `Qwen3ASR(quantize="q8_0")` with a bf16 cache
+   (5 s and 92 s) and an int8 cache (5 s), and `Qwen3ASR(quantize=False)`
+   (dense bf16 weights, bf16 cache, 5 s), each request a window of its own,
+   after each layer of the q8_0 step has been held against the twins on the
+   twins' input;
+3. the continuous-batching engine on 8 requests admitted in two groups of
    4 (the second mid-flight), whose tokens must equal `transcribe_batch`'s
    on the same groups (that closed-batch reference is a window of its own,
    its counts reset before it and checked after it);
-3. `ASRServer` in continuous mode behind the HTTP front end: 4 concurrent
+4. `ASRServer` in continuous mode behind the HTTP front end: 4 concurrent
    `/v1/transcribe` requests, one SSE `/v1/audio/transcriptions` request
    and `/healthz`.
 
-It checks that every parameter and cache tensor of path 1 is on the GPU,
-that each kernel of a path ran there (launch counts), and that tokens agree
-with the twins' on a 5 s request of paths 1 and 2.
+It checks that every parameter and cache tensor of paths 1 and 2 is on the
+GPU, that each kernel of a path ran there (launch counts against a formula
+from the code), and that tokens agree with the twins' on a 5 s request of
+paths 1, 2 (q8_0 and dense) and 3.
 
 Output: diagnostic lines, then one JSON line with the kernels' errors and
 times, then, as the last line, {"ok": true, "device": {...}}. Exits non-zero
@@ -63,6 +72,40 @@ MEGA_LAYER_REL = 1e-2
 FLOOR_STEPS = 3         # steps on which the twin also runs on the CPU
 REQUESTS = ((5, 64), (30, 128), (92, 323))   # (seconds, max_tokens)
 MEGA_BATCH_S, MEGA_BATCH_STEPS = 1664, 16   # K3 phase: pool context, steps vs K1
+# the per-layer decode path: (quantize, kv_cache, seconds, max_tokens)
+SLICE_REQUESTS = (("q8_0", "bf16", 5, 64), ("q8_0", "bf16", 92, 323),
+                  ("q8_0", "int8", 5, 64), (False, "bf16", 5, 64))
+# Q8_0 kernels vs twin. f32 dequant: the same f32 products summed in another
+# order, rel L2 <= Q8_F32_REL. bf16 dequant: a normed activation can round to
+# the other bf16 neighbour, rel L2 <= Q8_BF16_REL and |err| <= Q8_BF16_ATOL x
+# the output's largest magnitude.
+Q8_F32_REL, Q8_BF16_REL, Q8_BF16_ATOL = 1e-5, 1e-4, 1e-3
+# Decode attention vs twin: the same f32 math in another order, |err| <=
+# DA_ATOL x scale + DA_RTOL x |ref| elementwise.
+DA_RTOL, DA_ATOL = 1e-4, 1e-5
+# One layer of the q8_0 decode step on the twin's input: h and the fresh K/V
+# rows rel L2 <= Q8_LAYER_REL (a bf16 rounding of qkv or of the attention
+# row that lands on the other side moves the layer's output by ~1e-3; one
+# live cache row dropped by K4 moves it by ~3e-2).
+Q8_LAYER_REL = 5e-3
+# Peaks of an H100 SXM (NVIDIA's data sheet) for the bounds: HBM bytes/s,
+# bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
+HBM_BPS, BF16_FLOPS, F32_FLOPS, INT8_OPS = 3.35e12, 989e12, 67e12, 1979e12
+WEIGHT_KEYS = ("qkv_q", "qkv_s", "wo_q", "wo_s", "gu_q", "gu_s", "wd_q", "wd_s",
+               "head_q", "head_s")
+
+
+def int4_step_bound(pack, dcfg, positions) -> tuple[float, str]:
+    """K1 / K3 step: the int4 weights and scales once, each row's live int8
+    cache (K and V rows < pos and their scales, all layers) and its fresh row;
+    2 operations per weight and 4 D per (head, cached row) per row."""
+    L, NH, NKV, D = dcfg.n_layers, dcfg.n_heads, dcfg.n_kv_heads, dcfg.head_dim
+    w_bytes = sum(pack[k].numel() * pack[k].element_size() for k in WEIGHT_KEYS)
+    n_w = sum(2 * pack[k].numel() for k in WEIGHT_KEYS if k.endswith("_q"))
+    row = L * (2 * NKV * D + 2 * NKV * 4)
+    nbytes = w_bytes + sum((p + 1) * row for p in positions)
+    ops = 2.0 * n_w * len(positions) + sum(4.0 * L * NH * D * p for p in positions)
+    return bound(nbytes, ops, INT8_OPS)
 
 
 def log(*a):
@@ -70,7 +113,8 @@ def log(*a):
 
 
 def cuda_ms(fn, n: int, warmup: int = 2) -> float:
-    """Mean device milliseconds of fn() over n runs (CUDA events)."""
+    """Mean milliseconds of fn() over n runs between CUDA events (for a
+    kernel shorter than its launch from Python this is the host's cost)."""
     import torch
 
     for _ in range(warmup):
@@ -83,6 +127,32 @@ def cuda_ms(fn, n: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def graph_ms(fn, per_graph: int = 20, reps: int = 5) -> float:
+    """Mean device milliseconds of one fn() with the host's launch cost taken
+    out: fn() is captured per_graph times back to back in one CUDA graph,
+    which is replayed reps times between CUDA events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * per_graph)
 
 
 def pcm(seconds: float, seed: int = 0):
@@ -121,14 +191,37 @@ def phase_flash(causal: bool, T: int, NH: int, NKV: int, D: int, valid):
                                                   scale=scale), 20)
     plain = cuda_ms(lambda: fa.flash_attention_ref(q, k, v, vl, causal=causal,
                                                    scale=scale), 5)
+    # the library yardstick: one scaled_dot_product_attention call with the
+    # same mask (causal and keys < valid[b]) on the same inputs, GQA native
+    col = torch.arange(T, device="cuda")
+    mask = col[None, None, None, :] < vl[:, None, None, None]
+    if causal:
+        mask = mask & (col[None, :] <= col[:, None])[None, None]
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
+
+    lib_err = float((sdpa().transpose(1, 2).float() - ref.float()).abs().max())
+    lib = cuda_ms(sdpa, 20)
+    # work this run's data needs: (query, key) pairs under the mask, 4 D
+    # FLOP each per head (scores and the weighted sum); q, k, v and the
+    # output once each, bf16
+    pairs = sum(min(t + 1, n) if causal else n for n in valid for t in range(T))
+    ops = 4.0 * D * NH * pairs
+    nbytes = 2.0 * B * T * D * (2 * NH + 2 * NKV)
+    b_ms, b_by = bound(nbytes, ops, BF16_FLOPS)
     name = "causal" if causal else "bidirectional"
     log(f"phase flash {name} B={B} T={T} NH={NH} NKV={NKV} D={D} valid={valid}: "
         f"max_abs_err={err:.3e} worst |err| / (atol + rtol |ref|) "
-        f"{ratio:.4f}; kernel {ms:.4f} ms, twin {plain:.4f} ms")
+        f"{ratio:.4f}; kernel {ms:.4f} ms, twin {plain:.4f} ms, sdpa {lib:.4f} ms "
+        f"(max_abs_err vs twin {lib_err:.3e}); bound {b_ms:.4f} ms ({b_by}: "
+        f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
     if not ratio <= 1.0:
         raise AssertionError(f"flash {name}: |err| exceeds {FLASH_ATOL} + "
                              f"{FLASH_RTOL} |ref| ({ratio:.3f}x)")
-    return err, ms, plain
+    return err, ms, plain, lib, b_ms, b_by
 
 
 def _rel(a, b) -> float:
@@ -237,7 +330,9 @@ def phase_mega(cfg, dec):
     if not max(layer_rels) <= MEGA_LAYER_REL:
         raise AssertionError(f"one-layer h rel_l2 {max(layer_rels)} > "
                              f"{MEGA_LAYER_REL}")
-    return max_err, ms, plain
+    b_ms, b_by = int4_step_bound(pack, dcfg, [pos0 + steps])
+    log(f"  K1 bound at pos {pos0 + steps}: {b_ms:.4f} ms ({b_by})")
+    return max_err, ms, plain, b_ms, b_by
 
 
 LAYER_LEAVES = ("qkv_q", "qkv_s", "wo_q", "wo_s", "gu_q", "gu_s", "wd_q",
@@ -393,34 +488,36 @@ def phase_mega_batch(dcfg, pack):
     single = cuda_ms(lambda: k1[B // 2](toks[:1], pos0[B // 2] + base + 4, one), 20)
     plain = cuda_ms(lambda: mb.mega_decode_step_batch_ref(
         pack, dcfg, toks, [p + base + 4 for p in pos0], *ref), 1, warmup=1)
+    b_ms, b_by = int4_step_bound(pack, dcfg, [min(p, pos_end) for p in _spread(B)])
     log(f"phase K3 times (ms/step): " + ", ".join(
         f"B={nb} {t:.4f}" for nb, t in times.items())
         + f"; K1 {single:.4f} (B x K1 at B=8: {8 * single:.4f}); "
-        f"plain at B=8 {plain:.4f}")
-    return max_err, times[8], plain, times, single
+        f"plain at B=8 {plain:.4f}; bound at B=8 {b_ms:.4f} ms ({b_by})")
+    return max_err, times[8], plain, b_ms, b_by
 
 
 def check_tokens_vs_twins(asr, samples, tokens, mel_bucket: int = 0):
     """The kernel path's tokens on one request vs the twins, teacher-forced
     on those tokens: each is the twin's argmax or within NEAR_TIE_TOL.
     mel_bucket > 0: the frontend is the bucketed batched one (the serving
-    path), with the flash kernel's plain version in its encoder too."""
+    path), with the flash kernel's plain version in its encoder too. A tree
+    without the int4 pack runs the per-layer decode step with the twins of
+    K4-K7."""
     import numpy as np
     import torch
 
-    from qwen3_asr_tpu.text.prompt import audio_start_pos, build_asr_prompt
     from qwen3_asr_tpu_torch.audio.mel import mel_device
     from qwen3_asr_tpu_torch.models import decoder as dmod
     from qwen3_asr_tpu_torch.models import encoder as emod
     from qwen3_asr_tpu_torch.models.e2e import _pad_pcm
-    from qwen3_asr_tpu_torch.ops import flash_attention as fa
+    from qwen3_asr_tpu_torch.models.generate import decode_token
     from qwen3_asr_tpu_torch.ops import megakernel as mk
     from qwen3_asr_tpu_torch.pipeline.asr import frontend_feats_batch
+    from qwen3_asr_tpu_torch.text.prompt import audio_start_pos, build_asr_prompt
 
     cfg, dcfg, dec = asr.cfg, asr.cfg.decoder, asr.params["decoder"]
-    kernel_flash = dmod.flash_attention_batch
-    dmod.flash_attention_batch = emod.flash_attention_batch = fa.flash_attention_ref
-    try:
+    mega = "mega" in dec
+    with twins():
         if mel_bucket:
             feats, n_audio = frontend_feats_batch(asr, [samples], mel_bucket)[0]
         else:
@@ -431,30 +528,296 @@ def check_tokens_vs_twins(asr, samples, tokens, mel_bucket: int = 0):
         prompt = build_asr_prompt(n_audio, dcfg)
         off, P = audio_start_pos(prompt, dcfg), len(prompt)
         S = -(-(P + len(tokens)) // 128) * 128
-        cache = dmod.init_kv_cache(dcfg, S, "cuda")
+        cache = dmod.init_kv_cache(dcfg, S, "cuda", asr.cache_dtype)
         h0 = dmod.embed_with_audio(dec, torch.tensor(prompt, device="cuda"), feats,
                                    n_audio, off)
         h = dmod.decoder_forward(dec, dcfg, h0, cache, P)
-    finally:
-        dmod.flash_attention_batch = emod.flash_attention_batch = kernel_flash
-    logits = [dmod.lm_logits(dec, dcfg, h[P - 1])]
-    L, DKV = dcfg.n_layers, dcfg.n_kv_heads * dcfg.head_dim
-    k3, v3 = cache["k"].view(L, S, DKV), cache["v"].view(L, S, DKV)
-    for i in range(1, len(tokens)):
-        t = torch.tensor([tokens[i - 1]], dtype=torch.int32, device="cuda")
-        logits.append(mk.mega_decode_step_i8_ref(
-            dec["mega"], dcfg, t, P + i - 1, k3, v3, cache["k_s"],
-            cache["v_s"], return_logits=True)[2])
+        logits = [dmod.lm_logits(dec, dcfg, h[P - 1])]
+        L, DKV = dcfg.n_layers, dcfg.n_kv_heads * dcfg.head_dim
+        for i in range(1, len(tokens)):
+            pos = P + i - 1
+            t = torch.tensor([tokens[i - 1], 0], dtype=torch.int32, device="cuda")
+            if mega:
+                logits.append(mk.mega_decode_step_i8_ref(
+                    dec["mega"], dcfg, t[:1], pos, cache["k"].view(L, S, DKV),
+                    cache["v"].view(L, S, DKV), cache["k_s"], cache["v_s"],
+                    return_logits=True)[2])
+            else:
+                logits.append(decode_token(dec, dcfg, cache, t, 1, pos))
     gaps = []
     for lg, tok in zip(logits, tokens):
         best = int(torch.argmax(lg))
         gaps.append(float(lg[best] - lg[tok]))
     agree = sum(g == 0.0 for g in gaps)
-    log(f"main path vs twins ({len(samples) / 16000:.0f} s request, "
-        f"{len(tokens)} tokens): {agree} argmax-equal, worst gap "
-        f"{max(gaps):.4f}")
+    log(f"{'int4' if mega else asr.quantize or 'dense'} path vs twins "
+        f"({len(samples) / 16000:.0f} s request, {len(tokens)} tokens): {agree} "
+        f"argmax-equal, worst gap {max(gaps):.4f}")
     if max(gaps) > NEAR_TIE_TOL or not np.isfinite(gaps).all():
         raise AssertionError("main-path tokens disagree with the twins")
+
+
+def prompt_rows(seconds: float) -> int:
+    """Rows of the exact-length prompt of a request (the fused path's P)."""
+    from qwen3_asr_tpu_torch.audio.mel import num_mel_frames
+    from qwen3_asr_tpu_torch.config import DecoderConfig
+    from qwen3_asr_tpu_torch.models.e2e import expected_n_audio
+    from qwen3_asr_tpu_torch.text.prompt import build_asr_prompt
+
+    n_audio = expected_n_audio(num_mel_frames(int(seconds * 16000)))
+    return len(build_asr_prompt(n_audio, DecoderConfig()))
+
+
+def _q8_bytes(n_in: int, n_out: int) -> int:
+    """Bytes of a Q8_0 weight: int8 codes and one f32 scale per 32 rows."""
+    return n_in * n_out + (n_in // 32) * n_out * 4
+
+
+def phase_q8(dec, dcfg, Ts) -> dict:
+    """K5 (Wo), K6 (QKV and the lm head) and K7 against their twins on layer
+    0's Q8_0 weights of the model, at each T of Ts. -> {(name, T): (max_abs_err,
+    kernel ms, twin ms, bound ms, bound_by)}."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops import q8_matmul as q8
+
+    lay = dec["layers"]
+
+    def leaf(key):
+        return {k: v[0] for k, v in lay[key].items()}
+
+    H, FF, eps = dcfg.hidden_size, dcfg.intermediate_size, dcfg.rms_norm_eps
+    DQ = dcfg.n_heads * dcfg.head_dim
+    wqkv, wo, gu, dn, head = (leaf("wqkv"), leaf("wo"), leaf("w_gate_up"),
+                              leaf("w_down"), dec["lm_head_q8"])
+    nw = lay["attn_norm"][0]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for T in Ts:
+        x = torch.randn(T, H, generator=g, device="cuda").to(torch.bfloat16)
+        xa = torch.randn(T, DQ, generator=g, device="cuda").to(torch.bfloat16)
+        cases = []
+        for name, w, xx, fn, ref in (
+                ("K5 q8_matmul (Wo)", wo, xa,
+                 lambda: q8.q8_matmul(xa, wo["q8:q"], wo["q8:s"]),
+                 lambda: q8.q8_matmul_ref(xa, wo["q8:q"], wo["q8:s"])),
+                ("K6 q8_norm_matmul (QKV)", wqkv, x,
+                 lambda: q8.q8_norm_matmul(x, wqkv, nw, eps),
+                 lambda: q8.q8_norm_matmul_ref(x, wqkv["q8:q"], wqkv["q8:s"], nw, eps)),
+                ("K6 q8_norm_matmul (lm head)", head, x,
+                 lambda: q8.q8_norm_matmul(x, head, nw, eps),
+                 lambda: q8.q8_norm_matmul_ref(x, head["q8:q"], head["q8:s"], nw, eps))):
+            n_in, n_out = w["q8:q"].shape
+            bf16 = q8.deq_bf16_for(n_out)
+            nbytes = _q8_bytes(n_in, n_out) + 2 * T * n_in + 4 * T * n_out
+            cases.append((name, fn, ref, bf16, nbytes, 2.0 * T * n_in * n_out))
+        n_w = H * 2 * FF + FF * H
+        cases.append(("K7 q8_mlp", lambda: q8.q8_mlp(x, gu, dn, nw, eps, FF),
+                      lambda: q8.q8_mlp_ref(x, gu["q8:q"], gu["q8:s"], dn["q8:q"],
+                                            dn["q8:s"], nw, eps, FF),
+                      True, _q8_bytes(H, 2 * FF) + _q8_bytes(FF, H) + 2 * T * H + 4 * T * H,
+                      2.0 * T * n_w))
+        for name, fn, ref, bf16, nbytes, ops in cases:
+            got, want = fn(), ref()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            rel = float((got - want).norm() / want.norm())
+            scale = float(want.abs().max())
+            ms = graph_ms(fn)
+            call = cuda_ms(fn, 20)
+            plain = cuda_ms(ref, 3, warmup=1)
+            b_ms, b_by = bound(nbytes, ops, BF16_FLOPS if bf16 else F32_FLOPS)
+            log(f"phase {name} T={T} ({'bf16' if bf16 else 'f32'} dequant): "
+                f"max_abs_err={err:.3e} rel_l2 {rel:.3e} (max |ref| {scale:.3f}); "
+                f"kernel {ms:.4f} ms (graph; {call:.4f} ms a call from the host), "
+                f"twin {plain:.4f} ms; bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.3f} MB)")
+            if not rel <= (Q8_BF16_REL if bf16 else Q8_F32_REL) or (
+                    bf16 and not err <= Q8_BF16_ATOL * scale):
+                raise AssertionError(f"{name} T={T} disagrees with its twin")
+            out[(name, T)] = (err, ms, plain, b_ms, b_by)
+    return out
+
+
+def phase_decode_attention(dcfg, pos: int, S: int) -> dict:
+    """K4 against its twin with a bf16 and an int8 cache of S rows, at
+    offset = pos and at offset 0. -> {(cache, offset): (max_abs_err, kernel
+    ms, twin ms, bound ms, bound_by)}."""
+    import numpy as np
+    import torch
+
+    from qwen3_asr_tpu_torch.models.decoder import _quantize_kv_rows
+    from qwen3_asr_tpu_torch.ops import decode_attention as da
+
+    NH, NKV, D = dcfg.n_heads, dcfg.n_kv_heads, dcfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for cache in ("bf16", "int8"):
+        qkv = torch.randn(1, (NH + 2 * NKV) * D, generator=g, device="cuda").to(torch.bfloat16)
+        k = torch.randn(S, NKV, D, generator=g, device="cuda")
+        v = torch.randn(S, NKV, D, generator=g, device="cuda")
+        qn, kn = ((1 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(torch.bfloat16)
+                  for _ in range(2))
+        kw = dict(n_heads=NH, n_kv=NKV, head_dim=D, eps=dcfg.rms_norm_eps,
+                  theta=dcfg.rope_theta, scale=1.0 / float(np.sqrt(D)))
+        if cache == "int8":
+            (k, ks), (v, vs) = _quantize_kv_rows(k), _quantize_kv_rows(v)
+            kw.update(k_scale=ks, v_scale=vs)
+            row_bytes = 2 * NKV * D + 2 * NKV * 4
+        else:
+            k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+            row_bytes = 4 * NKV * D
+        for off in (pos, 0):
+            args = (qkv, k, v, qn, kn, off, off)
+            got, want = da.decode_attention(*args, **kw), da.decode_attention_ref(*args, **kw)
+            torch.cuda.synchronize()
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            ratio = max(float(((a - b).abs() / (DA_ATOL * b.abs().max() + DA_RTOL * b.abs()))
+                              .max()) for a, b in zip(got, want))
+            ms = graph_ms(lambda: da.decode_attention(*args, **kw))
+            call = cuda_ms(lambda: da.decode_attention(*args, **kw), 50)
+            plain = cuda_ms(lambda: da.decode_attention_ref(*args, **kw), 5)
+            nbytes = off * row_bytes + 2 * qkv.numel() + 4 * (NH + 2 * NKV) * D
+            b_ms, b_by = bound(nbytes, 4.0 * NH * D * (off + 1), F32_FLOPS)
+            log(f"phase K4 decode_attention {cache} cache S={S} offset=pos={off}: "
+                f"max_abs_err={err:.3e} worst |err| / (atol + rtol |ref|) {ratio:.4f}; "
+                f"kernel {ms:.4f} ms (graph; {call:.4f} ms a call from the host), twin "
+                f"{plain:.4f} ms; bound {b_ms:.5f} ms ({b_by}, {nbytes / 1e6:.3f} MB)")
+            if not ratio <= 1.0:
+                raise AssertionError(f"decode attention ({cache}, offset {off}) "
+                                     f"disagrees with its twin")
+            out[(cache, off)] = (err, ms, plain, b_ms, b_by)
+    return out
+
+
+def phase_q8_layers(asr, pos: int) -> list[float]:
+    """Each layer of the q8_0 decode step alone (a one-layer slice of the
+    tree and the cache, bf16 cache rows < pos filled at random) on the twins'
+    input to that layer: the kernels' output row and fresh K/V row against
+    the twins'. -> h rel L2 per layer."""
+    import torch
+
+    from qwen3_asr_tpu_torch.models import decoder as dmod
+
+    dcfg, dec = asr.cfg.decoder, asr.params["decoder"]
+    cfg1 = dataclasses.replace(dcfg, n_layers=1)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    shape = (1, pos + 1, dcfg.n_kv_heads, dcfg.head_dim)
+    x = dec["token_embd"][torch.tensor([1000], device="cuda")]
+    rels = []
+    for l in range(dcfg.n_layers):
+        d1 = dict(dec, layers={k: ({kk: vv[l:l + 1] for kk, vv in v.items()}
+                                   if isinstance(v, dict) else v[l:l + 1])
+                               for k, v in dec["layers"].items()})
+        fill = {n: (torch.randn(shape, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+                for n in ("k", "v")}
+        caches = [{n: t.clone() for n, t in fill.items()} for _ in range(2)]
+        h = dmod.decoder_forward(d1, cfg1, x, caches[0], pos + 1, prefill=False,
+                                 cache_offset=pos)
+        with twins():
+            r = dmod.decoder_forward(d1, cfg1, x, caches[1], pos + 1, prefill=False,
+                                     cache_offset=pos)
+        torch.cuda.synchronize()
+        rel = _rel(h, r)
+        fresh = max(_rel(caches[0][n][:, pos], caches[1][n][:, pos]) for n in ("k", "v"))
+        if not (rel <= Q8_LAYER_REL and fresh <= Q8_LAYER_REL):
+            raise AssertionError(f"q8_0 layer {l} on the same input: h rel L2 {rel:.3e}, "
+                                 f"fresh K/V rel L2 {fresh:.3e}")
+        if not all(torch.equal(caches[0][n][:, :pos], fill[n][:, :pos]) for n in ("k", "v")):
+            raise AssertionError(f"q8_0 layer {l}: a cache row below pos changed")
+        rels.append(rel)
+        x = r
+    log(f"phase q8_0 decode step, each layer alone on the twins' input (pos {pos}, "
+        f"bf16 cache): h rel_l2 max {max(rels):.3e}, per layer: "
+        + " ".join(f"{r:.1e}" for r in rels))
+    return rels
+
+
+def slice_launches(quantize, P: int, max_tokens: int, L: int) -> dict:
+    """Launch counts of one request on the per-layer path, from the code:
+    the prefill's 28 K2 (causal) and, at P <= 256 rows, 28 each of K6 (QKV),
+    K5 (Wo) and K7; the first token's lm head (K6); then per decode step 28
+    K4, and with Q8_0 weights 29 K6 (28 QKV + the head), 28 K5 and 28 K7.
+    Dense weights launch no K5-K7."""
+    steps = max_tokens - 1
+    want = dict(no_launches(), flash=L, decode_attention=L * steps)
+    if quantize:
+        small = L if P <= 256 else 0
+        want.update(q8_norm_matmul=(L + 1) * steps + 1 + small,
+                    q8_matmul=L * steps + small, q8_mlp=L * steps + small)
+    return want
+
+
+def phase_slice(caches: list):
+    """The per-layer decode path at full width (random weights, seed 0, EOS
+    off): q8_0 weights with a bf16 cache (5 s / 64 tokens, 92 s / 323), with
+    an int8 cache (5 s / 64), dense bf16 weights with a bf16 cache (5 s /
+    64); each request a window of its own, checked against slice_launches.
+    `caches` collects the KV caches the requests make. -> (launch counts
+    summed over the windows, q8_0 decode ms/step of the 92 s request, the
+    q8_0 model)."""
+    import torch
+
+    from qwen3_asr_tpu_torch.config import ASRModelConfig
+    from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams
+    from qwen3_asr_tpu_torch.runtime.params import assert_on_device
+
+    def load(quantize, kv_cache, like=None):
+        asr = Qwen3ASR(quantize=quantize, kv_cache=kv_cache, device="cuda")
+        if like is None:
+            t0 = time.perf_counter()
+            asr.load_random(ASRModelConfig(), seed=0)
+            torch.cuda.synchronize()
+            log(f"load_random, quantize={quantize!r}: {time.perf_counter() - t0:.1f} s")
+        else:
+            asr.cfg, asr.params = like.cfg, like.params
+            asr.tokenizer, asr.filters_t = like.tokenizer, like.filters_t
+        asr.cfg = dataclasses.replace(asr.cfg, decoder=dataclasses.replace(
+            asr.cfg.decoder, eos_token_id=-1))
+        assert_on_device(asr.params, "cuda")
+        asr.transcribe(pcm(5, 1), TranscribeParams(max_tokens=4))   # warm-up
+        return asr
+
+    q8_bf16 = load("q8_0", "bf16")
+    models = {("q8_0", "bf16"): q8_bf16, ("q8_0", "int8"): load("q8_0", "int8", q8_bf16),
+              (False, "bf16"): load(False, "bf16")}
+    L, V = q8_bf16.cfg.decoder.n_layers, q8_bf16.cfg.decoder.vocab_size
+    phase_q8_layers(q8_bf16, 1248)
+    total, tokens, ms_92 = no_launches(), {}, {}
+    windows = [(q, kv, sec, mt) for q, kv, sec, mt in SLICE_REQUESTS] + [("q8_0", "bf16", 92, 1)]
+    for quantize, kv_cache, seconds, max_tokens in windows:
+        asr = models[(quantize, kv_cache)]
+        n_caches = len(caches)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        r = asr.transcribe(pcm(seconds), TranscribeParams(max_tokens=max_tokens))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = counts()
+        P = prompt_rows(seconds)
+        want = slice_launches(quantize, P, max_tokens, L)
+        log(f"request quantize={quantize!r} kv_cache={kv_cache} {seconds} s: {ms:.1f} ms, "
+            f"{len(r.tokens)} tokens (max {max_tokens}), P={P}; launches {got}")
+        if got != want:
+            raise AssertionError(f"launch counts {got} != {want}")
+        if not r.success or len(r.tokens) != max_tokens or not all(0 <= t < V for t in r.tokens):
+            raise AssertionError(f"{seconds} s request: {len(r.tokens)} tokens or one "
+                                 f"out of range")
+        dt = torch.int8 if kv_cache == "int8" else torch.bfloat16
+        if len(caches) != n_caches + 1 or caches[-1]["k"].dtype != dt:
+            raise AssertionError("the request did not make one cache of its dtype")
+        for k in got:
+            total[k] += got[k]
+        tokens[(quantize, kv_cache, seconds, max_tokens)] = r.tokens
+        if seconds == 92:
+            ms_92[max_tokens] = ms
+    per_step = (ms_92[323] - ms_92[1]) / 322
+    log(f"q8_0 92 s request: 323 tokens {ms_92[323]:.1f} ms, 1 token {ms_92[1]:.1f} ms; "
+        f"decode {per_step:.4f} ms/step")
+    check_tokens_vs_twins(q8_bf16, pcm(5), tokens[("q8_0", "bf16", 5, 64)][:16])
+    check_tokens_vs_twins(models[(False, "bf16")], pcm(5),
+                          tokens[(False, "bf16", 5, 64)][:16])
+    del models
+    return total, per_step, q8_bf16
 
 
 ENGINE_REQUESTS = (5, 10, 15, 30, 30, 60, 92, 92)   # seconds; two groups of 4
@@ -462,25 +825,89 @@ ENGINE_KW = dict(pool=8, round_tokens=64, mel_bucket=500)
 ENGINE_S, ENGINE_TOKENS = 1536, 128
 
 
-def counts() -> dict:
-    """Launch counts of the three kernels' wrappers."""
+def _wrappers() -> dict:
+    """The kernels' wrappers by the names the launch counts use."""
+    from qwen3_asr_tpu_torch.ops import decode_attention as da
     from qwen3_asr_tpu_torch.ops import flash_attention as fa
     from qwen3_asr_tpu_torch.ops import megakernel as mk
     from qwen3_asr_tpu_torch.ops import megakernel_batch as mb
+    from qwen3_asr_tpu_torch.ops import q8_matmul as q8
 
-    return {"flash": fa.flash_attention_batch.launches,
-            "mega": mk.mega_decode_step_i8.launches,
-            "mega_batch": mb.mega_decode_step_batch.launches}
+    return {"flash": fa.flash_attention_batch, "mega": mk.mega_decode_step_i8,
+            "mega_batch": mb.mega_decode_step_batch,
+            "decode_attention": da.decode_attention, "q8_matmul": q8.q8_matmul,
+            "q8_norm_matmul": q8.q8_norm_matmul, "q8_mlp": q8.q8_mlp}
+
+
+def counts() -> dict:
+    """Launch counts of the kernels' wrappers."""
+    return {k: w.launches for k, w in _wrappers().items()}
 
 
 def reset_counts() -> None:
-    from qwen3_asr_tpu_torch.ops import flash_attention as fa
-    from qwen3_asr_tpu_torch.ops import megakernel as mk
-    from qwen3_asr_tpu_torch.ops import megakernel_batch as mb
+    for w in _wrappers().values():
+        w.launches = 0
 
-    fa.flash_attention_batch.launches = 0
-    mk.mega_decode_step_i8.launches = 0
-    mb.mega_decode_step_batch.launches = 0
+
+def no_launches() -> dict:
+    return {k: 0 for k in _wrappers()}
+
+
+def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes over
+    HBM_BPS and the operations over `peak`, and which of the two it is."""
+    t_b, t_o = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+class twins:
+    """Inside the block the decoder and encoder call the plain twins of K2
+    and K4-K7 on the card (the Q8_0 wrappers' own path above 256 rows is no
+    kernel and stays). Leaving it raises if any launch count moved: a call
+    site left unpatched would compare a kernel with itself."""
+
+    def __enter__(self):
+        from qwen3_asr_tpu_torch.models import decoder as dmod
+        from qwen3_asr_tpu_torch.models import encoder as emod
+        from qwen3_asr_tpu_torch.ops import decode_attention as da
+        from qwen3_asr_tpu_torch.ops import flash_attention as fa
+        from qwen3_asr_tpu_torch.ops import q8_matmul as q8
+
+        self._counts = counts()
+        k5, k6, k7 = q8.q8_matmul, q8.q8_norm_matmul, q8.q8_mlp
+        rows = q8._MAX_KERNEL_ROWS
+
+        def t5(x, q, s):
+            return q8.q8_matmul_ref(x, q, s) if x.shape[0] <= rows else k5(x, q, s)
+
+        def t6(x, leaf, nw, eps):
+            if x.shape[0] > rows:
+                return k6(x, leaf, nw, eps)
+            return q8.q8_norm_matmul_ref(x, leaf["q8:q"], leaf["q8:s"], nw, eps)
+
+        def t7(x, gu, dn, nw, eps, n_ffn):
+            if x.shape[0] > rows:
+                return k7(x, gu, dn, nw, eps, n_ffn)
+            return q8.q8_mlp_ref(x, gu["q8:q"], gu["q8:s"], dn["q8:q"], dn["q8:s"],
+                                 nw, eps, n_ffn)
+
+        self._saved = [(dmod, "flash_attention_batch", dmod.flash_attention_batch),
+                       (emod, "flash_attention_batch", emod.flash_attention_batch),
+                       (dmod, "decode_attention", dmod.decode_attention),
+                       (dmod, "q8_norm_matmul", k6), (dmod, "q8_mlp", k7),
+                       (q8, "q8_matmul", k5)]
+        dmod.flash_attention_batch = emod.flash_attention_batch = fa.flash_attention_ref
+        dmod.decode_attention = da.decode_attention_ref
+        dmod.q8_norm_matmul, dmod.q8_mlp, q8.q8_matmul = t6, t7, t5
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        if exc_type is None and counts() != self._counts:
+            raise AssertionError(f"a kernel launched inside twins(): launch counts "
+                                 f"{self._counts} -> {counts()}")
+        return False
 
 
 def encoder_calls(groups) -> int:
@@ -495,12 +922,11 @@ def encoder_calls(groups) -> int:
 def check_launches(what: str, got: dict, k3_steps: int, groups) -> None:
     """K3 = k3_steps; K2 = 28 per batched prefill (one per group) + 18 per
     batched encoder call; no K1 on these paths."""
-    from qwen3_asr_tpu.config import ASRModelConfig
+    from qwen3_asr_tpu_torch.config import ASRModelConfig
 
     cfg = ASRModelConfig()
-    want = {"flash": cfg.decoder.n_layers * len(groups)
-            + cfg.encoder.n_layers * encoder_calls(groups),
-            "mega": 0, "mega_batch": k3_steps}
+    want = dict(no_launches(), flash=cfg.decoder.n_layers * len(groups)
+                + cfg.encoder.n_layers * encoder_calls(groups), mega_batch=k3_steps)
     log(f"launches on the {what}: {got} (want {want})")
     if got != want:
         raise AssertionError(f"{what}: launch counts {got} != {want}")
@@ -679,7 +1105,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from qwen3_asr_tpu.config import ASRModelConfig
+    from qwen3_asr_tpu_torch.config import ASRModelConfig
     from qwen3_asr_tpu_torch.models import generate as gen_mod
     from qwen3_asr_tpu_torch.ops import build
     from qwen3_asr_tpu_torch.ops.support import has_cuda_kernels
@@ -689,8 +1115,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else
-        "nvidia-smi: no output")
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: no output"
+    log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -705,6 +1131,7 @@ def main() -> int:
     f_b = phase_flash(False, 1196, 14, 14, 64, [1196])
     f_cb = phase_flash(True, 1280, 16, 8, 128, [1216, 904, 512, 77])
     f_bb = phase_flash(False, 1235, 14, 14, 64, [1235, 1196, 650, 130])
+    da_ms = phase_decode_attention(ASRModelConfig().decoder, 1248, 1664)
 
     t0 = time.perf_counter()
     asr = Qwen3ASR(quantize="int4", kv_cache="int8", device="cuda")
@@ -753,12 +1180,10 @@ def main() -> int:
     assert_on_device(asr.params, "cuda")
     for c in caches:
         assert_on_device(c, "cuda")
-    want_flash = asr.cfg.decoder.n_layers * len(REQUESTS)
-    want_mega = sum(mt - 1 for _, mt in REQUESTS)
-    log(f"launches on the main path: flash {launches['flash']} (want "
-        f"{want_flash}), megakernel steps {launches['mega']} (want {want_mega})")
-    if (launches["flash"] != want_flash or launches["mega"] != want_mega
-            or launches["mega_batch"]):
+    want = dict(no_launches(), flash=asr.cfg.decoder.n_layers * len(REQUESTS),
+                mega=sum(mt - 1 for _, mt in REQUESTS))
+    log(f"launches on the int4 path: {launches} (want {want})")
+    if launches != want:
         raise AssertionError(f"launch counts {launches}")
     V = asr.cfg.decoder.vocab_size
     for seconds, max_tokens, _, r in results:
@@ -769,30 +1194,57 @@ def main() -> int:
     check_tokens_vs_twins(asr, pcm(5), results[0][3].tokens[:16])
 
     k3 = phase_mega_batch(asr.cfg.decoder, asr.params["decoder"]["mega"])
+
+    gen_mod.init_kv_cache = recording_cache
+    try:
+        slice_launches_, q8_step_ms, q8_asr = phase_slice(caches)
+    finally:
+        gen_mod.init_kv_cache = make_cache
+    for c in caches:
+        assert_on_device(c, "cuda")
+    p5 = prompt_rows(5)
+    q8k = phase_q8(q8_asr.params["decoder"], q8_asr.cfg.decoder, (1, p5))
+    del q8_asr
+
     engine_tps, engine_launches = phase_engine(asr)
     http_launches = phase_http(asr)
-    total = {k: launches[k] + engine_launches[k] + http_launches[k] for k in launches}
-    log(f"pool decode {engine_tps:.1f} tokens/s; launches over the three paths {total}")
+    total = {k: launches[k] + slice_launches_[k] + engine_launches[k] + http_launches[k]
+             for k in launches}
+    log(f"pool decode {engine_tps:.1f} tokens/s; q8_0 decode {q8_step_ms:.4f} "
+        f"ms/step; launches over the four paths {total}")
 
+    def row(name, src, replaces, key, err, ms, plain, b_ms, b_by, lib=None):
+        return {"name": name, "route": "cuda",
+                "source": f"qwen3_asr_tpu_torch/csrc/{src}", "replaces": replaces,
+                "launches": total[key], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "twin_ms": plain, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib}
+
+    head = ("K6 q8_norm_matmul (lm head)", 1)
     kernels = [
-        {"name": "flash_attention", "route": "cuda",
-         "source": "qwen3_asr_tpu_torch/csrc/flash_attention.cu",
-         "replaces": "qwen3_asr_tpu/ops/pallas_attention.py:32",
-         "launches": total["flash"],
-         "max_abs_err": max(f[0] for f in (f_c, f_b, f_cb, f_bb)),
-         "ms": f_c[1], "plain_ms": f_c[2]},
-        {"name": "mega_decode_step_i8", "route": "cuda",
-         "source": "qwen3_asr_tpu_torch/csrc/megakernel.cu",
-         "replaces": "qwen3_asr_tpu/ops/megakernel.py:460",
-         "launches": total["mega"], "max_abs_err": m[0],
-         "ms": m[1], "plain_ms": m[2]},
-        {"name": "mega_decode_step_batch", "route": "cuda",
-         "source": "qwen3_asr_tpu_torch/csrc/megakernel_batch.cu",
-         "replaces": "qwen3_asr_tpu/ops/megakernel_batch.py:110",
-         "launches": total["mega_batch"], "max_abs_err": k3[0],
-         "ms": k3[1], "plain_ms": k3[2]},
+        row("mega_decode_step_i8", "megakernel.cu", "qwen3_asr_tpu/ops/megakernel.py:460",
+            "mega", *m),
+        row("flash_attention", "flash_attention.cu",
+            "qwen3_asr_tpu/ops/pallas_attention.py:32", "flash",
+            max(f[0] for f in (f_c, f_b, f_cb, f_bb)), f_c[1], f_c[2], f_c[4], f_c[5],
+            lib=f_c[3]),
+        row("mega_decode_step_batch", "megakernel_batch.cu",
+            "qwen3_asr_tpu/ops/megakernel_batch.py:110", "mega_batch", *k3),
+        row("decode_attention", "decode_attention.cu",
+            "qwen3_asr_tpu/ops/decode_attention.py:65", "decode_attention",
+            max(v[0] for v in da_ms.values()), *da_ms[("bf16", 1248)][1:]),
+        row("q8_matmul", "q8_matmul.cu", "qwen3_asr_tpu/ops/q8_matmul.py:69", "q8_matmul",
+            max(v[0] for k, v in q8k.items() if k[0].startswith("K5")),
+            *q8k[("K5 q8_matmul (Wo)", 1)][1:]),
+        row("q8_norm_matmul", "q8_matmul.cu", "qwen3_asr_tpu/ops/q8_matmul.py:173",
+            "q8_norm_matmul", max(v[0] for k, v in q8k.items() if k[0].startswith("K6")),
+            *q8k[head][1:]),
+        row("q8_mlp", "q8_matmul.cu", "qwen3_asr_tpu/ops/q8_matmul.py:224", "q8_mlp",
+            max(v[0] for k, v in q8k.items() if k[0].startswith("K7")),
+            *q8k[("K7 q8_mlp", 1)][1:]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
+    log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

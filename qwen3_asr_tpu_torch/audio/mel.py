@@ -15,7 +15,7 @@ import functools
 import numpy as np
 import torch
 
-from qwen3_asr_tpu.config import HOP_LENGTH, N_FFT, N_MELS, SAMPLE_RATE
+from qwen3_asr_tpu_torch.config import HOP_LENGTH, N_FFT, N_MELS, SAMPLE_RATE
 from qwen3_asr_tpu_torch.ops.support import full_f32
 
 _LOG_FLOOR = 1e-10

@@ -12,8 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from qwen3_asr_tpu.config import ASRModelConfig
-from qwen3_asr_tpu.text.prompt import audio_start_pos, build_asr_prompt
+from qwen3_asr_tpu_torch.config import ASRModelConfig
+from qwen3_asr_tpu_torch.text.prompt import audio_start_pos, build_asr_prompt
 from qwen3_asr_tpu_torch.audio.mel import _padded_buffer, mel_device, num_mel_frames
 from qwen3_asr_tpu_torch.models.encoder import chunk_output_len, encode
 from qwen3_asr_tpu_torch.models.generate import generate_greedy
@@ -51,9 +51,11 @@ def upload(arrays: list[np.ndarray], device) -> list[torch.Tensor]:
 
 def transcribe_fused(params: dict, cfg: ASRModelConfig, samples: np.ndarray,
                      filters_t: torch.Tensor, max_tokens: int,
-                     system_prompt_tokens=None) -> tuple[np.ndarray, int]:
+                     system_prompt_tokens=None,
+                     cache_dtype: torch.dtype | None = None) -> tuple[np.ndarray, int]:
     """int16 or float PCM -> (tokens [max_tokens], n_kept) on the device of
-    `filters_t` ([201, n_mels] f32)."""
+    `filters_t` ([201, n_mels] f32). cache_dtype: the KV cache's dtype, as
+    generate_greedy takes it (None: what the tree's decode step defaults to)."""
     samples = np.asarray(samples)
     if samples.dtype != np.int16:
         samples = samples.astype(np.float32)
@@ -67,4 +69,4 @@ def transcribe_fused(params: dict, cfg: ASRModelConfig, samples: np.ndarray,
     feats = encode(params["encoder"], cfg.encoder, mel, n_frames)
     return generate_greedy(params["decoder"], cfg.decoder, prompt_d,
                            len(prompt), feats, feats.shape[0], offset,
-                           max_tokens)
+                           max_tokens, cache_dtype)

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from qwen3_asr_tpu.config import AudioEncoderConfig
+from qwen3_asr_tpu_torch.config import AudioEncoderConfig
 from qwen3_asr_tpu_torch.ops.attention import mha_attention
 from qwen3_asr_tpu_torch.ops.flash_attention import flash_attention_batch
 from qwen3_asr_tpu_torch.ops.support import full_f32

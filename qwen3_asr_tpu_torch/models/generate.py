@@ -1,10 +1,14 @@
-"""Greedy generation: the int8pc prefill, then the int4 decode step loop,
-for one sequence or a batch in lockstep.
+"""Greedy generation: the prefill, then the decode loop, for one sequence
+or (int4 pack) a batch in lockstep.
 
-Port of the megakernel branch of qwen3_asr_tpu/models/generate.py:36-178
-with an int8 KV cache, and of `prefill_batch_mega_cache` /
-`generate_greedy_batch_mega` (:465-578), the batched path. Its rules stay: the cache holds S = P + max_tokens
-rounded up to 128 rows; the token consumed by step i sits at position
+Port of qwen3_asr_tpu/models/generate.py:36-207 and of
+`prefill_batch_mega_cache` / `generate_greedy_batch_mega` (:465-578), the
+batched path. The branch follows what the tree holds, as in the reference:
+an int4 decode pack (`"mega"`) runs each step through the decode megakernel
+with an int8 KV cache; any other tree (dense bf16 or Q8_0 weights) runs the
+per-layer decode step, `decoder_forward` at T = 1, over a bf16 or int8
+cache. The rules stay: the cache holds S = P + max_tokens rounded up to 128
+rows; the token consumed by step i sits at position
 pos = n_prompt + i - 1; the loop stops at EOS or max_tokens; n_kept counts
 the tokens before the first EOS. The loop never needs the host for a token
 (each step reads the previous token from the device buffer); the host reads
@@ -18,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from qwen3_asr_tpu.config import DecoderConfig
+from qwen3_asr_tpu_torch.config import DecoderConfig
 from qwen3_asr_tpu_torch.models.decoder import (
     _quantize_kv_rows,
     decoder_forward,
@@ -40,18 +44,41 @@ from qwen3_asr_tpu_torch.ops.megakernel_batch import (
 EOS_CHECK_EVERY = 16   # decode steps between the host's reads of the tokens
 
 
+def decode_token(dec_params: dict, cfg: DecoderConfig, cache: dict,
+                 out: torch.Tensor, i: int, pos: int) -> torch.Tensor:
+    """One step of the per-layer decode loop: embed out[i - 1], run
+    decoder_forward at T = 1 at position pos over the cache rows < pos
+    (writing row pos), and write the argmax of the logits into out[i] on the
+    device. -> the logits [vocab_size] f32."""
+    x = dec_params["token_embd"][out[i - 1:i].long()]
+    h = decoder_forward(dec_params, cfg, x, cache, pos + 1, prefill=False,
+                        cache_offset=pos)
+    logits = lm_logits(dec_params, cfg, h[0])
+    out[i:i + 1] = torch.argmax(logits)
+    return logits
+
+
 def generate_greedy(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
                     n_prompt: int, audio: torch.Tensor | None, n_audio: int,
-                    audio_offset: int, max_tokens: int
+                    audio_offset: int, max_tokens: int,
+                    cache_dtype: torch.dtype | None = None
                     ) -> tuple[np.ndarray, int]:
     """tokens [P] int32 on the model's device (rows >= n_prompt are padding)
     -> (out_tokens [max_tokens] int32 on the host, n_kept). Tokens at index
-    >= n_kept are filler; EOS is not counted."""
+    >= n_kept are filler; EOS is not counted. cache_dtype: torch.int8 or
+    torch.bfloat16; None takes int8 for a tree with the int4 decode pack (its
+    step's only mode) and bf16, the reference's default, otherwise."""
     P = tokens.shape[0]
     S = cache_rows(P, max_tokens)
     dev = tokens.device
     L, NKV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    cache = init_kv_cache(cfg, S, dev)
+    mega = "mega" in dec_params
+    if cache_dtype is None:
+        cache_dtype = torch.int8 if mega else torch.bfloat16
+    if mega and cache_dtype != torch.int8:
+        raise NotImplementedError("the int4 decode pack's step takes the int8 "
+                                  "KV cache (its bf16-KV mode is not ported)")
+    cache = init_kv_cache(cfg, S, dev, cache_dtype)
 
     h0 = embed_with_audio(dec_params, tokens, audio, n_audio, audio_offset)
     h = decoder_forward(dec_params, cfg, h0, cache, n_prompt)
@@ -59,19 +86,24 @@ def generate_greedy(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
 
     out = torch.zeros(max_tokens, dtype=torch.int32, device=dev)
     out[0] = first.to(torch.int32)
-    k3 = cache["k"].view(L, S, NKV * D)
-    v3 = cache["v"].view(L, S, NKV * D)
-    pack = dec_params["mega"]
-    if dev.type == "cuda":
-        step = DecodeStep(pack, cfg, k3, v3, cache["k_s"], cache["v_s"])
-
+    if not mega:
         def run(i, pos):
-            step(out[i - 1:i], pos, out[i:i + 1])
+            # the token consumed by step i sits at position pos = n_prompt + i - 1
+            decode_token(dec_params, cfg, cache, out, i, pos)
     else:
-        def run(i, pos):
-            out[i:i + 1] = mega_decode_step_i8_ref(
-                pack, cfg, out[i - 1:i], pos, k3, v3, cache["k_s"],
-                cache["v_s"])[0]
+        pack = dec_params["mega"]
+        k3 = cache["k"].view(L, S, NKV * D)
+        v3 = cache["v"].view(L, S, NKV * D)
+        if dev.type == "cuda":
+            step = DecodeStep(pack, cfg, k3, v3, cache["k_s"], cache["v_s"])
+
+            def run(i, pos):
+                step(out[i - 1:i], pos, out[i:i + 1])
+        else:
+            def run(i, pos):
+                out[i:i + 1] = mega_decode_step_i8_ref(
+                    pack, cfg, out[i - 1:i], pos, k3, v3, cache["k_s"],
+                    cache["v_s"])[0]
 
     eos = cfg.eos_token_id
     i = 1

@@ -22,8 +22,9 @@ import math
 import numpy as np
 import torch
 
-from qwen3_asr_tpu.config import DecoderConfig
-from qwen3_asr_tpu_torch.ops.q8_matmul import INV127, quantize_rows
+from qwen3_asr_tpu_torch.config import DecoderConfig
+from qwen3_asr_tpu_torch.ops.decode_attention import rope_coef, rope_row
+from qwen3_asr_tpu_torch.ops.q8_matmul import INV127, quantize_rows, rms_norm_f32
 from qwen3_asr_tpu_torch.ops.support import (
     check,
     raise_on_error,
@@ -155,11 +156,6 @@ def _gemv_i4_ref(xq, sx, wq, ws):
     return acc
 
 
-def _rms_f32(x, w, eps):
-    xf = x.float()
-    return xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps) * w.float()
-
-
 def _quant_row(xf):
     xq, sx = quantize_rows(xf[None])
     return xq[0], sx[0, 0]
@@ -167,16 +163,6 @@ def _quant_row(xf):
 
 def _bf(x):
     return x.to(torch.bfloat16).float()
-
-
-def _rope_row(x, pos, theta, D):
-    half = D // 2
-    k = torch.arange(half, dtype=torch.float32, device=x.device)
-    inv = torch.exp(k * float(np.float32(-2.0 * float(np.log(theta)) / D)))
-    ang = inv * float(pos)
-    cos, sin = torch.cos(ang), torch.sin(ang)
-    x1, x2 = x[:, :half], x[:, half:]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=1)
 
 
 def mega_decode_step_i8_ref(pack, cfg: DecoderConfig, token_or_x, pos: int,
@@ -194,13 +180,13 @@ def mega_decode_step_i8_ref(pack, cfg: DecoderConfig, token_or_x, pos: int,
         x = token_or_x.reshape(H).float()
     x = _bf(x)
     for l in range(L):
-        xq, sx = _quant_row(_bf(_rms_f32(x, pack["attn_norm"][l], eps)))
+        xq, sx = _quant_row(_bf(rms_norm_f32(x, pack["attn_norm"][l], eps)))
         qkv = _bf(_gemv_i4_ref(xq, sx, pack["qkv_q"][l], pack["qkv_s"][l]))
         rows = qkv.reshape(NH + 2 * NKV, D)
-        q_all = _rope_row(_rms_f32(rows[:NH], pack["q_norm"][l], eps), pos,
-                          cfg.rope_theta, D) * scale
-        k_all = _rope_row(_rms_f32(rows[NH:NH + NKV], pack["k_norm"][l], eps),
-                          pos, cfg.rope_theta, D)
+        q_all = rope_row(rms_norm_f32(rows[:NH], pack["q_norm"][l], eps), pos,
+                         cfg.rope_theta) * scale
+        k_all = rope_row(rms_norm_f32(rows[NH:NH + NKV], pack["k_norm"][l], eps),
+                         pos, cfg.rope_theta)
         v_all = rows[NH + NKV:]
         kc = k[l, :pos].reshape(pos, NKV, D).float()
         vc = v[l, :pos].reshape(pos, NKV, D).float()
@@ -224,13 +210,13 @@ def mega_decode_step_i8_ref(pack, cfg: DecoderConfig, token_or_x, pos: int,
             sc[l, pos] = s
         xq, sx = _quant_row(attn)
         h1 = _bf(x + _bf(_gemv_i4_ref(xq, sx, pack["wo_q"][l], pack["wo_s"][l])))
-        xq, sx = _quant_row(_bf(_rms_f32(h1, pack["ffn_norm"][l], eps)))
+        xq, sx = _quant_row(_bf(rms_norm_f32(h1, pack["ffn_norm"][l], eps)))
         gu = _bf(_gemv_i4_ref(xq, sx, pack["gu_q"][l], pack["gu_s"][l]))
         g32, u32 = gu[:FF], gu[FF:]
         act = _bf((g32 * torch.sigmoid(g32)) * u32)
         xq, sx = _quant_row(act)
         x = _bf(h1 + _bf(_gemv_i4_ref(xq, sx, pack["wd_q"][l], pack["wd_s"][l])))
-    xq, sx = _quant_row(_bf(_rms_f32(x, pack["out_norm"], eps)))
+    xq, sx = _quant_row(_bf(rms_norm_f32(x, pack["out_norm"], eps)))
     logits = _gemv_i4_ref(xq, sx, pack["head_q"], pack["head_s"])[:cfg.vocab_size]
     tok = torch.argmax(logits).to(torch.int32).reshape(1)
     if return_logits:
@@ -266,7 +252,7 @@ def _dims(pack, cfg: DecoderConfig, S: int, pos: int) -> _Dims:
         g_qkv=_int4_group_for(H), g_wo=_int4_group_for(DQ),
         g_gu=_int4_group_for(H), g_wd=_int4_group_for(FF),
         g_head=_int4_group_for(H), eps=cfg.rms_norm_eps,
-        rope_coef=float(np.float32(-2.0 * float(np.log(cfg.rope_theta)) / D)),
+        rope_coef=rope_coef(cfg.rope_theta, D),
         scale=float(np.float32(1.0 / float(np.sqrt(D)))))
 
 

@@ -23,7 +23,7 @@ import ctypes
 import numpy as np
 import torch
 
-from qwen3_asr_tpu.config import DecoderConfig
+from qwen3_asr_tpu_torch.config import DecoderConfig
 from qwen3_asr_tpu_torch.ops.megakernel import (
     _check_pack,
     _dims,

@@ -1,14 +1,18 @@
 """High-level ASR pipeline: audio -> transcript, on one device.
 
-Port of qwen3_asr_tpu/pipeline/asr.py:83-298 and :509-638 for the
-configuration the port carries: int4 decode weights (int8pc prefill) with
-an int8 KV cache, on the fused single-utterance path
-(`models/e2e.py::transcribe_fused`) and the batched path
-(`transcribe_batch`: the bucketed batched frontend, then the batched
-prefill and the lockstep batched decode step, in chunks of at most 16
-sequences as the `mesh=None` branch of
-qwen3_asr_tpu/parallel/mesh.py::batched_transcribe_step runs them). Other
-modes raise NotImplementedError.
+Port of qwen3_asr_tpu/pipeline/asr.py:83-298 and :509-638 for the weight
+and cache modes the port carries:
+- quantize="int4": int4 decode weights (int8pc prefill) with the int8 KV
+  cache, on the fused single-utterance path
+  (`models/e2e.py::transcribe_fused`) and the batched path
+  (`transcribe_batch`: the bucketed batched frontend, then the batched
+  prefill and the lockstep batched decode step, in chunks of at most 16
+  sequences as the `mesh=None` branch of
+  qwen3_asr_tpu/parallel/mesh.py::batched_transcribe_step runs them);
+- quantize="q8_0" (also True): GGUF Q8_0 weights, and quantize=False:
+  dense bf16 weights, each with a bf16 (kv_cache None or "bf16") or int8
+  KV cache, on the fused path through the per-layer decode step.
+Other modes raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -20,15 +24,16 @@ import time
 import numpy as np
 import torch
 
-from qwen3_asr_tpu.config import SAMPLE_RATE, ASRModelConfig
-from qwen3_asr_tpu.text.bpe import BPETokenizer
-from qwen3_asr_tpu.text.prompt import audio_start_pos, build_asr_prompt
+from qwen3_asr_tpu_torch.config import SAMPLE_RATE, ASRModelConfig
+from qwen3_asr_tpu_torch.text.bpe import BPETokenizer
+from qwen3_asr_tpu_torch.text.prompt import audio_start_pos, build_asr_prompt
 from qwen3_asr_tpu_torch.audio.mel import filters_t, generate_mel_filters
 from qwen3_asr_tpu_torch.audio.wav import load_wav
 from qwen3_asr_tpu_torch.ops.megakernel import pack_megakernel_params
 from qwen3_asr_tpu_torch.ops.support import resolve_device
 from qwen3_asr_tpu_torch.runtime.params import (
     assert_on_device,
+    dequantize_decoder_params,
     fuse_decoder_params,
     init_asr_params,
     load_asr_model,
@@ -59,15 +64,27 @@ class TranscribeResult:
 class Qwen3ASR:
     """End-to-end speech-to-text (model: Qwen3-ASR-0.6B)."""
 
-    def __init__(self, quantize: str = "int4", kv_cache: str = "int8",
+    def __init__(self, quantize="int4", kv_cache: str | None = "int8",
                  device="cuda", dtype=torch.bfloat16):
-        if quantize != "int4":
+        """quantize: "int4" (int4 decode weights, int8pc prefill), "q8_0" or
+        True (GGUF Q8_0 weights), False / None / "" (dense weights);
+        kv_cache: "int8", or "bf16" / None (a bf16 cache)."""
+        quantize = "q8_0" if quantize is True else (quantize or "")
+        kv_cache = kv_cache or "bf16"
+        if kv_cache not in ("bf16", "int8", "int4"):
+            raise ValueError(f"kv_cache must be bf16/int8/int4, got {kv_cache!r}")
+        if quantize in ("int8pc", "auto") or kv_cache == "int4":
             raise NotImplementedError(
-                f"quantize={quantize!r}: only 'int4' (int4 decode weights, "
-                "int8pc prefill) is ported")
-        if kv_cache != "int8":
+                f"quantize={quantize!r}, kv_cache={kv_cache!r}: the int8-weight "
+                "modes and the int4 KV cache are not ported (ROADMAP, next PRs, "
+                "item 3)")
+        if quantize not in ("int4", "q8_0", ""):
+            raise ValueError(f"unknown quantize mode {quantize!r}")
+        if quantize == "int4" and kv_cache != "int8":
             raise NotImplementedError(
-                f"kv_cache={kv_cache!r}: only the 'int8' KV cache is ported")
+                f"quantize='int4' with kv_cache={kv_cache!r}: the int4 decode "
+                "step takes the int8 KV cache only (its bf16-KV mode: ROADMAP, "
+                "next PRs, item 3)")
         self.device = resolve_device(device)
         self.dtype = dtype
         self.quantize, self.kv_cache = quantize, kv_cache
@@ -80,9 +97,17 @@ class Qwen3ASR:
     # -- loading -----------------------------------------------------------
 
     def _finish_load(self, cfg, params, vocab, merges) -> None:
-        dec = fuse_decoder_params(quantize_decoder_params(params["decoder"],
-                                                          "int8pc"))
-        dec["mega"] = pack_megakernel_params(dec, cfg.decoder)
+        dec = params["decoder"]
+        if self.quantize == "int4":
+            # the int4 pack is built from int8pc leaves, so Q8_0 blocks of a
+            # GGUF are decoded first
+            dec = quantize_decoder_params(
+                dequantize_decoder_params(dec, self.dtype), "int8pc")
+        elif self.quantize == "q8_0":
+            dec = quantize_decoder_params(dec, "q8_0")
+        dec = fuse_decoder_params(dec)
+        if self.quantize == "int4":
+            dec["mega"] = pack_megakernel_params(dec, cfg.decoder)
         params["decoder"] = dec
         assert_on_device(params, self.device)
         self.cfg, self.params = cfg, params
@@ -133,12 +158,17 @@ class Qwen3ASR:
                       if params.system_prompt else None)
         out, n_kept = transcribe_fused(self.params, self.cfg, samples,
                                        self.filters_t, params.max_tokens,
-                                       system_prompt_tokens=sys_tokens)
+                                       system_prompt_tokens=sys_tokens,
+                                       cache_dtype=self.cache_dtype)
         result.tokens = [int(t) for t in out[:n_kept]]
         result.text = self.tokenizer.decode(result.tokens)
         result.success = True
         result.t_total_ms = (time.perf_counter() - t0) * 1000
         return result
+
+    @property
+    def cache_dtype(self) -> torch.dtype:
+        return torch.int8 if self.kv_cache == "int8" else torch.bfloat16
 
     def _load_samples(self, audio, result: TranscribeResult):
         """A path or a sample array -> samples (int16 kept as is), or None
@@ -172,6 +202,11 @@ class Qwen3ASR:
             for r in results:
                 r.error_msg = "Model not loaded"
             return results
+        if "mega" not in self.params["decoder"]:
+            raise NotImplementedError(
+                f"transcribe_batch runs the batched int4 decode step; "
+                f"quantize={self.quantize or False!r} has no int4 pack (the "
+                "batched Q8_0 / dense path is not ported)")
         t0 = time.perf_counter()
         samples_list = [self._load_samples(a, r) for a, r in zip(audios, results)]
         feats_list = frontend_feats_batch(self, samples_list, params.mel_bucket)

@@ -34,9 +34,9 @@ import time
 import numpy as np
 import torch
 
-from qwen3_asr_tpu.config import DecoderConfig
-from qwen3_asr_tpu.text.prompt import build_asr_prompt
-from qwen3_asr_tpu.text.timestamps import get_feat_extract_output_lengths
+from qwen3_asr_tpu_torch.config import DecoderConfig
+from qwen3_asr_tpu_torch.text.prompt import build_asr_prompt
+from qwen3_asr_tpu_torch.text.timestamps import get_feat_extract_output_lengths
 from qwen3_asr_tpu_torch.audio.mel import num_mel_frames
 from qwen3_asr_tpu_torch.models.generate import cache_rows, prefill_batch_mega_cache
 from qwen3_asr_tpu_torch.ops.megakernel_batch import (
@@ -104,8 +104,8 @@ class ContinuousEngine:
                  mel_bucket: int = 800, s_pool: int | None = None):
         dec = asr.params["decoder"]
         if "mega" not in dec:
-            raise ValueError("continuous engine needs the packed int4 decode "
-                             "weights")
+            raise ValueError("continuous engine needs the packed decode "
+                             "megakernel (quantize int8pc/int4)")
         self.asr = asr
         self.dcfg: DecoderConfig = asr.cfg.decoder
         self.pool = int(pool)

@@ -2,7 +2,8 @@
 
 Port of qwen3_asr_tpu/runtime/params.py. The trees keep the JAX package's
 keys and layouts ([in, out] linears, OIHW convs, weights stacked along a
-leading layer axis, `{"i8pc:q", "i8pc:s"}` leaves for int8pc weights), so a
+leading layer axis, `{"i8pc:q", "i8pc:s"}` leaves for int8pc weights,
+`{"q8:q", "q8:s"}` leaves for Q8_0 weights and the padded `lm_head_q8`), so a
 tree from either package converts to the other leaf by leaf.
 """
 
@@ -11,12 +12,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from qwen3_asr_tpu.config import (
+from qwen3_asr_tpu_torch.config import (
     ASRModelConfig,
     AudioEncoderConfig,
     DecoderConfig,
 )
-from qwen3_asr_tpu_torch.ops.q8_matmul import quantize_pc_weights
+from qwen3_asr_tpu_torch.ops.q8_matmul import (
+    dequantize_q8_weights,
+    quant_leaf,
+    quantize_pc_weights,
+    quantize_q8_weights,
+)
 
 _DEC_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
@@ -42,8 +48,8 @@ def _map(tree, fn):
 def from_jax_params(tree: dict, cfg: ASRModelConfig, device="cpu") -> dict:
     """The JAX package's ASR parameter tree, as numpy arrays (the dense tree
     of `init_asr_params`, or one whose decoder went through
-    `quantize_decoder_params('int8pc')` and `fuse_decoder_params`) -> the
-    port's tree on `device`. A quantized, fused decoder also gets the int4
+    `quantize_decoder_params('int8pc' or 'q8_0')` and `fuse_decoder_params`,
+    Q8_0 leaves and `lm_head_q8` included) -> the port's tree on `device`. A quantized, fused decoder also gets the int4
     decode pack (`dec["mega"]`), built from its int8pc leaves as the JAX
     package's `pack_megakernel_params(int4=True)` builds it."""
     out = _map(tree, lambda a: to_torch(a, device))
@@ -80,23 +86,47 @@ def assert_on_device(tree, device) -> None:
 # ---------------------------------------------------------------------------
 
 def quantize_decoder_params(dec_params: dict, mode: str = "int8pc") -> dict:
-    """Per-output-channel int8 leaves for the per-layer matmul weights and
-    an int8pc copy of the tied lm head (`lm_head_pc`, [hidden, vocab])."""
-    if mode != "int8pc":
+    """int8 leaves for the per-layer matmul weights (leaves that are already
+    quantized, as a Q8_0 GGUF loads them, stay) and an int8 copy of the tied
+    lm head. mode="int8pc": per-output-channel leaves and `lm_head_pc`
+    [hidden, vocab]; mode="q8_0": Q8_0 leaves (per-32-row-block scales,
+    codes bit-equal to the reference's numpy quantizer) and `lm_head_q8`,
+    its vocab zero-padded to a multiple of 4,096."""
+    if mode not in ("int8pc", "q8_0"):
         raise NotImplementedError(f"quantize mode {mode!r} is not ported "
-                                  "(only 'int8pc')")
+                                  "(only 'int8pc' and 'q8_0')")
     out = dict(dec_params)
     layers = dict(dec_params["layers"])
     for key in _DEC_QUANT_KEYS:
         if isinstance(layers[key], dict):
             continue
-        q, s = quantize_pc_weights(layers[key])
-        layers[key] = {"i8pc:q": q, "i8pc:s": s}
+        if mode == "int8pc":
+            q, s = quantize_pc_weights(layers[key])
+            layers[key] = {"i8pc:q": q, "i8pc:s": s}
+            continue
+        qs, ss = zip(*(quantize_q8_weights(w) for w in layers[key]))
+        layers[key] = {"q8:q": torch.stack(qs), "q8:s": torch.stack(ss)}
     out["layers"] = layers
-    if "lm_head_pc" not in out:
-        q, s = quantize_pc_weights(dec_params["token_embd"].float().T)
+    head = dec_params["token_embd"].float().T            # [hidden, vocab]
+    if mode == "int8pc" and "lm_head_pc" not in out:
+        q, s = quantize_pc_weights(head)
         out["lm_head_pc"] = {"i8pc:q": q.contiguous(), "i8pc:s": s}
+    elif mode == "q8_0" and "lm_head_q8" not in out:
+        out["lm_head_q8"] = quant_leaf(head, pad_out_to=4096)
     return out
+
+
+def dequantize_decoder_params(dec_params: dict, dtype=torch.bfloat16) -> dict:
+    """Q8_0 leaves (a natively loaded Q8_0 GGUF) back to dense matrices in
+    `dtype`: the input of the int8pc / int4 quantizers."""
+    layers = dict(dec_params["layers"])
+    for key in _DEC_QUANT_KEYS:
+        leaf = layers[key]
+        if isinstance(leaf, dict) and "q8:q" in leaf:
+            layers[key] = torch.stack([
+                dequantize_q8_weights(q, s).to(dtype)
+                for q, s in zip(leaf["q8:q"], leaf["q8:s"])])
+    return dict(dec_params, layers=layers)
 
 
 def fuse_decoder_params(dec_params: dict) -> dict:
@@ -216,13 +246,15 @@ def init_asr_params(cfg: ASRModelConfig, seed: int = 0, device="cpu",
 
 
 # ---------------------------------------------------------------------------
-# GGUF loading (through the JAX package's host-only reader)
+# GGUF loading
 # ---------------------------------------------------------------------------
 
 def load_asr_model(path: str, device="cpu", dtype=torch.bfloat16):
-    """GGUF file -> (ASRModelConfig, params, vocab, merges). Q8_0 tensors
-    are decoded to float (the port has no Q8_0 kernels yet)."""
-    from qwen3_asr_tpu.runtime.gguf import GGUFFile
+    """GGUF file -> (ASRModelConfig, params, vocab, merges). A decoder
+    matmul weight stored as Q8_0 in every layer loads its GGML blocks
+    directly as a Q8_0 leaf (no requantization); other Q8_0 tensors are
+    decoded to float."""
+    from qwen3_asr_tpu_torch.runtime.gguf import GGML_TYPE_Q8_0, GGUFFile
 
     g = GGUFFile(path)
     try:
@@ -240,6 +272,22 @@ def load_asr_model(path: str, device="cpu", dtype=torch.bfloat16):
             mats = [np.asarray(g.get(fmt.format(i)), np.float32) for i in range(n)]
             a = np.stack([m.T if transpose else m for m in mats])
             return to_torch(a, device).to(dtype)
+
+        def matmul_weight(fmt, n):
+            """[L, in, out], or a Q8_0 leaf of GGML's own blocks: they run
+            along ne[0] (`in`), so the (out, in) numpy view transposes to
+            the leaf's [in, out] / [in/32, out] layout."""
+            names = [fmt.format(i) for i in range(n)]
+            if not all(g.tensors[m].ggml_type == GGML_TYPE_Q8_0 for m in names):
+                return stack(fmt, n, True)
+            qs, ss = [], []
+            for m in names:
+                q_flat, s_flat = g.get_q8_0(m)
+                out_dim, in_dim = tuple(reversed(g.tensors[m].shape))[:2]
+                qs.append(q_flat.reshape(out_dim, in_dim).T)
+                ss.append(s_flat.reshape(out_dim, in_dim // 32).T.astype(np.float32))
+            return {"q8:q": to_torch(np.stack(qs), device),
+                    "q8:s": to_torch(np.stack(ss), device)}
 
         p = "audio.encoder."
         enc_layers = {
@@ -272,20 +320,23 @@ def load_asr_model(path: str, device="cpu", dtype=torch.bfloat16):
             "proj2_b": maybe(p + "proj2.bias"),
         }
         dec_layers = {
-            key: stack("blk.{}." + name, dec_cfg.n_layers, tr)
-            for key, name, tr in (
-                ("attn_norm", "attn_norm.weight", False),
-                ("wq", "attn_q.weight", True), ("wk", "attn_k.weight", True),
-                ("wv", "attn_v.weight", True),
-                ("wo", "attn_output.weight", True),
-                ("q_norm", "attn_q_norm.weight", False),
-                ("k_norm", "attn_k_norm.weight", False),
-                ("ffn_norm", "ffn_norm.weight", False),
-                ("w_gate", "ffn_gate.weight", True),
-                ("w_up", "ffn_up.weight", True),
-                ("w_down", "ffn_down.weight", True),
+            key: stack("blk.{}." + name, dec_cfg.n_layers, False)
+            for key, name in (
+                ("attn_norm", "attn_norm.weight"),
+                ("q_norm", "attn_q_norm.weight"),
+                ("k_norm", "attn_k_norm.weight"),
+                ("ffn_norm", "ffn_norm.weight"),
             )
         }
+        dec_layers.update({
+            key: matmul_weight("blk.{}." + name, dec_cfg.n_layers)
+            for key, name in (
+                ("wq", "attn_q.weight"), ("wk", "attn_k.weight"),
+                ("wv", "attn_v.weight"), ("wo", "attn_output.weight"),
+                ("w_gate", "ffn_gate.weight"), ("w_up", "ffn_up.weight"),
+                ("w_down", "ffn_down.weight"),
+            )
+        })
         decoder = {
             "token_embd": get("token_embd.weight"),
             "output_norm": get("output_norm.weight"),

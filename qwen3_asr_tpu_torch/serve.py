@@ -42,8 +42,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from qwen3_asr_tpu.config import SAMPLE_RATE
-from qwen3_asr_tpu.text.prompt import (
+from qwen3_asr_tpu_torch.config import SAMPLE_RATE
+from qwen3_asr_tpu_torch.text.prompt import (
     StreamingTranscriptCleaner,
     detect_language,
     extract_transcript,
@@ -566,12 +566,14 @@ def main(argv=None) -> int:
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--max-wait-ms", type=float, default=5.0)
     p.add_argument("--max-tokens", type=int, default=1024)
-    p.add_argument("--quantize", default="int4",
-                   choices=["auto", "none", "q8_0", "int8pc", "int4"],
-                   help="decode weights; the port carries int4 (int4 decode "
-                        "weights, int8pc prefill)")
-    p.add_argument("--kv-cache", default="int8", choices=["int8", "bf16", "int4"],
-                   help="KV cache dtype; the port carries int8")
+    # the workers (closed batches and the continuous pool) run the batched
+    # int4-weight / int8-KV decode step only; q8_0 and dense weights
+    # transcribe one request at a time through Qwen3ASR.transcribe
+    p.add_argument("--quantize", default="int4", choices=["int4"],
+                   help="decode weights: int4 (int4 decode weights, int8pc "
+                        "prefill), the only mode of the server's workers")
+    p.add_argument("--kv-cache", default="int8", choices=["int8"],
+                   help="KV cache dtype: int8, the only mode of the server's workers")
     p.add_argument("--warmup", default="",
                    help="comma-separated audio lengths (s) to run before serving")
     p.add_argument("--continuous", action="store_true",
@@ -584,7 +586,6 @@ def main(argv=None) -> int:
                         "0 = a 92 s prompt bucket plus --max-tokens, capped by "
                         "device memory")
     args = p.parse_args(argv)
-
     asr = Qwen3ASR(quantize=args.quantize, kv_cache=args.kv_cache, device=args.device)
     if not asr.load_model(args.model):
         print(f"Error: {asr.error_msg}", file=sys.stderr)

@@ -54,6 +54,7 @@ from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams
 from qwen3_asr_tpu_torch.runtime.params import from_jax_params, to_torch
 
 from helpers import make_byte_vocab
+from test_torch_params import port_config
 
 MAX_TOKENS = 8
 BUCKET = 200   # mel frames (2 s)
@@ -95,7 +96,8 @@ def jax_and_port(seed=7, gain=1):
     j.params["decoder"]["mega"] = pack_megakernel_params(
         j.params["decoder"], cfg.decoder, int4=True)
     t = Qwen3ASR(device="cpu")
-    t.cfg, t.params, t.tokenizer = cfg, from_jax_params(p, cfg), j.tokenizer
+    tcfg = port_config(cfg)
+    t.cfg, t.params, t.tokenizer = tcfg, from_jax_params(p, tcfg), j.tokenizer
     t.filters_t = tmel.filters_t(tmel.generate_mel_filters(), "cpu")
     return j, t
 
@@ -139,15 +141,15 @@ def test_encoder_padded_batch_matches_jax():
         AUDIO, tmel.generate_mel_filters(), BUCKET)
     want, na_j = jenc.encode_audio_padded_batch(p, cfg, mel_b, n_frames)
     got, na_t = tenc.encode_audio_padded_batch(
-        tp, cfg, torch.from_numpy(np.asarray(mel_b)), n_frames)
+        tp, port_config(cfg), torch.from_numpy(np.asarray(mel_b)), n_frames)
     assert na_t == na_j and got.shape == want.shape
     for b, n in enumerate(na_t):
         np.testing.assert_allclose(got[b, :n].numpy(), np.asarray(want)[b, :n],
                                    rtol=1e-4, atol=1e-4)
     # one utterance through the bucketed encoder = its exact-shape encode
-    one, n1 = tenc.encode_audio_padded(tp, cfg, torch.from_numpy(np.asarray(mel_b[1])),
+    one, n1 = tenc.encode_audio_padded(tp, port_config(cfg), torch.from_numpy(np.asarray(mel_b[1])),
                                        n_frames[1])
-    exact = tenc.encode(tp, cfg, torch.from_numpy(np.asarray(mel_b[1]))[:, :n_frames[1]],
+    exact = tenc.encode(tp, port_config(cfg), torch.from_numpy(np.asarray(mel_b[1]))[:, :n_frames[1]],
                         n_frames[1])
     np.testing.assert_allclose(one[:n1].numpy(), exact.numpy(), rtol=1e-4, atol=1e-4)
 
@@ -183,7 +185,7 @@ def test_decoder_prefill_batch_matches_jax(pair):
         j.params["decoder"], dcfg, h0, jnp.arange(toks.shape[1], dtype=jnp.int32),
         jnp.asarray(n_prompt, jnp.int32))
     ht, rows_t = tdec.decoder_prefill_batch(
-        t.params["decoder"], dcfg, torch.from_numpy(np.asarray(h0, np.float32)).to(
+        t.params["decoder"], t.cfg.decoder, torch.from_numpy(np.asarray(h0, np.float32)).to(
             torch.bfloat16), torch.from_numpy(n_prompt.astype(np.int32)))
     for b, n in enumerate(n_prompt):
         assert _rel(ht[b, :n].float(), hj[b, :n]) < 1e-2, b
@@ -193,7 +195,7 @@ def test_decoder_prefill_batch_matches_jax(pair):
             assert _rel(got, want) < 1e-2, (b, name)
     last = n_prompt - 1
     lj = jdec.lm_logits_block(j.params["decoder"], dcfg, hj[np.arange(3), last])
-    lt = tdec.lm_logits_block(t.params["decoder"], dcfg, ht[np.arange(3), last])
+    lt = tdec.lm_logits_block(t.params["decoder"], t.cfg.decoder, ht[np.arange(3), last])
     np.testing.assert_array_equal(lt.argmax(-1).numpy(), np.asarray(lj).argmax(-1))
 
 
@@ -206,7 +208,7 @@ def test_prefill_batch_mega_cache_matches_jax(pair):
         j.params["decoder"], dcfg, jnp.asarray(toks), jnp.asarray(n_prompt, jnp.int32),
         jnp.asarray(audio, jnp.bfloat16), jnp.asarray(n_audio, jnp.int32), off, S)
     ft, kt, vt, kst, vst = tgen.prefill_batch_mega_cache(
-        t.params["decoder"], dcfg, torch.from_numpy(toks), n_prompt,
+        t.params["decoder"], t.cfg.decoder, torch.from_numpy(toks), n_prompt,
         torch.from_numpy(audio).to(torch.bfloat16), n_audio, off, S)
     np.testing.assert_array_equal(ft.numpy(), np.asarray(fj))
     P = toks.shape[1]
@@ -242,7 +244,8 @@ def test_generate_greedy_batch_mega_matches_jax(wide):
     toks, n_prompt, n_audio, audio, off = _prompts(dcfg)
     args = (torch.from_numpy(toks), n_prompt, torch.from_numpy(audio).to(torch.bfloat16),
             n_audio, off, MAX_TOKENS)
-    out_t, nk_t = tgen.generate_greedy_batch_mega(t.params["decoder"], dcfg, *args)
+    out_t, nk_t = tgen.generate_greedy_batch_mega(t.params["decoder"], port_config(dcfg),
+                                                  *args)
     out_j, nk_j = _greedy_jax(j, dcfg, toks, n_prompt, audio, n_audio, off)
     np.testing.assert_array_equal(out_t, out_j)
     np.testing.assert_array_equal(nk_t, nk_j)
@@ -257,7 +260,8 @@ def test_generate_greedy_batch_mega_matches_jax(wide):
                if min(first(e)) >= 1 and len(set(first(e))) > 1)
     want_nk = first(eos)
     dcfg = dataclasses.replace(dcfg, eos_token_id=eos)
-    out_t, nk_t = tgen.generate_greedy_batch_mega(t.params["decoder"], dcfg, *args)
+    out_t, nk_t = tgen.generate_greedy_batch_mega(t.params["decoder"], port_config(dcfg),
+                                                  *args)
     out_j, nk_j = _greedy_jax(j, dcfg, toks, n_prompt, audio, n_audio, off)
     np.testing.assert_array_equal(out_t, out_j)
     np.testing.assert_array_equal(nk_t, nk_j)

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from qwen3_asr_tpu.config import tiny_asr_config
+from qwen3_asr_tpu_torch.config import tiny_asr_config
 from qwen3_asr_tpu_torch.models.decoder import _quantize_kv_rows
 from qwen3_asr_tpu_torch.ops import flash_attention as tfa
 from qwen3_asr_tpu_torch.ops import megakernel as tmk
@@ -201,3 +201,79 @@ def test_batched_megakernel_rejects_bad_arguments(cuda_kernels):
     big = [t[:1].expand(17, *t.shape[1:]).contiguous() for t in pool]
     with pytest.raises(ValueError):
         tmb.BatchDecodeStep(pack, dcfg, *big)
+
+
+def _q8_leaf(n_in, n_out, g, pad_out_to=1):
+    from qwen3_asr_tpu_torch.ops import q8_matmul as q8
+
+    w = torch.randn(n_in, n_out, generator=g, device="cuda") * 0.02
+    return q8.quant_leaf(w, pad_out_to=pad_out_to)
+
+
+def _q8_close(got, want, bf16: bool):
+    """f32 dequant: the same f32 products in another order (rel L2 < 1e-5);
+    bf16 dequant: a normed activation may round to the other bf16 neighbour
+    (rel L2 < 1e-4, |err| <= 1e-3 x the output's scale)."""
+    rel = float((got - want).norm() / want.norm())
+    assert rel < (1e-4 if bf16 else 1e-5), rel
+    if bf16:
+        assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 75])
+def test_q8_kernels_match_twins(cuda_kernels, T):
+    """K5 (Wo 2,048 -> 1,024), K6 (QKV 1,024 -> 4,096 and the lm head, 151,936
+    columns padded to 155,648) and K7 (1,024 -> 2 x 3,072 -> 1,024) at the
+    decode step's T = 1 and a 5 s prompt's T = 75."""
+    from qwen3_asr_tpu_torch.ops import q8_matmul as q8
+
+    g = torch.Generator(device="cuda").manual_seed(T)
+    x = torch.randn(T, 1024, generator=g, device="cuda").to(torch.bfloat16)
+    nw = (1 + 0.1 * torch.randn(1024, generator=g, device="cuda")).to(torch.bfloat16)
+    wo = _q8_leaf(2048, 1024, g)
+    xa = torch.randn(T, 2048, generator=g, device="cuda").to(torch.bfloat16)
+    before = q8.q8_matmul.launches
+    _q8_close(q8.q8_matmul(xa, wo["q8:q"], wo["q8:s"]),
+              q8.q8_matmul_ref(xa, wo["q8:q"], wo["q8:s"]), bf16=False)
+    assert q8.q8_matmul.launches == before + 1
+    for leaf in (_q8_leaf(1024, 4096, g), _q8_leaf(1024, 151936, g, pad_out_to=4096)):
+        got = q8.q8_norm_matmul(x, leaf, nw, 1e-6)
+        _q8_close(got, q8.q8_norm_matmul_ref(x, leaf["q8:q"], leaf["q8:s"], nw, 1e-6),
+                  bf16=True)
+    gu, dn = _q8_leaf(1024, 6144, g), _q8_leaf(3072, 1024, g)
+    before = q8.q8_mlp.launches
+    got = q8.q8_mlp(x, gu, dn, nw, 1e-6, 3072)
+    assert q8.q8_mlp.launches == before + 1
+    _q8_close(got, q8.q8_mlp_ref(x, gu["q8:q"], gu["q8:s"], dn["q8:q"], dn["q8:s"],
+                                 nw, 1e-6, 3072), bf16=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("offset", [0, 1, 64, 1248])
+def test_decode_attention_matches_twin(cuda_kernels, quant, offset):
+    """K4 at the decoder's widths (16 q / 8 kv heads, D = 128), S = 1,664:
+    the same f32 math in another order, rtol 1e-4 and atol 1e-5 x scale."""
+    from qwen3_asr_tpu_torch.models.decoder import _quantize_kv_rows
+    from qwen3_asr_tpu_torch.ops import decode_attention as da
+
+    g = torch.Generator(device="cuda").manual_seed(offset + quant)
+    S = 1664
+    qkv = torch.randn(1, 4096, generator=g, device="cuda").to(torch.bfloat16)
+    k = torch.randn(S, 8, 128, generator=g, device="cuda")
+    v = torch.randn(S, 8, 128, generator=g, device="cuda")
+    kw = dict(n_heads=16, n_kv=8, head_dim=128, eps=1e-6, theta=1e6,
+              scale=1 / np.sqrt(128))
+    if quant:
+        (k, ks), (v, vs) = _quantize_kv_rows(k), _quantize_kv_rows(v)
+        kw.update(k_scale=ks, v_scale=vs)
+    else:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    qn = (1 + 0.1 * torch.randn(128, generator=g, device="cuda")).to(torch.bfloat16)
+    before = da.decode_attention.launches
+    got = da.decode_attention(qkv, k, v, qn, qn, offset, offset, **kw)
+    assert da.decode_attention.launches == before + 1
+    want = da.decode_attention_ref(qkv, k, v, qn, qn, offset, offset, **kw)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))

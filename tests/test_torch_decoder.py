@@ -22,7 +22,7 @@ import torch
 from qwen3_asr_tpu.models import decoder as jdec
 from qwen3_asr_tpu_torch.models import decoder as tdec
 from qwen3_asr_tpu_torch.runtime.params import from_jax_params
-from test_torch_params import jax_tree
+from test_torch_params import jax_tree, port_config
 
 
 @pytest.fixture(scope="module")
@@ -31,7 +31,7 @@ def setup():
 
     cfg = tiny_asr_config()
     tree = jax_tree(cfg, seed=11)
-    return cfg, tree, from_jax_params(tree, cfg)
+    return cfg, tree, from_jax_params(tree, port_config(cfg))
 
 
 def _live(a, n):
@@ -75,9 +75,10 @@ def test_prefill_matches_jax(setup):
 
     hj, _ = _jax_prefill(jd, dcfg, h0, P, n_prompt)
     tok_j = int(jnp.argmax(jdec.lm_logits(jd, dcfg, hj[n_prompt - 1])))
-    ht = tdec.decoder_forward(td, dcfg, h0_t, tdec.init_kv_cache(dcfg, 128, "cpu"),
+    tcfg = port_config(dcfg)
+    ht = tdec.decoder_forward(td, tcfg, h0_t, tdec.init_kv_cache(tcfg, 128, "cpu"),
                               n_prompt)
-    tok_t = int(torch.argmax(tdec.lm_logits(td, dcfg, ht[n_prompt - 1])))
+    tok_t = int(torch.argmax(tdec.lm_logits(td, tcfg, ht[n_prompt - 1])))
     a = ht.float().numpy()[:n_prompt]
     b = np.asarray(hj, np.float32)[:n_prompt]
     assert np.linalg.norm(a - b) / np.linalg.norm(b) < 1e-2
@@ -96,9 +97,9 @@ def test_prefill_layers_match_jax(setup):
         jl = dict(jd, layers=_layer(jd["layers"], l))
         tl = dict(td, layers=_layer(td["layers"], l))
         hj, cache_j = _jax_prefill(jl, dcfg1, h, P, n_prompt)
-        cache_t = tdec.init_kv_cache(dcfg1, 128, "cpu")
+        cache_t = tdec.init_kv_cache(port_config(dcfg1), 128, "cpu")
         ht = tdec.decoder_forward(
-            tl, dcfg1, torch.from_numpy(np.asarray(h, np.float32)).to(
+            tl, port_config(dcfg1), torch.from_numpy(np.asarray(h, np.float32)).to(
                 torch.bfloat16), cache_t, n_prompt)
         a = ht.float().numpy()[:n_prompt]
         b = np.asarray(hj, np.float32)[:n_prompt]
@@ -122,7 +123,7 @@ def test_lm_logits_pc_head(setup):
     h = rng.standard_normal(cfg.decoder.hidden_size).astype(np.float32)
     want = np.asarray(jdec.lm_logits(tree["decoder"], cfg.decoder,
                                      jnp.asarray(h, jnp.bfloat16)))
-    got = tdec.lm_logits(tp["decoder"], cfg.decoder,
+    got = tdec.lm_logits(tp["decoder"], port_config(cfg.decoder),
                          torch.from_numpy(h).to(torch.bfloat16)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
@@ -137,7 +138,21 @@ def test_quantize_kv_rows_matches():
 
 
 def test_decode_branch_not_ported(setup):
+    """The decode branch runs the fused dense and Q8_0 layouts
+    (tests/test_torch_q8_e2e.py); on int8pc leaves, whose decode steps run
+    through the int4 megakernel, it raises, and so does a decode step
+    without the decode-attention kernel."""
     cfg, _, tp = setup
-    with pytest.raises(NotImplementedError):
-        tdec.decoder_forward(tp["decoder"], cfg.decoder, None, {}, 1,
-                             prefill=False)
+    dcfg = port_config(cfg.decoder)
+    cache = tdec.init_kv_cache(dcfg, 8, "cpu")
+    x = torch.zeros(1, dcfg.hidden_size, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="int8pc"):
+        tdec.decoder_forward(tp["decoder"], dcfg, x, cache, 2, prefill=False,
+                             cache_offset=1)
+    with pytest.raises(NotImplementedError, match="use_decode_attn_kernel"):
+        tdec.decoder_forward(tp["decoder"], dataclasses.replace(
+            dcfg, use_decode_attn_kernel=False), x, cache, 2, prefill=False,
+            cache_offset=1)
+    with pytest.raises(ValueError):
+        tdec.decoder_forward(tp["decoder"], dcfg, x, cache, 5, prefill=False,
+                             cache_offset=1)

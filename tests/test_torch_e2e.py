@@ -30,7 +30,7 @@ from qwen3_asr_tpu_torch.models.e2e import _pad_pcm, expected_n_audio, transcrib
 from qwen3_asr_tpu_torch.ops import megakernel as tmk
 from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams
 from qwen3_asr_tpu_torch.runtime.params import from_jax_params
-from test_torch_params import NEAR_TIE_TOL, jax_tree
+from test_torch_params import NEAR_TIE_TOL, jax_tree, port_config
 
 MAX_TOKENS = 8
 
@@ -48,7 +48,7 @@ def setup():
     cfg = dataclasses.replace(
         cfg, decoder=dataclasses.replace(cfg.decoder, eos_token_id=-1))
     tree = jax_tree(cfg, seed=2)
-    tp = from_jax_params(tree, cfg)
+    tp = from_jax_params(tree, port_config(cfg))
     tree["decoder"]["mega"] = pack_megakernel_params(tree["decoder"], cfg.decoder,
                                                      int4=True)
     pcm = _pcm()
@@ -70,7 +70,7 @@ def setup():
 
 def _teacher_forced_logits(cfg, tp, prompt, off, feats, n_audio, tokens):
     """Port logits at every step, fed the given tokens."""
-    dcfg, dec = cfg.decoder, tp["decoder"]
+    dcfg, dec = port_config(cfg.decoder), tp["decoder"]
     P = len(prompt)
     S = -(-(P + MAX_TOKENS) // 128) * 128
     cache = tdec.init_kv_cache(dcfg, S, "cpu")
@@ -91,7 +91,7 @@ def _teacher_forced_logits(cfg, tp, prompt, off, feats, n_audio, tokens):
 def test_transcribe_matches_jax(setup):
     cfg, tp, pcm, filters, jax_tokens, (prompt, off, n_audio, feats) = setup
     assert len(jax_tokens) == MAX_TOKENS
-    out, n_kept = transcribe_fused(tp, cfg, pcm, filters_t(filters, "cpu"),
+    out, n_kept = transcribe_fused(tp, port_config(cfg), pcm, filters_t(filters, "cpu"),
                                    MAX_TOKENS)
     assert n_kept == MAX_TOKENS
     port = [int(t) for t in out[:n_kept]]
@@ -116,12 +116,12 @@ def test_eos_stops_and_is_dropped(setup):
     dec = tp["decoder"]
     audio = torch.from_numpy(np.asarray(feats, np.float32)).to(torch.bfloat16)
     toks = torch.tensor(prompt, dtype=torch.int32)
-    free, n = generate_greedy(dec, cfg.decoder, toks, len(prompt), audio, n_audio,
+    free, n = generate_greedy(dec, port_config(cfg.decoder), toks, len(prompt), audio, n_audio,
                               off, MAX_TOKENS)
     assert n == MAX_TOKENS
     eos = int(free[3])
     first = list(free).index(eos)
-    dcfg = dataclasses.replace(cfg.decoder, eos_token_id=eos)
+    dcfg = port_config(dataclasses.replace(cfg.decoder, eos_token_id=eos))
     out, n_kept = generate_greedy(dec, dcfg, toks, len(prompt), audio, n_audio,
                                   off, MAX_TOKENS)
     assert n_kept == first
@@ -150,14 +150,14 @@ def test_pipeline_load_model_from_gguf(tmp_path):
     assert res.success and len(res.tokens) <= 6
 
     jcfg, jp, _, _ = jparams.load_asr_model(path)
-    assert asr.cfg == jcfg
+    assert asr.cfg == port_config(jcfg)
     import jax
 
     jp = jax.tree.map(np.asarray, jp)
     jp["decoder"] = jax.tree.map(np.asarray, jparams.fuse_decoder_params(
         jparams.quantize_decoder_params(jp["decoder"], "int8pc")))
-    tp = from_jax_params(jp, jcfg)
-    out, n_kept = transcribe_fused(tp, jcfg, _pcm(1.5, 3), asr.filters_t, 6)
+    tp = from_jax_params(jp, port_config(jcfg))
+    out, n_kept = transcribe_fused(tp, port_config(jcfg), _pcm(1.5, 3), asr.filters_t, 6)
     assert [int(t) for t in out[:n_kept]] == res.tokens
 
     bad = Qwen3ASR(device="cpu")

@@ -13,6 +13,7 @@ from qwen3_asr_tpu.models.encoder import sinusoidal_pe as jax_pe
 from qwen3_asr_tpu.runtime.params import init_encoder_params
 from qwen3_asr_tpu_torch.models import encoder as tenc
 from qwen3_asr_tpu_torch.runtime.params import to_torch
+from test_torch_params import port_config
 
 
 @pytest.fixture(scope="module")
@@ -38,7 +39,7 @@ def test_encoder_matches_jax(setup, n_frames):
     rng = np.random.default_rng(n_frames)
     mel = rng.standard_normal((cfg.n_mel_bins, n_frames)).astype(np.float32)
     want = np.asarray(_encode_jit(p, cfg, jnp.asarray(mel), n_frames))
-    got = tenc.encode(tp, cfg, torch.from_numpy(mel), n_frames).numpy()
+    got = tenc.encode(tp, port_config(cfg), torch.from_numpy(mel), n_frames).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 

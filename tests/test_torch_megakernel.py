@@ -23,7 +23,7 @@ from qwen3_asr_tpu.models.decoder import _quantize_kv_rows
 from qwen3_asr_tpu.ops import megakernel as jmk
 from qwen3_asr_tpu_torch.ops import megakernel as tmk
 from qwen3_asr_tpu_torch.runtime.params import from_jax_params
-from test_torch_params import jax_tree
+from test_torch_params import jax_tree, port_config
 
 S, POS0, STEPS = 32, 12, 4
 
@@ -33,7 +33,7 @@ def setup():
     cfg = tiny_asr_config()
     tree = jax_tree(cfg, seed=3)
     mega = jmk.pack_megakernel_params(tree["decoder"], cfg.decoder, int4=True)
-    return cfg.decoder, tree, mega, from_jax_params(tree, cfg)["decoder"]
+    return cfg.decoder, tree, mega, from_jax_params(tree, port_config(cfg))["decoder"]
 
 
 def _cache(dcfg, seed):
@@ -65,7 +65,7 @@ def test_twin_matches_jax_kernel(setup):
         jtok, jk, jv, jks, jvs, jh = jmk.mega_decode_step_i8(
             mega, dcfg, x, jnp.int32(pos), jk, jv, jks, jvs, interpret=True)
         ttok, th = tmk.mega_decode_step_i8(
-            td["mega"], dcfg, torch.tensor([tok], dtype=torch.int32), pos,
+            td["mega"], port_config(dcfg), torch.tensor([tok], dtype=torch.int32), pos,
             tk, tv, tks, tvs)
         assert int(ttok[0]) == int(jtok), f"step {i}"
         a, b = th.numpy(), np.asarray(jh)
@@ -111,7 +111,7 @@ def test_twin_layers_match_jax_kernel(setup):
         tk, tv = torch.from_numpy(k0[sl].copy()), torch.from_numpy(v0[sl].copy())
         tks, tvs = torch.from_numpy(ks0[sl].copy()), torch.from_numpy(vs0[sl].copy())
         xt = torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
-        _, th = tmk.mega_decode_step_i8(tm, dcfg1, xt, POS0, tk, tv, tks, tvs)
+        _, th = tmk.mega_decode_step_i8(tm, port_config(dcfg1), xt, POS0, tk, tv, tks, tvs)
         a, b = th.numpy(), np.asarray(jh)
         assert np.linalg.norm(a - b) / np.linalg.norm(b) < 1e-2, l
         for name, got, want, gs, ws in (
@@ -128,9 +128,9 @@ def test_twin_token_input_equals_row_input(setup):
     dcfg, tree, _, td = setup
     caches = [torch.from_numpy(a) for a in (*_cache(dcfg, 1), *_cache(dcfg, 2))]
     k, ks, v, vs = caches
-    a = tmk.mega_decode_step_i8(td["mega"], dcfg, torch.tensor([5], dtype=torch.int32),
+    a = tmk.mega_decode_step_i8(td["mega"], port_config(dcfg), torch.tensor([5], dtype=torch.int32),
                                 POS0, k.clone(), v.clone(), ks.clone(), vs.clone())
     x = td["token_embd"][5][None]
-    b = tmk.mega_decode_step_i8(td["mega"], dcfg, x, POS0, k.clone(), v.clone(),
+    b = tmk.mega_decode_step_i8(td["mega"], port_config(dcfg), x, POS0, k.clone(), v.clone(),
                                 ks.clone(), vs.clone())
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

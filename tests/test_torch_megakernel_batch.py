@@ -28,7 +28,7 @@ from qwen3_asr_tpu.ops.megakernel_batch import mega_decode_step_batch as jax_ste
 from qwen3_asr_tpu_torch.ops import megakernel as tmk
 from qwen3_asr_tpu_torch.ops import megakernel_batch as tmb
 from qwen3_asr_tpu_torch.runtime.params import from_jax_params
-from test_torch_params import jax_tree
+from test_torch_params import jax_tree, port_config
 
 S, POS0, STEPS = 32, (12, 3, 20), 4
 
@@ -38,7 +38,7 @@ def setup():
     cfg = tiny_asr_config()
     tree = jax_tree(cfg, seed=3)
     mega = jmk.pack_megakernel_params(tree["decoder"], cfg.decoder, int4=True)
-    return cfg.decoder, tree, mega, from_jax_params(tree, cfg)["decoder"]
+    return cfg.decoder, tree, mega, from_jax_params(tree, port_config(cfg))["decoder"]
 
 
 def _pool(dcfg, seed):
@@ -73,7 +73,7 @@ def test_plain_matches_jax_kernel(setup):
             mega, dcfg, jnp.asarray(embd[toks]), jnp.asarray(pos, jnp.int32),
             jk, jv, jks, jvs, interpret=True)
         tt, th = tmb.mega_decode_step_batch(
-            td["mega"], dcfg, torch.from_numpy(toks.astype(np.int32)), pos,
+            td["mega"], port_config(dcfg), torch.from_numpy(toks.astype(np.int32)), pos,
             tk, tv, tks, tvs)
         np.testing.assert_array_equal(tt.numpy(), np.asarray(jt), err_msg=str(i))
         for b in range(len(pos)):
@@ -97,10 +97,10 @@ def test_plain_rows_equal_single_step(setup):
     k, ks, v, vs = pool
     batch = [t.clone() for t in (k, v, ks, vs)]
     toks = torch.tensor([5, 6, 7], dtype=torch.int32)
-    tt, th = tmb.mega_decode_step_batch(td["mega"], dcfg, toks, POS0, *batch)
+    tt, th = tmb.mega_decode_step_batch(td["mega"], port_config(dcfg), toks, POS0, *batch)
     for b, p in enumerate(POS0):
         single = [t[b].clone() for t in (k, v, ks, vs)]
-        st, sh = tmk.mega_decode_step_i8_ref(td["mega"], dcfg, toks[b:b + 1], p,
+        st, sh = tmk.mega_decode_step_i8_ref(td["mega"], port_config(dcfg), toks[b:b + 1], p,
                                              *single)
         assert torch.equal(tt[b:b + 1], st) and torch.equal(th[b:b + 1], sh)
         for got, want in zip(batch, single):
@@ -114,5 +114,5 @@ def test_rejects_bad_positions(setup, pos, err):
     pool = [torch.from_numpy(a) for a in (*_pool(dcfg, 1), *_pool(dcfg, 2))]
     k, ks, v, vs = pool
     with pytest.raises(ValueError, match=err):
-        tmb.mega_decode_step_batch(td["mega"], dcfg, torch.tensor([1, 2, 3], dtype=torch.int32),
+        tmb.mega_decode_step_batch(td["mega"], port_config(dcfg), torch.tensor([1, 2, 3], dtype=torch.int32),
                                    pos, k, v, ks, vs)

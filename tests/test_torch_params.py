@@ -8,19 +8,36 @@ run in another order), and the nibble packing must match byte for byte.
 Also holds the helpers the other test_torch_* files share.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from qwen3_asr_tpu import config as jconfig
 from qwen3_asr_tpu.config import tiny_asr_config
 from qwen3_asr_tpu.ops import megakernel as jmk
 from qwen3_asr_tpu.runtime import params as jparams
+from qwen3_asr_tpu_torch import config as tconfig
 from qwen3_asr_tpu_torch.ops import megakernel as tmk
 from qwen3_asr_tpu_torch.runtime import params as tparams
 
 NEAR_TIE_TOL = 0.2  # scripts/chipgate.py: argmax flips below this logit gap
+
+
+def port_config(cfg):
+    """A JAX package config (ASRModelConfig, DecoderConfig or
+    AudioEncoderConfig) -> the port's own dataclass, rebuilt field by field
+    from dataclasses.asdict: the port's functions take only their own
+    configs."""
+    if isinstance(cfg, jconfig.ASRModelConfig):
+        return tconfig.ASRModelConfig(encoder=port_config(cfg.encoder),
+                                      decoder=port_config(cfg.decoder))
+    cls = {jconfig.DecoderConfig: tconfig.DecoderConfig,
+           jconfig.AudioEncoderConfig: tconfig.AudioEncoderConfig}[type(cfg)]
+    return cls(**dataclasses.asdict(cfg))
 
 
 def jax_tree(cfg, seed=3, quantize=True):
@@ -58,12 +75,17 @@ def cfg():
 
 
 @pytest.fixture(scope="module")
+def tcfg(cfg):
+    return port_config(cfg)
+
+
+@pytest.fixture(scope="module")
 def dense(cfg):
     return jax_tree(cfg, quantize=False)
 
 
-def test_int8pc_bit_equal(cfg, dense):
-    dec_t = tparams.from_jax_params(dense, cfg)["decoder"]
+def test_int8pc_bit_equal(tcfg, dense):
+    dec_t = tparams.from_jax_params(dense, tcfg)["decoder"]
     q_t = tparams.quantize_decoder_params(dec_t, "int8pc")
     q_j = jax.tree.map(np.asarray, jparams.quantize_decoder_params(
         dense["decoder"], "int8pc"))
@@ -76,9 +98,9 @@ def test_int8pc_bit_equal(cfg, dense):
                                       q_j["lm_head_pc"][sub])
 
 
-def test_fuse_matches(cfg, dense):
+def test_fuse_matches(cfg, tcfg, dense):
     dec_t = tparams.fuse_decoder_params(tparams.quantize_decoder_params(
-        tparams.from_jax_params(dense, cfg)["decoder"]))
+        tparams.from_jax_params(dense, tcfg)["decoder"]))
     want = jax_tree(cfg)["decoder"]["layers"]
     assert set(dec_t["layers"]) == set(want)
     for key in ("wqkv", "w_gate_up"):
@@ -115,12 +137,12 @@ def test_pack_nibbles_matches():
         tmk.unpack_nibbles(torch.from_numpy(got)).numpy(), q)
 
 
-def test_pack_codes_match_jax_pack(cfg):
+def test_pack_codes_match_jax_pack(cfg, tcfg):
     """The port's [L, in/2, out] pack holds the same int4 codes and group
     scales as the JAX tile pack, read back through its tile layout."""
     tree = jax_tree(cfg)
     dcfg = cfg.decoder
-    pack_t = tparams.from_jax_params(tree, cfg)["decoder"]["mega"]
+    pack_t = tparams.from_jax_params(tree, tcfg)["decoder"]["mega"]
     mega_j = jmk.pack_megakernel_params(tree["decoder"], dcfg, int4=True)
     for name, key in (("qkv", "wqkv"), ("wd", "w_down")):
         qt = np.asarray(mega_j[f"{name}_q"]).view(np.uint8)  # [L, n_oc, in/2, co]
@@ -137,8 +159,8 @@ def test_pack_codes_match_jax_pack(cfg):
     assert pack_t["embd"].dtype == torch.bfloat16
 
 
-def test_from_jax_params_roundtrip(cfg, dense):
-    t = tparams.from_jax_params(dense, cfg)
+def test_from_jax_params_roundtrip(tcfg, dense):
+    t = tparams.from_jax_params(dense, tcfg)
     enc = t["encoder"]
     assert enc["conv1_w"].dtype == torch.float32
     assert enc["layers"]["wq"].dtype == torch.bfloat16
@@ -148,8 +170,8 @@ def test_from_jax_params_roundtrip(cfg, dense):
     assert "mega" not in t["decoder"]  # a dense tree gets no decode pack
 
 
-def test_init_asr_params_shapes(cfg, dense):
-    t = tparams.init_asr_params(cfg, seed=0)
+def test_init_asr_params_shapes(tcfg, dense):
+    t = tparams.init_asr_params(tcfg, seed=0)
 
     def shapes(tree, prefix=""):
         out = {}
@@ -161,12 +183,71 @@ def test_init_asr_params_shapes(cfg, dense):
         return out
 
     assert shapes(t) == shapes(dense)
-    again = tparams.init_asr_params(cfg, seed=0)
+    again = tparams.init_asr_params(tcfg, seed=0)
     assert torch.equal(again["decoder"]["token_embd"], t["decoder"]["token_embd"])
 
 
-def test_assert_on_device(cfg):
-    t = tparams.init_asr_params(cfg, seed=0)
+def test_assert_on_device(tcfg):
+    t = tparams.init_asr_params(tcfg, seed=0)
     tparams.assert_on_device(t, "cpu")
     with pytest.raises(RuntimeError, match="not on cuda"):
         tparams.assert_on_device(t, "cuda")
+
+
+def test_q8_0_quantize_bit_equal(tcfg, dense):
+    """quantize_decoder_params('q8_0'): every layer's codes and scales and
+    the padded lm_head_q8 bit-equal to the JAX package's."""
+    q_t = tparams.quantize_decoder_params(
+        tparams.from_jax_params(dense, tcfg)["decoder"], "q8_0")
+    q_j = jax.tree.map(np.asarray, jparams.quantize_decoder_params(
+        dense["decoder"], "q8_0"))
+    for key in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        for sub in ("q8:q", "q8:s"):
+            np.testing.assert_array_equal(q_t["layers"][key][sub].numpy(),
+                                          q_j["layers"][key][sub], err_msg=key)
+    assert q_t["lm_head_q8"]["q8:q"].shape[1] % 4096 == 0
+    for sub in ("q8:q", "q8:s"):
+        np.testing.assert_array_equal(q_t["lm_head_q8"][sub].numpy(),
+                                      q_j["lm_head_q8"][sub])
+    fused = tparams.fuse_decoder_params(q_t)["layers"]
+    want = jax.tree.map(np.asarray, jparams.fuse_decoder_params(q_j))["layers"]
+    for key in ("wqkv", "w_gate_up"):
+        for sub in ("q8:q", "q8:s"):
+            np.testing.assert_array_equal(fused[key][sub].numpy(), want[key][sub])
+
+
+def test_from_jax_params_carries_q8_leaves(cfg, tcfg, dense):
+    dec = jparams.fuse_decoder_params(jparams.quantize_decoder_params(
+        dense["decoder"], "q8_0"))
+    tree = dict(dense, decoder=jax.tree.map(np.asarray, dec))
+    t = tparams.from_jax_params(tree, tcfg)["decoder"]
+    assert "mega" not in t      # no int4 pack without the int8pc layout
+    for key in ("wqkv", "wo", "w_gate_up", "w_down"):
+        assert t["layers"][key]["q8:q"].dtype == torch.int8
+        np.testing.assert_array_equal(t["layers"][key]["q8:s"].numpy(),
+                                      tree["decoder"]["layers"][key]["q8:s"])
+    np.testing.assert_array_equal(t["lm_head_q8"]["q8:q"].numpy(),
+                                  tree["decoder"]["lm_head_q8"]["q8:q"])
+
+
+def test_native_q8_gguf_load_bit_equal(tmp_path, cfg):
+    """A Q8_0 GGUF (written as tests/test_quant.py's native-load test writes
+    it) loads GGML's blocks as Q8_0 leaves, bit-equal to the JAX loader's."""
+    from helpers import make_byte_vocab, write_tiny_gguf
+    from qwen3_asr_tpu.runtime.gguf import GGML_TYPE_Q8_0
+
+    params = jax.tree.map(np.asarray, jparams.init_asr_params(cfg, 17, jnp.float32))
+    path = str(tmp_path / "q8.gguf")
+    write_tiny_gguf(path, cfg, params, vocab=make_byte_vocab(cfg.decoder.vocab_size, {}),
+                    merges=[], weight_type=GGML_TYPE_Q8_0)
+    tcfg_l, t, vocab, _ = tparams.load_asr_model(path)
+    jcfg, j, _, _ = jparams.load_asr_model(path)
+    assert tcfg_l == port_config(jcfg) and len(vocab) == cfg.decoder.vocab_size
+    j = jax.tree.map(np.asarray, j)
+    for key in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        for sub in ("q8:q", "q8:s"):
+            got, want = t["decoder"]["layers"][key][sub], j["decoder"]["layers"][key][sub]
+            assert got.dtype == (torch.int8 if sub == "q8:q" else torch.float32)
+            np.testing.assert_array_equal(got.numpy(), want, err_msg=key)
+    np.testing.assert_array_equal(t["decoder"]["token_embd"].float().numpy(),
+                                  j["decoder"]["token_embd"].astype(np.float32))

@@ -197,11 +197,16 @@ def test_http_stream_needs_the_pool(model):
     assert code == 400 and json.loads(out)["error"]["message"] == NOT_PORTED["stream"]
 
 
-def test_main_rejects_unported_modes(tmp_path):
+def test_main_rejects_unported_modes(tmp_path, capsys):
+    """The workers run int4 weights with an int8 cache only: any other mode
+    fails at start-up, in argparse, naming the one it takes."""
     from qwen3_asr_tpu_torch.serve import main
 
-    with pytest.raises(NotImplementedError):
-        main(["-m", str(tmp_path / "none.gguf"), "--quantize", "int8pc", "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        main(["-m", str(tmp_path / "none.gguf"), "--kv-cache", "bf16", "--device", "cpu"])
+    for flag, mode, only in (("--quantize", "int8pc", "int4"), ("--quantize", "q8_0", "int4"),
+                             ("--kv-cache", "bf16", "int8")):
+        with pytest.raises(SystemExit) as e:
+            main(["-m", str(tmp_path / "none.gguf"), flag, mode, "--device", "cpu"])
+        assert e.value.code == 2
+        err = capsys.readouterr().err.splitlines()[-1]
+        assert flag in err and "invalid choice" in err and mode in err and only in err
     assert main(["-m", str(tmp_path / "none.gguf"), "--device", "cpu"]) == 1
