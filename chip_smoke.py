@@ -6,32 +6,43 @@ Builds the port's CUDA kernels from `qwen3_asr_tpu_torch/csrc` (into
 `build/torch_kernels/`) and holds each kernel against its plain PyTorch
 twin at the shapes of the main paths: flash attention (K2) single and
 batched (timed beside `scaled_dot_product_attention` at the same shapes),
-the decode step (K1), the batched decode step (K3), which must equal K1 run
-on each row's slab bit for bit, the Q8_0 products K5 / K6 / K7 at the decode
-step's T = 1 and a 5 s prompt's T, and the decode attention K4 with a bf16
-and an int8 cache. Then, at the full Qwen3-ASR-0.6B width with seeded random
-weights (EOS disabled), it drives four paths, each with the launch counts
-set to 0 just before it and read just after:
+the decode step (K1) in its four modes ({int4, int8 weights} x {int8, bf16
+KV cache}: teacher-forced steps and every layer alone on the twin's input),
+the batched decode step (K3) on either pack, whose rows must equal K1 run on
+each row's slab bit for bit, the Q8_0 products K5 / K6 / K7 at the decode
+step's T = 1 and a 5 s prompt's T, the decode attention K4 with a bf16 and
+an int8 cache, and the weight-stream microbenchmarks K9-K11 (every integer
+mode exact, the nibble-unpack probe bit-equal; `torch.Tensor.sum` over the
+same bytes beside the read modes). Then, at the full Qwen3-ASR-0.6B width
+with seeded random weights (EOS disabled), it drives the paths, each with
+the launch counts set to 0 just before it and read just after:
 
 1. `Qwen3ASR(quantize="int4", kv_cache="int8").transcribe` on three int16
-   requests of 5 s, 30 s and 92 s;
+   requests of 5 s, 30 s and 92 s, and the int4 pack over a bf16 cache on a
+   5 s request (`--quantize int4` without `--kv-int8`);
 2. the per-layer decode step: `Qwen3ASR(quantize="q8_0")` with a bf16 cache
    (5 s and 92 s) and an int8 cache (5 s), and `Qwen3ASR(quantize=False)`
    (dense bf16 weights, bf16 cache, 5 s), each request a window of its own,
    after each layer of the q8_0 step has been held against the twins on the
    twins' input;
-3. the continuous-batching engine on 8 requests admitted in two groups of
-   4 (the second mid-flight), whose tokens must equal `transcribe_batch`'s
-   on the same groups (that closed-batch reference is a window of its own,
-   its counts reset before it and checked after it);
-4. `ASRServer` in continuous mode behind the HTTP front end: 4 concurrent
+3. the CLI's default configuration, `Qwen3ASR(quantize="auto")` (int8pc ->
+   the int8 pack, bf16 cache): 5 s / 64, 92 s / 323 and 92 s / 1 tokens on
+   the fused path and on the staged one, whose tokens must be equal;
+4. the server's default configuration (auto with the int8 cache): four
+   requests in one closed batch (K3 on the int8 pack) and a lone one (K1),
+   tokens equal to `transcribe_batch`'s and `transcribe`'s;
+5. the continuous-batching engine (int4) on 8 requests admitted in two
+   groups of 4 (the second mid-flight), whose tokens must equal
+   `transcribe_batch`'s on the same groups (that closed-batch reference is a
+   window of its own, its counts reset before it and checked after it);
+6. `ASRServer` in continuous mode behind the HTTP front end: 4 concurrent
    `/v1/transcribe` requests, one SSE `/v1/audio/transcriptions` request
    and `/healthz`.
 
 It checks that every parameter and cache tensor of paths 1 and 2 is on the
 GPU, that each kernel of a path ran there (launch counts against a formula
 from the code), and that tokens agree with the twins' on a 5 s request of
-paths 1, 2 (q8_0 and dense) and 3.
+paths 1-5.
 
 Output: diagnostic lines, then one JSON line with the kernels' errors and
 times, then, as the last line, {"ok": true, "device": {...}}. Exits non-zero
@@ -65,11 +76,16 @@ FLASH_RTOL, FLASH_ATOL = 1e-2, 1e-3
 # step's h a little leaves no step bit-exact.
 MEGA_H_REL = 0.25
 CACHE_CODE_FRAC, CACHE_SCALE_RTOL = 0.01, 1e-2
+# A bf16 cache's fresh rows: every value within BF16_ROW_FRAC of its head
+# row's largest magnitude (int8 codes within one step of amax / 127 differ by
+# less than two steps: the same bound in the rows' own units).
+BF16_ROW_FRAC = 2 / 127
 # One layer alone on the same input (both get the twin's input to that
 # layer): its fresh cache rows agree as above and h rel L2 <= MEGA_LAYER_REL.
 # h is bit-exact unless an attention output rounds the other way (~4e-3).
 MEGA_LAYER_REL = 1e-2
 FLOOR_STEPS = 3         # steps on which the twin also runs on the CPU
+MEGA_TIMED_POS = 1248   # the cache row of K1's timed step (S = 1,664)
 REQUESTS = ((5, 64), (30, 128), (92, 323))   # (seconds, max_tokens)
 MEGA_BATCH_S, MEGA_BATCH_STEPS = 1664, 16   # K3 phase: pool context, steps vs K1
 # the per-layer decode path: (quantize, kv_cache, seconds, max_tokens)
@@ -95,14 +111,18 @@ WEIGHT_KEYS = ("qkv_q", "qkv_s", "wo_q", "wo_s", "gu_q", "gu_s", "wd_q", "wd_s",
                "head_q", "head_s")
 
 
-def int4_step_bound(pack, dcfg, positions) -> tuple[float, str]:
-    """K1 / K3 step: the int4 weights and scales once, each row's live int8
-    cache (K and V rows < pos and their scales, all layers) and its fresh row;
-    2 operations per weight and 4 D per (head, cached row) per row."""
+def mega_step_bound(pack, dcfg, positions, kv: str = "int8") -> tuple[float, str]:
+    """K1 / K3 step: the pack's weights and scales once (int4: two weights a
+    byte; int8: one), each row's live cache (K and V rows < pos, all layers:
+    int8 codes and their f32 scales, or bf16 values) and its fresh row; 2
+    operations per weight and 4 D per (head, cached row) per row."""
+    from qwen3_asr_tpu_torch.ops.megakernel import weight_bits
+
     L, NH, NKV, D = dcfg.n_layers, dcfg.n_heads, dcfg.n_kv_heads, dcfg.head_dim
     w_bytes = sum(pack[k].numel() * pack[k].element_size() for k in WEIGHT_KEYS)
-    n_w = sum(2 * pack[k].numel() for k in WEIGHT_KEYS if k.endswith("_q"))
-    row = L * (2 * NKV * D + 2 * NKV * 4)
+    per_byte = 2 if weight_bits(pack) == 4 else 1
+    n_w = sum(per_byte * pack[k].numel() for k in WEIGHT_KEYS if k.endswith("_q"))
+    row = L * (2 * NKV * D + 2 * NKV * 4 if kv == "int8" else 4 * NKV * D)
     nbytes = w_bytes + sum((p + 1) * row for p in positions)
     ops = 2.0 * n_w * len(positions) + sum(4.0 * L * NH * D * p for p in positions)
     return bound(nbytes, ops, INT8_OPS)
@@ -153,6 +173,15 @@ def graph_ms(fn, per_graph: int = 20, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * per_graph)
+
+
+def tparams(max_tokens: int, **kw):
+    """TranscribeParams of the CLI's default single-request path (fused),
+    the stderr timing block off."""
+    from qwen3_asr_tpu_torch.pipeline.asr import TranscribeParams
+
+    return TranscribeParams(max_tokens=max_tokens, **{"fused": True, "print_timing": False,
+                                                      **kw})
 
 
 def pcm(seconds: float, seed: int = 0):
@@ -229,11 +258,24 @@ def _rel(a, b) -> float:
 
 
 def _bad_cache_layers(got, want, pos: int) -> list[int]:
-    """Layers whose fresh row `pos` (k, v and their scales) breaks the
-    cache rule against the twin's. got/want: (k, v, k_s, v_s) [L, S, ...]."""
+    """Layers whose fresh row `pos` breaks the cache rule against the twin's.
+    got/want: (k, v, k_s, v_s) [L, S, ...]. int8: codes within one on <=
+    CACHE_CODE_FRAC of entries, scales at CACHE_SCALE_RTOL; bf16 (no
+    scales): every value within BF16_ROW_FRAC of its head row's largest
+    magnitude, the most the int8 rule admits."""
     import torch
 
     bad = torch.zeros(got[0].shape[0], dtype=torch.bool, device=got[0].device)
+    if got[2] is None:
+        from qwen3_asr_tpu_torch.config import DecoderConfig
+
+        L, D = got[0].shape[0], DecoderConfig().head_dim
+        for a, b in zip(got[:2], want[:2]):
+            ha = a[:, pos].float().reshape(L, -1, D)
+            hb = b[:, pos].float().reshape(L, -1, D)
+            over = (ha - hb).abs() > BF16_ROW_FRAC * hb.abs().amax(dim=2, keepdim=True)
+            bad |= over.reshape(L, -1).any(dim=1)
+        return torch.nonzero(bad).flatten().tolist()
     for a, b in zip(got[:2], want[:2]):
         d = (a[:, pos].int() - b[:, pos].int()).abs()
         bad |= (d.amax(dim=1) > 1) | ((d > 0).float().mean(dim=1) > CACHE_CODE_FRAC)
@@ -243,8 +285,9 @@ def _bad_cache_layers(got, want, pos: int) -> list[int]:
     return torch.nonzero(bad).flatten().tolist()
 
 
-def _filled_cache(dcfg, S: int, n: int, g):
-    """(k, v, k_s, v_s) [L, S, ...] with rows < n quantized from N(0, 0.25)."""
+def _filled_cache(dcfg, S: int, n: int, g, kv: str = "int8"):
+    """(k, v, k_s, v_s) [L, S, ...] with rows < n drawn from N(0, 0.25):
+    int8 codes and scales, or bf16 rows and no scales (None)."""
     import torch
 
     from qwen3_asr_tpu_torch.models.decoder import _quantize_kv_rows
@@ -252,8 +295,13 @@ def _filled_cache(dcfg, S: int, n: int, g):
     L, NKV, D = dcfg.n_layers, dcfg.n_kv_heads, dcfg.head_dim
     out = []
     for _ in range(2):
-        q, s = _quantize_kv_rows(
-            torch.randn(L * n, NKV, D, generator=g, device="cuda") * 0.5)
+        x = torch.randn(L * n, NKV, D, generator=g, device="cuda") * 0.5
+        if kv == "bf16":
+            c = torch.zeros(L, S, NKV * D, dtype=torch.bfloat16, device="cuda")
+            c[:, :n] = x.reshape(L, n, NKV * D).to(torch.bfloat16)
+            out += [c, None]
+            continue
+        q, s = _quantize_kv_rows(x)
         c = torch.zeros(L, S, NKV * D, dtype=torch.int8, device="cuda")
         sc = torch.zeros(L, S, NKV, dtype=torch.float32, device="cuda")
         c[:, :n] = q.reshape(L, n, NKV * D)
@@ -262,38 +310,53 @@ def _filled_cache(dcfg, S: int, n: int, g):
     return out[0], out[2], out[1], out[3]
 
 
-def phase_mega(cfg, dec):
-    """Kernel vs twin, teacher-forced: 32 steps from a prefilled cache,
-    where at every step both get the same token and the same cache (the
-    twin's copy takes the kernel's fresh rows after each step, once they
-    have been compared). Then every layer alone on the same input."""
+def _clone(ts):
+    return [None if t is None else t.clone() for t in ts]
+
+
+def mode_name(pack, kv: str) -> str:
+    from qwen3_asr_tpu_torch.ops.megakernel import weight_bits
+
+    return f"int{weight_bits(pack)} weights, {kv} KV"
+
+
+def phase_mega(cfg, dec, kv: str = "int8", steps: int = 32,
+               floor_steps: int = FLOOR_STEPS):
+    """K1 on the tree's pack over an int8 or bf16 cache against the twin,
+    teacher-forced: `steps` steps from a prefilled cache, where at every step
+    both get the same token and the same cache (the twin's copy takes the
+    kernel's fresh rows after each step, once they have been compared); the
+    twin also on the CPU for `floor_steps` steps. Then every layer alone on
+    the same input, the kernel's ms per step (CUDA events) beside the host's
+    enqueue time per step, and the twin's."""
     import torch
 
     from qwen3_asr_tpu_torch.ops import megakernel as mk
 
     dcfg = cfg.decoder
     pack = dec["mega"]
-    S, pos0, steps = 1664, 1216, 32
-    got = _filled_cache(dcfg, S, pos0, torch.Generator(device="cuda").manual_seed(1))
-    ref = [t.clone() for t in got]
+    name = mode_name(pack, kv)
+    S, pos0 = 1664, MEGA_TIMED_POS - steps
+    got = _filled_cache(dcfg, S, pos0, torch.Generator(device="cuda").manual_seed(1), kv)
+    ref = _clone(got)
     step = mk.DecodeStep(pack, dcfg, *got)
     out = torch.empty(1, dtype=torch.int32, device="cuda")
     tok = torch.tensor([1000], dtype=torch.int32, device="cuda")
-    cpu_pack = {k: v.cpu() for k, v in pack.items()}
+    cpu_pack = {k: v.cpu() for k, v in pack.items()} if floor_steps else None
     max_err, rels, floors, mism, worst_gap = 0.0, [], [], 0, 0.0
     for i in range(steps):
         pos = pos0 + i
-        if i < FLOOR_STEPS:  # the twin on the CPU, on the same inputs
-            cpu_cache = [t[:, :pos + 1].cpu() for t in ref]
-            cpu_h = mk.mega_decode_step_i8_ref(cpu_pack, dcfg, tok.cpu(), pos,
-                                               *cpu_cache)[1]
+        if i < floor_steps:  # the twin on the CPU, on the same inputs
+            cpu_cache = [None if t is None else t[:, :pos + 1].cpu() for t in ref]
+            cpu_h = mk.mega_decode_step_ref(cpu_pack, dcfg, tok.cpu(), pos,
+                                            *cpu_cache)[1]
         step(tok, pos, out)
-        rt, rh, logits = mk.mega_decode_step_i8_ref(
+        rt, rh, logits = mk.mega_decode_step_ref(
             pack, dcfg, tok, pos, *ref, return_logits=True)
         torch.cuda.synchronize()
         max_err = max(max_err, float((step.h - rh).abs().max()))
         rels.append(_rel(step.h, rh))
-        if i < FLOOR_STEPS:
+        if i < floor_steps:
             floors.append(_rel(cpu_h, rh.cpu()))
         got_t, want_t = int(out[0]), int(rt[0])
         if got_t != want_t:
@@ -301,37 +364,46 @@ def phase_mega(cfg, dec):
             worst_gap = max(worst_gap, float(logits[want_t] - logits[got_t]))
         bad = _bad_cache_layers(got, ref, pos)
         if bad and (rels[-1] == 0.0 or bad[0] == 0):
-            raise AssertionError(f"mega step {i} (h rel L2 {rels[-1]:.4f}): "
+            raise AssertionError(f"mega ({name}) step {i} (h rel L2 {rels[-1]:.4f}): "
                                  f"fresh cache rows of layers {bad} differ")
         for a, b in zip(got, ref):
-            b[:, pos] = a[:, pos]
+            if a is not None:
+                b[:, pos] = a[:, pos]
         tok = rt.clone()
     n_exact = sum(r == 0.0 for r in rels)
     layer_rels = phase_mega_layers(dcfg, pack, got, ref, pos0 + steps, tok)
     ms = cuda_ms(lambda: step(tok, pos0 + steps, out), 50)
-    plain = cuda_ms(lambda: mk.mega_decode_step_i8_ref(
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        step(tok, pos0 + steps, out)
+    enqueue = (time.perf_counter() - t0) * 1e3 / 20
+    torch.cuda.synchronize()
+    plain = cuda_ms(lambda: mk.mega_decode_step_ref(
         pack, dcfg, tok, pos0 + steps, *ref), 3, warmup=1)
-    log(f"phase megakernel S={S} pos={pos0}..{pos0 + steps - 1}: "
+    floor_txt = (f"twin cpu vs twin cuda rel_l2(h) {', '.join(f'{f:.4f}' for f in floors)}; "
+                 if floors else "")
+    log(f"phase megakernel ({name}) S={S} pos={pos0}..{pos0 + steps - 1}: "
         f"max_abs_err(h)={max_err:.3e} rel_l2(h) max {max(rels):.4f}, "
-        f"bit-exact on {n_exact}/{steps} steps; twin cpu vs twin cuda "
-        f"rel_l2(h) {', '.join(f'{f:.4f}' for f in floors)}; token "
+        f"bit-exact on {n_exact}/{steps} steps; {floor_txt}token "
         f"mismatches={mism}/{steps} (worst twin logit gap {worst_gap:.4f}); "
-        f"kernel {ms:.4f} ms/step, twin {plain:.4f} ms/step")
+        f"kernel {ms:.4f} ms/step (host enqueue {enqueue:.4f} ms/step), "
+        f"twin {plain:.4f} ms/step")
     log("  rel_l2(h) per step: " + " ".join(f"{r:.4f}" for r in rels))
     log(f"  one layer on the same input, pos={pos0 + steps}: rel_l2(h) max "
         f"{max(layer_rels):.3e}, per layer: "
         + " ".join(f"{r:.1e}" for r in layer_rels))
     if worst_gap > NEAR_TIE_TOL:
-        raise AssertionError("megakernel tokens disagree with the twin")
+        raise AssertionError(f"megakernel ({name}) tokens disagree with the twin")
     if not max(rels) <= MEGA_H_REL:
-        raise AssertionError(f"megakernel h rel_l2 {max(rels)} > {MEGA_H_REL}")
+        raise AssertionError(f"megakernel ({name}) h rel_l2 {max(rels)} > {MEGA_H_REL}")
     if 2 * n_exact < steps:
-        raise AssertionError(f"megakernel h bit-exact on {n_exact}/{steps} steps")
+        raise AssertionError(f"megakernel ({name}) h bit-exact on {n_exact}/{steps} steps")
     if not max(layer_rels) <= MEGA_LAYER_REL:
-        raise AssertionError(f"one-layer h rel_l2 {max(layer_rels)} > "
+        raise AssertionError(f"megakernel ({name}) one-layer h rel_l2 {max(layer_rels)} > "
                              f"{MEGA_LAYER_REL}")
-    b_ms, b_by = int4_step_bound(pack, dcfg, [pos0 + steps])
-    log(f"  K1 bound at pos {pos0 + steps}: {b_ms:.4f} ms ({b_by})")
+    b_ms, b_by = mega_step_bound(pack, dcfg, [pos0 + steps], kv)
+    log(f"  K1 ({name}) bound at pos {pos0 + steps}: {b_ms:.4f} ms ({b_by})")
     return max_err, ms, plain, b_ms, b_by
 
 
@@ -353,10 +425,11 @@ def phase_mega_layers(dcfg, pack, got, ref, pos: int, tok) -> list[float]:
     rels = []
     for l in range(dcfg.n_layers):
         pk = {n: (t[l:l + 1] if n in LAYER_LEAVES else t) for n, t in pack.items()}
-        g1, r1 = [t[l:l + 1] for t in got], [t[l:l + 1] for t in ref]
+        g1 = [None if t is None else t[l:l + 1] for t in got]
+        r1 = [None if t is None else t[l:l + 1] for t in ref]
         step = mk.DecodeStep(pk, cfg1, *g1)
         step(x, pos, out)
-        rh = mk.mega_decode_step_i8_ref(pk, cfg1, x, pos, *r1)[1]
+        rh = mk.mega_decode_step_ref(pk, cfg1, x, pos, *r1)[1]
         torch.cuda.synchronize()
         if _bad_cache_layers(g1, r1, pos):
             raise AssertionError(f"layer {l} on the same input: fresh cache "
@@ -428,7 +501,7 @@ def phase_mega_batch(dcfg, pack):
             if not torch.equal(t[b], s):
                 raise AssertionError(f"K3 cache pool tensor {i}, slab {b} differs "
                                      f"from K1's slab after {MEGA_BATCH_STEPS} steps")
-    log(f"phase K3 vs K1 S={S} B={B} pos={pos0[0]}..{pos0[-1]}: "
+    log(f"phase K3 ({mode_name(pack, 'int8')}) vs K1 S={S} B={B} pos={pos0[0]}..{pos0[-1]}: "
         f"{n_equal}/{MEGA_BATCH_STEPS * B} row-steps torch.equal (token, h, "
         f"fresh K/V rows and scales of all {dcfg.n_layers} layers); whole "
         f"cache pool torch.equal to the K1 slabs after the last step")
@@ -444,7 +517,7 @@ def phase_mega_batch(dcfg, pack):
         nxt = []
         for b in range(B):
             rb = [t[b] for t in ref]
-            rt, rh, logits = mk.mega_decode_step_i8_ref(
+            rt, rh, logits = mk.mega_decode_step_ref(
                 pack, dcfg, toks[b:b + 1], pos[b], *rb, return_logits=True)
             torch.cuda.synchronize()
             max_err = max(max_err, float((step.h[b] - rh[0]).abs().max()))
@@ -488,7 +561,7 @@ def phase_mega_batch(dcfg, pack):
     single = cuda_ms(lambda: k1[B // 2](toks[:1], pos0[B // 2] + base + 4, one), 20)
     plain = cuda_ms(lambda: mb.mega_decode_step_batch_ref(
         pack, dcfg, toks, [p + base + 4 for p in pos0], *ref), 1, warmup=1)
-    b_ms, b_by = int4_step_bound(pack, dcfg, [min(p, pos_end) for p in _spread(B)])
+    b_ms, b_by = mega_step_bound(pack, dcfg, [min(p, pos_end) for p in _spread(B)])
     log(f"phase K3 times (ms/step): " + ", ".join(
         f"B={nb} {t:.4f}" for nb, t in times.items())
         + f"; K1 {single:.4f} (B x K1 at B=8: {8 * single:.4f}); "
@@ -538,9 +611,9 @@ def check_tokens_vs_twins(asr, samples, tokens, mel_bucket: int = 0):
             pos = P + i - 1
             t = torch.tensor([tokens[i - 1], 0], dtype=torch.int32, device="cuda")
             if mega:
-                logits.append(mk.mega_decode_step_i8_ref(
+                logits.append(mk.mega_decode_step_ref(
                     dec["mega"], dcfg, t[:1], pos, cache["k"].view(L, S, DKV),
-                    cache["v"].view(L, S, DKV), cache["k_s"], cache["v_s"],
+                    cache["v"].view(L, S, DKV), cache.get("k_s"), cache.get("v_s"),
                     return_logits=True)[2])
             else:
                 logits.append(decode_token(dec, dcfg, cache, t, 1, pos))
@@ -549,7 +622,8 @@ def check_tokens_vs_twins(asr, samples, tokens, mel_bucket: int = 0):
         best = int(torch.argmax(lg))
         gaps.append(float(lg[best] - lg[tok]))
     agree = sum(g == 0.0 for g in gaps)
-    log(f"{'int4' if mega else asr.quantize or 'dense'} path vs twins "
+    what = mode_name(dec["mega"], asr.kv_cache) if mega else asr.quantize or "dense"
+    log(f"{what} path vs twins "
         f"({len(samples) / 16000:.0f} s request, {len(tokens)} tokens): {agree} "
         f"argmax-equal, worst gap {max(gaps):.4f}")
     if max(gaps) > NEAR_TIE_TOL or not np.isfinite(gaps).all():
@@ -757,7 +831,7 @@ def phase_slice(caches: list):
     import torch
 
     from qwen3_asr_tpu_torch.config import ASRModelConfig
-    from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams
+    from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR
     from qwen3_asr_tpu_torch.runtime.params import assert_on_device
 
     def load(quantize, kv_cache, like=None):
@@ -773,7 +847,7 @@ def phase_slice(caches: list):
         asr.cfg = dataclasses.replace(asr.cfg, decoder=dataclasses.replace(
             asr.cfg.decoder, eos_token_id=-1))
         assert_on_device(asr.params, "cuda")
-        asr.transcribe(pcm(5, 1), TranscribeParams(max_tokens=4))   # warm-up
+        asr.transcribe(pcm(5, 1), tparams(4))   # warm-up
         return asr
 
     q8_bf16 = load("q8_0", "bf16")
@@ -789,7 +863,7 @@ def phase_slice(caches: list):
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        r = asr.transcribe(pcm(seconds), TranscribeParams(max_tokens=max_tokens))
+        r = asr.transcribe(pcm(seconds), tparams(max_tokens))
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         got = counts()
@@ -827,6 +901,7 @@ ENGINE_S, ENGINE_TOKENS = 1536, 128
 
 def _wrappers() -> dict:
     """The kernels' wrappers by the names the launch counts use."""
+    from qwen3_asr_tpu_torch import microbench_stream as ms
     from qwen3_asr_tpu_torch.ops import decode_attention as da
     from qwen3_asr_tpu_torch.ops import flash_attention as fa
     from qwen3_asr_tpu_torch.ops import megakernel as mk
@@ -834,9 +909,28 @@ def _wrappers() -> dict:
     from qwen3_asr_tpu_torch.ops import q8_matmul as q8
 
     return {"flash": fa.flash_attention_batch, "mega": mk.mega_decode_step_i8,
-            "mega_batch": mb.mega_decode_step_batch,
+            "mega_bf16": mk.mega_decode_step, "mega_batch": mb.mega_decode_step_batch,
             "decode_attention": da.decode_attention, "q8_matmul": q8.q8_matmul,
-            "q8_norm_matmul": q8.q8_norm_matmul, "q8_mlp": q8.q8_mlp}
+            "q8_norm_matmul": q8.q8_norm_matmul, "q8_mlp": q8.q8_mlp,
+            "mb_read": ms.stream_read, "mb_read_ring": ms.stream_read_ring,
+            "mb_gemv": ms.stream_gemv, "mb_gemv_i4": ms.stream_gemv_i4,
+            "mb_unpack": ms.unpack_probe}
+
+
+# Every checked window of a path: (label, the decode pack's weight bits or
+# None, launch counts). The kernels line sums them.
+WINDOWS: list = []
+
+
+def window(label: str, wbits, got: dict) -> dict:
+    WINDOWS.append((label, wbits, dict(got)))
+    return got
+
+
+def launches_of(key: str, wbits=None) -> int:
+    """A wrapper's launches over the checked windows (those of one pack's
+    weight bits when wbits is given)."""
+    return sum(c[key] for _, w, c in WINDOWS if wbits is None or w == wbits)
 
 
 def counts() -> dict:
@@ -1004,6 +1098,215 @@ def phase_engine(asr):
         k: engine_launches[k] + closed_launches[k] for k in engine_launches}
 
 
+AUTO_REQUESTS = ((5, 64), (92, 323), (92, 1))   # (seconds, max_tokens)
+
+
+def eos_off(asr):
+    """Fixed-length decode, as the bench runs it: EOS outside the argmax range."""
+    asr.cfg = dataclasses.replace(
+        asr.cfg, decoder=dataclasses.replace(asr.cfg.decoder, eos_token_id=-1))
+    return asr
+
+
+def like(asr, kv_cache: str):
+    """The same model with another KV cache (the weights are shared)."""
+    import copy
+
+    other = copy.copy(asr)
+    other.kv_cache = kv_cache
+    return other
+
+
+def phase_int4_bf16(asr4):
+    """`--quantize int4` without `--kv-int8`: K1's int4 pack over a bf16
+    cache on one 5 s / 64-token request (a window of its own), its tokens
+    against the twins."""
+    import torch
+
+    asr = like(asr4, "bf16")
+    L = asr.cfg.decoder.n_layers
+    asr.transcribe(pcm(5, 1), tparams(4))   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    r = asr.transcribe(pcm(5), tparams(64))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = window("int4 weights, bf16 KV, 5 s", 4, counts())
+    want = dict(no_launches(), flash=L, mega_bf16=63)
+    log(f"request int4 weights, bf16 KV, 5 s: {ms:.1f} ms, {len(r.tokens)} tokens; "
+        f"launches {got}")
+    if got != want or len(r.tokens) != 64:
+        raise AssertionError(f"int4 / bf16 KV request: launches {got} != {want} or "
+                             f"{len(r.tokens)} tokens")
+    check_tokens_vs_twins(asr, pcm(5), r.tokens[:16])
+
+
+def phase_auto():
+    """The CLI's default configuration (`qwen3-asr-cuda-cli -f x.wav`):
+    `Qwen3ASR(quantize="auto")` on dense random weights (seed 0) resolves to
+    int8pc, the int8 pack and a bf16 cache; EOS off. The 5 s / 64, 92 s / 323
+    and 92 s / 1 requests on the fused path (the CLI's default) and then on
+    the staged one, each a window: K2 once per decoder layer, K1's bf16 entry
+    max_tokens - 1 times. Decode ms per step is (92 s / 323 - 92 s / 1) / 322
+    on each path; the staged path's tokens must equal the fused path's, and
+    the fused 5 s tokens hold against the twins. -> (the model, fused and
+    staged decode ms/step, the 92 s request's stage times)."""
+    import torch
+
+    from qwen3_asr_tpu_torch.config import ASRModelConfig
+    from qwen3_asr_tpu_torch.ops.megakernel import weight_bits
+    from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR
+    from qwen3_asr_tpu_torch.runtime.params import assert_on_device
+
+    t0 = time.perf_counter()
+    asr = Qwen3ASR(quantize="auto", device="cuda")
+    asr.load_random(ASRModelConfig(), seed=0)
+    torch.cuda.synchronize()
+    log(f"load_random, quantize='auto': {time.perf_counter() - t0:.1f} s")
+    eos_off(asr)
+    dec, L = asr.params["decoder"], asr.cfg.decoder.n_layers
+    if weight_bits(dec["mega"]) != 8 or asr.cache_dtype != torch.bfloat16:
+        raise AssertionError("quantize='auto' did not resolve to the int8 pack "
+                             "and the bf16 cache")
+    assert_on_device(asr.params, "cuda")
+    asr.transcribe(pcm(5, 1), tparams(8))   # warm-up
+    tokens, ms, stages = {}, {}, None
+    for fused in (True, False):
+        path = "fused" if fused else "staged"
+        for seconds, max_tokens in AUTO_REQUESTS:
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            r = asr.transcribe(pcm(seconds), tparams(max_tokens, fused=fused))
+            torch.cuda.synchronize()
+            ms[(fused, seconds, max_tokens)] = (time.perf_counter() - t0) * 1e3
+            got = window(f"auto {path} {seconds} s / {max_tokens}", 8, counts())
+            want = dict(no_launches(), flash=L, mega_bf16=max_tokens - 1)
+            log(f"request quantize='auto' ({path}) {seconds} s: "
+                f"{ms[(fused, seconds, max_tokens)]:.1f} ms, {len(r.tokens)} tokens "
+                f"(max {max_tokens}); launches {got}")
+            if got != want:
+                raise AssertionError(f"auto {path} launch counts {got} != {want}")
+            if not r.success or len(r.tokens) != max_tokens:
+                raise AssertionError(f"auto {path} {seconds} s: {len(r.tokens)} tokens")
+            tokens[(fused, seconds, max_tokens)] = r.tokens
+            if not fused and max_tokens == 323:
+                stages = (r.t_mel_ms, r.t_encode_ms, r.t_decode_ms, r.t_total_ms)
+    per_step = {f: (ms[(f, 92, 323)] - ms[(f, 92, 1)]) / 322 for f in (True, False)}
+    log(f"auto decode ms/step: fused {per_step[True]:.4f}, staged {per_step[False]:.4f}; "
+        f"staged 92 s stages (mel, encode, decode, total ms): "
+        + ", ".join(f"{t:.1f}" for t in stages))
+    for seconds, max_tokens in AUTO_REQUESTS:
+        if tokens[(True, seconds, max_tokens)] != tokens[(False, seconds, max_tokens)]:
+            raise AssertionError(f"auto {seconds} s: staged tokens differ from fused")
+    log("  staged tokens equal fused tokens on every request")
+    check_tokens_vs_twins(asr, pcm(5), tokens[(True, 5, 64)][:16])
+    return asr, per_step, stages
+
+
+def phase_server_default(auto):
+    """`qwen3-asr-cuda-serve`'s default configuration: quantize auto (the
+    int8 pack) with the int8 cache, closed batches. Four requests submitted
+    at once form one closed batch (K3 on the int8 pack) and a lone request
+    goes to `transcribe` (K1, int8 weights and int8 KV), one window; their
+    tokens must equal transcribe_batch's and transcribe's on the same audio
+    (a second window)."""
+    import torch
+
+    from qwen3_asr_tpu_torch.pipeline.asr import TranscribeParams
+    from qwen3_asr_tpu_torch.serve import ASRServer
+
+    asr = like(auto, "int8")
+    params = TranscribeParams(max_tokens=ENGINE_TOKENS, mel_bucket=ENGINE_KW["mel_bucket"],
+                              print_timing=False)
+    audio = [pcm(sec, 30 + i) for i, sec in enumerate((5, 15, 30, 92))]
+    server = ASRServer(asr, params, max_batch=4, max_wait_ms=5000)
+    batches = []
+    run = server._run_transcribe
+
+    def recording(batch):
+        batches.append(len(batch))
+        return run(batch)
+
+    server._run_transcribe = recording
+    torch.cuda.synchronize()
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        futs = [server.submit(a) for a in audio]
+        got_batch = [f.result(timeout=600) for f in futs]
+        lone = server.submit(audio[0]).result(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        server.close()
+    served = window("server default (closed batch + lone)", 8, counts())
+    groups = [audio, audio[:1]]
+    want = dict(no_launches(), mega_batch=ENGINE_TOKENS - 1, mega=ENGINE_TOKENS - 1,
+                flash=asr.cfg.decoder.n_layers * len(groups)
+                + asr.cfg.encoder.n_layers * encoder_calls(groups))
+    log(f"phase server default (auto, int8 KV, closed batches): batches {batches}; "
+        f"wall {wall * 1e3:.1f} ms; launches {served} (want {want})")
+    if batches != [4] or served != want:
+        raise AssertionError(f"server default: batches {batches}, launches {served}")
+    reset_counts()
+    ref = asr.transcribe_batch(audio, params)
+    ref_lone = asr.transcribe(audio[0], params)
+    torch.cuda.synchronize()
+    window("server default reference", 8, counts())
+    V = asr.cfg.decoder.vocab_size
+    for k, (r, w) in enumerate(zip(got_batch + [lone], ref + [ref_lone])):
+        check_request(f"server request {k}", r.tokens, V)
+        if r.tokens != w.tokens:
+            raise AssertionError(f"server request {k} differs from transcribe_batch / "
+                                 f"transcribe")
+    log("  server tokens equal transcribe_batch's (batch of 4) and transcribe's (lone)")
+    check_tokens_vs_twins(asr, audio[0], lone.tokens[:16], mel_bucket=ENGINE_KW["mel_bucket"])
+
+
+MB_ITERS = 10
+
+
+def phase_microbench():
+    """K9-K11 (`python -m qwen3_asr_tpu_torch.microbench_stream`): every mode
+    against its twin on the default stream (284 x [1024, 2048] int8 chunks,
+    0.596 GB), then the timed passes as a window (one warm-up and MB_ITERS
+    passes a mode); `torch.Tensor.sum` over the same bytes beside `read`.
+    -> {mode: (max_abs_err, ms, plain ms, bound ms, bound_by)}, the library
+    ms of read."""
+    import torch
+
+    from qwen3_asr_tpu_torch import microbench_stream as ms
+
+    d = ms.make_data(284, 2048, "cuda")
+    errs = ms.check_modes(d)
+    torch.cuda.synchronize()
+    reset_counts()
+    res = ms.time_modes(d, MB_ITERS)
+    got = window("microbench", None, counts())
+    n = 1 + MB_ITERS
+    want = dict(no_launches(), mb_read=n, mb_read_ring=n, mb_gemv=3 * n, mb_gemv_i4=n,
+                mb_unpack=n)
+    if got != want:
+        raise AssertionError(f"microbench launch counts {got} != {want}")
+    lib = cuda_ms(lambda: d["w"].sum(dtype=torch.int64), 5)
+    out = {}
+    for mode in ms.MODES:
+        ref = ms.runner(mode, d)[1]
+        plain = cuda_ms(ref, 1, warmup=0)
+        peak = BF16_FLOPS if mode == "bf16_m8" else INT8_OPS
+        b_ms, b_by = bound(ms.mode_bytes(mode, d), ms.mode_ops(mode, d), peak)
+        r = res[mode]
+        out[mode] = (errs[mode], r["ms"], plain, b_ms, b_by)
+        log(f"phase microbench {mode}: {r['ms']:.4f} ms/pass, {r['gb_s']:.1f} GB/s "
+            f"({100 * r['hbm_share']:.1f}% of 3.35 TB/s), max_abs_err vs twin "
+            f"{errs[mode]:.3g}; twin {plain:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+    log(f"  torch.Tensor.sum over the same {d['w'].numel() / 1e9:.4f} GB: {lib:.4f} ms")
+    del d
+    return out, res, lib
+
+
 def wav_bytes(samples) -> bytes:
     import io
     import struct
@@ -1109,7 +1412,7 @@ def main() -> int:
     from qwen3_asr_tpu_torch.models import generate as gen_mod
     from qwen3_asr_tpu_torch.ops import build
     from qwen3_asr_tpu_torch.ops.support import has_cuda_kernels
-    from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams
+    from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR
     from qwen3_asr_tpu_torch.runtime.params import assert_on_device
 
     smi = subprocess.run(
@@ -1138,10 +1441,9 @@ def main() -> int:
     asr.load_random(ASRModelConfig(), seed=0)
     torch.cuda.synchronize()
     log(f"load_random + int8pc + int4 pack: {time.perf_counter() - t0:.1f} s")
-    # fixed-length decode, as the bench runs it: EOS outside the argmax range
-    asr.cfg = dataclasses.replace(
-        asr.cfg, decoder=dataclasses.replace(asr.cfg.decoder, eos_token_id=-1))
+    eos_off(asr)
     m = phase_mega(asr.cfg, asr.params["decoder"])
+    m4b = phase_mega(asr.cfg, asr.params["decoder"], "bf16", steps=16, floor_steps=0)
 
     caches = []
     make_cache = gen_mod.init_kv_cache
@@ -1152,17 +1454,17 @@ def main() -> int:
         return c
 
     gen_mod.init_kv_cache = recording_cache
-    asr.transcribe(pcm(5, 1), TranscribeParams(max_tokens=8))   # warm-up
+    asr.transcribe(pcm(5, 1), tparams(8))   # warm-up
     torch.cuda.synchronize()
 
     reset_counts()
     results = []
     for seconds, max_tokens in REQUESTS:
         t0 = time.perf_counter()
-        r = asr.transcribe(pcm(seconds), TranscribeParams(max_tokens=max_tokens))
+        r = asr.transcribe(pcm(seconds), tparams(max_tokens))
         torch.cuda.synchronize()
         results.append((seconds, max_tokens, (time.perf_counter() - t0) * 1e3, r))
-    launches = counts()
+    launches = window("int4 weights, int8 KV requests", 4, counts())
     gen_mod.init_kv_cache = make_cache
     for seconds, max_tokens, ms, r in results:
         log(f"request {seconds} s: {ms:.1f} ms, {len(r.tokens)} tokens "
@@ -1170,7 +1472,7 @@ def main() -> int:
 
     # decode ms/step on the 92 s request: (323 tokens - 1 token) / 322 steps
     t0 = time.perf_counter()
-    asr.transcribe(pcm(92), TranscribeParams(max_tokens=1))
+    asr.transcribe(pcm(92), tparams(1))
     torch.cuda.synchronize()
     one = (time.perf_counter() - t0) * 1e3
     per_step = (results[-1][2] - one) / (REQUESTS[-1][1] - 1)
@@ -1192,6 +1494,7 @@ def main() -> int:
         if not all(0 <= t < V for t in r.tokens):
             raise AssertionError(f"{seconds} s request: token out of range")
     check_tokens_vs_twins(asr, pcm(5), results[0][3].tokens[:16])
+    phase_int4_bf16(asr)
 
     k3 = phase_mega_batch(asr.cfg.decoder, asr.params["decoder"]["mega"])
 
@@ -1200,49 +1503,92 @@ def main() -> int:
         slice_launches_, q8_step_ms, q8_asr = phase_slice(caches)
     finally:
         gen_mod.init_kv_cache = make_cache
+    window("per-layer path (q8_0, dense)", None, slice_launches_)
     for c in caches:
         assert_on_device(c, "cuda")
     p5 = prompt_rows(5)
     q8k = phase_q8(q8_asr.params["decoder"], q8_asr.cfg.decoder, (1, p5))
     del q8_asr
 
-    engine_tps, engine_launches = phase_engine(asr)
-    http_launches = phase_http(asr)
-    total = {k: launches[k] + slice_launches_[k] + engine_launches[k] + http_launches[k]
-             for k in launches}
-    log(f"pool decode {engine_tps:.1f} tokens/s; q8_0 decode {q8_step_ms:.4f} "
-        f"ms/step; launches over the four paths {total}")
+    # the JAX package's default weight mode: the int8 pack
+    auto, auto_step, auto_stages = phase_auto()
+    m8 = phase_mega(auto.cfg, auto.params["decoder"], "int8", steps=16, floor_steps=0)
+    m8b = phase_mega(auto.cfg, auto.params["decoder"], "bf16", steps=16, floor_steps=0)
+    k3_8 = phase_mega_batch(auto.cfg.decoder, auto.params["decoder"]["mega"])
+    phase_server_default(auto)
+    del auto
 
-    def row(name, src, replaces, key, err, ms, plain, b_ms, b_by, lib=None):
+    engine_tps, engine_launches = phase_engine(asr)
+    window("engine (int4 weights)", 4, engine_launches)
+    window("HTTP (int4 weights)", 4, phase_http(asr))
+    del asr
+    mb, mb_res, mb_lib = phase_microbench()
+    total = {k: launches_of(k) for k in no_launches()}
+    log(f"pool decode {engine_tps:.1f} tokens/s; q8_0 decode {q8_step_ms:.4f} "
+        f"ms/step; auto decode {auto_step[True]:.4f} ms/step (staged "
+        f"{auto_step[False]:.4f}); launches over every checked window {total}")
+
+    def row(name, src, replaces, launches, err, ms, plain, b_ms, b_by, lib=None, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"qwen3_asr_tpu_torch/csrc/{src}", "replaces": replaces,
-                "launches": total[key], "max_abs_err": err, "ms": ms,
+                "launches": launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain, "twin_ms": plain, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": lib}
+                "bound_by": b_by, "library_ms": lib, **extra}
 
     head = ("K6 q8_norm_matmul (lm head)", 1)
+    k1 = "qwen3_asr_tpu/ops/megakernel.py:460"
+    k3_src = "qwen3_asr_tpu/ops/megakernel_batch.py:110"
+    gb = {mode: round(r["gb_s"], 1) for mode, r in mb_res.items()}
     kernels = [
-        row("mega_decode_step_i8", "megakernel.cu", "qwen3_asr_tpu/ops/megakernel.py:460",
-            "mega", *m),
+        row("mega_decode_step_i8", "megakernel.cu", k1, launches_of("mega", 4), *m),
+        row("mega_decode_step (int4 weights, bf16 KV)", "megakernel.cu", k1,
+            launches_of("mega_bf16", 4), *m4b),
+        row("mega_decode_step_i8 (int8 weights)", "megakernel.cu", k1,
+            launches_of("mega", 8), *m8),
+        row("mega_decode_step (int8 weights, bf16 KV)", "megakernel.cu", k1,
+            launches_of("mega_bf16", 8), *m8b),
         row("flash_attention", "flash_attention.cu",
-            "qwen3_asr_tpu/ops/pallas_attention.py:32", "flash",
+            "qwen3_asr_tpu/ops/pallas_attention.py:32", total["flash"],
             max(f[0] for f in (f_c, f_b, f_cb, f_bb)), f_c[1], f_c[2], f_c[4], f_c[5],
             lib=f_c[3]),
-        row("mega_decode_step_batch", "megakernel_batch.cu",
-            "qwen3_asr_tpu/ops/megakernel_batch.py:110", "mega_batch", *k3),
+        row("mega_decode_step_batch", "megakernel_batch.cu", k3_src,
+            launches_of("mega_batch", 4), *k3),
+        row("mega_decode_step_batch (int8 weights)", "megakernel_batch.cu", k3_src,
+            launches_of("mega_batch", 8), *k3_8),
         row("decode_attention", "decode_attention.cu",
-            "qwen3_asr_tpu/ops/decode_attention.py:65", "decode_attention",
+            "qwen3_asr_tpu/ops/decode_attention.py:65", total["decode_attention"],
             max(v[0] for v in da_ms.values()), *da_ms[("bf16", 1248)][1:]),
-        row("q8_matmul", "q8_matmul.cu", "qwen3_asr_tpu/ops/q8_matmul.py:69", "q8_matmul",
-            max(v[0] for k, v in q8k.items() if k[0].startswith("K5")),
+        row("q8_matmul", "q8_matmul.cu", "qwen3_asr_tpu/ops/q8_matmul.py:69",
+            total["q8_matmul"], max(v[0] for k, v in q8k.items() if k[0].startswith("K5")),
             *q8k[("K5 q8_matmul (Wo)", 1)][1:]),
         row("q8_norm_matmul", "q8_matmul.cu", "qwen3_asr_tpu/ops/q8_matmul.py:173",
-            "q8_norm_matmul", max(v[0] for k, v in q8k.items() if k[0].startswith("K6")),
-            *q8k[head][1:]),
-        row("q8_mlp", "q8_matmul.cu", "qwen3_asr_tpu/ops/q8_matmul.py:224", "q8_mlp",
-            max(v[0] for k, v in q8k.items() if k[0].startswith("K7")),
+            total["q8_norm_matmul"],
+            max(v[0] for k, v in q8k.items() if k[0].startswith("K6")), *q8k[head][1:]),
+        row("q8_mlp", "q8_matmul.cu", "qwen3_asr_tpu/ops/q8_matmul.py:224",
+            total["q8_mlp"], max(v[0] for k, v in q8k.items() if k[0].startswith("K7")),
             *q8k[("K7 q8_mlp", 1)][1:]),
+        row("stream_read (K9 read)", "microbench_stream.cu",
+            "scripts/microbench_stream.py:39", total["mb_read"], *mb["read"],
+            lib=mb_lib, gb_s=gb["read"]),
+        row("stream_read_ring (K9 read, cp.async ring)", "microbench_stream.cu",
+            "scripts/microbench_stream.py:39", total["mb_read_ring"], *mb["read_ring"],
+            lib=mb_lib, gb_s=gb["read_ring"]),
+        row("stream_gemv (K9 int8_m1; int8_m8, bf16_m8)", "microbench_stream.cu",
+            "scripts/microbench_stream.py:39", total["mb_gemv"],
+            max(mb[m][0] for m in ("int8_m1", "int8_m8", "bf16_m8")), *mb["int8_m1"][1:],
+            gb_s=gb["int8_m1"], modes={m: {"ms": mb[m][1], "plain_ms": mb[m][2],
+                                           "bound_ms": mb[m][3], "gb_s": gb[m]}
+                                       for m in ("int8_m8", "bf16_m8")}),
+        row("stream_gemv_i4 (K10 int4_m1)", "microbench_stream.cu",
+            "scripts/probe_int4.py:138", total["mb_gemv_i4"], *mb["int4_m1"],
+            gb_s=gb["int4_m1"]),
+        row("unpack_probe (K11 nibble order)", "microbench_stream.cu",
+            "scripts/probe_int4b.py:58", total["mb_unpack"], *mb["unpack_nibbles"],
+            gb_s=gb["unpack_nibbles"]),
     ]
+    missing = [k["name"] for k in kernels if not k["launches"]]
+    if missing:
+        raise AssertionError(f"kernels launched no time on their paths: {missing}")
     print(json.dumps({"kernels": kernels}), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {

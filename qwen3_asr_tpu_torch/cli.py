@@ -1,0 +1,222 @@
+"""qwen3-asr-cuda-cli — the port's command-line interface, transcription mode.
+
+    python -m qwen3_asr_tpu_torch.cli -m model.gguf -f audio.wav [--platform cpu]
+
+Port of qwen3_asr_tpu/cli.py for transcription: the same flags, defaults and
+contract (the transcript, or the `-o` file's notice, on stdout; diagnostics
+on stderr; exit 1 on any error). It runs on the CUDA card; `--platform cpu`
+runs the port's plain PyTorch versions on the CPU instead, and no other
+value falls back to the CPU. What the port does not carry yet (forced
+alignment, `--transcribe-align`, the int4 KV cache, speculative and sampled
+decoding, the streaming progress path) is refused with `Error: ... not
+ported` before anything runs. `--threads` is accepted and printed, and has
+no effect.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def _eprint(*args):
+    print(*args, file=sys.stderr, flush=True)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="qwen3-asr-cuda-cli",
+        description="Qwen3-ASR speech-to-text (PyTorch / CUDA)",
+    )
+    p.add_argument("-m", "--model", default="models/qwen3-asr-0.6b-f16.gguf",
+                   help="Path to GGUF model")
+    p.add_argument("-f", "--audio", required=True,
+                   help="Path to audio file (WAV, 16kHz mono)")
+    p.add_argument("-o", "--output", default="", help="Output file (default stdout)")
+    p.add_argument("-l", "--language", "--lang", default="",
+                   help="Language code (accepted; the model detects it)")
+    p.add_argument("-t", "--threads", type=int, default=4,
+                   help="Host thread count (accepted for parity; no effect)")
+    p.add_argument("--max-tokens", type=int, default=1024)
+    p.add_argument("--progress", action="store_true", dest="print_progress",
+                   help="Streaming progress (not ported)")
+    p.add_argument("--no-timing", action="store_false", dest="print_timing")
+    p.add_argument("--tokens", action="store_true", dest="print_tokens")
+    p.add_argument("--profile", action="store_true",
+                   help="Print the named-section timing profile")
+    p.add_argument("--align", action="store_true", dest="align_mode",
+                   help="Forced alignment (not ported)")
+    p.add_argument("--text", default="", dest="align_text",
+                   help="Reference transcript for alignment")
+    p.add_argument("-a", "--transcribe-align", action="store_true",
+                   dest="transcribe_align_mode", help="Transcribe + align (not ported)")
+    p.add_argument("--aligner-model", default="",
+                   help="Forced aligner GGUF (with --transcribe-align)")
+    p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"],
+                   help="Compute dtype of the weights and activations")
+    p.add_argument("--quantize", default="auto",
+                   choices=["auto", "none", "q8_0", "int8pc", "int4"],
+                   help="Decoder weight quantization. 'auto' (default) picks "
+                        "int8pc (per-channel int8) for dense GGUFs and leaves "
+                        "Q8_0 files on their int8 blocks; 'none' forces dense; "
+                        "'int4' nibble-packs the decode weights (prefill stays "
+                        "int8)")
+    p.add_argument("--kv-int8", action="store_true",
+                   help="int8 KV cache (per-row, per-head scales) instead of bf16")
+    p.add_argument("--kv-int4", action="store_true",
+                   help="int4 KV cache (not ported)")
+    p.add_argument("--spec-k", type=int, default=0,
+                   help="Greedy self-speculation (not ported; 0 = off)")
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="Sampled decoding temperature (not ported; 0 = greedy)")
+    p.add_argument("--top-k", type=int, default=0)
+    p.add_argument("--top-p", type=float, default=1.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--fused", action="store_true", default=True,
+                   help="Mel, encoder and decode in one call (default)")
+    p.add_argument("--no-fused", action="store_false", dest="fused",
+                   help="Staged: mel, encoder and decode timed separately")
+    p.add_argument("--mel-bucket", type=int, default=0,
+                   help="Pad mel frames to this bucket (rounded to the "
+                        "100-frame chunk); 0 = exact shapes")
+    p.add_argument("--platform", default="",
+                   help="'cpu' runs on the CPU; anything else (or nothing) on "
+                        "the CUDA card")
+    p.add_argument("--trace-dir", default="",
+                   help="Write a torch.profiler trace (Chrome JSON) here")
+    p.add_argument("--output-format", default="json", choices=["json", "srt", "vtt"],
+                   help="Alignment output format (with --align; not ported)")
+    p.add_argument("--save-mel", default="", metavar="PATH",
+                   help="Debug hook: also write the input's log-mel spectrogram "
+                        "as a .npy ([n_mels, n_frames] f32, the golden-file "
+                        "layout) before transcribing")
+    return p
+
+
+def _not_ported(args, tp) -> str:
+    """The first mode `args` asks for that the port does not carry, as an
+    error message, or "": alignment and the int4 cache here, the decode
+    modes of TranscribeParams through pipeline/asr.py::unported."""
+    from qwen3_asr_tpu_torch.pipeline.asr import NOT_PORTED, unported
+
+    if args.align_mode or args.transcribe_align_mode:
+        return ("forced alignment (--align, --transcribe-align) is not ported "
+                "(ROADMAP Queue 1 item 9)")
+    if args.kv_int4:
+        return NOT_PORTED["kv_int4"]
+    return unported(tp)
+
+
+def _write_output(text: str, output_path: str) -> int:
+    if not output_path:
+        print(text, flush=True)
+        return 0
+    try:
+        with open(output_path, "w", encoding="utf-8") as f:
+            f.write(text + "\n")
+    except OSError:
+        _eprint(f"Error: Failed to open output file: {output_path}")
+        return 1
+    _eprint(f"Output written to: {output_path}")
+    return 0
+
+
+def _save_mel(args, device) -> int:
+    """The input's log-mel [n_mels, n_frames] f32 as .npy, computed by the
+    port's mel on `device`."""
+    import numpy as np
+    import torch
+
+    from qwen3_asr_tpu_torch.audio.mel import filters_t, generate_mel_filters, mel_device
+    from qwen3_asr_tpu_torch.audio.wav import load_wav
+    from qwen3_asr_tpu_torch.config import SAMPLE_RATE
+    from qwen3_asr_tpu_torch.models.e2e import _pad_pcm
+
+    try:
+        samples, sr = load_wav(args.audio, raw_int16=True)
+    except (OSError, ValueError) as e:
+        _eprint(f"Error: Failed to load audio file: {e}")
+        return 1
+    if sr != SAMPLE_RATE:
+        _eprint(f"Error: Audio must be 16kHz, got {sr} Hz")
+        return 1
+    buf, n_frames = _pad_pcm(samples)
+    mel = mel_device(torch.from_numpy(buf).to(device),
+                     filters_t(generate_mel_filters(), device), n_frames).T
+    np.save(args.save_mel, mel.cpu().numpy().astype(np.float32))
+    _eprint(f"Mel spectrogram saved: {args.save_mel} "
+            f"(shape {mel.shape[0]}x{mel.shape[1]})")
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    import torch
+
+    from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams
+    from qwen3_asr_tpu_torch.runtime.profiler import profiler
+
+    tp = TranscribeParams(
+        max_tokens=args.max_tokens, language=args.language,
+        print_progress=args.print_progress, print_timing=args.print_timing,
+        fused=args.fused, mel_bucket=args.mel_bucket, spec_k=args.spec_k,
+        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+        seed=args.seed)
+    err = _not_ported(args, tp)
+    if err:
+        _eprint(f"Error: {err}")
+        return 1
+
+    device = "cpu" if args.platform == "cpu" else "cuda"
+    try:
+        asr = Qwen3ASR(quantize="" if args.quantize == "none" else args.quantize,
+                       kv_int8=args.kv_int8, device=device,
+                       dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32)
+    except RuntimeError as e:   # no CUDA device: never a quiet CPU run
+        _eprint(f"Error: {e}")
+        return 1
+    if args.save_mel and _save_mel(args, asr.device):
+        return 1
+
+    trace = None
+    if args.trace_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                         if asr.device.type == "cuda" else [])
+        trace = profile(activities=acts)
+        trace.__enter__()
+
+    _eprint("qwen3-asr-cuda-cli")
+    _eprint(f"  Model: {args.model}")
+    _eprint(f"  Audio: {args.audio}")
+    _eprint(f"  Threads: {args.threads}\n")
+    try:
+        if not asr.load_model(args.model):
+            _eprint(f"Error: {asr.error_msg}")
+            return 1
+        result = asr.transcribe(args.audio, tp)
+    finally:
+        if trace is not None:
+            trace.__exit__(None, None, None)
+            import os
+
+            os.makedirs(args.trace_dir, exist_ok=True)
+            path = os.path.join(args.trace_dir, "trace.json")
+            trace.export_chrome_trace(path)
+            _eprint(f"Trace written to: {path}")
+    if not result.success:
+        _eprint(f"Error: {result.error_msg}")
+        return 1
+    if args.print_tokens:
+        _eprint(f"\nTokens ({len(result.tokens)}):")
+        for i, t in enumerate(result.tokens):
+            _eprint(f"  [{i}] {t}")
+    rc = _write_output(result.text, args.output)
+    if args.profile:
+        _eprint(profiler.report())
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

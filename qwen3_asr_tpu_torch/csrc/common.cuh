@@ -14,6 +14,10 @@
 
 __device__ __forceinline__ float bf2f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+// A KV-cache element (int8 code or bf16 value) as f32.
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return bf2f(x); }
+
 // float -> bf16 -> float: the rounding a bf16 store applies (nearest even).
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));

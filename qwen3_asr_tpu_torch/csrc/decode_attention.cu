@@ -48,9 +48,6 @@ struct DaArgs {
   float eps, rope_coef, scale;
 };
 
-__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return bf2f(x); }
-
 __device__ __forceinline__ float ld(const void* p, int i, int is_bf16) {
   return is_bf16 ? bf2f(reinterpret_cast<const __nv_bfloat16*>(p)[i])
                  : reinterpret_cast<const float*>(p)[i];

@@ -1,19 +1,25 @@
-// One greedy decode step of the Qwen3 decoder: int4 weights, int8 KV cache.
+// One greedy decode step of the Qwen3 decoder: int4 or int8 weights, an
+// int8 or bf16 KV cache.
 //
-// Replaces: qwen3_asr_tpu/ops/megakernel.py::_mega_kernel in its int4-weight
-// / int8-KV / resident mode (entry mega_decode_step_i8). It computes what the
-// Pallas body computes (megakernel.py:669-1058): per layer RMSNorm, per-row
-// int8 activation quantization, the int4 QKV product with per-(512-row group,
-// column) scales, QK-RMSNorm, NEOX RoPE at `pos`, GQA attention over the
-// int8 cache rows < pos plus the fresh K/V column, the in-place write of the
-// fresh int8 K/V row and its scales at row `pos`, the output projection, the
-// residual, the SwiGLU MLP; then the final norm, the int4 lm head over the
-// padded vocab (padding masked) and the first-index argmax.
+// Replaces: qwen3_asr_tpu/ops/megakernel.py::_mega_kernel in its resident
+// modes: int4 weights (the `int4=True` pack) or int8 weights (the default
+// pack), with an int8 KV cache (entry mega_decode_step_i8) or a bf16 one
+// (entry mega_decode_step). It computes what the Pallas body computes
+// (megakernel.py:669-1058): per layer RMSNorm, per-row int8 activation
+// quantization, the QKV product (int4: per-(512-row group, column) scales,
+// groups summed in f32; int8: one int32 dot over the whole input dim, then
+// one scale per column, megakernel.py:728-738), QK-RMSNorm, NEOX RoPE at
+// `pos`, GQA attention over the cache rows < pos plus the fresh K/V column,
+// the in-place write of the fresh K/V row at row `pos` (int8 codes and their
+// scales, or bf16 rounded to nearest even), the output projection, the
+// residual, the SwiGLU MLP; then the final norm, the lm head over the padded
+// vocab (padding masked) and the first-index argmax.
 //
 // What bounds it on an H100: bytes. A step streams ~0.30 GB of int4 weights
-// and scales plus the live int8 cache (2 KB of K/V and 64 B of scales per
-// layer per row: ~70 MB at pos 1200) and does ~1 FLOP per weight byte, so
-// the floor is ~110 us at 3.35 TB/s. The TPU kernel was one launch because
+// and scales (0.60 GB as int8) plus the live cache (int8: 2 KB of K/V and
+// 64 B of scales per layer per row, ~70 MB at pos 1200; bf16: 4 KB, ~140 MB)
+// and does ~1-2 operations per weight byte, so the floor is ~110 us (int4,
+// int8 cache) to ~220 us (int8, bf16 cache) at 3.35 TB/s. The TPU kernel was one launch because
 // its per-op dispatch gaps starved HBM; on the H100 this first version is a
 // fixed sequence of ten simple kernels per layer behind the one C entry
 // point below, and the design attacks bytes and parallelism: weights stay
@@ -34,8 +40,15 @@
 // (rintf) and IEEE division. Only reduction orders of f32 sums (RMS, softmax)
 // differ.
 //
-// This file holds K1's GEMV and its C entry point; the other kernels and the
-// launch sequence live in megakernel.cuh, shared with the batched step
+// The int8 GEMV splits the input dim into 512-row slices across blocks, as
+// the int4 one splits it by scale group, so the narrow wo / wd products still
+// fill the SMs; the slices' int32 sums meet in device memory through atomics
+// (exact in any order) and the last block of a column tile scales them
+// (megakernel.cuh, i8_tile_done). It reads a row quad of 16 columns as four
+// 16-byte vectors, transposes the bytes into 4-row words and feeds dp4a.
+//
+// This file holds K1's GEMVs and its C entry points; the other kernels and
+// the launch sequence live in megakernel.cuh, shared with the batched step
 // (megakernel_batch.cu), which launches them with one block row per sequence.
 #include "megakernel.cuh"
 
@@ -98,6 +111,73 @@ __global__ void __launch_bounds__(GEMV_THREADS) gemv_i4(
   }
 }
 
+// -- int8 GEMV, one scale per column ------------------------------------------
+//
+// Block (x, c): columns [64x, 64x+64) of input rows [c KC, c KC + KC) of an
+// [in, N] int8 weight. Thread t takes 16 columns (t % 4) and the row quads
+// q = t / 4, t / 4 + 64, ...: four 16-byte loads (rows 4q .. 4q+3), a byte
+// transpose into one 4-row word per column, and a dp4a with the quad's four
+// activation codes. The block's int32 column sums are exact; with one block
+// row (KC = in) it writes terms[n] = f32(sum) * (sx * s[n]) itself, else the
+// sums meet in iacc and the tile's last block writes terms (i8_tile_done).
+__global__ void __launch_bounds__(GEMV_THREADS) gemv_i8(
+    const int8_t* __restrict__ xq, const float* __restrict__ sx_ptr,
+    const int8_t* __restrict__ wq, const float* __restrict__ ws, int KC, int N,
+    int* __restrict__ iacc, int* __restrict__ tiles, float* __restrict__ terms) {
+  __shared__ int xs[I8_MAX_SPLIT / 4];
+  __shared__ int part[GEMV_SLICES][GEMV_COLS + 1];
+  const int c = blockIdx.y;
+  const int seg = threadIdx.x % (GEMV_COLS / 16);
+  const int slice = threadIdx.x / (GEMV_COLS / 16);
+  const int col0 = blockIdx.x * GEMV_COLS + seg * 16;
+  const int nq = KC / 4;
+  for (int i = threadIdx.x; i < nq; i += blockDim.x)
+    xs[i] = reinterpret_cast<const int*>(xq + (size_t)c * KC)[i];
+  __syncthreads();
+  int acc[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) acc[k] = 0;
+  const int8_t* wc = wq + (size_t)c * KC * N + col0;
+#pragma unroll 2
+  for (int q = slice; q < nq; q += GEMV_SLICES) {
+    const int8_t* w = wc + (size_t)(4 * q) * N;
+    const uint4 r0 = *reinterpret_cast<const uint4*>(w);
+    const uint4 r1 = *reinterpret_cast<const uint4*>(w + N);
+    const uint4 r2 = *reinterpret_cast<const uint4*>(w + 2 * (size_t)N);
+    const uint4 r3 = *reinterpret_cast<const uint4*>(w + 3 * (size_t)N);
+    const uint32_t a[4] = {r0.x, r0.y, r0.z, r0.w}, b[4] = {r1.x, r1.y, r1.z, r1.w};
+    const uint32_t e[4] = {r2.x, r2.y, r2.z, r2.w}, f[4] = {r3.x, r3.y, r3.z, r3.w};
+    const int xw = xs[q];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      // word k holds columns 4k .. 4k+3 of each row; regroup by column
+      const uint32_t t0 = __byte_perm(a[k], b[k], 0x5140), t1 = __byte_perm(a[k], b[k], 0x7362);
+      const uint32_t t2 = __byte_perm(e[k], f[k], 0x5140), t3 = __byte_perm(e[k], f[k], 0x7362);
+      acc[4 * k] = __dp4a((int)__byte_perm(t0, t2, 0x5410), xw, acc[4 * k]);
+      acc[4 * k + 1] = __dp4a((int)__byte_perm(t0, t2, 0x7632), xw, acc[4 * k + 1]);
+      acc[4 * k + 2] = __dp4a((int)__byte_perm(t1, t3, 0x5410), xw, acc[4 * k + 2]);
+      acc[4 * k + 3] = __dp4a((int)__byte_perm(t1, t3, 0x7632), xw, acc[4 * k + 3]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k) part[slice][seg * 16 + k] = acc[k];
+  __syncthreads();
+  const int n = blockIdx.x * GEMV_COLS + threadIdx.x;
+  int tot = 0;
+  if (threadIdx.x < GEMV_COLS)
+    for (int sl = 0; sl < GEMV_SLICES; ++sl) tot += part[sl][threadIdx.x];
+  const float sx = *sx_ptr;
+  if (gridDim.y == 1) {
+    if (threadIdx.x < GEMV_COLS) terms[n] = (float)tot * (sx * ws[n]);
+    return;
+  }
+  if (threadIdx.x < GEMV_COLS) atomicAdd(&iacc[n], tot);
+  if (i8_tile_done(tiles)) {
+    if (threadIdx.x < GEMV_COLS) terms[n] = (float)atomicExch(&iacc[n], 0) * (sx * ws[n]);
+    if (threadIdx.x == 0) tiles[blockIdx.x] = 0;
+  }
+}
+
 }  // namespace
 
 extern "C" size_t qw_mega_scratch_bytes(const MegaDims* d) {
@@ -105,22 +185,43 @@ extern "C" size_t qw_mega_scratch_bytes(const MegaDims* d) {
   return layout(*d, 1, nullptr, &s);
 }
 
-// One decode step. Everything runs on `stream`; nothing is allocated and the
-// host is never waited on. Returns a cudaError_t code.
-extern "C" int qw_mega_decode_step_i8(const MegaPtrs* p, const MegaDims* dp, void* stream) {
+namespace {
+
+// One decode step over a cache of element type CT.
+template <typename CT>
+int run_step(const MegaPtrs* p, const MegaDims* dp, void* stream) {
   const MegaDims d = *dp;
   cudaStream_t st = (cudaStream_t)stream;
-  if (!dims_ok(d, GEMV_COLS, GEMV_MAX_GROUP)) return (int)cudaErrorInvalidValue;
-  if (attn_partial_smem(d) > 48 * 1024 || attn_combine_smem(d) > 48 * 1024)
-    return (int)cudaErrorInvalidValue;
+  if (!step_ok<CT>(d, GEMV_COLS, GEMV_MAX_GROUP)) return (int)cudaErrorInvalidValue;
   Scratch s;
   layout(d, 1, (char*)p->scratch, &s);
   auto gemv = [&](const void* wq, const void* ws, size_t l, int n_in, int N, int G) {
-    const uint8_t* q = (const uint8_t*)wq + l * (size_t)(n_in / 2) * N;
+    // G = n_in for int8 weights, so the scale offset is l * N for both packs
     const float* sc = (const float*)ws + l * (size_t)(n_in / G) * N;
-    gemv_i4<<<dim3(N / GEMV_COLS, n_in / G), GEMV_THREADS, 0, st>>>(
-        s.xq, s.sx, q, sc, G, N, s.terms);
+    if (d.wbits == 8) {
+      const int kc = split_rows(n_in);
+      gemv_i8<<<dim3(N / GEMV_COLS, n_in / kc), GEMV_THREADS, 0, st>>>(
+          s.xq, s.sx, (const int8_t*)wq + l * (size_t)n_in * N, sc, kc, N, s.iacc,
+          s.tiles, s.terms);
+    } else {
+      gemv_i4<<<dim3(N / GEMV_COLS, n_in / G), GEMV_THREADS, 0, st>>>(
+          s.xq, s.sx, (const uint8_t*)wq + l * (size_t)(n_in / 2) * N, sc, G, N, s.terms);
+    }
   };
-  decode_step(p, d, nullptr, 1, s, st, gemv);
+  decode_step<CT>(p, d, nullptr, 1, s, st, gemv);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// One decode step over an int8 KV cache (k_scale / v_scale set), on either
+// pack. Everything runs on `stream`; nothing is allocated and the host is
+// never waited on. Returns a cudaError_t code.
+extern "C" int qw_mega_decode_step_i8(const MegaPtrs* p, const MegaDims* dp, void* stream) {
+  return run_step<int8_t>(p, dp, stream);
+}
+
+// The same step over a bf16 KV cache (no scales).
+extern "C" int qw_mega_decode_step(const MegaPtrs* p, const MegaDims* dp, void* stream) {
+  return run_step<__nv_bfloat16>(p, dp, stream);
 }

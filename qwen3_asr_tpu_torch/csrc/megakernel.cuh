@@ -14,6 +14,8 @@
 
 #include <cuda_pipeline.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 // The C entry points' arguments (plain structs with external linkage: a type
@@ -27,19 +29,19 @@ struct MegaPtrs {
   const void* q_norm;      // [L, D] f32
   const void* k_norm;      // [L, D] f32
   const void* out_norm;    // [H] f32
-  const void* qkv_q;       // [L, H/2, DQ+2DKV] packed int4
-  const void* qkv_s;       // [L, H/g_qkv, DQ+2DKV] f32
+  const void* qkv_q;       // [L, H/2, DQ+2DKV] packed int4, or [L, H, ...] int8
+  const void* qkv_s;       // [L, H/g_qkv, DQ+2DKV] f32 (int8: [L, DQ+2DKV])
   const void* wo_q;        // [L, DQ/2, H]
   const void* wo_s;
   const void* gu_q;        // [L, H/2, 2FF]
   const void* gu_s;
   const void* wd_q;        // [L, FF/2, H]
   const void* wd_s;
-  const void* head_q;      // [H/2, Vp]
-  const void* head_s;      // [H/g_head, Vp]
-  void* k_cache;           // [L, S, DKV] int8
+  const void* head_q;      // [H/2, Vp] (int8: [H, Vp])
+  const void* head_s;      // [H/g_head, Vp] (int8: [Vp])
+  void* k_cache;           // [L, S, DKV] int8 or bf16
   void* v_cache;
-  void* k_scale;           // [L, S, NKV] f32
+  void* k_scale;           // [L, S, NKV] f32 (int8 cache; null for bf16)
   void* v_scale;
   const void* token_in;    // [1] int32, or null when x_in is given
   const void* x_in;        // [H] bf16, or null
@@ -49,10 +51,13 @@ struct MegaPtrs {
 };
 
 // pos: the cache row the step writes (K1), or the host's upper bound of the
-// rows' positions, which sizes the attention grid (K3).
+// rows' positions, which sizes the attention grid (K3). wbits: 4 (the int4
+// pack, scale groups g_*) or 8 (the int8 pack: one scale per column, every
+// g_* equal to its product's input dim).
 struct MegaDims {
   int L, H, NH, NKV, D, FF, V, Vp, S, pos;
   int g_qkv, g_wo, g_gu, g_wd, g_head;
+  int wbits;
   float eps, rope_coef, scale;
 };
 
@@ -64,6 +69,8 @@ constexpr int ATTN_THREADS = 256;
 constexpr int ATTN_ROWS = 64;      // cache rows per attn_partial block
 constexpr int ARGMAX_THREADS = 256;
 constexpr int ARGMAX_COLS = 4096;  // vocab columns per argmax block
+constexpr int I8_SPLIT = 512;      // input rows per block of an int8 GEMV
+constexpr int I8_MAX_SPLIT = 1024; // largest unsplit input dim it takes
 
 __host__ __device__ inline int n_attn_chunks(int rows) {
   return (rows + ATTN_ROWS - 1) / ATTN_ROWS;
@@ -84,6 +91,20 @@ inline size_t terms_floats(const MegaDims& d) {
   return m;
 }
 
+// The widest output of the step's products (the lm head's Vp in practice).
+inline int widest_out(const MegaDims& d) {
+  const int DQ = d.NH * d.D, NQKV = DQ + 2 * d.NKV * d.D;
+  int w = NQKV > 2 * d.FF ? NQKV : 2 * d.FF;
+  w = w > d.H ? w : d.H;
+  return w > d.Vp ? w : d.Vp;
+}
+
+// Input rows per block of an int8 GEMV over n_in rows: I8_SPLIT when it
+// divides n_in, else all of them (one block row, no cross-block sum).
+__host__ __device__ inline int split_rows(int n_in) {
+  return n_in % I8_SPLIT == 0 ? I8_SPLIT : n_in;
+}
+
 inline int widest_row(const MegaDims& d) {
   const int DQ = d.NH * d.D;
   int w = d.H > DQ ? d.H : DQ;
@@ -96,15 +117,27 @@ inline bool dims_ok(const MegaDims& d, int gemv_cols, int max_group) {
   if (d.H > NORM_MAX || DQ > NORM_MAX || d.FF > NORM_MAX) return false;
   if (d.NH % d.NKV || d.D % 16 || d.pos < 1 || d.pos >= d.S) return false;
   const int gs[5] = {d.g_qkv, d.g_wo, d.g_gu, d.g_wd, d.g_head};
-  for (int g : gs) if (g <= 0 || g % 4 || g > max_group) return false;
+  const int ins[5] = {d.H, DQ, d.H, d.FF, d.H};
+  for (int i = 0; i < 5; ++i) {
+    if (d.wbits == 4) {
+      if (gs[i] <= 0 || gs[i] % 4 || gs[i] > max_group) return false;
+    } else if (d.wbits == 8) {
+      const int kc = split_rows(ins[i]);
+      if (gs[i] != ins[i] || kc % 4 || kc > I8_MAX_SPLIT) return false;
+    } else {
+      return false;
+    }
+  }
   if (NQKV % gemv_cols || d.H % gemv_cols || (2 * d.FF) % gemv_cols || d.Vp % gemv_cols)
     return false;
   return true;
 }
 
-inline size_t attn_partial_smem(const MegaDims& d) {
+// cache_bytes: the size of a cache element (1 int8, 2 bf16). At D = 128 a
+// bf16 chunk stages 32 KB of K/V rows, under the 48 KB static limit.
+inline size_t attn_partial_smem(const MegaDims& d, size_t cache_bytes) {
   const int GROUP = d.NH / d.NKV;
-  return 2 * (size_t)ATTN_ROWS * d.D +
+  return 2 * (size_t)ATTN_ROWS * d.D * cache_bytes +
          sizeof(float) * ((size_t)GROUP * (d.D + ATTN_ROWS + 2) + 2 * ATTN_ROWS);
 }
 
@@ -270,18 +303,41 @@ __device__ void prep_qkv(const float* __restrict__ terms, int n_g,
   __syncthreads();
 }
 
+// Four cache elements from shared memory as f32 (e is a multiple of 4).
+__device__ __forceinline__ void load4(const int8_t* p, float* f) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  f[0] = (float)c.x;
+  f[1] = (float)c.y;
+  f[2] = (float)c.z;
+  f[3] = (float)c.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* f) {
+  const float2 a = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[0]);
+  const float2 b = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[1]);
+  f[0] = a.x;
+  f[1] = a.y;
+  f[2] = b.x;
+  f[3] = b.y;
+}
+
 // The chunk's K and V rows are copied into shared memory with cp.async
-// (16-byte pieces, all in flight at once) while q is prepared; everything
-// after reads shared memory. A chunk at or past the row's pos exits (the
-// grid is sized for the largest pos of the batch). Dynamic shared memory:
-// kv[2][ATTN_ROWS][D] int8, then floats q[GROUP][D], p[GROUP][ATTN_ROWS],
-// ml[2 * GROUP], kss[ATTN_ROWS], vss[ATTN_ROWS].
+// (16-byte pieces, all in flight at once: D / 16 pieces a row for int8, D / 8
+// for bf16) while q is prepared; everything after reads shared memory. A
+// chunk at or past the row's pos exits (the grid is sized for the largest pos
+// of the batch). Dynamic shared memory: kv[2][ATTN_ROWS][D] of the cache type
+// CT, then floats q[GROUP][D], p[GROUP][ATTN_ROWS], ml[2 * GROUP],
+// kss[ATTN_ROWS], vss[ATTN_ROWS]. An int8 cache's row scales multiply the
+// scores and the probabilities of the V sum (the denominator takes the
+// unscaled sum); a bf16 cache has no scales (ksc / vsc null).
+template <typename CT>
 __global__ void __launch_bounds__(ATTN_THREADS) attn_partial(
     const float* __restrict__ terms, int n_g, const float* __restrict__ qn,
-    const float* __restrict__ kn, MegaDims d, const int8_t* __restrict__ kc,
-    const int8_t* __restrict__ vc, const float* __restrict__ ksc,
+    const float* __restrict__ kn, MegaDims d, const CT* __restrict__ kc,
+    const CT* __restrict__ vc, const float* __restrict__ ksc,
     const float* __restrict__ vsc, float* __restrict__ part,
     const int* __restrict__ pos_arr, size_t ts, size_t slab_kv, size_t slab_s) {
+  constexpr bool QUANT = std::is_same<CT, int8_t>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int D = d.D, NKV = d.NKV, GROUP = d.NH / NKV, DKV = NKV * D;
   const int kvh = blockIdx.x, c = blockIdx.y, row = blockIdx.z;
@@ -292,48 +348,52 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_partial(
   terms += row * ts;
   kc += row * slab_kv;
   vc += row * slab_kv;
-  ksc += row * slab_s;
-  vsc += row * slab_s;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
-  int8_t* kv = reinterpret_cast<int8_t*>(smem_raw);   // [2][ATTN_ROWS][D]
-  float* q = reinterpret_cast<float*>(smem_raw + 2 * ATTN_ROWS * D);
+  CT* kv = reinterpret_cast<CT*>(smem_raw);   // [2][ATTN_ROWS][D]
+  float* q = reinterpret_cast<float*>(smem_raw + 2 * ATTN_ROWS * D * sizeof(CT));
   float* p = q + GROUP * D;             // [GROUP][ATTN_ROWS]
   float* ml = p + GROUP * ATTN_ROWS;    // m[GROUP], l[GROUP]
   float* kss = ml + 2 * GROUP;          // [ATTN_ROWS]
   float* vss = kss + ATTN_ROWS;         // [ATTN_ROWS]
 
-  const int d16 = D / 16;
-  for (int i = tid; i < 2 * nr * d16; i += blockDim.x) {
-    const int which = i / (nr * d16), rem = i % (nr * d16);
-    const int r = rem / d16, piece = rem % d16;
-    const int8_t* src = (which ? vc : kc) + (size_t)(r0 + r) * DKV + kvh * D + piece * 16;
-    __pipeline_memcpy_async(kv + (which * ATTN_ROWS + r) * D + piece * 16, src, 16);
+  const int pieces = D * (int)sizeof(CT) / 16;
+  for (int i = tid; i < 2 * nr * pieces; i += blockDim.x) {
+    const int which = i / (nr * pieces), rem = i % (nr * pieces);
+    const int r = rem / pieces, piece = rem % pieces;
+    const CT* src = (which ? vc : kc) + (size_t)(r0 + r) * DKV + kvh * D;
+    __pipeline_memcpy_async(
+        reinterpret_cast<unsigned char*>(kv + (which * ATTN_ROWS + r) * D) + piece * 16,
+        reinterpret_cast<const unsigned char*>(src) + piece * 16, 16);
   }
   __pipeline_commit();
-  for (int r = tid; r < nr; r += blockDim.x) {
-    kss[r] = ksc[(size_t)(r0 + r) * NKV + kvh];
-    vss[r] = vsc[(size_t)(r0 + r) * NKV + kvh];
+  if constexpr (QUANT) {
+    ksc += row * slab_s;
+    vsc += row * slab_s;
+    for (int r = tid; r < nr; r += blockDim.x) {
+      kss[r] = ksc[(size_t)(r0 + r) * NKV + kvh];
+      vss[r] = vsc[(size_t)(r0 + r) * NKV + kvh];
+    }
   }
   prep_qkv(terms, n_g, qn, kn, d, pos, kvh, GROUP, q);
   __pipeline_wait_prior(0);
   __syncthreads();
-  const int8_t* ks_rows = kv;
-  const int8_t* vs_rows = kv + ATTN_ROWS * D;
+  const CT* ks_rows = kv;
+  const CT* vs_rows = kv + ATTN_ROWS * D;
 
-  // scores times the row's k scale: one warp per row, 4 bytes per lane
+  // scores (times the row's k scale): one warp per row, 4 elements per lane
   for (int r = warp; r < nr; r += nwarps) {
-    const int8_t* kr = ks_rows + r * D;
+    const CT* kr = ks_rows + r * D;
     for (int j = 0; j < GROUP; ++j) {
       const float* qj = q + j * D;
       float s = 0.f;
       for (int e = 4 * lane; e < D; e += 128) {
-        const char4 k4 = *reinterpret_cast<const char4*>(kr + e);
-        s += qj[e] * (float)k4.x + qj[e + 1] * (float)k4.y + qj[e + 2] * (float)k4.z +
-             qj[e + 3] * (float)k4.w;
+        float k4[4];
+        load4(kr + e, k4);
+        s += qj[e] * k4[0] + qj[e + 1] * k4[1] + qj[e + 2] * k4[2] + qj[e + 3] * k4[3];
       }
       s = warp_sum(s);
-      if (lane == 0) p[j * ATTN_ROWS + r] = s * kss[r];
+      if (lane == 0) p[j * ATTN_ROWS + r] = QUANT ? s * kss[r] : s;
     }
   }
   __syncthreads();
@@ -349,7 +409,7 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_partial(
     for (int r = lane; r < nr; r += 32) {
       const float e = expf(pj[r] - mx);
       sum += e;
-      pj[r] = e * vss[r];
+      pj[r] = QUANT ? e * vss[r] : e;
     }
     sum = warp_sum(sum);
     if (lane == 0) {
@@ -364,7 +424,7 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_partial(
     const int j = pr / D, e = pr % D;
     const float* pj = p + j * ATTN_ROWS;
     float o = 0.f;
-    for (int r = 0; r < nr; ++r) o = fmaf(pj[r], (float)vs_rows[r * D + e], o);
+    for (int r = 0; r < nr; ++r) o = fmaf(pj[r], to_f(vs_rows[r * D + e]), o);
     out[j * (D + 2) + 2 + e] = o;
   }
   if (tid < GROUP) {
@@ -375,11 +435,14 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_partial(
 
 // Block (kvh, row). Dynamic shared memory: vec[(GROUP + 2) * D], misc[3 *
 // GROUP]. Reads the row's n_attn_chunks(pos) partials; attn_out row stride
-// is DQ.
+// is DQ. The fresh K/V row enters the max and the sum in f32 and is stored
+// at cache row pos: quantized with its scale (int8), or rounded to nearest
+// even (bf16).
+template <typename CT>
 __global__ void __launch_bounds__(ATTN_THREADS) attn_combine(
     const float* __restrict__ terms, int n_g, const float* __restrict__ qn,
     const float* __restrict__ kn, MegaDims d, const float* __restrict__ part,
-    int cstride, int8_t* __restrict__ kc, int8_t* __restrict__ vc,
+    int cstride, CT* __restrict__ kc, CT* __restrict__ vc,
     float* __restrict__ ksc, float* __restrict__ vsc,
     __nv_bfloat16* __restrict__ attn_out, const int* __restrict__ pos_arr, size_t ts,
     size_t slab_kv, size_t slab_s) {
@@ -391,8 +454,6 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_combine(
   terms += row * ts;
   kc += row * slab_kv;
   vc += row * slab_kv;
-  ksc += row * slab_s;
-  vsc += row * slab_s;
   attn_out += (size_t)row * d.NH * D;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
@@ -439,19 +500,23 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_combine(
     attn_out[(kvh * GROUP + j) * D + e] = __float2bfloat16_rn(res);
   }
 
-  // quantize the fresh K and V rows of this head (warps 0 and 1) into
-  // cache row pos; the partial blocks read only rows < pos
+  // the fresh K and V rows of this head (warps 0 and 1) into cache row pos;
+  // the partial blocks read only rows < pos
   if (warp < 2) {
     const float* x = warp == 0 ? kf : vf;
-    int8_t* dst = (warp == 0 ? kc : vc) + (size_t)pos * DKV + kvh * D;
-    float amax = 0.f;
-    for (int e = lane; e < D; e += 32) amax = fmaxf(amax, fabsf(x[e]));
-    amax = warp_max(amax);
-    const float s = fmaxf(amax * (1.f / 127.f), 1e-12f);
-    for (int e = lane; e < D; e += 32) {
-      dst[e] = (int8_t)fminf(fmaxf(rintf(x[e] / s), -127.f), 127.f);
+    CT* dst = (warp == 0 ? kc : vc) + (size_t)pos * DKV + kvh * D;
+    if constexpr (std::is_same<CT, int8_t>::value) {
+      float amax = 0.f;
+      for (int e = lane; e < D; e += 32) amax = fmaxf(amax, fabsf(x[e]));
+      amax = warp_max(amax);
+      const float s = fmaxf(amax * (1.f / 127.f), 1e-12f);
+      for (int e = lane; e < D; e += 32) {
+        dst[e] = (int8_t)fminf(fmaxf(rintf(x[e] / s), -127.f), 127.f);
+      }
+      if (lane == 0) (warp == 0 ? ksc : vsc)[row * slab_s + (size_t)pos * NKV + kvh] = s;
+    } else {
+      for (int e = lane; e < D; e += 32) dst[e] = __float2bfloat16_rn(x[e]);
     }
-    if (lane == 0) (warp == 0 ? ksc : vsc)[(size_t)pos * NKV + kvh] = s;
   }
 }
 
@@ -532,6 +597,25 @@ __global__ void __launch_bounds__(ARGMAX_THREADS) argmax_final(
   if (threadIdx.x == 0) token_out[row] = bi[0] == 0x7fffffff ? 0 : bi[0];
 }
 
+// -- int8-weight GEMVs: the cross-block sum ----------------------------------
+//
+// An int8 GEMV splits its input rows over gridDim.y blocks (split_rows). Each
+// block adds its exact int32 column sums into iacc; the block that finishes a
+// 64-column tile last (counted in tiles[blockIdx.x]) applies the scales to
+// the whole sum, `f32(dot) * (sx * s[n])` as the TPU kernel does once per
+// output column, and leaves iacc and the counter zero for the next GEMV.
+// Integer sums are exact in any order, so every split and every batch row
+// gives the same bits. Called by every thread of the block after its
+// atomicAdds; true in the block that writes the tile.
+__device__ __forceinline__ bool i8_tile_done(int* tiles) {
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&tiles[blockIdx.x], 1) == (int)gridDim.y - 1;
+  __syncthreads();
+  return last;
+}
+
 // -- scratch layout -------------------------------------------------------------
 
 // Per-row activations of B rows: row b of each array at b * (its row size).
@@ -543,6 +627,9 @@ struct Scratch {
   float* part;                   // [B][NKV][n_attn_chunks(S)][GROUP][D + 2]
   float* pmax;                   // [B][n_argmax_blocks]
   int* pidx;
+  int* iacc;                     // [B][widest_out] int8 GEMVs' column sums
+  int* tiles;                    // [widest_out / 64] their tile counters
+  size_t i8_bytes;               // bytes of iacc and tiles (zeroed per step)
 };
 
 inline size_t layout(const MegaDims& d, int B, char* base, Scratch* s) {
@@ -562,30 +649,39 @@ inline size_t layout(const MegaDims& d, int B, char* base, Scratch* s) {
   s->part = (float*)take(4 * (size_t)B * d.NH * n_attn_chunks(d.S) * (d.D + 2));
   s->pmax = (float*)take(4 * (size_t)B * n_argmax_blocks(d));
   s->pidx = (int*)take(4 * (size_t)B * n_argmax_blocks(d));
+  const size_t i8_off = off;
+  s->iacc = (int*)take(4 * (size_t)B * widest_out(d));
+  s->tiles = (int*)take(4 * (size_t)(widest_out(d) / 64 + 1));
+  s->i8_bytes = off - i8_off;
   return off;
 }
 
-// One decode step of B rows: the launch sequence both entry points share.
-// `gemv(wq, ws, layer, n_in, N, G)` launches the int4 product of all B rows
-// of s.xq (row scales s.sx) into s.terms; pos_arr is null for K1.
-template <typename Gemv>
+// One decode step of B rows over a cache of element type CT (int8_t with
+// f32 row scales, or __nv_bfloat16): the launch sequence both entry points
+// share. `gemv(wq, ws, layer, n_in, N, G)` launches the product (int4 or
+// int8 weights) of all B rows of s.xq (row scales s.sx) into s.terms;
+// pos_arr is null for K1.
+template <typename CT, typename Gemv>
 void decode_step(const MegaPtrs* p, const MegaDims& d, const int* pos_arr, int B,
                  const Scratch& s, cudaStream_t st, Gemv gemv) {
+  constexpr bool QUANT = std::is_same<CT, int8_t>::value;
   const int DQ = d.NH * d.D, DKV = d.NKV * d.D;
   const int nchunks = n_attn_chunks(d.pos);
   const size_t ts = terms_floats(d), qs = (size_t)widest_row(d);
   const size_t slab_kv = (size_t)d.L * d.S * DKV, slab_s = (size_t)d.L * d.S * d.NKV;
-  const size_t smem_partial = attn_partial_smem(d), smem_combine = attn_combine_smem(d);
+  const size_t smem_partial = attn_partial_smem(d, sizeof(CT));
+  const size_t smem_combine = attn_combine_smem(d);
 
   const __nv_bfloat16* embd = (const __nv_bfloat16*)p->embd;
   const float* attn_norm = (const float*)p->attn_norm;
   const float* ffn_norm = (const float*)p->ffn_norm;
   const float* q_norm = (const float*)p->q_norm;
   const float* k_norm = (const float*)p->k_norm;
-  int8_t* kc = (int8_t*)p->k_cache;
-  int8_t* vc = (int8_t*)p->v_cache;
+  CT* kc = (CT*)p->k_cache;
+  CT* vc = (CT*)p->v_cache;
   float* ksc = (float*)p->k_scale;
   float* vsc = (float*)p->v_scale;
+  if (d.wbits == 8) cudaMemsetAsync(s.iacc, 0, s.i8_bytes, st);
 
   for (int l = 0; l < d.L; ++l) {
     // x = embedding row (layer 0) or h1 + bf16(wd); xq = quant(bf16(rms(x) * attn_norm))
@@ -601,14 +697,14 @@ void decode_step(const MegaPtrs* p, const MegaDims& d, const int* pos_arr, int B
     gemv(p->qkv_q, p->qkv_s, l, d.H, DQ + 2 * DKV, d.g_qkv);
     const float* qn = q_norm + (size_t)l * d.D;
     const float* kn = k_norm + (size_t)l * d.D;
-    int8_t* kl = kc + (size_t)l * d.S * DKV;
-    int8_t* vl = vc + (size_t)l * d.S * DKV;
-    float* ksl = ksc + (size_t)l * d.S * d.NKV;
-    float* vsl = vsc + (size_t)l * d.S * d.NKV;
-    attn_partial<<<dim3(d.NKV, nchunks, B), ATTN_THREADS, smem_partial, st>>>(
+    CT* kl = kc + (size_t)l * d.S * DKV;
+    CT* vl = vc + (size_t)l * d.S * DKV;
+    float* ksl = QUANT ? ksc + (size_t)l * d.S * d.NKV : nullptr;
+    float* vsl = QUANT ? vsc + (size_t)l * d.S * d.NKV : nullptr;
+    attn_partial<CT><<<dim3(d.NKV, nchunks, B), ATTN_THREADS, smem_partial, st>>>(
         s.terms, d.H / d.g_qkv, qn, kn, d, kl, vl, ksl, vsl, s.part, pos_arr, ts,
         slab_kv, slab_s);
-    attn_combine<<<dim3(d.NKV, B), ATTN_THREADS, smem_combine, st>>>(
+    attn_combine<CT><<<dim3(d.NKV, B), ATTN_THREADS, smem_combine, st>>>(
         s.terms, d.H / d.g_qkv, qn, kn, d, s.part, nchunks, kl, vl, ksl, vsl, s.attn,
         pos_arr, ts, slab_kv, slab_s);
     norm_quant<<<B, NORM_THREADS, 0, st>>>(s.attn, nullptr, nullptr, nullptr, 0, DQ,
@@ -623,7 +719,7 @@ void decode_step(const MegaPtrs* p, const MegaDims& d, const int* pos_arr, int B
                                            qs);
     gemv(p->wd_q, p->wd_s, l, d.FF, d.H, d.g_wd);
   }
-  // final norm (h_out = the pre-norm hidden state), int4 lm head, argmax
+  // final norm (h_out = the pre-norm hidden state), the lm head, argmax
   norm_quant<<<B, NORM_THREADS, 0, st>>>(s.h1, nullptr, nullptr, s.terms, d.FF / d.g_wd,
                                          d.H, (const float*)p->out_norm, d.eps, nullptr,
                                          (float*)p->h_out, s.xq, s.sx, ts, qs);
@@ -632,6 +728,14 @@ void decode_step(const MegaPtrs* p, const MegaDims& d, const int* pos_arr, int B
   argmax_partial<<<dim3(nb, B), ARGMAX_THREADS, 0, st>>>(s.terms, d.H / d.g_head, d.Vp,
                                                          d.V, s.pmax, s.pidx, ts);
   argmax_final<<<B, ARGMAX_THREADS, 0, st>>>(s.pmax, s.pidx, nb, (int*)p->token_out);
+}
+
+// The checks both entry points make before a step over a cache of type CT.
+template <typename CT>
+inline bool step_ok(const MegaDims& d, int gemv_cols, int max_group) {
+  return dims_ok(d, gemv_cols, max_group) &&
+         attn_partial_smem(d, sizeof(CT)) <= 48 * 1024 &&
+         attn_combine_smem(d) <= 48 * 1024;
 }
 
 }  // namespace

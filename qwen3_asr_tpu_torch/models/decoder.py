@@ -13,8 +13,8 @@ bf16 matrices, Q8_0 leaves or int8pc leaves:
   above 256 rows those wrappers run the reference's dequantize-and-dot;
 - dense: RMSNorm then plain matrix products, as the reference leaves them
   to XLA;
-- int8pc: the W8A8 products of `pc_matmul` (prefill only: the int4 pack's
-  decode steps run through `ops/megakernel.py`).
+- int8pc: the W8A8 products of `pc_matmul` (prefill only: the decode
+  pack's steps run through `ops/megakernel.py`).
 Attention in the prefill is the flash kernel (`ops/flash_attention.py`),
 causal with the prompt's valid length; in the decode step it is
 `ops/decode_attention.py` (K4).
@@ -184,7 +184,7 @@ def _decode_step(dec_params: dict, cfg: DecoderConfig, x: torch.Tensor,
     if "wqkv" not in layers or is_pc_leaf(layers["wqkv"]):
         raise NotImplementedError("the decode step takes the fused dense or "
                                   "Q8_0 layout; int8pc decode steps run through "
-                                  "ops/megakernel.py on the int4 pack")
+                                  "ops/megakernel.py on the decode pack")
     eps = cfg.rms_norm_eps
     scale = 1.0 / float(np.sqrt(cfg.head_dim))
     quant = "k_s" in cache

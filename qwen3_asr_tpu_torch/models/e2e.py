@@ -52,10 +52,11 @@ def upload(arrays: list[np.ndarray], device) -> list[torch.Tensor]:
 def transcribe_fused(params: dict, cfg: ASRModelConfig, samples: np.ndarray,
                      filters_t: torch.Tensor, max_tokens: int,
                      system_prompt_tokens=None,
-                     cache_dtype: torch.dtype | None = None) -> tuple[np.ndarray, int]:
+                     cache_dtype: torch.dtype = torch.bfloat16
+                     ) -> tuple[np.ndarray, int]:
     """int16 or float PCM -> (tokens [max_tokens], n_kept) on the device of
     `filters_t` ([201, n_mels] f32). cache_dtype: the KV cache's dtype, as
-    generate_greedy takes it (None: what the tree's decode step defaults to)."""
+    generate_greedy takes it (bf16 by default, as in the reference)."""
     samples = np.asarray(samples)
     if samples.dtype != np.int16:
         samples = samples.astype(np.float32)

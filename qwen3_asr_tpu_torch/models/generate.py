@@ -1,14 +1,16 @@
 """Greedy generation: the prefill, then the decode loop, for one sequence
-or (int4 pack) a batch in lockstep.
+or (decode pack, int8 cache) a batch in lockstep.
 
 Port of qwen3_asr_tpu/models/generate.py:36-207 and of
 `prefill_batch_mega_cache` / `generate_greedy_batch_mega` (:465-578), the
 batched path. The branch follows what the tree holds, as in the reference:
-an int4 decode pack (`"mega"`) runs each step through the decode megakernel
-with an int8 KV cache; any other tree (dense bf16 or Q8_0 weights) runs the
-per-layer decode step, `decoder_forward` at T = 1, over a bf16 or int8
-cache. The rules stay: the cache holds S = P + max_tokens rounded up to 128
-rows; the token consumed by step i sits at position
+a decode pack (`"mega"`, int4 or int8 weights) runs each step through the
+decode megakernel, its entry picked by the cache dtype (`mega_decode_step_i8`
+for int8, `mega_decode_step` for bf16, generate.py:143-173); any other tree
+(dense bf16 or Q8_0 weights) runs the per-layer decode step,
+`decoder_forward` at T = 1, over a bf16 or int8 cache. The rules stay: the
+cache holds S = P + max_tokens rounded up to 128 rows; the token consumed by
+step i sits at position
 pos = n_prompt + i - 1; the loop stops at EOS or max_tokens; n_kept counts
 the tokens before the first EOS. The loop never needs the host for a token
 (each step reads the previous token from the device buffer); the host reads
@@ -32,10 +34,7 @@ from qwen3_asr_tpu_torch.models.decoder import (
     lm_logits,
     lm_logits_block,
 )
-from qwen3_asr_tpu_torch.ops.megakernel import (
-    DecodeStep,
-    mega_decode_step_i8_ref,
-)
+from qwen3_asr_tpu_torch.ops.megakernel import DecodeStep, mega_decode_step_ref
 from qwen3_asr_tpu_torch.ops.megakernel_batch import (
     BatchDecodeStep,
     mega_decode_step_batch_ref,
@@ -61,23 +60,17 @@ def decode_token(dec_params: dict, cfg: DecoderConfig, cache: dict,
 def generate_greedy(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
                     n_prompt: int, audio: torch.Tensor | None, n_audio: int,
                     audio_offset: int, max_tokens: int,
-                    cache_dtype: torch.dtype | None = None
+                    cache_dtype: torch.dtype = torch.bfloat16
                     ) -> tuple[np.ndarray, int]:
     """tokens [P] int32 on the model's device (rows >= n_prompt are padding)
     -> (out_tokens [max_tokens] int32 on the host, n_kept). Tokens at index
-    >= n_kept are filler; EOS is not counted. cache_dtype: torch.int8 or
-    torch.bfloat16; None takes int8 for a tree with the int4 decode pack (its
-    step's only mode) and bf16, the reference's default, otherwise."""
+    >= n_kept are filler; EOS is not counted. cache_dtype: torch.bfloat16
+    (the reference's default) or torch.int8."""
     P = tokens.shape[0]
     S = cache_rows(P, max_tokens)
     dev = tokens.device
     L, NKV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     mega = "mega" in dec_params
-    if cache_dtype is None:
-        cache_dtype = torch.int8 if mega else torch.bfloat16
-    if mega and cache_dtype != torch.int8:
-        raise NotImplementedError("the int4 decode pack's step takes the int8 "
-                                  "KV cache (its bf16-KV mode is not ported)")
     cache = init_kv_cache(cfg, S, dev, cache_dtype)
 
     h0 = embed_with_audio(dec_params, tokens, audio, n_audio, audio_offset)
@@ -92,18 +85,17 @@ def generate_greedy(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
             decode_token(dec_params, cfg, cache, out, i, pos)
     else:
         pack = dec_params["mega"]
-        k3 = cache["k"].view(L, S, NKV * D)
-        v3 = cache["v"].view(L, S, NKV * D)
+        kv = (cache["k"].view(L, S, NKV * D), cache["v"].view(L, S, NKV * D),
+              cache.get("k_s"), cache.get("v_s"))
         if dev.type == "cuda":
-            step = DecodeStep(pack, cfg, k3, v3, cache["k_s"], cache["v_s"])
+            step = DecodeStep(pack, cfg, *kv)
 
             def run(i, pos):
                 step(out[i - 1:i], pos, out[i:i + 1])
         else:
             def run(i, pos):
-                out[i:i + 1] = mega_decode_step_i8_ref(
-                    pack, cfg, out[i - 1:i], pos, k3, v3, cache["k_s"],
-                    cache["v_s"])[0]
+                out[i:i + 1] = mega_decode_step_ref(pack, cfg, out[i - 1:i], pos,
+                                                    *kv)[0]
 
     eos = cfg.eos_token_id
     i = 1
@@ -159,8 +151,8 @@ def generate_greedy_batch_mega(dec_params: dict, cfg: DecoderConfig,
                                n_audio, audio_offset: int, max_tokens: int
                                ) -> tuple[np.ndarray, np.ndarray]:
     """Batched greedy generation, B <= 16 sequences in lockstep through the
-    batched decode step (the int4 weights are read once per step for the
-    batch). Arguments as in prefill_batch_mega_cache. A finished row keeps
+    batched decode step (the pack's weights are read once per step for the
+    batch), over an int8 cache. Arguments as in prefill_batch_mega_cache. A finished row keeps
     stepping with its outputs frozen (zeros after its EOS) until every row
     is done or the budget runs out; the host reads the done flags every
     EOS_CHECK_EVERY steps. -> (out [B, max_tokens] int32, n_kept [B]) on

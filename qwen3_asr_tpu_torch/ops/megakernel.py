@@ -1,17 +1,24 @@
-"""Greedy decode step with int4 weights and an int8 KV cache: the CUDA
-kernels `csrc/megakernel.cu` and their plain PyTorch twin.
+"""Greedy decode step on the decode pack (int4 or int8 weights) with an
+int8 or bf16 KV cache: the CUDA kernels `csrc/megakernel.cu` and their
+plain PyTorch twin.
 
-Port of qwen3_asr_tpu/ops/megakernel.py in its int4-weight / int8-KV /
-resident mode (`mega_decode_step_i8` on an `int4=True` pack). The int4
-quantizer (`_int4_group_for`, `_quant_int4_groups` with the MSE clip
-search) is ported as it is; the pack layout is the port's own, plain row
-major: weights `[L, in/2, out]` uint8 with row 2r in the low nibble and row
-2r+1 in the high nibble of byte row r, scales `[L, in/G, out]` f32. The
+Port of qwen3_asr_tpu/ops/megakernel.py in its resident modes:
+`mega_decode_step_i8` (int8 KV) and `mega_decode_step` (bf16 KV), each on
+the int8 pack (`pack_megakernel_params(int4=False)`, the default, which
+`--quantize auto` / `int8pc` runs) or the int4 one (`int4=True`). The int4
+quantizer (`_int4_group_for`, `_quant_int4_groups` with the MSE clip search)
+is ported as it is. The packs' layouts are the port's own, plain row major:
+int8 weights `[L, in, out]` with one f32 scale per output column `[L, out]`
+(the int8pc leaves as they are); int4 weights `[L, in/2, out]` uint8 with
+row 2r in the low nibble and row 2r+1 in the high nibble of byte row r,
+scales `[L, in/G, out]` f32. The lm head's vocab is zero-padded to
+HEAD_PAD. Which pack a tree holds is read from its dtype (uint8 nibbles or
+int8 codes), as the JAX kernel reads it from the packed row count. The
 TPU's tile-major packs, scale blocks and ring geometry are not ported.
 
 Cache layout at the public functions: k/v `[L, S, n_kv * head_dim]` int8
-and scales `[L, S, n_kv]` f32 (the prefill's layout). A step writes cache
-row `pos` in place and reads rows `< pos`.
+with scales `[L, S, n_kv]` f32, or bf16 without scales (the prefill's
+layout). A step writes cache row `pos` in place and reads rows `< pos`.
 """
 
 from __future__ import annotations
@@ -99,12 +106,15 @@ def _pack_i4(w: torch.Tensor, G: int) -> tuple[torch.Tensor, torch.Tensor]:
     return pack_nibbles(q), s
 
 
-def pack_megakernel_params(dec_params: dict, cfg: DecoderConfig) -> dict:
-    """Build the int4 decode pack from a fused int8pc decoder tree (after
-    quantize_decoder_params('int8pc') and fuse_decoder_params): each int8pc
-    weight is dequantized (q * s) and re-quantized to int4 in groups; the
-    lm head's vocab is zero-padded to a multiple of HEAD_PAD (padding
-    columns are masked before the argmax). Prefill keeps the int8pc leaves."""
+def pack_megakernel_params(dec_params: dict, cfg: DecoderConfig,
+                           int4: bool = False) -> dict:
+    """Build the decode pack from a fused int8pc decoder tree (after
+    quantize_decoder_params('int8pc') and fuse_decoder_params). int4=False:
+    the int8pc codes and per-column scales as they are; int4=True: each
+    int8pc weight dequantized (q * s) and re-quantized to int4 in groups.
+    The lm head's vocab is zero-padded to a multiple of HEAD_PAD (padding
+    columns are masked before the argmax). Prefill keeps the int8pc
+    leaves."""
     layers = dec_params["layers"]
     if not (isinstance(layers.get("wqkv"), dict) and "i8pc:q" in layers["wqkv"]
             and "lm_head_pc" in dec_params):
@@ -115,8 +125,11 @@ def pack_megakernel_params(dec_params: dict, cfg: DecoderConfig) -> dict:
     for name, key in (("qkv", "wqkv"), ("wo", "wo"),
                       ("gu", "w_gate_up"), ("wd", "w_down")):
         q8, s8 = layers[key]["i8pc:q"], layers[key]["i8pc:s"]
-        n_in = q8.shape[-2]
-        G = _int4_group_for(n_in)
+        if not int4:
+            pack[f"{name}_q"] = q8.contiguous()
+            pack[f"{name}_s"] = s8.float().contiguous()
+            continue
+        G = _int4_group_for(q8.shape[-2])
         qs, ss = zip(*(_pack_i4(q8[l].float() * s8[l][None, :].float(), G)
                        for l in range(q8.shape[0])))
         pack[f"{name}_q"] = torch.stack(qs).contiguous()
@@ -124,27 +137,51 @@ def pack_megakernel_params(dec_params: dict, cfg: DecoderConfig) -> dict:
     hq = dec_params["lm_head_pc"]["i8pc:q"]
     hs = dec_params["lm_head_pc"]["i8pc:s"].float()
     H, V = hq.shape
-    Vp = -(-V // HEAD_PAD) * HEAD_PAD
-    hw = torch.nn.functional.pad(hq.float() * hs[None, :], (0, Vp - V))
-    pack["head_q"], pack["head_s"] = _pack_i4(hw, _int4_group_for(H))
+    pad = -(-V // HEAD_PAD) * HEAD_PAD - V
+    if int4:
+        hw = torch.nn.functional.pad(hq.float() * hs[None, :], (0, pad))
+        pack["head_q"], pack["head_s"] = _pack_i4(hw, _int4_group_for(H))
+    else:
+        pack["head_q"] = torch.nn.functional.pad(hq, (0, pad)).contiguous()
+        pack["head_s"] = torch.nn.functional.pad(hs, (0, pad)).contiguous()
     f32 = torch.float32
     pack["attn_norm"] = layers["attn_norm"].to(f32).contiguous()
     pack["ffn_norm"] = layers["ffn_norm"].to(f32).contiguous()
     pack["q_norm"] = layers["q_norm"].to(f32).contiguous()
     pack["k_norm"] = layers["k_norm"].to(f32).contiguous()
     pack["out_norm"] = dec_params["output_norm"].to(f32).contiguous()
-    pack["embd"] = dec_params["token_embd"]
+    pack["embd"] = dec_params["token_embd"].to(torch.bfloat16)  # the kernel's x is bf16
     return pack
+
+
+def weight_bits(pack: dict) -> int:
+    """4 for the int4 pack (uint8 nibble bytes), 8 for the int8 one."""
+    dt = pack["qkv_q"].dtype
+    if dt == torch.uint8:
+        return 4
+    if dt == torch.int8:
+        return 8
+    raise TypeError(f"qkv_q: expected uint8 (int4) or int8 codes, got {dt}")
+
+
+def scale_group(pack: dict, n_in: int) -> int:
+    """Input rows per scale of a product with n_in input rows: the int4
+    group, or all n_in rows (one scale per column) for int8 weights."""
+    return _int4_group_for(n_in) if weight_bits(pack) == 4 else n_in
 
 
 # ---------------------------------------------------------------------------
 # plain twin
 # ---------------------------------------------------------------------------
 
-def _gemv_i4_ref(xq, sx, wq, ws):
-    """int8 [in] x packed int4 [in/2, N] with group scales [n_g, N] ->
-    f32 [N]: per group f32(int32 dot) * (sx * s_g), summed over groups in
-    order. The dot runs in float64, exact for these integer ranges."""
+def _gemv_ref(xq, sx, wq, ws):
+    """int8 [in] activation codes times the pack's weights -> f32 [N].
+    int4 (packed [in/2, N], group scales [n_g, N]): per group f32(int32 dot)
+    * (sx * s_g), summed over groups in order; int8 ([in, N], scales [N]):
+    f32(int32 dot over all rows) * (sx * s). The dots run in float64, exact
+    for these integer ranges."""
+    if wq.dtype == torch.int8:
+        return (xq.double() @ wq.double()).float() * (sx * ws)
     w8 = unpack_nibbles(wq)
     n_g = ws.shape[0]
     G = w8.shape[0] // n_g
@@ -165,15 +202,17 @@ def _bf(x):
     return x.to(torch.bfloat16).float()
 
 
-def mega_decode_step_i8_ref(pack, cfg: DecoderConfig, token_or_x, pos: int,
-                            k, v, k_s, v_s, return_logits: bool = False):
-    """Plain twin of the kernels: the same step in PyTorch ops, on any
-    device. Writes cache row `pos` in place. -> (token int32 [1], h f32
-    [1, H]) or, with return_logits, (token, h, logits f32 [V])."""
+def mega_decode_step_ref(pack, cfg: DecoderConfig, token_or_x, pos: int,
+                         k, v, k_s=None, v_s=None, return_logits: bool = False):
+    """Plain twin of the kernels, for either pack and either cache: the same
+    step in PyTorch ops, on any device. k, v int8 with scales k_s, v_s, or
+    bf16 (k_s, v_s None). Writes cache row `pos` in place. -> (token int32
+    [1], h f32 [1, H]) or, with return_logits, (token, h, logits f32 [V])."""
     H, NH, NKV, D = cfg.hidden_size, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     L, FF, eps = cfg.n_layers, cfg.intermediate_size, cfg.rms_norm_eps
     DQ, DKV, group = NH * D, NKV * D, NH // NKV
     scale = float(np.float32(1.0 / float(np.sqrt(D))))
+    quant = k.dtype == torch.int8
     if token_or_x.dtype == torch.int32:
         x = pack["embd"][token_or_x.reshape(-1)[0].long()].float()
     else:
@@ -181,7 +220,7 @@ def mega_decode_step_i8_ref(pack, cfg: DecoderConfig, token_or_x, pos: int,
     x = _bf(x)
     for l in range(L):
         xq, sx = _quant_row(_bf(rms_norm_f32(x, pack["attn_norm"][l], eps)))
-        qkv = _bf(_gemv_i4_ref(xq, sx, pack["qkv_q"][l], pack["qkv_s"][l]))
+        qkv = _bf(_gemv_ref(xq, sx, pack["qkv_q"][l], pack["qkv_s"][l]))
         rows = qkv.reshape(NH + 2 * NKV, D)
         q_all = rope_row(rms_norm_f32(rows[:NH], pack["q_norm"][l], eps), pos,
                          cfg.rope_theta) * scale
@@ -190,34 +229,40 @@ def mega_decode_step_i8_ref(pack, cfg: DecoderConfig, token_or_x, pos: int,
         v_all = rows[NH + NKV:]
         kc = k[l, :pos].reshape(pos, NKV, D).float()
         vc = v[l, :pos].reshape(pos, NKV, D).float()
-        ks, vs = k_s[l, :pos], v_s[l, :pos]             # [pos, NKV]
         heads = []
         for h in range(NKV):
             q = q_all[h * group:(h + 1) * group]        # [group, D]
-            s_cache = (q @ kc[:, h].T) * ks[:, h][None, :]
+            s_cache = q @ kc[:, h].T
+            p_v = None
+            if quant:   # the row scales on the scores and on the V sum's probs
+                s_cache = s_cache * k_s[l, :pos, h][None, :]
+                p_v = v_s[l, :pos, h][None, :]
             s_fresh = q @ k_all[h][:, None]             # [group, 1]
             m = torch.maximum(s_cache.amax(dim=1, keepdim=True), s_fresh)
             p_cache = torch.exp(s_cache - m)
             p_fresh = torch.exp(s_fresh - m)
             denom = p_cache.sum(dim=1, keepdim=True) + p_fresh
-            o = (p_cache * vs[:, h][None, :]) @ vc[:, h]
+            o = (p_cache if p_v is None else p_cache * p_v) @ vc[:, h]
             heads.append((o + p_fresh * v_all[h][None, :]) / denom)
         attn = _bf(torch.cat(heads, dim=0).reshape(DQ))
         for rows_f, cache, sc in ((k_all, k, k_s), (v_all, v, v_s)):
+            if not quant:
+                cache[l, pos] = rows_f.reshape(DKV).to(cache.dtype)
+                continue
             s = torch.clamp(rows_f.abs().amax(dim=1) * INV127, min=1e-12)
             q8 = torch.clamp(torch.round(rows_f / s[:, None]), -127, 127)
             cache[l, pos] = q8.to(torch.int8).reshape(DKV)
             sc[l, pos] = s
         xq, sx = _quant_row(attn)
-        h1 = _bf(x + _bf(_gemv_i4_ref(xq, sx, pack["wo_q"][l], pack["wo_s"][l])))
+        h1 = _bf(x + _bf(_gemv_ref(xq, sx, pack["wo_q"][l], pack["wo_s"][l])))
         xq, sx = _quant_row(_bf(rms_norm_f32(h1, pack["ffn_norm"][l], eps)))
-        gu = _bf(_gemv_i4_ref(xq, sx, pack["gu_q"][l], pack["gu_s"][l]))
+        gu = _bf(_gemv_ref(xq, sx, pack["gu_q"][l], pack["gu_s"][l]))
         g32, u32 = gu[:FF], gu[FF:]
         act = _bf((g32 * torch.sigmoid(g32)) * u32)
         xq, sx = _quant_row(act)
-        x = _bf(h1 + _bf(_gemv_i4_ref(xq, sx, pack["wd_q"][l], pack["wd_s"][l])))
+        x = _bf(h1 + _bf(_gemv_ref(xq, sx, pack["wd_q"][l], pack["wd_s"][l])))
     xq, sx = _quant_row(_bf(rms_norm_f32(x, pack["out_norm"], eps)))
-    logits = _gemv_i4_ref(xq, sx, pack["head_q"], pack["head_s"])[:cfg.vocab_size]
+    logits = _gemv_ref(xq, sx, pack["head_q"], pack["head_s"])[:cfg.vocab_size]
     tok = torch.argmax(logits).to(torch.int32).reshape(1)
     if return_logits:
         return tok, x.reshape(1, H), logits
@@ -239,7 +284,7 @@ class _Ptrs(ctypes.Structure):
 class _Dims(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
         "L", "H", "NH", "NKV", "D", "FF", "V", "Vp", "S", "pos",
-        "g_qkv", "g_wo", "g_gu", "g_wd", "g_head")] + [
+        "g_qkv", "g_wo", "g_gu", "g_wd", "g_head", "wbits")] + [
         (n, ctypes.c_float) for n in ("eps", "rope_coef", "scale")]
 
 
@@ -249,25 +294,28 @@ def _dims(pack, cfg: DecoderConfig, S: int, pos: int) -> _Dims:
     return _Dims(
         L=cfg.n_layers, H=H, NH=cfg.n_heads, NKV=cfg.n_kv_heads, D=D, FF=FF,
         V=cfg.vocab_size, Vp=pack["head_q"].shape[1], S=S, pos=pos,
-        g_qkv=_int4_group_for(H), g_wo=_int4_group_for(DQ),
-        g_gu=_int4_group_for(H), g_wd=_int4_group_for(FF),
-        g_head=_int4_group_for(H), eps=cfg.rms_norm_eps,
-        rope_coef=rope_coef(cfg.rope_theta, D),
+        g_qkv=scale_group(pack, H), g_wo=scale_group(pack, DQ),
+        g_gu=scale_group(pack, H), g_wd=scale_group(pack, FF),
+        g_head=scale_group(pack, H), wbits=weight_bits(pack),
+        eps=cfg.rms_norm_eps, rope_coef=rope_coef(cfg.rope_theta, D),
         scale=float(np.float32(1.0 / float(np.sqrt(D)))))
 
 
 def _check_pack(pack, cfg: DecoderConfig, dev) -> None:
     H, D, L = cfg.hidden_size, cfg.head_dim, cfg.n_layers
     DQ, DKV, FF = cfg.n_heads * D, cfg.n_kv_heads * D, cfg.intermediate_size
+    int4 = weight_bits(pack) == 4
+    wdt, rows = (torch.uint8, 2) if int4 else (torch.int8, 1)
     for name, n_in, n_out in (("qkv", H, DQ + 2 * DKV), ("wo", DQ, H),
                               ("gu", H, 2 * FF), ("wd", FF, H)):
-        n_g = n_in // _int4_group_for(n_in)
-        check(pack[f"{name}_q"], f"{name}_q", torch.uint8, (L, n_in // 2, n_out), dev)
-        check(pack[f"{name}_s"], f"{name}_s", torch.float32, (L, n_g, n_out), dev)
+        n_g = n_in // scale_group(pack, n_in)
+        check(pack[f"{name}_q"], f"{name}_q", wdt, (L, n_in // rows, n_out), dev)
+        check(pack[f"{name}_s"], f"{name}_s", torch.float32,
+              (L, n_g, n_out) if int4 else (L, n_out), dev)
     Vp = pack["head_q"].shape[1]
-    check(pack["head_q"], "head_q", torch.uint8, (H // 2, Vp), dev)
+    check(pack["head_q"], "head_q", wdt, (H // rows, Vp), dev)
     check(pack["head_s"], "head_s", torch.float32,
-          (H // _int4_group_for(H), Vp), dev)
+          (H // _int4_group_for(H), Vp) if int4 else (Vp,), dev)
     for name, shape in (("attn_norm", (L, H)), ("ffn_norm", (L, H)),
                         ("q_norm", (L, D)), ("k_norm", (L, D)), ("out_norm", (H,))):
         check(pack[name], name, torch.float32, shape, dev)
@@ -275,11 +323,14 @@ def _check_pack(pack, cfg: DecoderConfig, dev) -> None:
 
 
 class DecodeStep:
-    """The CUDA decode step bound to one pack and one cache: validates the
+    """The CUDA decode step bound to one pack (int4 or int8 weights) and one
+    cache (int8 with scales k_s / v_s, or bf16 with none): validates the
     pack and the cache once, allocates the scratch once, and then launches
-    a step per call. `mega_decode_step_i8` wraps it for single calls."""
+    a step per call, through `qw_mega_decode_step_i8` (int8 cache) or
+    `qw_mega_decode_step` (bf16). `mega_decode_step_i8` and
+    `mega_decode_step` wrap it for single calls."""
 
-    def __init__(self, pack, cfg: DecoderConfig, k, v, k_s, v_s):
+    def __init__(self, pack, cfg: DecoderConfig, k, v, k_s=None, v_s=None):
         from qwen3_asr_tpu_torch.ops.build import kernel
 
         dev = k.device
@@ -287,13 +338,19 @@ class DecodeStep:
         L, S, DKV = k.shape
         _check_pack(pack, cfg, dev)
         NKV = cfg.n_kv_heads
-        check(k, "k cache", torch.int8, (cfg.n_layers, S, NKV * cfg.head_dim), dev)
-        check(v, "v cache", torch.int8, (cfg.n_layers, S, NKV * cfg.head_dim), dev)
-        check(k_s, "k scales", torch.float32, (cfg.n_layers, S, NKV), dev)
-        check(v_s, "v scales", torch.float32, (cfg.n_layers, S, NKV), dev)
+        quant = k_s is not None
+        cdt = torch.int8 if quant else torch.bfloat16
+        check(k, "k cache", cdt, (cfg.n_layers, S, NKV * cfg.head_dim), dev)
+        check(v, "v cache", cdt, (cfg.n_layers, S, NKV * cfg.head_dim), dev)
+        if quant:
+            check(k_s, "k scales", torch.float32, (cfg.n_layers, S, NKV), dev)
+            check(v_s, "v scales", torch.float32, (cfg.n_layers, S, NKV), dev)
+        elif v_s is not None:
+            raise ValueError("a bf16 cache takes no scales")
         self.cfg, self.dev, self.S = cfg, dev, S
         self.pack, self.cache = pack, (k, v, k_s, v_s)
-        self._fn = kernel("qw_mega_decode_step_i8",
+        self.counter = mega_decode_step_i8 if quant else mega_decode_step
+        self._fn = kernel("qw_mega_decode_step_i8" if quant else "qw_mega_decode_step",
                           [ctypes.POINTER(_Ptrs), ctypes.POINTER(_Dims),
                            ctypes.c_void_p])
         nbytes = kernel("qw_mega_scratch_bytes", [ctypes.POINTER(_Dims)],
@@ -305,7 +362,8 @@ class DecodeStep:
             "qkv_q", "qkv_s", "wo_q", "wo_s", "gu_q", "gu_s", "wd_q", "wd_s",
             "head_q", "head_s")}
         self.ptrs = _Ptrs(**p, k_cache=k.data_ptr(), v_cache=v.data_ptr(),
-                          k_scale=k_s.data_ptr(), v_scale=v_s.data_ptr(),
+                          k_scale=k_s.data_ptr() if quant else None,
+                          v_scale=v_s.data_ptr() if quant else None,
                           h_out=self.h.data_ptr(),
                           scratch=self.scratch.data_ptr())
 
@@ -328,23 +386,35 @@ class DecodeStep:
         dims = _dims(self.pack, self.cfg, self.S, pos)
         rc = self._fn(ctypes.byref(self.ptrs), ctypes.byref(dims),
                       stream_ptr(self.dev))
-        raise_on_error(rc, "mega_decode_step_i8")
-        mega_decode_step_i8.launches += 1
+        raise_on_error(rc, self.counter.__name__)
+        self.counter.launches += 1
 
 
-def mega_decode_step_i8(pack, cfg: DecoderConfig, token_or_x, pos: int,
-                        k, v, k_s, v_s):
-    """One greedy decode step, int4 weights and int8 KV. `token_or_x` is an
-    int32 [1] token (its embedding row is gathered on the device) or a bf16
-    [1, H] embedded row. Writes cache row `pos` in place. -> (next token
-    int32 [1], h f32 [1, H], the hidden state before the final norm). CPU
-    tensors take the twin; CUDA tensors launch the kernels or raise."""
+def _single_step(pack, cfg, token_or_x, pos, k, v, k_s, v_s):
     if k.device.type == "cpu":
-        return mega_decode_step_i8_ref(pack, cfg, token_or_x, pos, k, v, k_s, v_s)
+        return mega_decode_step_ref(pack, cfg, token_or_x, pos, k, v, k_s, v_s)
     step = DecodeStep(pack, cfg, k, v, k_s, v_s)
     out = torch.empty(1, dtype=torch.int32, device=k.device)
     step(token_or_x.to(k.device).contiguous(), pos, out)
     return out, step.h
 
 
+def mega_decode_step_i8(pack, cfg: DecoderConfig, token_or_x, pos: int,
+                        k, v, k_s, v_s):
+    """One greedy decode step over an int8 KV cache, on either pack.
+    `token_or_x` is an int32 [1] token (its embedding row is gathered on the
+    device) or a bf16 [1, H] embedded row. Writes cache row `pos` in place.
+    -> (next token int32 [1], h f32 [1, H], the hidden state before the
+    final norm). CPU tensors take the twin; CUDA tensors launch the kernels
+    or raise."""
+    return _single_step(pack, cfg, token_or_x, pos, k, v, k_s, v_s)
+
+
+def mega_decode_step(pack, cfg: DecoderConfig, token_or_x, pos: int, k, v):
+    """The same step over a bf16 KV cache (k, v [L, S, n_kv * head_dim]
+    bf16, no scales)."""
+    return _single_step(pack, cfg, token_or_x, pos, k, v, None, None)
+
+
 mega_decode_step_i8.launches = 0
+mega_decode_step.launches = 0

@@ -1,11 +1,11 @@
 """Batched greedy decode step (up to 16 sequences, each at its own
-position) with int4 weights and an int8 KV cache: the CUDA kernels
-`csrc/megakernel_batch.cu` and their plain PyTorch version.
+position) on the decode pack (int4 or int8 weights) with an int8 KV cache:
+the CUDA kernels `csrc/megakernel_batch.cu` and their plain PyTorch version.
 
 Port of qwen3_asr_tpu/ops/megakernel_batch.py (`mega_decode_step_batch`) in
-its int4-weight / resident mode, on the port's own int4 pack
-(`ops/megakernel.py::pack_megakernel_params`, the same pack the
-single-sequence step reads). The streamed-KV mode and the VMEM sizing
+its resident mode, on the port's own packs
+(`ops/megakernel.py::pack_megakernel_params`, the packs the single-sequence
+step reads; the int8 KV cache is the JAX kernel's only resident mode). The streamed-KV mode and the VMEM sizing
 (`mega_batch_max_context`, `mega_batch_stream_max_batch`) are TPU
 artifacts and are not ported: the card's kernel takes any S.
 
@@ -29,7 +29,7 @@ from qwen3_asr_tpu_torch.ops.megakernel import (
     _dims,
     _Dims,
     _Ptrs,
-    mega_decode_step_i8_ref,
+    mega_decode_step_ref,
 )
 from qwen3_asr_tpu_torch.ops.support import (
     check,
@@ -48,7 +48,7 @@ def mega_decode_step_batch_ref(pack, cfg: DecoderConfig, tokens_or_x, pos,
     row pos[b] of slab b in place. -> (tokens int32 [B], h f32 [B, H])."""
     toks, hs = [], []
     for b, p in enumerate(_host_pos(pos)):
-        t, h = mega_decode_step_i8_ref(pack, cfg, tokens_or_x[b:b + 1], int(p),
+        t, h = mega_decode_step_ref(pack, cfg, tokens_or_x[b:b + 1], int(p),
                                        k[b], v[b], k_s[b], v_s[b])
         toks.append(t)
         hs.append(h)
@@ -134,7 +134,7 @@ class BatchDecodeStep:
 
 def mega_decode_step_batch(pack, cfg: DecoderConfig, tokens_or_x, pos,
                            k, v, k_s, v_s):
-    """One greedy decode step of B <= 16 sequences, int4 weights and int8
+    """One greedy decode step of B <= 16 sequences, on either pack, int8
     KV. `tokens_or_x` is int32 [B] tokens (their embedding rows are
     gathered on the device) or bf16 [B, H] embedded rows; `pos` a host
     sequence of B positions, each in [1, S). Writes row pos[b] of slab b in

@@ -1,18 +1,23 @@
 """High-level ASR pipeline: audio -> transcript, on one device.
 
-Port of qwen3_asr_tpu/pipeline/asr.py:83-298 and :509-638 for the weight
-and cache modes the port carries:
-- quantize="int4": int4 decode weights (int8pc prefill) with the int8 KV
-  cache, on the fused single-utterance path
-  (`models/e2e.py::transcribe_fused`) and the batched path
-  (`transcribe_batch`: the bucketed batched frontend, then the batched
-  prefill and the lockstep batched decode step, in chunks of at most 16
-  sequences as the `mesh=None` branch of
-  qwen3_asr_tpu/parallel/mesh.py::batched_transcribe_step runs them);
-- quantize="q8_0" (also True): GGUF Q8_0 weights, and quantize=False:
-  dense bf16 weights, each with a bf16 (kv_cache None or "bf16") or int8
-  KV cache, on the fused path through the per-layer decode step.
-Other modes raise NotImplementedError.
+Port of qwen3_asr_tpu/pipeline/asr.py:35-505 and :509-638, with its
+defaults: `Qwen3ASR()` keeps dense weights and a bf16 KV cache. Weight
+modes (`quantize`): "auto" (int8pc for dense weights, none when the GGUF
+ships Q8_0 blocks, which then run as loaded), "int8pc" (per-channel int8
+weights) and "int4" (int4 decode weights, int8pc prefill), both with the
+decode pack (`ops/megakernel.py`), whose step the K1 kernels run; "q8_0"
+(also True) and False (dense), both through the per-layer decode step
+(K4-K7). Each takes a bf16 or int8 cache (`kv_cache`, or `kv_int8`).
+
+`transcribe` runs one utterance either fused (`models/e2e.py::
+transcribe_fused`: one upload, one fetch) or staged (mel, the encoder, the
+decode, each timed; the bucketed frontend at `mel_bucket > 0`), as the
+reference picks them. `transcribe_batch` (the bucketed batched frontend,
+the batched prefill and the lockstep batched decode step in chunks of at
+most 16 sequences, as the `mesh=None` branch of
+qwen3_asr_tpu/parallel/mesh.py::batched_transcribe_step runs them) takes a
+decode pack and the int8 cache. Sampled decoding, the streaming progress
+path, speculative decoding and the int4 cache are not ported and say so.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from qwen3_asr_tpu_torch.audio.wav import load_wav
 from qwen3_asr_tpu_torch.ops.megakernel import pack_megakernel_params
 from qwen3_asr_tpu_torch.ops.support import resolve_device
 from qwen3_asr_tpu_torch.runtime.params import (
+    _DEC_QUANT_KEYS,
     assert_on_device,
     dequantize_decoder_params,
     fuse_decoder_params,
@@ -39,17 +45,40 @@ from qwen3_asr_tpu_torch.runtime.params import (
     load_asr_model,
     quantize_decoder_params,
 )
+from qwen3_asr_tpu_torch.runtime.profiler import timer
+
+# What the port does not carry yet, by ROADMAP item.
+NOT_PORTED = {
+    "sampling": "sampled decoding (temperature > 0) is not ported "
+                "(ROADMAP Queue 1 item 12)",
+    "progress": "the streaming progress path (print_progress) is not ported "
+                "(ROADMAP Queue 1 item 12)",
+    "spec": "speculative decoding (spec_k > 0) is not ported "
+            "(ROADMAP Queue 1 item 14)",
+    "kv_int4": "the int4 KV cache is not ported (ROADMAP, Do not port)",
+}
 
 
 @dataclasses.dataclass
 class TranscribeParams:
     max_tokens: int = 1024
+    language: str = ""            # accepted for CLI parity; unused by the model
     system_prompt: str = ""
-    # prompt-length bucket of the batched paths (tokens)
+    print_progress: bool = False  # not ported: NOT_PORTED["progress"]
+    print_timing: bool = True     # the timing block on stderr
+    # prompt-length bucket of the staged and batched paths (tokens)
     prompt_bucket: int = 128
-    # mel frame-count bucket of the batched paths (a multiple of the
-    # 100-frame chunk; 0 = exact shapes, one frontend pass per file)
+    # mel frame-count bucket (a multiple of the 100-frame chunk; 0 = exact
+    # shapes, one frontend pass per file)
     mel_bucket: int = 0
+    # fused=True (and mel_bucket 0): models/e2e.py::transcribe_fused;
+    # otherwise the staged path with per-stage timings
+    fused: bool = False
+    spec_k: int = 0               # > 0 not ported: NOT_PORTED["spec"]
+    temperature: float = 0.0      # > 0 not ported: NOT_PORTED["sampling"]
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: int = 0
 
 
 @dataclasses.dataclass
@@ -58,36 +87,46 @@ class TranscribeResult:
     text: str = ""
     tokens: list = dataclasses.field(default_factory=list)
     error_msg: str = ""
+    t_mel_ms: float = 0.0
+    t_encode_ms: float = 0.0
+    t_decode_ms: float = 0.0
     t_total_ms: float = 0.0
+
+
+def unported(params: TranscribeParams) -> str:
+    """The NOT_PORTED message of the first mode `params` asks for that the
+    port does not carry, or ""."""
+    if params.temperature > 0:
+        return NOT_PORTED["sampling"]
+    if params.spec_k > 0:
+        return NOT_PORTED["spec"]
+    if params.print_progress:
+        return NOT_PORTED["progress"]
+    return ""
 
 
 class Qwen3ASR:
     """End-to-end speech-to-text (model: Qwen3-ASR-0.6B)."""
 
-    def __init__(self, quantize="int4", kv_cache: str | None = "int8",
-                 device="cuda", dtype=torch.bfloat16):
-        """quantize: "int4" (int4 decode weights, int8pc prefill), "q8_0" or
-        True (GGUF Q8_0 weights), False / None / "" (dense weights);
-        kv_cache: "int8", or "bf16" / None (a bf16 cache)."""
+    def __init__(self, quantize=False, kv_int8: bool = False,
+                 kv_cache: str | None = None, device="cuda",
+                 dtype=torch.bfloat16):
+        """quantize: False / None / "" (dense), True or "q8_0" (GGUF Q8_0
+        weights), "int8pc", "int4" or "auto" (int8pc for dense weights, none
+        for a Q8_0 GGUF). kv_int8: an int8 KV cache instead of bf16;
+        kv_cache ("bf16" / "int8") overrides it. The defaults are the JAX
+        package's: dense weights, a bf16 cache."""
         quantize = "q8_0" if quantize is True else (quantize or "")
-        kv_cache = kv_cache or "bf16"
-        if kv_cache not in ("bf16", "int8", "int4"):
-            raise ValueError(f"kv_cache must be bf16/int8/int4, got {kv_cache!r}")
-        if quantize in ("int8pc", "auto") or kv_cache == "int4":
-            raise NotImplementedError(
-                f"quantize={quantize!r}, kv_cache={kv_cache!r}: the int8-weight "
-                "modes and the int4 KV cache are not ported (ROADMAP, next PRs, "
-                "item 3)")
-        if quantize not in ("int4", "q8_0", ""):
+        if quantize not in ("", "q8_0", "int8pc", "int4", "auto"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
-        if quantize == "int4" and kv_cache != "int8":
-            raise NotImplementedError(
-                f"quantize='int4' with kv_cache={kv_cache!r}: the int4 decode "
-                "step takes the int8 KV cache only (its bf16-KV mode: ROADMAP, "
-                "next PRs, item 3)")
+        if kv_cache not in (None, "bf16", "int8", "int4"):
+            raise ValueError(f"kv_cache must be bf16/int8/int4, got {kv_cache!r}")
+        if kv_cache == "int4":
+            raise NotImplementedError(NOT_PORTED["kv_int4"])
         self.device = resolve_device(device)
         self.dtype = dtype
-        self.quantize, self.kv_cache = quantize, kv_cache
+        self.quantize = quantize
+        self.kv_cache = kv_cache or ("int8" if kv_int8 else "bf16")
         self.cfg: ASRModelConfig | None = None
         self.params: dict | None = None
         self.tokenizer: BPETokenizer | None = None
@@ -96,18 +135,28 @@ class Qwen3ASR:
 
     # -- loading -----------------------------------------------------------
 
+    def _resolve_quantize(self, dec: dict) -> str:
+        """'auto' -> int8pc for dense weights, "" when the GGUF already
+        shipped int8 blocks (quantized leaves are dicts)."""
+        if self.quantize != "auto":
+            return self.quantize
+        already = any(isinstance(dec["layers"].get(k), dict) for k in _DEC_QUANT_KEYS)
+        return "" if already else "int8pc"
+
     def _finish_load(self, cfg, params, vocab, merges) -> None:
         dec = params["decoder"]
-        if self.quantize == "int4":
-            # the int4 pack is built from int8pc leaves, so Q8_0 blocks of a
-            # GGUF are decoded first
+        quantize = self._resolve_quantize(dec)
+        if quantize in ("int8pc", "int4"):
+            # the decode pack is built from int8pc leaves, so Q8_0 blocks of
+            # a GGUF are decoded first
             dec = quantize_decoder_params(
                 dequantize_decoder_params(dec, self.dtype), "int8pc")
-        elif self.quantize == "q8_0":
+        elif quantize == "q8_0":
             dec = quantize_decoder_params(dec, "q8_0")
         dec = fuse_decoder_params(dec)
-        if self.quantize == "int4":
-            dec["mega"] = pack_megakernel_params(dec, cfg.decoder)
+        if quantize in ("int8pc", "int4"):
+            dec["mega"] = pack_megakernel_params(dec, cfg.decoder,
+                                                 int4=quantize == "int4")
         params["decoder"] = dec
         assert_on_device(params, self.device)
         self.cfg, self.params = cfg, params
@@ -137,38 +186,119 @@ class Qwen3ASR:
             self.error_msg = f"Failed to load model: {e}"
             return False
 
+    @property
+    def cache_dtype(self) -> torch.dtype:
+        return torch.int8 if self.kv_cache == "int8" else torch.bfloat16
+
     # -- transcription -------------------------------------------------------
 
     def transcribe(self, audio, params: TranscribeParams | None = None
                    ) -> TranscribeResult:
         """`audio`: path to a 16 kHz mono WAV, or a sample array (int16 PCM
         is scaled on the device)."""
-        from qwen3_asr_tpu_torch.models.e2e import transcribe_fused
-
         params = params or TranscribeParams()
         result = TranscribeResult()
         if self.params is None:
             result.error_msg = "Model not loaded"
             return result
+        result.error_msg = unported(params)
+        if result.error_msg:
+            return result
         samples = self._load_samples(audio, result)
         if samples is None:
             return result
-        t0 = time.perf_counter()
-        sys_tokens = (self.tokenizer.encode(params.system_prompt)
-                      if params.system_prompt else None)
-        out, n_kept = transcribe_fused(self.params, self.cfg, samples,
-                                       self.filters_t, params.max_tokens,
-                                       system_prompt_tokens=sys_tokens,
-                                       cache_dtype=self.cache_dtype)
+        if params.fused and params.mel_bucket == 0:
+            return self._transcribe_fused(samples, params, result)
+        return self._transcribe_staged(samples, params, result)
+
+    def _sys_tokens(self, params: TranscribeParams):
+        return (self.tokenizer.encode(params.system_prompt)
+                if params.system_prompt else None)
+
+    def _finish(self, result: TranscribeResult, out, n_kept: int,
+                t_total: float) -> TranscribeResult:
         result.tokens = [int(t) for t in out[:n_kept]]
         result.text = self.tokenizer.decode(result.tokens)
         result.success = True
-        result.t_total_ms = (time.perf_counter() - t0) * 1000
+        result.t_total_ms = (time.perf_counter() - t_total) * 1000
         return result
 
-    @property
-    def cache_dtype(self) -> torch.dtype:
-        return torch.int8 if self.kv_cache == "int8" else torch.bfloat16
+    def _transcribe_fused(self, samples, params, result) -> TranscribeResult:
+        from qwen3_asr_tpu_torch.models.e2e import transcribe_fused
+
+        t0 = time.perf_counter()
+        out, n_kept = transcribe_fused(self.params, self.cfg, samples,
+                                       self.filters_t, params.max_tokens,
+                                       system_prompt_tokens=self._sys_tokens(params),
+                                       cache_dtype=self.cache_dtype)
+        self._finish(result, out, n_kept, t0)
+        result.t_decode_ms = result.t_total_ms
+        if params.print_timing:
+            print(f"\nTiming (fused single-dispatch):\n"
+                  f"  Total: {result.t_total_ms:.0f} ms", file=sys.stderr, flush=True)
+        return result
+
+    def _transcribe_staged(self, samples, params, result) -> TranscribeResult:
+        """Mel, the encoder (bucketed at mel_bucket > 0), then the prompt
+        padded to its bucket and generate_greedy: each stage ends in a
+        synchronize, so the stage times are the device's."""
+        from qwen3_asr_tpu_torch.models.e2e import _pad_pcm
+        from qwen3_asr_tpu_torch.models.encoder import encode, encode_audio_padded
+        from qwen3_asr_tpu_torch.models.generate import generate_greedy
+        from qwen3_asr_tpu_torch.audio.mel import log_mel_spectrogram_padded, mel_device
+
+        dcfg, dev = self.cfg.decoder, self.device
+        t_total = time.perf_counter()
+        bucket_frames = params.mel_bucket
+        if bucket_frames > 0:
+            chunk = self.cfg.encoder.chunk_size
+            bucket_frames = -(-bucket_frames // chunk) * chunk
+
+        t0 = time.perf_counter()
+        with timer("mel_spectrogram"):
+            if bucket_frames:
+                mel, n_frames = log_mel_spectrogram_padded(samples, self.filters_t,
+                                                           bucket_frames)
+            else:
+                buf, n_frames = _pad_pcm(samples)
+                mel = mel_device(torch.from_numpy(buf).to(dev), self.filters_t,
+                                 n_frames).T
+            _sync(dev)
+        result.t_mel_ms = (time.perf_counter() - t0) * 1000
+
+        t0 = time.perf_counter()
+        with timer("audio_encoding"):
+            if bucket_frames:
+                feats, n_audio = encode_audio_padded(self.params["encoder"],
+                                                     self.cfg.encoder, mel, n_frames)
+            else:
+                feats = encode(self.params["encoder"], self.cfg.encoder, mel, n_frames)
+                n_audio = int(feats.shape[0])
+            _sync(dev)
+        result.t_encode_ms = (time.perf_counter() - t0) * 1000
+
+        prompt = build_asr_prompt(n_audio, dcfg, self._sys_tokens(params))
+        n_prompt = len(prompt)
+        P = -(-n_prompt // params.prompt_bucket) * params.prompt_bucket
+        toks = np.full(P, dcfg.pad_token_id, np.int32)
+        toks[:n_prompt] = prompt
+        t0 = time.perf_counter()
+        with timer("decode.generate"):
+            out, n_kept = generate_greedy(
+                self.params["decoder"], dcfg, torch.from_numpy(toks).to(dev), n_prompt,
+                feats, n_audio, audio_start_pos(prompt, dcfg), params.max_tokens,
+                self.cache_dtype)
+        result.t_decode_ms = (time.perf_counter() - t0) * 1000
+        self._finish(result, out, n_kept, t_total)
+        if params.print_timing:
+            print("\nTiming:\n"
+                  f"  Mel spectrogram: {result.t_mel_ms:.0f} ms\n"
+                  f"  Audio encoding:  {result.t_encode_ms:.0f} ms\n"
+                  f"  Text decoding:   {result.t_decode_ms:.0f} ms\n"
+                  f"  Total:           {result.t_total_ms:.0f} ms\n"
+                  f"  Tokens generated: {len(result.tokens)}",
+                  file=sys.stderr, flush=True)
+        return result
 
     def _load_samples(self, audio, result: TranscribeResult):
         """A path or a sample array -> samples (int16 kept as is), or None
@@ -186,6 +316,21 @@ class Qwen3ASR:
             return None
         return samples
 
+    def check_batched(self) -> None:
+        """Raise NotImplementedError unless the model has a batched decode
+        path (transcribe_batch, the continuous engine): a decode pack (int4
+        or int8 weights) and the int8 cache."""
+        if "mega" not in self.params["decoder"]:
+            raise NotImplementedError(
+                f"transcribe_batch runs the batched decode step on the decode "
+                f"pack; quantize={self.quantize or False!r} has none (the "
+                "batched Q8_0 / dense path is not ported, ROADMAP Queue 1 item 13)")
+        if self.kv_cache != "int8":
+            raise NotImplementedError(
+                f"transcribe_batch runs the batched decode step over the int8 KV "
+                f"cache; kv_cache={self.kv_cache!r} in a batch is not ported "
+                "(ROADMAP Queue 1 item 13)")
+
     def transcribe_batch(self, audios: list,
                          params: TranscribeParams | None = None
                          ) -> list[TranscribeResult]:
@@ -202,11 +347,7 @@ class Qwen3ASR:
             for r in results:
                 r.error_msg = "Model not loaded"
             return results
-        if "mega" not in self.params["decoder"]:
-            raise NotImplementedError(
-                f"transcribe_batch runs the batched int4 decode step; "
-                f"quantize={self.quantize or False!r} has no int4 pack (the "
-                "batched Q8_0 / dense path is not ported)")
+        self.check_batched()
         t0 = time.perf_counter()
         samples_list = [self._load_samples(a, r) for a, r in zip(audios, results)]
         feats_list = frontend_feats_batch(self, samples_list, params.mel_bucket)
@@ -295,3 +436,8 @@ def frontend_feats_batch(asr: Qwen3ASR, samples_list: list,
         f = encode(enc, ecfg, mel, n_frames)
         feats_list[i] = (f, int(f.shape[0]))
     return feats_list
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -102,10 +102,7 @@ class ContinuousEngine:
     def __init__(self, asr, pool: int = 8, round_tokens: int = 64,
                  max_tokens: int = 1024, prompt_bucket: int = 128,
                  mel_bucket: int = 800, s_pool: int | None = None):
-        dec = asr.params["decoder"]
-        if "mega" not in dec:
-            raise ValueError("continuous engine needs the packed decode "
-                             "megakernel (quantize int8pc/int4)")
+        asr.check_batched()
         self.asr = asr
         self.dcfg: DecoderConfig = asr.cfg.decoder
         self.pool = int(pool)

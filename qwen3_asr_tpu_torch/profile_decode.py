@@ -1,12 +1,15 @@
-"""Where the time goes in one decode step of the per-layer path, on the card.
+"""Where the time goes in one decode step, on the card.
 
-    python3 -m qwen3_asr_tpu_torch.profile_decode [--kv-cache bf16|int8]
+    python3 -m qwen3_asr_tpu_torch.profile_decode [--quantize q8_0|int8pc|int4]
+                                                  [--kv-cache bf16|int8]
 
-Builds Qwen3-ASR-0.6B's decoder at full width and depth with random Q8_0
-weights (seed 0), fills POS cache rows with random K/V, and runs STEPS greedy
-decode steps of `generate_greedy`'s per-layer loop (`decode_token`:
-`decoder_forward` at T = 1, the lm head, the argmax written on the device)
-at positions POS, POS + 1, ...:
+Builds Qwen3-ASR-0.6B's decoder at full width and depth with random weights
+(seed 0): Q8_0 weights (the default) for the per-layer path, or int8pc
+weights with the int8 decode pack (`int8pc`, what `--quantize auto` runs)
+or the int4 one (`int4`). Fills POS cache rows with random K/V, and runs
+STEPS greedy decode steps of `generate_greedy`'s own loop at positions POS,
+POS + 1, ...: `decode_token` (`decoder_forward` at T = 1, the lm head, the
+argmax written on the device) for Q8_0, K1's `DecodeStep` for a pack:
 
 1. host clock, no profiler: the enqueue time per step (the host's time to
    issue a step's launches) and the wall time per step once the device has
@@ -30,11 +33,9 @@ POS = 1520     # the 92 s request's prompt (1,211 rows) plus ~300 tokens
 STEPS = 16
 
 
-def _steps(dec, dcfg, cache, pos0: int, out) -> None:
-    from qwen3_asr_tpu_torch.models.generate import decode_token
-
+def _steps(run, pos0: int) -> None:
     for i in range(1, STEPS + 1):
-        decode_token(dec, dcfg, cache, out, i, pos0 + i - 1)
+        run(i, pos0 + i - 1)
 
 
 def main(argv=None) -> int:
@@ -42,6 +43,8 @@ def main(argv=None) -> int:
 
     from qwen3_asr_tpu_torch.config import DecoderConfig
     from qwen3_asr_tpu_torch.models.decoder import _quantize_kv_rows, init_kv_cache
+    from qwen3_asr_tpu_torch.models.generate import decode_token
+    from qwen3_asr_tpu_torch.ops.megakernel import DecodeStep, pack_megakernel_params
     from qwen3_asr_tpu_torch.runtime.params import (
         fuse_decoder_params,
         init_decoder_params,
@@ -49,6 +52,7 @@ def main(argv=None) -> int:
     )
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--quantize", default="q8_0", choices=["q8_0", "int8pc", "int4"])
     p.add_argument("--kv-cache", default="bf16", choices=["bf16", "int8"])
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -62,7 +66,8 @@ def main(argv=None) -> int:
     dcfg = DecoderConfig(eos_token_id=-1)
     gen = torch.Generator(device="cuda").manual_seed(0)
     dec = init_decoder_params(dcfg, gen, torch.bfloat16, "cuda")
-    dec = fuse_decoder_params(quantize_decoder_params(dec, "q8_0"))
+    q8 = args.quantize == "q8_0"
+    dec = fuse_decoder_params(quantize_decoder_params(dec, "q8_0" if q8 else "int8pc"))
     n = STEPS
     S = -(-(POS + 3 * n) // 128) * 128
     dt = torch.int8 if args.kv_cache == "int8" else torch.bfloat16
@@ -77,16 +82,27 @@ def main(argv=None) -> int:
         cache["k"][:, :POS] = cache["v"][:, :POS] = fill.to(dt)
     out = torch.zeros(n + 1, dtype=torch.int32, device="cuda")
     out[0] = 1000
+    if q8:
+        def run(i, pos):
+            decode_token(dec, dcfg, cache, out, i, pos)
+    else:
+        pack = pack_megakernel_params(dec, dcfg, int4=args.quantize == "int4")
+        L, DKV = dcfg.n_layers, dcfg.n_kv_heads * dcfg.head_dim
+        step = DecodeStep(pack, dcfg, cache["k"].view(L, S, DKV), cache["v"].view(L, S, DKV),
+                          cache.get("k_s"), cache.get("v_s"))
 
-    _steps(dec, dcfg, cache, POS, out)                    # warm-up
+        def run(i, pos):
+            step(out[i - 1:i], pos, out[i:i + 1])
+
+    _steps(run, POS)                                      # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _steps(dec, dcfg, cache, POS + n, out)
+    _steps(run, POS + n)
     t_enq = time.perf_counter() - t0
     torch.cuda.synchronize()
     t_wall = time.perf_counter() - t0
     enqueue, wall = t_enq / n * 1e3, t_wall / n * 1e3
-    print(f"q8_0 weights, {args.kv_cache} cache, pos {POS + n}..{POS + 2 * n - 1}:"
+    print(f"{args.quantize} weights, {args.kv_cache} cache, pos {POS + n}..{POS + 2 * n - 1}:"
           f" enqueue {enqueue:.4f} ms/step, wall {wall:.4f} ms/step (no profiler)",
           flush=True)
 
@@ -94,7 +110,7 @@ def main(argv=None) -> int:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _steps(dec, dcfg, cache, POS + 2 * n, out)
+        _steps(run, POS + 2 * n)
         torch.cuda.synchronize()
         window = (time.perf_counter() - t0) / n * 1e3
     kernels = {}
@@ -112,7 +128,7 @@ def main(argv=None) -> int:
     for name, (us, cnt) in sorted(kernels.items(), key=lambda kv: -kv[1][0]):
         print(f"  {us:9.2f} us/step {100 * us / 1e3 / device:5.1f}%  "
               f"{cnt:6.1f} launches/step  {name[:110]}", flush=True)
-    print(json.dumps({"card": smi, "quantize": "q8_0", "kv_cache": args.kv_cache,
+    print(json.dumps({"card": smi, "quantize": args.quantize, "kv_cache": args.kv_cache,
                       "pos": POS, "steps": n, "enqueue_ms": enqueue,
                       "wall_ms": wall, "window_ms": window, "device_ms": device,
                       "kernels_us": {k: v[0] for k, v in kernels.items()}}), flush=True)

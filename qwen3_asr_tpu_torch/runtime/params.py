@@ -45,19 +45,21 @@ def _map(tree, fn):
     return None if tree is None else fn(tree)
 
 
-def from_jax_params(tree: dict, cfg: ASRModelConfig, device="cpu") -> dict:
+def from_jax_params(tree: dict, cfg: ASRModelConfig, device="cpu",
+                    int4: bool = True) -> dict:
     """The JAX package's ASR parameter tree, as numpy arrays (the dense tree
     of `init_asr_params`, or one whose decoder went through
     `quantize_decoder_params('int8pc' or 'q8_0')` and `fuse_decoder_params`,
-    Q8_0 leaves and `lm_head_q8` included) -> the port's tree on `device`. A quantized, fused decoder also gets the int4
-    decode pack (`dec["mega"]`), built from its int8pc leaves as the JAX
-    package's `pack_megakernel_params(int4=True)` builds it."""
+    Q8_0 leaves and `lm_head_q8` included) -> the port's tree on `device`.
+    An int8pc, fused decoder also gets the decode pack (`dec["mega"]`),
+    built from its int8pc leaves as the JAX package's
+    `pack_megakernel_params(int4=int4)` builds it."""
     out = _map(tree, lambda a: to_torch(a, device))
     dec = out["decoder"]
     if "lm_head_pc" in dec and "wqkv" in dec["layers"]:
         from qwen3_asr_tpu_torch.ops.megakernel import pack_megakernel_params
 
-        dec["mega"] = pack_megakernel_params(dec, cfg.decoder)
+        dec["mega"] = pack_megakernel_params(dec, cfg.decoder, int4=int4)
     return out
 
 

@@ -1,13 +1,15 @@
 """Serving: batched transcription behind a thread-safe queue, and HTTP.
 
-Port of qwen3_asr_tpu/serve.py:89-1080 for the configuration the port
-carries (int4 decode weights, int8pc prefill, int8 KV cache) on one
-device. `ASRServer` owns the model; a single worker thread does all device
-work, in one of two modes:
+Port of qwen3_asr_tpu/serve.py:89-1080 on one device, with its defaults
+(`--quantize auto`: int8pc weights for a dense GGUF; `--kv-cache int8`).
+`ASRServer` owns the model; a single worker thread does all device work, in
+one of two modes:
 
 - closed batches (the default): the worker groups up to `max_batch`
   requests arriving within `max_wait_ms` and runs them as one
-  `Qwen3ASR.transcribe_batch` call (a batch of one goes to `transcribe`);
+  `Qwen3ASR.transcribe_batch` call (a batch of one goes to `transcribe`;
+  a batch needs the decode pack and the int8 cache, and a model without
+  them answers a batch with transcribe_batch's NotImplementedError);
 - continuous (`continuous=True`): greedy requests join a slot pool
   (`pipeline/engine.py::ContinuousEngine`) between decode rounds, and
   streaming requests get their text deltas from the pool's per-round
@@ -556,7 +558,7 @@ def serve_http(server: ASRServer, host: str = "127.0.0.1", port: int = 8000):
     return httpd
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="qwen3-asr serving daemon (PyTorch / CUDA)")
     p.add_argument("-m", "--model", required=True, help="ASR GGUF model")
     p.add_argument("--host", default="127.0.0.1")
@@ -566,14 +568,16 @@ def main(argv=None) -> int:
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--max-wait-ms", type=float, default=5.0)
     p.add_argument("--max-tokens", type=int, default=1024)
-    # the workers (closed batches and the continuous pool) run the batched
-    # int4-weight / int8-KV decode step only; q8_0 and dense weights
-    # transcribe one request at a time through Qwen3ASR.transcribe
-    p.add_argument("--quantize", default="int4", choices=["int4"],
-                   help="decode weights: int4 (int4 decode weights, int8pc "
-                        "prefill), the only mode of the server's workers")
-    p.add_argument("--kv-cache", default="int8", choices=["int8"],
-                   help="KV cache dtype: int8, the only mode of the server's workers")
+    p.add_argument("--quantize", default="auto",
+                   choices=["auto", "none", "q8_0", "int8pc", "int4"],
+                   help="decoder weights: auto = int8pc (per-channel int8) for "
+                        "a dense GGUF, a Q8_0 GGUF as loaded; int4 nibble-packs "
+                        "the decode weights. Batches run on the decode pack "
+                        "(auto/int8pc/int4) with the int8 cache")
+    p.add_argument("--kv-cache", default="int8", choices=["int8", "bf16", "int4"],
+                   help="KV cache dtype: int8 (default, the batched step's "
+                        "cache) or bf16 (single requests only); int4 is not "
+                        "ported")
     p.add_argument("--warmup", default="",
                    help="comma-separated audio lengths (s) to run before serving")
     p.add_argument("--continuous", action="store_true",
@@ -585,15 +589,29 @@ def main(argv=None) -> int:
                    help="continuous mode: KV rows per slot (a multiple of 128); "
                         "0 = a 92 s prompt bucket plus --max-tokens, capped by "
                         "device memory")
-    args = p.parse_args(argv)
-    asr = Qwen3ASR(quantize=args.quantize, kv_cache=args.kv_cache, device=args.device)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    try:
+        asr = Qwen3ASR(quantize="" if args.quantize == "none" else args.quantize,
+                       kv_cache=args.kv_cache, device=args.device)
+    except (NotImplementedError, RuntimeError) as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
     if not asr.load_model(args.model):
         print(f"Error: {asr.error_msg}", file=sys.stderr)
         return 1
-    server = ASRServer(asr, TranscribeParams(max_tokens=args.max_tokens, mel_bucket=500),
-                       max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
-                       continuous=args.continuous, round_tokens=args.round_tokens,
-                       engine_context=args.engine_context or None)
+    try:
+        server = ASRServer(asr, TranscribeParams(max_tokens=args.max_tokens,
+                                                 mel_bucket=500),
+                           max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+                           continuous=args.continuous, round_tokens=args.round_tokens,
+                           engine_context=args.engine_context or None)
+    except (ValueError, NotImplementedError) as e:   # the continuous pool's settings
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
     if args.warmup:
         server.warmup(tuple(float(s) for s in args.warmup.split(",")))
     httpd = serve_http(server, args.host, args.port)

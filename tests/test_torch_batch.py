@@ -95,7 +95,7 @@ def jax_and_port(seed=7, gain=1):
     j.params = jax.tree.map(jnp.asarray, p)
     j.params["decoder"]["mega"] = pack_megakernel_params(
         j.params["decoder"], cfg.decoder, int4=True)
-    t = Qwen3ASR(device="cpu")
+    t = Qwen3ASR(quantize="int4", kv_cache="int8", device="cpu")
     tcfg = port_config(cfg)
     t.cfg, t.params, t.tokenizer = tcfg, from_jax_params(p, tcfg), j.tokenizer
     t.filters_t = tmel.filters_t(tmel.generate_mel_filters(), "cpu")

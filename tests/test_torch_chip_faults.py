@@ -1,12 +1,15 @@
-"""Planted faults against `chip_smoke.py`'s checks of the per-layer decode
-path, on the card, at Qwen3-ASR-0.6B's full width (random Q8_0 weights,
-seed 0).
+"""Planted faults against `chip_smoke.py`'s checks, on the card, at
+Qwen3-ASR-0.6B's full width (random weights, seed 0): the per-layer decode
+path (Q8_0 weights), K1 / K3 on the int8 pack (`quantize="auto"`) and the
+weight-stream microbenchmarks.
 
 Each case plants one fault at run time (a slice of a weight dropped, the
 dequant dtype flipped, a cache row dropped, RoPE one position off, the fresh
 row stored one row early, a kernel replaced by its twin, a kernel launched
-inside `twins()`) and asserts that the phase of `chip_smoke.py` that guards
-against it raises. The phases print their readings before they raise; run
+inside `twins()`, the int8 scales one column off, a bf16 fresh row one row
+early, a K3 row given its neighbour's position, the unpack probe's nibbles
+swapped) and asserts that the phase of `chip_smoke.py` that guards against
+it raises. The phases print their readings before they raise; run
 with `-s` to see them beside the bounds:
 
     python3 -m pytest tests/test_torch_chip_faults.py -m cuda -q -s --noconftest -p no:cacheprovider
@@ -193,3 +196,88 @@ def test_kernel_inside_twins_caught(q8_asr):
         torch.cuda.synchronize()
 
     caught("a kernel launched inside twins()", run)
+
+
+@pytest.fixture(scope="module")
+def auto_asr(q8_asr):
+    """The CLI's default model, Qwen3ASR(quantize="auto") (the int8 pack),
+    random weights seed 0, EOS off."""
+    from qwen3_asr_tpu_torch.config import ASRModelConfig
+    from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR
+
+    cs, _ = q8_asr
+    asr = Qwen3ASR(quantize="auto", device="cuda")
+    asr.load_random(ASRModelConfig(), seed=0)
+    return cs, cs.eos_off(asr)
+
+
+def test_int8_scale_column_shifted_caught(auto_asr):
+    """K1 on the int8 pack reading the QKV scales one column off (the twin
+    reads them right): the int8-weight K1 phase raises."""
+    from qwen3_asr_tpu_torch.ops import megakernel as mk
+
+    cs, asr = auto_asr
+    init = mk.DecodeStep.__init__
+
+    def shifted(self, pack, cfg, *a, **k):
+        init(self, pack, cfg, *a, **k)
+        self._shifted = torch.roll(pack["qkv_s"], 1, dims=-1).contiguous()
+        self.ptrs.qkv_s = self._shifted.data_ptr()
+
+    with patched(mk.DecodeStep, "__init__", shifted):
+        caught("int8 scale column shifted by one", lambda: cs.phase_mega(
+            asr.cfg, asr.params["decoder"], "int8", steps=4, floor_steps=0))
+
+
+def test_bf16_fresh_row_one_early_caught(auto_asr):
+    """K1 over the bf16 cache with its fresh row landing at pos - 1: the
+    bf16-KV phase raises."""
+    from qwen3_asr_tpu_torch.ops import megakernel as mk
+
+    cs, asr = auto_asr
+    call = mk.DecodeStep.__call__
+
+    def early(self, token_or_x, pos, out):
+        call(self, token_or_x, pos, out)
+        for c in self.cache[:2]:
+            c[:, pos - 1] = c[:, pos]
+            c[:, pos] = 0
+
+    with patched(mk.DecodeStep, "__call__", early):
+        caught("bf16 fresh row stored at pos - 1", lambda: cs.phase_mega(
+            asr.cfg, asr.params["decoder"], "bf16", steps=4, floor_steps=0))
+
+
+def test_k3_int8_row_neighbour_position_caught(auto_asr):
+    """K3 on the int8 pack with row 3 given row 2's position: the K3 phase's
+    rows-equal-K1 check raises."""
+    from qwen3_asr_tpu_torch.ops import megakernel_batch as mbt
+
+    cs, asr = auto_asr
+    call = mbt.BatchDecodeStep.__call__
+
+    def neighbour(self, tokens_or_x, pos, out, bounds):
+        pos = pos.clone()
+        pos[3] = pos[2]
+        call(self, tokens_or_x, pos, out, bounds)
+
+    with patched(mbt.BatchDecodeStep, "__call__", neighbour):
+        caught("K3 int8 row 3 given row 2's position", lambda: cs.phase_mega_batch(
+            asr.cfg.decoder, asr.params["decoder"]["mega"]))
+
+
+def test_unpack_nibbles_swapped_caught(q8_asr):
+    """The unpack probe with its two nibbles swapped: the microbenchmark
+    phase raises."""
+    from qwen3_asr_tpu_torch import microbench_stream as ms
+
+    cs, _ = q8_asr
+    probe = ms.unpack_probe
+
+    def swapped(b):
+        out = probe(b)
+        return torch.stack([out[1::2], out[0::2]], dim=1).reshape(out.shape)
+
+    swapped.launches = 0
+    with patched(ms, "unpack_probe", swapped):
+        caught("unpack probe nibbles swapped", cs.phase_microbench)

@@ -1,0 +1,135 @@
+"""The port's CLI (`qwen3-asr-cuda-cli`, qwen3_asr_tpu_torch/cli.py) on the
+CPU against the JAX package's (qwen3_asr_tpu/cli.py), mirroring the
+transcription cases of tests/test_cli.py on a tiny GGUF: the same flags and
+defaults, the transcript (or the -o notice) on stdout and diagnostics on
+stderr, exit 1 on errors, and every mode the port does not carry refused
+before anything runs. The tokens (`--tokens`, printed on stderr) of the
+default configuration (`--quantize auto`: int8pc weights, the int8 decode
+pack, a bf16 cache) and of `--kv-int8` equal the JAX CLI's."""
+
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from qwen3_asr_tpu.audio import write_wav
+from qwen3_asr_tpu.cli import main as jax_main
+from qwen3_asr_tpu.config import tiny_asr_config
+from qwen3_asr_tpu.runtime.params import init_asr_params
+from qwen3_asr_tpu_torch.cli import build_parser, main
+
+from helpers import make_byte_vocab, write_tiny_gguf
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    """(tiny ASR GGUF, a 1 s 440 Hz WAV, an 8 kHz WAV), as tests/test_cli.py
+    writes them."""
+    d = tmp_path_factory.mktemp("cli")
+    cfg = tiny_asr_config()
+    params = jax.tree.map(np.asarray, init_asr_params(cfg, 3, jnp.float32))
+    vocab = make_byte_vocab(cfg.decoder.vocab_size, {
+        cfg.decoder.eos_token_id: "<|im_end|>",
+        cfg.decoder.audio_pad_token_id: "<|audio_pad|>",
+    })
+    model = str(d / "asr.gguf")
+    write_tiny_gguf(model, cfg, params, vocab=vocab, merges=[])
+    t = np.arange(16000) / 16000
+    wav = str(d / "a.wav")
+    write_wav(wav, (0.3 * np.sin(2 * np.pi * 440 * t)).astype(np.float32))
+    wav8k = str(d / "b.wav")
+    write_wav(wav8k, np.zeros(8000, np.float32), sample_rate=8000)
+    return model, wav, wav8k
+
+
+def tokens(err: str) -> list[int]:
+    return [int(x) for x in re.findall(r"^  \[\d+\] (\d+)$", err, re.M)]
+
+
+@pytest.mark.parametrize("extra", [[], ["--kv-int8"]], ids=["default", "kv-int8"])
+def test_tokens_equal_jax_cli(files, capsys, extra):
+    model, wav, _ = files
+    args = ["-m", model, "-f", wav, "--max-tokens", "6", "--no-timing", "--tokens", *extra]
+    assert jax_main(args + ["--platform", "cpu"]) == 0
+    want = capsys.readouterr()
+    assert main(args + ["--platform", "cpu"]) == 0
+    got = capsys.readouterr()
+    assert tokens(got.err) == tokens(want.err) and tokens(want.err)
+    assert got.out == want.out and got.out.endswith("\n")
+
+
+def test_stdout_holds_only_the_transcript(files, capsys, tmp_path):
+    model, wav, _ = files
+    assert main(["-m", model, "-f", wav, "--max-tokens", "4", "--platform", "cpu",
+                 "-t", "2", "--no-fused", "--profile"]) == 0
+    cap = capsys.readouterr()
+    assert cap.out.count("\n") == 1 and "Timing" not in cap.out
+    assert "Threads: 2" in cap.err and "Audio encoding:" in cap.err
+    assert "=== Timing Profile ===" in cap.err and "decode.generate" in cap.err
+    out = tmp_path / "out.txt"
+    assert main(["-m", model, "-f", wav, "--max-tokens", "4", "--platform", "cpu",
+                 "--no-timing", "-o", str(out)]) == 0
+    cap2 = capsys.readouterr()
+    assert cap2.out == "" and "Output written to" in cap2.err
+    assert out.read_text() == cap.out
+
+
+def test_bad_inputs_exit_1(files, capsys, tmp_path):
+    model, wav, wav8k = files
+    for args, msg in ((["-f", wav8k], "Audio must be 16kHz"),
+                      (["-f", str(tmp_path / "nope.wav")], "Failed to load audio"),
+                      (["-f", wav, "-m", str(tmp_path / "none.gguf")], "Failed to load model")):
+        argv = ["-m", model, "--no-timing", "--platform", "cpu"] + args
+        assert main(argv) == 1
+        cap = capsys.readouterr()
+        assert cap.out == "" and msg in cap.err
+
+
+def test_save_mel_matches_the_oracle(files, capsys, tmp_path):
+    """--save-mel writes the golden-layout [n_mels, n_frames] f32 .npy within
+    1e-4 of the JAX package's oracle, then transcribes."""
+    from qwen3_asr_tpu.audio import load_wav, log_mel_spectrogram_ref
+
+    model, wav, _ = files
+    path = str(tmp_path / "mel.npy")
+    assert main(["-m", model, "-f", wav, "--max-tokens", "2", "--no-timing",
+                 "--platform", "cpu", "--save-mel", path]) == 0
+    got = np.load(path)
+    stored, _ = load_wav(wav)
+    want = log_mel_spectrogram_ref(stored)
+    assert got.shape == want.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    assert capsys.readouterr().out.endswith("\n")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--align", "--text", "hi"], ["-a", "--aligner-model", "fa.gguf"], ["--kv-int4"],
+    ["--spec-k", "2"], ["--temperature", "0.7"], ["--progress"]],
+    ids=["align", "transcribe-align", "kv-int4", "spec-k", "temperature", "progress"])
+def test_unported_flags_exit_1(files, capsys, flags):
+    model, wav, _ = files
+    assert main(["-m", model, "-f", wav, "--platform", "cpu"] + flags) == 1
+    cap = capsys.readouterr()
+    assert cap.out == "" and "not ported" in cap.err
+
+
+def test_defaults_and_device(files, capsys, tmp_path):
+    """The JAX CLI's defaults; --trace-dir writes a torch.profiler trace;
+    without --platform cpu the card is required (no quiet CPU run)."""
+    import torch
+
+    a = build_parser().parse_args(["-f", "x.wav"])
+    assert (a.quantize, a.kv_int8, a.fused, a.dtype, a.threads, a.max_tokens) == \
+        ("auto", False, True, "bfloat16", 4, 1024)
+    model, wav, _ = files
+    trace = tmp_path / "trace"
+    assert main(["-m", model, "-f", wav, "--max-tokens", "2", "--no-timing",
+                 "--platform", "cpu", "--trace-dir", str(trace)]) == 0
+    assert (trace / "trace.json").stat().st_size > 0
+    capsys.readouterr()
+    if not torch.cuda.is_available():
+        assert main(["-m", model, "-f", wav, "--max-tokens", "2"]) == 1
+        cap = capsys.readouterr()
+        assert cap.out == "" and "no CUDA device" in cap.err

@@ -50,18 +50,23 @@ def test_flash_kernel_matches_twin(cuda_kernels, causal, T, NH, NKV, D, valid):
     torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=1e-2)
 
 
-def _tiny_pack():
+def _tiny_pack(int4: bool = True):
     cfg = tiny_asr_config()
     dec = tparams.init_asr_params(cfg, seed=3, device="cuda")["decoder"]
     dec = tparams.fuse_decoder_params(tparams.quantize_decoder_params(dec))
-    return cfg.decoder, tmk.pack_megakernel_params(dec, cfg.decoder)
+    return cfg.decoder, tmk.pack_megakernel_params(dec, cfg.decoder, int4=int4)
 
 
-def _cache(dcfg, S, pos0, seed):
+def _cache(dcfg, S, pos0, seed, kv="int8"):
+    """Rows < pos0 filled: (int8 codes, f32 scales) or (bf16 rows, None)."""
     L, NKV, D = dcfg.n_layers, dcfg.n_kv_heads, dcfg.head_dim
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, s = _quantize_kv_rows(torch.randn(L, pos0, NKV, D, generator=g,
-                                         device="cuda") * 0.5)
+    rows = torch.randn(L, pos0, NKV, D, generator=g, device="cuda") * 0.5
+    if kv == "bf16":
+        c = torch.zeros(L, S, NKV * D, dtype=torch.bfloat16, device="cuda")
+        c[:, :pos0] = rows.reshape(L, pos0, NKV * D).to(torch.bfloat16)
+        return c, None
+    q, s = _quantize_kv_rows(rows)
     c = torch.zeros(L, S, NKV * D, dtype=torch.int8, device="cuda")
     sc = torch.zeros(L, S, NKV, dtype=torch.float32, device="cuda")
     c[:, :pos0] = q.reshape(L, pos0, NKV * D)
@@ -69,34 +74,52 @@ def _cache(dcfg, S, pos0, seed):
     return c, sc
 
 
+MODES = [(i4, kv) for i4 in (True, False) for kv in ("int8", "bf16")]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("int4,kv", MODES, ids=[f"{'int4' if a else 'int8'}-{b}"
+                                                for a, b in MODES])
 @pytest.mark.parametrize("S,pos0", [(32, 12), (256, 150)])
-def test_megakernel_matches_twin(cuda_kernels, S, pos0):
-    """Teacher-forced over 4 steps: tokens equal or a near tie of the
-    twin's logits; h atol/rtol 2e-2; every layer's fresh cache rows within
-    one code on <= 1% of entries, their scales at rtol 1e-2.
-    pos0 = 150 spreads the cache rows over three attention chunks."""
-    dcfg, pack = _tiny_pack()
-    k, ks = _cache(dcfg, S, pos0, 1)
-    v, vs = _cache(dcfg, S, pos0, 2)
-    ref = [t.clone() for t in (k, v, ks, vs)]
+def test_megakernel_matches_twin(cuda_kernels, S, pos0, int4, kv):
+    """K1 in its four modes, teacher-forced over 4 steps: tokens equal or a
+    near tie of the twin's logits; h atol/rtol 2e-2; every layer's fresh
+    cache rows within one code on <= 1% of entries, their scales at rtol
+    1e-2 (int8 cache), or at rtol 1e-2 (bf16 rows). pos0 = 150 spreads the
+    cache rows over three attention chunks."""
+    dcfg, pack = _tiny_pack(int4)
+    k, ks = _cache(dcfg, S, pos0, 1, kv)
+    v, vs = _cache(dcfg, S, pos0, 2, kv)
+    ref = [None if t is None else t.clone() for t in (k, v, ks, vs)]
     step = tmk.DecodeStep(pack, dcfg, k, v, ks, vs)
+    counter = tmk.mega_decode_step_i8 if kv == "int8" else tmk.mega_decode_step
+    before = counter.launches
     out = torch.empty(1, dtype=torch.int32, device="cuda")
     tok = torch.tensor([7], dtype=torch.int32, device="cuda")
     for i in range(4):
         step(tok, pos0 + i, out)
-        rt, rh, logits = tmk.mega_decode_step_i8_ref(
+        rt, rh, logits = tmk.mega_decode_step_ref(
             pack, dcfg, tok, pos0 + i, *ref, return_logits=True)
         got, want = int(out[0]), int(rt[0])
         assert got == want or float(logits[want] - logits[got]) <= NEAR_TIE_TOL
         torch.testing.assert_close(step.h, rh, atol=2e-2, rtol=2e-2)
         for a, b in ((k, ref[0]), (v, ref[1])):
+            if kv == "bf16":   # within 2/127 of the head row's magnitude, as
+                # tests/test_torch_megakernel.py holds bf16 rows
+                ha = a[:, pos0 + i].float().reshape(dcfg.n_layers, -1, dcfg.head_dim)
+                hb = b[:, pos0 + i].float().reshape(dcfg.n_layers, -1, dcfg.head_dim)
+                bound = (2 / 127) * hb.abs().amax(dim=2, keepdim=True)
+                assert bool(((ha - hb).abs() <= bound).all())
+                continue
             d = (a[:, pos0 + i].int() - b[:, pos0 + i].int()).abs()
             assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 0.01
-        for a, b in ((ks, ref[2]), (vs, ref[3])):
-            torch.testing.assert_close(a[:, pos0 + i], b[:, pos0 + i],
-                                       rtol=1e-2, atol=0)
+        if kv == "int8":
+            for a, b in ((ks, ref[2]), (vs, ref[3])):
+                torch.testing.assert_close(a[:, pos0 + i], b[:, pos0 + i],
+                                           rtol=1e-2, atol=0)
+        assert torch.equal(k[:, :pos0], ref[0][:, :pos0])
         tok = rt.clone()
+    assert counter.launches == before + 4
 
 
 @pytest.mark.cuda
@@ -138,14 +161,15 @@ def _pool(dcfg, S, pos, seed):
 
 
 @pytest.mark.cuda
-def test_batched_megakernel_rows_equal_single(cuda_kernels):
+@pytest.mark.parametrize("int4", [True, False], ids=["int4", "int8"])
+def test_batched_megakernel_rows_equal_single(cuda_kernels, int4):
     """K3's rows equal K1 run on each row's slab copy, bit for bit (token,
     h, every layer's fresh K/V row and scales), over 4 teacher-forced
-    steps at spread positions; and K3 against its plain version: tokens
-    equal or a near tie, h atol/rtol 2e-2."""
+    steps at spread positions, on either pack; and K3 against its plain
+    version: tokens equal or a near tie, h atol/rtol 2e-2."""
     from qwen3_asr_tpu_torch.ops import megakernel_batch as tmb
 
-    dcfg, pack = _tiny_pack()
+    dcfg, pack = _tiny_pack(int4)
     S, pos0 = 256, [12, 150, 64, 199, 1]
     B = len(pos0)
     pool = _pool(dcfg, S, pos0, 10)
@@ -171,7 +195,7 @@ def test_batched_megakernel_rows_equal_single(cuda_kernels):
         torch.testing.assert_close(step.h, rh, atol=2e-2, rtol=2e-2)
         for b in range(B):
             if int(out[b]) != int(rt[b]):
-                _, _, lg = tmk.mega_decode_step_i8_ref(
+                _, _, lg = tmk.mega_decode_step_ref(
                     pack, dcfg, toks[b:b + 1], pos[b], *[t[b].clone() for t in ref],
                     return_logits=True)
                 assert float(lg[int(rt[b])] - lg[int(out[b])]) <= NEAR_TIE_TOL
@@ -277,3 +301,24 @@ def test_decode_attention_matches_twin(cuda_kernels, quant, offset):
     want = da.decode_attention_ref(qkv, k, v, qn, qn, offset, offset, **kw)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_microbench_kernels_match_twins(cuda_kernels):
+    """K9-K11 at a small stream (6 chunks of [1024, 256]): the integer modes
+    and the unpack probe equal their twins exactly; bf16_m8 within 1e-6 of
+    the twin's largest magnitude (f32 sums in another order)."""
+    from qwen3_asr_tpu_torch import microbench_stream as mb
+
+    d = mb.make_data(6, 256, "cuda", seed=3)
+    for mode in mb.MODES:
+        fn, ref = mb.runner(mode, d)
+        wrappers = (mb.stream_read, mb.stream_read_ring, mb.stream_gemv,
+                    mb.stream_gemv_i4, mb.unpack_probe)
+        before = sum(w.launches for w in wrappers)
+        got, want = fn().clone(), ref()
+        assert sum(w.launches for w in wrappers) == before + 1, mode
+        assert mb.max_err(mode, got, want) <= mb.tolerance(mode, want), mode
+        if mode != "bf16_m8":   # the cross-block scratch is left zero for the next call
+            assert torch.equal(fn(), got), mode
+

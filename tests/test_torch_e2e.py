@@ -81,7 +81,7 @@ def _teacher_forced_logits(cfg, tp, prompt, off, feats, n_audio, tokens):
     L, DKV = dcfg.n_layers, dcfg.n_kv_heads * dcfg.head_dim
     k3, v3 = cache["k"].view(L, S, DKV), cache["v"].view(L, S, DKV)
     for i in range(1, len(tokens)):
-        _, _, lg = tmk.mega_decode_step_i8_ref(
+        _, _, lg = tmk.mega_decode_step_ref(
             dec["mega"], dcfg, torch.tensor([tokens[i - 1]], dtype=torch.int32),
             P + i - 1, k3, v3, cache["k_s"], cache["v_s"], return_logits=True)
         logits.append(lg)
@@ -92,7 +92,7 @@ def test_transcribe_matches_jax(setup):
     cfg, tp, pcm, filters, jax_tokens, (prompt, off, n_audio, feats) = setup
     assert len(jax_tokens) == MAX_TOKENS
     out, n_kept = transcribe_fused(tp, port_config(cfg), pcm, filters_t(filters, "cpu"),
-                                   MAX_TOKENS)
+                                   MAX_TOKENS, cache_dtype=torch.int8)
     assert n_kept == MAX_TOKENS
     port = [int(t) for t in out[:n_kept]]
     logits = _teacher_forced_logits(cfg, tp, prompt, off, feats, n_audio,
@@ -144,9 +144,9 @@ def test_pipeline_load_model_from_gguf(tmp_path):
     path = str(tmp_path / "asr.gguf")
     write_tiny_gguf(path, cfg, f32, vocab=vocab, merges=[])
 
-    asr = Qwen3ASR(device="cpu")
+    asr = Qwen3ASR(quantize="int4", kv_cache="int8", device="cpu")
     assert asr.load_model(path), asr.error_msg
-    res = asr.transcribe(_pcm(1.5, 3), TranscribeParams(max_tokens=6))
+    res = asr.transcribe(_pcm(1.5, 3), TranscribeParams(max_tokens=6, fused=True))
     assert res.success and len(res.tokens) <= 6
 
     jcfg, jp, _, _ = jparams.load_asr_model(path)
@@ -157,7 +157,8 @@ def test_pipeline_load_model_from_gguf(tmp_path):
     jp["decoder"] = jax.tree.map(np.asarray, jparams.fuse_decoder_params(
         jparams.quantize_decoder_params(jp["decoder"], "int8pc")))
     tp = from_jax_params(jp, port_config(jcfg))
-    out, n_kept = transcribe_fused(tp, port_config(jcfg), _pcm(1.5, 3), asr.filters_t, 6)
+    out, n_kept = transcribe_fused(tp, port_config(jcfg), _pcm(1.5, 3), asr.filters_t, 6,
+                                   cache_dtype=torch.int8)
     assert [int(t) for t in out[:n_kept]] == res.tokens
 
     bad = Qwen3ASR(device="cpu")
@@ -166,10 +167,16 @@ def test_pipeline_load_model_from_gguf(tmp_path):
 
 
 def test_pipeline_rejects_unported_modes():
-    with pytest.raises(NotImplementedError):
-        Qwen3ASR(quantize="int8pc", device="cpu")
-    with pytest.raises(NotImplementedError):
-        Qwen3ASR(kv_cache="bf16", device="cpu")
+    with pytest.raises(NotImplementedError, match="int4 KV cache is not ported"):
+        Qwen3ASR(kv_cache="int4", device="cpu")
+    with pytest.raises(ValueError, match="unknown quantize"):
+        Qwen3ASR(quantize="q4", device="cpu")
+    asr = Qwen3ASR(device="cpu")
+    asr.params = {"decoder": {}}
+    for kw, what in ((dict(temperature=0.5), "item 12"), (dict(spec_k=2), "item 14"),
+                     (dict(print_progress=True), "item 12")):
+        res = asr.transcribe(_pcm(0.5), TranscribeParams(**kw))
+        assert not res.success and "not ported" in res.error_msg and what in res.error_msg
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Qwen3ASR(device="cuda")

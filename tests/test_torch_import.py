@@ -50,7 +50,8 @@ def test_no_jax_package_in_import_chain():
     """Every module of the port and every import of chip_smoke.py, in a fresh
     process: no module named qwen3_asr_tpu or qwen3_asr_tpu.* is loaded."""
     mods = _modules() + _chip_smoke_imports() + ["chip_smoke"]
-    assert "qwen3_asr_tpu_torch.pipeline.asr" in mods and "torch" in mods
+    assert {"qwen3_asr_tpu_torch.pipeline.asr", "qwen3_asr_tpu_torch.cli",
+            "qwen3_asr_tpu_torch.microbench_stream", "torch"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -77,6 +78,9 @@ def test_every_module_imports():
     ("q8_matmul.cu", "q8_matmul.py::_q8_norm_kernel"),
     ("q8_matmul.cu", "q8_matmul.py::_q8_mlp_kernel"),
     ("decode_attention.cu", "decode_attention.py::_decode_attn_kernel"),
+    ("microbench_stream.cu", "microbench_stream.py::_stream_kernel"),
+    ("microbench_stream.cu", "probe_int4.py"),
+    ("microbench_stream.cu", "probe_int4b.py"),
 ])
 def test_kernel_sources_are_hand_written_cuda(src, replaces):
     text = (PKG / "csrc" / src).read_text()
@@ -102,7 +106,7 @@ def test_build_hash_tracks_sources():
     names = {p.name for p in build._sources()}
     assert {"flash_attention.cu", "megakernel.cu", "megakernel.cuh",
             "megakernel_batch.cu", "probe.cu", "q8_matmul.cu",
-            "decode_attention.cu"} <= names
+            "decode_attention.cu", "microbench_stream.cu"} <= names
 
 
 def test_non_cpu_tensor_never_reaches_a_twin():

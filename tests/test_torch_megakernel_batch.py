@@ -1,6 +1,7 @@
-"""Batched int4-weight / int8-KV decode step: the port's plain version vs
+"""Batched decode step over the int8 KV cache: the port's plain version vs
 the JAX Pallas kernel (`mega_decode_step_batch`, interpret mode) on the
-int4 pack, and vs the port's single-sequence plain step row by row. The
+int4 and the int8 pack, and vs the port's single-sequence plain step row by
+row. The
 CUDA kernels vs the plain version: tests/test_torch_cuda.py.
 
 B = 3 sequences at different positions over 4 free-running steps, with
@@ -31,14 +32,19 @@ from qwen3_asr_tpu_torch.runtime.params import from_jax_params
 from test_torch_params import jax_tree, port_config
 
 S, POS0, STEPS = 32, (12, 3, 20), 4
+PACKS = {"int4": True, "int8": False}
 
 
-@pytest.fixture(scope="module")
-def setup():
+@pytest.fixture(scope="module", params=list(PACKS))
+def setup(request):
+    """(decoder config, JAX tree, JAX pack, the port's decoder) with the
+    int4 or the int8 pack."""
     cfg = tiny_asr_config()
     tree = jax_tree(cfg, seed=3)
-    mega = jmk.pack_megakernel_params(tree["decoder"], cfg.decoder, int4=True)
-    return cfg.decoder, tree, mega, from_jax_params(tree, port_config(cfg))["decoder"]
+    int4 = PACKS[request.param]
+    mega = jmk.pack_megakernel_params(tree["decoder"], cfg.decoder, int4=int4)
+    return (cfg.decoder, tree, mega,
+            from_jax_params(tree, port_config(cfg), int4=int4)["decoder"])
 
 
 def _pool(dcfg, seed):
@@ -100,7 +106,7 @@ def test_plain_rows_equal_single_step(setup):
     tt, th = tmb.mega_decode_step_batch(td["mega"], port_config(dcfg), toks, POS0, *batch)
     for b, p in enumerate(POS0):
         single = [t[b].clone() for t in (k, v, ks, vs)]
-        st, sh = tmk.mega_decode_step_i8_ref(td["mega"], port_config(dcfg), toks[b:b + 1], p,
+        st, sh = tmk.mega_decode_step_ref(td["mega"], port_config(dcfg), toks[b:b + 1], p,
                                              *single)
         assert torch.equal(tt[b:b + 1], st) and torch.equal(th[b:b + 1], sh)
         for got, want in zip(batch, single):

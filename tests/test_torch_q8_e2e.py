@@ -108,7 +108,7 @@ def test_transcribe_matches_jax(quantize, kv_cache):
     samples = pcm()
     want = j.transcribe(samples, JaxParams(max_tokens=MAX_TOKENS, fused=True,
                                            print_timing=False)).tokens
-    got = t.transcribe(samples, TranscribeParams(max_tokens=MAX_TOKENS))
+    got = t.transcribe(samples, TranscribeParams(max_tokens=MAX_TOKENS, fused=True))
     assert got.success and len(want) == MAX_TOKENS
     assert "mega" not in t.params["decoder"]
     assert ("lm_head_q8" in t.params["decoder"]) == bool(quantize)
@@ -158,15 +158,13 @@ def test_modes_and_their_errors():
     assert t.quantize == "q8_0" and t.kv_cache == "bf16" and t.cache_dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="batched"):
         t.transcribe_batch([pcm()])
-    for kw in (dict(quantize="int8pc"), dict(quantize="auto"),
-               dict(quantize="q8_0", kv_cache="int4")):
-        with pytest.raises(NotImplementedError, match="next PRs, item 3"):
-            Qwen3ASR(device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        Qwen3ASR(quantize="q8_0", kv_cache="int4", device="cpu")
     with pytest.raises(ValueError):
         Qwen3ASR(quantize="q4", device="cpu")
-    with pytest.raises(NotImplementedError):
-        generate_greedy({"mega": {}}, t.cfg.decoder, torch.zeros(4, dtype=torch.int32),
-                        4, None, 0, 0, 2, cache_dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="KV cache dtype"):
+        generate_greedy(t.params["decoder"], t.cfg.decoder, torch.zeros(4, dtype=torch.int32),
+                        4, None, 0, 0, 2, cache_dtype=torch.float16)
     no_dak = dataclasses.replace(t.cfg.decoder, use_decode_attn_kernel=False)
     cache = tdec.init_kv_cache(no_dak, 8, "cpu", torch.bfloat16)
     x = torch.zeros(1, no_dak.hidden_size, dtype=torch.bfloat16)
@@ -190,7 +188,7 @@ def test_load_model_q8_0_gguf(tmp_path):
                     merges=[], weight_type=GGML_TYPE_Q8_0)
     asr = Qwen3ASR(quantize="q8_0", kv_cache="int8", device="cpu")
     assert asr.load_model(path), asr.error_msg
-    res = asr.transcribe(pcm(1.0, 4), TranscribeParams(max_tokens=5))
+    res = asr.transcribe(pcm(1.0, 4), TranscribeParams(max_tokens=5, fused=True))
     assert res.success and len(res.tokens) <= 5
     _, jp, _, _ = jparams.load_asr_model(path)
     jp = jax.tree.map(np.asarray, jp)

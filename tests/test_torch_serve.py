@@ -197,16 +197,34 @@ def test_http_stream_needs_the_pool(model):
     assert code == 400 and json.loads(out)["error"]["message"] == NOT_PORTED["stream"]
 
 
-def test_main_rejects_unported_modes(tmp_path, capsys):
-    """The workers run int4 weights with an int8 cache only: any other mode
-    fails at start-up, in argparse, naming the one it takes."""
-    from qwen3_asr_tpu_torch.serve import main
+def test_main_rejects_unported_modes(model, tmp_path, capsys):
+    """The JAX server's modes are offered (--quantize auto by default, --kv-cache
+    int8): an unknown one fails in argparse; the int4 cache, which the port does
+    not carry, and a missing model fail at start-up with exit 1; the continuous
+    pool refuses a bf16 cache; a model without a batched path answers a batch
+    with transcribe_batch's NotImplementedError."""
+    from qwen3_asr_tpu_torch.serve import build_parser, main
 
-    for flag, mode, only in (("--quantize", "int8pc", "int4"), ("--quantize", "q8_0", "int4"),
-                             ("--kv-cache", "bf16", "int8")):
-        with pytest.raises(SystemExit) as e:
-            main(["-m", str(tmp_path / "none.gguf"), flag, mode, "--device", "cpu"])
-        assert e.value.code == 2
-        err = capsys.readouterr().err.splitlines()[-1]
-        assert flag in err and "invalid choice" in err and mode in err and only in err
+    args = build_parser().parse_args(["-m", "x.gguf"])
+    assert (args.quantize, args.kv_cache) == ("auto", "int8")
+    with pytest.raises(SystemExit) as e:
+        main(["-m", str(tmp_path / "none.gguf"), "--quantize", "q4", "--device", "cpu"])
+    assert e.value.code == 2 and "invalid choice" in capsys.readouterr().err
+    assert main(["-m", str(tmp_path / "none.gguf"), "--kv-cache", "int4",
+                 "--device", "cpu"]) == 1
+    assert "int4 KV cache is not ported" in capsys.readouterr().err
     assert main(["-m", str(tmp_path / "none.gguf"), "--device", "cpu"]) == 1
+    import copy
+
+    bf16 = copy.copy(model)
+    bf16.kv_cache = "bf16"
+    with pytest.raises(NotImplementedError, match="int8 KV cache"):
+        ASRServer(bf16, PARAMS, continuous=True, pool=2, engine_context=KW["s_pool"])
+    srv = ASRServer(bf16, PARAMS, max_batch=2, max_wait_ms=2000)
+    try:
+        futs = [srv.submit(a) for a in AUDIO[:2]]
+        for f in futs:
+            with pytest.raises(NotImplementedError, match="int8 KV"):
+                f.result(timeout=300)
+    finally:
+        srv.close()
