@@ -6,8 +6,11 @@ Builds the port's CUDA kernels from `qwen3_asr_tpu_torch/csrc` (into
 `build/torch_kernels/`) and holds each kernel against its plain PyTorch
 twin at the shapes of the main paths: flash attention (K2) single and
 batched (timed beside `scaled_dot_product_attention` at the same shapes),
-the decode step (K1) in its four modes ({int4, int8 weights} x {int8, bf16
-KV cache}: teacher-forced steps and every layer alone on the twin's input),
+the decode step (K1) in its six modes ({int4, int8 weights} x {int8, bf16,
+int4 KV cache}: teacher-forced steps, an int4 step keeping the other nibble
+of its byte row at even and odd positions, and every layer alone on the
+twin's input) and at a long context (S 8,192, pos 7,996..7,999, on each
+cache),
 the batched decode step (K3) on either pack, whose rows must equal K1 run on
 each row's slab bit for bit, the Q8_0 products K5 / K6 / K7 at the decode
 step's T = 1 and a 5 s prompt's T, the decode attention K4 with a bf16 and
@@ -37,12 +40,22 @@ the launch counts set to 0 just before it and read just after:
    window of its own, its counts reset before it and checked after it);
 6. `ASRServer` in continuous mode behind the HTTP front end: 4 concurrent
    `/v1/transcribe` requests, one SSE `/v1/audio/transcriptions` request
-   and `/healthz`.
+   and `/healthz`;
+7. the int4 KV cache (`--kv-int4`): `Qwen3ASR(quantize=q,
+   kv_cache="int4").transcribe` for q = int4, auto and int8pc, K1's int4
+   entry once per decode step, tokens against the twins;
+8. the streaming decode path (`--progress`, a progress callback) for the
+   auto path and for int4 weights with the int4 cache: tokens equal to
+   `transcribe`'s without the callback, one callback per token, decode
+   ms/step beside `generate_greedy`'s;
+9. `ASRServer --kv-cache int4` (closed batches) behind HTTP: a lone
+   `/v1/transcribe` request and a lone SSE stream outside any pool, text
+   equal to `transcribe`'s.
 
 It checks that every parameter and cache tensor of paths 1 and 2 is on the
 GPU, that each kernel of a path ran there (launch counts against a formula
 from the code), and that tokens agree with the twins' on a 5 s request of
-paths 1-5.
+paths 1-5 and 7.
 
 Output: diagnostic lines, then one JSON line with the kernels' errors and
 times, then, as the last line, {"ok": true, "device": {...}}. Exits non-zero
@@ -86,6 +99,7 @@ BF16_ROW_FRAC = 2 / 127
 MEGA_LAYER_REL = 1e-2
 FLOOR_STEPS = 3         # steps on which the twin also runs on the CPU
 MEGA_TIMED_POS = 1248   # the cache row of K1's timed step (S = 1,664)
+LONG_S, LONG_POS = 8192, 8000   # K1's long-context phase: S and its timed row
 REQUESTS = ((5, 64), (30, 128), (92, 323))   # (seconds, max_tokens)
 MEGA_BATCH_S, MEGA_BATCH_STEPS = 1664, 16   # K3 phase: pool context, steps vs K1
 # the per-layer decode path: (quantize, kv_cache, seconds, max_tokens)
@@ -114,15 +128,17 @@ WEIGHT_KEYS = ("qkv_q", "qkv_s", "wo_q", "wo_s", "gu_q", "gu_s", "wd_q", "wd_s",
 def mega_step_bound(pack, dcfg, positions, kv: str = "int8") -> tuple[float, str]:
     """K1 / K3 step: the pack's weights and scales once (int4: two weights a
     byte; int8: one), each row's live cache (K and V rows < pos, all layers:
-    int8 codes and their f32 scales, or bf16 values) and its fresh row; 2
-    operations per weight and 4 D per (head, cached row) per row."""
+    int8 codes, or int4 codes two a byte, and their f32 scales, or bf16
+    values) and its fresh row; 2 operations per weight and 4 D per (head,
+    cached row) per row."""
     from qwen3_asr_tpu_torch.ops.megakernel import weight_bits
 
     L, NH, NKV, D = dcfg.n_layers, dcfg.n_heads, dcfg.n_kv_heads, dcfg.head_dim
     w_bytes = sum(pack[k].numel() * pack[k].element_size() for k in WEIGHT_KEYS)
     per_byte = 2 if weight_bits(pack) == 4 else 1
     n_w = sum(per_byte * pack[k].numel() for k in WEIGHT_KEYS if k.endswith("_q"))
-    row = L * (2 * NKV * D + 2 * NKV * 4 if kv == "int8" else 4 * NKV * D)
+    row = L * {"int8": 2 * NKV * D + 2 * NKV * 4, "int4": NKV * D + 2 * NKV * 4,
+               "bf16": 4 * NKV * D}[kv]
     nbytes = w_bytes + sum((p + 1) * row for p in positions)
     ops = 2.0 * n_w * len(positions) + sum(4.0 * L * NH * D * p for p in positions)
     return bound(nbytes, ops, INT8_OPS)
@@ -257,12 +273,23 @@ def _rel(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
+def _codes(c, pos: int):
+    """Cache row pos of every layer as int32 codes [L, DKV]: int8 rows, or
+    the nibble of byte row pos // 2 of int4 pairs, sign-extended."""
+    import torch
+
+    if c.dtype != torch.uint8:
+        return c[:, pos].int()
+    n = (c[:, pos // 2].int() >> (4 * (pos % 2))) & 0xF
+    return n - 16 * (n >= 8).int()
+
+
 def _bad_cache_layers(got, want, pos: int) -> list[int]:
     """Layers whose fresh row `pos` breaks the cache rule against the twin's.
-    got/want: (k, v, k_s, v_s) [L, S, ...]. int8: codes within one on <=
-    CACHE_CODE_FRAC of entries, scales at CACHE_SCALE_RTOL; bf16 (no
-    scales): every value within BF16_ROW_FRAC of its head row's largest
-    magnitude, the most the int8 rule admits."""
+    got/want: (k, v, k_s, v_s) [L, S, ...] (int4 pairs [L, S/2, DKV]). int8
+    and int4: codes within one on <= CACHE_CODE_FRAC of entries, scales at
+    CACHE_SCALE_RTOL; bf16 (no scales): every value within BF16_ROW_FRAC of
+    its head row's largest magnitude, the most the int8 rule admits."""
     import torch
 
     bad = torch.zeros(got[0].shape[0], dtype=torch.bool, device=got[0].device)
@@ -277,7 +304,7 @@ def _bad_cache_layers(got, want, pos: int) -> list[int]:
             bad |= over.reshape(L, -1).any(dim=1)
         return torch.nonzero(bad).flatten().tolist()
     for a, b in zip(got[:2], want[:2]):
-        d = (a[:, pos].int() - b[:, pos].int()).abs()
+        d = (_codes(a, pos) - _codes(b, pos)).abs()
         bad |= (d.amax(dim=1) > 1) | ((d > 0).float().mean(dim=1) > CACHE_CODE_FRAC)
     for a, b in zip(got[2:], want[2:]):
         rel = (a[:, pos] - b[:, pos]).abs() / b[:, pos].abs()
@@ -287,10 +314,12 @@ def _bad_cache_layers(got, want, pos: int) -> list[int]:
 
 def _filled_cache(dcfg, S: int, n: int, g, kv: str = "int8"):
     """(k, v, k_s, v_s) [L, S, ...] with rows < n drawn from N(0, 0.25):
-    int8 codes and scales, or bf16 rows and no scales (None)."""
+    int8 codes and scales, int4 pairs [L, S/2, ...] and scales (the int8
+    rows packed by pack_kv_int4), or bf16 rows and no scales (None)."""
     import torch
 
     from qwen3_asr_tpu_torch.models.decoder import _quantize_kv_rows
+    from qwen3_asr_tpu_torch.ops.megakernel import pack_kv_int4
 
     L, NKV, D = dcfg.n_layers, dcfg.n_kv_heads, dcfg.head_dim
     out = []
@@ -306,12 +335,41 @@ def _filled_cache(dcfg, S: int, n: int, g, kv: str = "int8"):
         sc = torch.zeros(L, S, NKV, dtype=torch.float32, device="cuda")
         c[:, :n] = q.reshape(L, n, NKV * D)
         sc[:, :n] = s.reshape(L, n, NKV)
-        out += [c, sc]
+        out += list(pack_kv_int4(c, sc)) if kv == "int4" else [c, sc]
     return out[0], out[2], out[1], out[3]
 
 
 def _clone(ts):
     return [None if t is None else t.clone() for t in ts]
+
+
+def _upto(ts, pos: int):
+    """The cache rows <= pos of (k, v, k_s, v_s) (int4 pairs: byte rows <=
+    pos // 2), on the CPU."""
+    import torch
+
+    return [None if t is None else
+            t[:, :pos // 2 + 1 if t.dtype == torch.uint8 else pos + 1].cpu() for t in ts]
+
+
+def _sync_fresh(got, ref, pos: int) -> None:
+    """The twin's cache copy takes the kernel's fresh row at pos, once it
+    has been compared. For int4 pairs the byte row pos // 2 is taken whole,
+    after checking that the kernel kept its other nibble (the twin keeps
+    it: tests/test_torch_kv4.py)."""
+    import torch
+
+    for a, b in zip(got, ref):
+        if a is None:
+            continue
+        if a.dtype != torch.uint8:
+            b[:, pos] = a[:, pos]
+            continue
+        r, keep = pos // 2, 0xF0 if pos % 2 == 0 else 0x0F
+        if not torch.equal(a[:, r] & keep, b[:, r] & keep):
+            raise AssertionError(f"int4 cache: the step at pos {pos} changed the other "
+                                 f"nibble of byte row {r}")
+        b[:, r] = a[:, r]
 
 
 def mode_name(pack, kv: str) -> str:
@@ -321,14 +379,18 @@ def mode_name(pack, kv: str) -> str:
 
 
 def phase_mega(cfg, dec, kv: str = "int8", steps: int = 32,
-               floor_steps: int = FLOOR_STEPS):
-    """K1 on the tree's pack over an int8 or bf16 cache against the twin,
-    teacher-forced: `steps` steps from a prefilled cache, where at every step
-    both get the same token and the same cache (the twin's copy takes the
-    kernel's fresh rows after each step, once they have been compared); the
-    twin also on the CPU for `floor_steps` steps. Then every layer alone on
-    the same input, the kernel's ms per step (CUDA events) beside the host's
-    enqueue time per step, and the twin's."""
+               floor_steps: int = FLOOR_STEPS, S: int = 1664,
+               pos_end: int = MEGA_TIMED_POS, layers: bool = True):
+    """K1 on the tree's pack over an int8, bf16 or int4 cache against the
+    twin, teacher-forced: `steps` steps from a prefilled cache of S rows up
+    to pos_end, where at every step both get the same token and the same
+    cache (the twin's copy takes the kernel's fresh rows after each step,
+    once they have been compared; an int4 step must keep the other nibble of
+    its byte row), and after the last step the whole caches must be equal
+    (no stray write); the twin also on the CPU for `floor_steps` steps. Then
+    (layers=True) every layer alone on the same input, the kernel's ms per
+    step at pos_end (CUDA events) beside the host's enqueue time per step,
+    and the twin's."""
     import torch
 
     from qwen3_asr_tpu_torch.ops import megakernel as mk
@@ -336,7 +398,7 @@ def phase_mega(cfg, dec, kv: str = "int8", steps: int = 32,
     dcfg = cfg.decoder
     pack = dec["mega"]
     name = mode_name(pack, kv)
-    S, pos0 = 1664, MEGA_TIMED_POS - steps
+    pos0 = pos_end - steps
     got = _filled_cache(dcfg, S, pos0, torch.Generator(device="cuda").manual_seed(1), kv)
     ref = _clone(got)
     step = mk.DecodeStep(pack, dcfg, *got)
@@ -347,9 +409,8 @@ def phase_mega(cfg, dec, kv: str = "int8", steps: int = 32,
     for i in range(steps):
         pos = pos0 + i
         if i < floor_steps:  # the twin on the CPU, on the same inputs
-            cpu_cache = [None if t is None else t[:, :pos + 1].cpu() for t in ref]
             cpu_h = mk.mega_decode_step_ref(cpu_pack, dcfg, tok.cpu(), pos,
-                                            *cpu_cache)[1]
+                                            *_upto(ref, pos))[1]
         step(tok, pos, out)
         rt, rh, logits = mk.mega_decode_step_ref(
             pack, dcfg, tok, pos, *ref, return_logits=True)
@@ -366,12 +427,14 @@ def phase_mega(cfg, dec, kv: str = "int8", steps: int = 32,
         if bad and (rels[-1] == 0.0 or bad[0] == 0):
             raise AssertionError(f"mega ({name}) step {i} (h rel L2 {rels[-1]:.4f}): "
                                  f"fresh cache rows of layers {bad} differ")
-        for a, b in zip(got, ref):
-            if a is not None:
-                b[:, pos] = a[:, pos]
+        _sync_fresh(got, ref, pos)
         tok = rt.clone()
+    if not all(a is None or torch.equal(a, b) for a, b in zip(got, ref)):
+        raise AssertionError(f"mega ({name}): the kernel's caches differ from the twin's "
+                             f"outside the fresh rows after {steps} steps")
     n_exact = sum(r == 0.0 for r in rels)
-    layer_rels = phase_mega_layers(dcfg, pack, got, ref, pos0 + steps, tok)
+    layer_rels = (phase_mega_layers(dcfg, pack, got, ref, pos0 + steps, tok) if layers
+                  else [0.0])
     ms = cuda_ms(lambda: step(tok, pos0 + steps, out), 50)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -390,9 +453,10 @@ def phase_mega(cfg, dec, kv: str = "int8", steps: int = 32,
         f"kernel {ms:.4f} ms/step (host enqueue {enqueue:.4f} ms/step), "
         f"twin {plain:.4f} ms/step")
     log("  rel_l2(h) per step: " + " ".join(f"{r:.4f}" for r in rels))
-    log(f"  one layer on the same input, pos={pos0 + steps}: rel_l2(h) max "
-        f"{max(layer_rels):.3e}, per layer: "
-        + " ".join(f"{r:.1e}" for r in layer_rels))
+    if layers:
+        log(f"  one layer on the same input, pos={pos0 + steps}: rel_l2(h) max "
+            f"{max(layer_rels):.3e}, per layer: "
+            + " ".join(f"{r:.1e}" for r in layer_rels))
     if worst_gap > NEAR_TIE_TOL:
         raise AssertionError(f"megakernel ({name}) tokens disagree with the twin")
     if not max(rels) <= MEGA_H_REL:
@@ -582,8 +646,8 @@ def check_tokens_vs_twins(asr, samples, tokens, mel_bucket: int = 0):
     from qwen3_asr_tpu_torch.audio.mel import mel_device
     from qwen3_asr_tpu_torch.models import decoder as dmod
     from qwen3_asr_tpu_torch.models import encoder as emod
+    from qwen3_asr_tpu_torch.models import generate as gen
     from qwen3_asr_tpu_torch.models.e2e import _pad_pcm
-    from qwen3_asr_tpu_torch.models.generate import decode_token
     from qwen3_asr_tpu_torch.ops import megakernel as mk
     from qwen3_asr_tpu_torch.pipeline.asr import frontend_feats_batch
     from qwen3_asr_tpu_torch.text.prompt import audio_start_pos, build_asr_prompt
@@ -601,22 +665,21 @@ def check_tokens_vs_twins(asr, samples, tokens, mel_bucket: int = 0):
         prompt = build_asr_prompt(n_audio, dcfg)
         off, P = audio_start_pos(prompt, dcfg), len(prompt)
         S = -(-(P + len(tokens)) // 128) * 128
-        cache = dmod.init_kv_cache(dcfg, S, "cuda", asr.cache_dtype)
+        kv = gen.kv_dtype(dec, asr.cache_dtype)
+        cache = dmod.init_kv_cache(dcfg, S, "cuda", torch.int8 if kv == gen.INT4_KV else kv)
         h0 = dmod.embed_with_audio(dec, torch.tensor(prompt, device="cuda"), feats,
                                    n_audio, off)
         h = dmod.decoder_forward(dec, dcfg, h0, cache, P)
         logits = [dmod.lm_logits(dec, dcfg, h[P - 1])]
-        L, DKV = dcfg.n_layers, dcfg.n_kv_heads * dcfg.head_dim
+        kvs = gen.mega_caches(dcfg, cache, kv) if mega else None
         for i in range(1, len(tokens)):
             pos = P + i - 1
             t = torch.tensor([tokens[i - 1], 0], dtype=torch.int32, device="cuda")
             if mega:
                 logits.append(mk.mega_decode_step_ref(
-                    dec["mega"], dcfg, t[:1], pos, cache["k"].view(L, S, DKV),
-                    cache["v"].view(L, S, DKV), cache.get("k_s"), cache.get("v_s"),
-                    return_logits=True)[2])
+                    dec["mega"], dcfg, t[:1], pos, *kvs, return_logits=True)[2])
             else:
-                logits.append(decode_token(dec, dcfg, cache, t, 1, pos))
+                logits.append(gen.decode_token(dec, dcfg, cache, t, 1, pos))
     gaps = []
     for lg, tok in zip(logits, tokens):
         best = int(torch.argmax(lg))
@@ -909,7 +972,8 @@ def _wrappers() -> dict:
     from qwen3_asr_tpu_torch.ops import q8_matmul as q8
 
     return {"flash": fa.flash_attention_batch, "mega": mk.mega_decode_step_i8,
-            "mega_bf16": mk.mega_decode_step, "mega_batch": mb.mega_decode_step_batch,
+            "mega_bf16": mk.mega_decode_step, "mega_i4": mk.mega_decode_step_i4,
+            "mega_batch": mb.mega_decode_step_batch,
             "decode_attention": da.decode_attention, "q8_matmul": q8.q8_matmul,
             "q8_norm_matmul": q8.q8_norm_matmul, "q8_mlp": q8.q8_mlp,
             "mb_read": ms.stream_read, "mb_read_ring": ms.stream_read_ring,
@@ -1140,6 +1204,166 @@ def phase_int4_bf16(asr4):
         raise AssertionError(f"int4 / bf16 KV request: launches {got} != {want} or "
                              f"{len(r.tokens)} tokens")
     check_tokens_vs_twins(asr, pcm(5), r.tokens[:16])
+
+
+def timed_request(asr, seconds: float, max_tokens: int, **kw):
+    """One request with the counts reset just before it: -> (result, host
+    ms, launch counts)."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    r = asr.transcribe(pcm(seconds), tparams(max_tokens, **kw))
+    torch.cuda.synchronize()
+    return r, (time.perf_counter() - t0) * 1e3, counts()
+
+
+def check_window(what: str, wbits, got: dict, r, max_tokens: int, **want_kw) -> None:
+    """A request's window: launch counts as want_kw says (K2 once per
+    decoder layer), max_tokens in-range tokens."""
+    from qwen3_asr_tpu_torch.config import DecoderConfig
+
+    window(what, wbits, got)
+    L, V = DecoderConfig().n_layers, DecoderConfig().vocab_size
+    want = dict(no_launches(), flash=L, **want_kw)
+    if got != want:
+        raise AssertionError(f"{what}: launch counts {got} != {want}")
+    if not r.success or len(r.tokens) != max_tokens or not all(0 <= t < V for t in r.tokens):
+        raise AssertionError(f"{what}: {len(r.tokens)} tokens or one out of range")
+
+
+def phase_kv_int4(asr4, auto):
+    """`Qwen3ASR(quantize=q, kv_cache="int4").transcribe` (`--kv-int4`) for
+    q = int4 (the int4 pack), auto and int8pc (both the int8 pack): a 5 s /
+    64-token request each, a window of its own (K2 once per decoder layer,
+    K1's int4 entry once per decode step), tokens against the twins; the
+    int4 pack also at 92 s / 323 and 92 s / 1, whose difference over 322
+    steps is its decode ms/step. -> that ms/step."""
+    ms = {}
+    for label, base, quantize in (("int4", asr4, "int4"), ("auto", auto, "auto"),
+                                  ("int8pc", auto, "int8pc")):
+        asr = like(base, "int4")
+        asr.quantize = quantize
+        wbits = 4 if label == "int4" else 8
+        reqs = ((5, 64), (92, 323), (92, 1)) if label == "int4" else ((5, 64),)
+        for seconds, max_tokens in reqs:
+            r, t, got = timed_request(asr, seconds, max_tokens)
+            what = f"quantize={quantize!r}, int4 KV, {seconds} s / {max_tokens}"
+            log(f"request {what}: {t:.1f} ms, {len(r.tokens)} tokens; launches {got}")
+            check_window(what, wbits, got, r, max_tokens, mega_i4=max_tokens - 1)
+            ms[(label, seconds, max_tokens)] = t
+            if seconds == 5:
+                check_tokens_vs_twins(asr, pcm(5), r.tokens[:16])
+    per_step = (ms[("int4", 92, 323)] - ms[("int4", 92, 1)]) / 322
+    log(f"int4 weights + int4 KV decode: {per_step:.4f} ms/step (92 s request, fused)")
+    return per_step
+
+
+def phase_streaming(asr4, auto):
+    """The streaming path on the card (`--progress`, the server's lone SSE
+    streams): a progress callback set, so transcribe() takes the staged path
+    with generate_greedy_streaming (8 steps per host read). For the auto
+    path (int8 pack, bf16 KV) and for int4 weights with the int4 cache: a
+    5 s / 64-token request, a window of its own, whose tokens equal
+    transcribe's without the callback and which calls it once per token;
+    then 92 s / 323 and 92 s / 1 with and without the callback (the staged
+    path's generate_greedy), whose differences over 322 steps are the two
+    decode ms/step. -> {label: (streaming ms/step, generate_greedy
+    ms/step)}."""
+    out = {}
+    for label, asr, wbits, key in (("auto", auto, 8, "mega_bf16"),
+                                   ("int4 + int4 KV", like(asr4, "int4"), 4, "mega_i4")):
+        base = asr.transcribe(pcm(5), tparams(64)).tokens
+        calls = []
+        asr.set_progress_callback(lambda i, total: calls.append(i))
+        try:
+            r, t, got = timed_request(asr, 5, 64)
+            what = f"streaming ({label}) 5 s / 64"
+            log(f"request {what}: {t:.1f} ms, {len(r.tokens)} tokens, {len(calls)} "
+                f"callbacks; launches {got}")
+            check_window(what, wbits, got, r, 64, **{key: 63})
+            if r.tokens != base or calls != list(range(1, 65)):
+                raise AssertionError(f"{what}: tokens differ from transcribe's or "
+                                     f"{len(calls)} callbacks")
+            ms = {(True, n): timed_request(asr, 92, n, fused=False)[1] for n in (323, 1)}
+        finally:
+            asr.set_progress_callback(None)
+        ms.update({(False, n): timed_request(asr, 92, n, fused=False)[1] for n in (323, 1)})
+        out[label] = tuple((ms[(s, 323)] - ms[(s, 1)]) / 322 for s in (True, False))
+        log(f"  {label}: streaming decode {out[label][0]:.4f} ms/step, generate_greedy "
+            f"(staged) {out[label][1]:.4f} ms/step (92 s / 323 minus 92 s / 1)")
+    return out
+
+
+def phase_server_int4(auto):
+    """`qwen3-asr-cuda-serve --kv-cache int4` (closed batches) behind
+    serve_http on 127.0.0.1, port 0: a lone POST /v1/transcribe (transcribe
+    over the int4 cache: K1's int4 entry) and a lone SSE stream on
+    /v1/audio/transcriptions (outside any pool: the streaming path over the
+    int4 cache), each a window of its own; tokens and text equal
+    transcribe's on the same audio, the SSE deltas add up to its done
+    text."""
+    import json
+    import threading
+    import urllib.request
+
+    from qwen3_asr_tpu_torch.pipeline.asr import TranscribeParams
+    from qwen3_asr_tpu_torch.serve import ASRServer, serve_http
+    from qwen3_asr_tpu_torch.text.prompt import extract_transcript
+
+    asr = like(auto, "int4")
+    params = TranscribeParams(max_tokens=ENGINE_TOKENS, mel_bucket=ENGINE_KW["mel_bucket"],
+                              print_timing=False)
+    server = ASRServer(asr, params, max_batch=4, max_wait_ms=5)
+    httpd = serve_http(server, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    boundary = "chipsmokeboundary"
+    a_lone, a_sse = pcm(15, 40), pcm(30, 41)
+    sse_body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+                f"filename=\"a.wav\"\r\n\r\n").encode() + wav_bytes(a_sse) + (
+        f"\r\n--{boundary}\r\nContent-Disposition: form-data; name=\"stream\""
+        f"\r\n\r\ntrue\r\n--{boundary}--\r\n").encode()
+    L, EL = asr.cfg.decoder.n_layers, asr.cfg.encoder.n_layers
+    replies = {}
+    try:
+        for what, path, body, ctype, audio in (
+                ("lone request", "/v1/transcribe", wav_bytes(a_lone), "audio/wav", a_lone),
+                ("lone SSE stream", "/v1/audio/transcriptions", sse_body,
+                 f"multipart/form-data; boundary={boundary}", a_sse)):
+            reset_counts()
+            t0 = time.perf_counter()
+            req = urllib.request.Request(base + path, data=body,
+                                         headers={"Content-Type": ctype})
+            with urllib.request.urlopen(req, timeout=600) as rsp:
+                replies[what] = (rsp.status, rsp.read(), (time.perf_counter() - t0) * 1e3)
+            got = window(f"server --kv-cache int4, {what}", 8, counts())
+            want = dict(no_launches(), flash=L + EL * encoder_calls([[audio]]),
+                        mega_i4=ENGINE_TOKENS - 1)
+            log(f"phase server --kv-cache int4, {what}: code {replies[what][0]}, "
+                f"{replies[what][2]:.1f} ms; launches {got} (want {want})")
+            if replies[what][0] != 200 or got != want:
+                raise AssertionError(f"server int4 {what}: code {replies[what][0]}, "
+                                     f"launches {got}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+    ref_lone, ref_sse = asr.transcribe(a_lone, params), asr.transcribe(a_sse, params)
+    if json.loads(replies["lone request"][1])["text"] != ref_lone.text:
+        raise AssertionError("server int4 lone request: text differs from transcribe's")
+    data = [line[6:] for line in replies["lone SSE stream"][1].decode().split("\n")
+            if line.startswith("data: ")]
+    events = [json.loads(d) for d in data[:-1]]
+    deltas = [e["delta"] for e in events if e["type"] == "transcript.text.delta"]
+    if (data[-1] != "[DONE]" or events[-1]["type"] != "transcript.text.done"
+            or events[-1]["text"] != extract_transcript(ref_sse.text)
+            or "".join(deltas) != events[-1]["text"]):
+        raise AssertionError("server int4 SSE stream: events differ from transcribe's text")
+    check_request("server int4 lone request", ref_lone.tokens, asr.cfg.decoder.vocab_size)
+    log(f"  SSE: {len(deltas)} deltas adding up to the done text; lone and SSE text "
+        f"equal transcribe's")
 
 
 def phase_auto():
@@ -1444,6 +1668,7 @@ def main() -> int:
     eos_off(asr)
     m = phase_mega(asr.cfg, asr.params["decoder"])
     m4b = phase_mega(asr.cfg, asr.params["decoder"], "bf16", steps=16, floor_steps=0)
+    m4i4 = phase_mega(asr.cfg, asr.params["decoder"], "int4", steps=16)
 
     caches = []
     make_cache = gen_mod.init_kv_cache
@@ -1514,8 +1739,16 @@ def main() -> int:
     auto, auto_step, auto_stages = phase_auto()
     m8 = phase_mega(auto.cfg, auto.params["decoder"], "int8", steps=16, floor_steps=0)
     m8b = phase_mega(auto.cfg, auto.params["decoder"], "bf16", steps=16, floor_steps=0)
+    m8i4 = phase_mega(auto.cfg, auto.params["decoder"], "int4", steps=16, floor_steps=0)
+    # long context: K1 (int8 pack) at S 8,192 on each cache
+    long_ctx = {kv: phase_mega(auto.cfg, auto.params["decoder"], kv, steps=4, floor_steps=0,
+                               S=LONG_S, pos_end=LONG_POS, layers=False)
+                for kv in ("int8", "bf16", "int4")}
     k3_8 = phase_mega_batch(auto.cfg.decoder, auto.params["decoder"]["mega"])
     phase_server_default(auto)
+    i4_step = phase_kv_int4(asr, auto)
+    stream_ms = phase_streaming(asr, auto)
+    phase_server_int4(auto)
     del auto
 
     engine_tps, engine_launches = phase_engine(asr)
@@ -1526,7 +1759,10 @@ def main() -> int:
     total = {k: launches_of(k) for k in no_launches()}
     log(f"pool decode {engine_tps:.1f} tokens/s; q8_0 decode {q8_step_ms:.4f} "
         f"ms/step; auto decode {auto_step[True]:.4f} ms/step (staged "
-        f"{auto_step[False]:.4f}); launches over every checked window {total}")
+        f"{auto_step[False]:.4f}); int4 + int4 KV decode {i4_step:.4f} ms/step; "
+        f"streaming decode (vs generate_greedy, staged) " + ", ".join(
+            f"{k} {a:.4f} ({b:.4f})" for k, (a, b) in stream_ms.items())
+        + f"; launches over every checked window {total}")
 
     def row(name, src, replaces, launches, err, ms, plain, b_ms, b_by, lib=None, **extra):
         return {"name": name, "route": "cuda",
@@ -1544,9 +1780,16 @@ def main() -> int:
         row("mega_decode_step (int4 weights, bf16 KV)", "megakernel.cu", k1,
             launches_of("mega_bf16", 4), *m4b),
         row("mega_decode_step_i8 (int8 weights)", "megakernel.cu", k1,
-            launches_of("mega", 8), *m8),
+            launches_of("mega", 8), *m8,
+            s8192_ms=long_ctx["int8"][1], s8192_bound_ms=long_ctx["int8"][3]),
         row("mega_decode_step (int8 weights, bf16 KV)", "megakernel.cu", k1,
-            launches_of("mega_bf16", 8), *m8b),
+            launches_of("mega_bf16", 8), *m8b,
+            s8192_ms=long_ctx["bf16"][1], s8192_bound_ms=long_ctx["bf16"][3]),
+        row("mega_decode_step_i4 (int4 weights, int4 KV)", "megakernel.cu",
+            "qwen3_asr_tpu/ops/megakernel.py:1520", launches_of("mega_i4", 4), *m4i4),
+        row("mega_decode_step_i4 (int8 weights, int4 KV)", "megakernel.cu",
+            "qwen3_asr_tpu/ops/megakernel.py:1520", launches_of("mega_i4", 8), *m8i4,
+            s8192_ms=long_ctx["int4"][1], s8192_bound_ms=long_ctx["int4"][3]),
         row("flash_attention", "flash_attention.cu",
             "qwen3_asr_tpu/ops/pallas_attention.py:32", total["flash"],
             max(f[0] for f in (f_c, f_b, f_cb, f_bb)), f_c[1], f_c[2], f_c[4], f_c[5],

@@ -1,26 +1,32 @@
 // One greedy decode step of the Qwen3 decoder: int4 or int8 weights, an
-// int8 or bf16 KV cache.
+// int8, bf16 or int4 KV cache.
 //
-// Replaces: qwen3_asr_tpu/ops/megakernel.py::_mega_kernel in its resident
-// modes: int4 weights (the `int4=True` pack) or int8 weights (the default
-// pack), with an int8 KV cache (entry mega_decode_step_i8) or a bf16 one
-// (entry mega_decode_step). It computes what the Pallas body computes
+// Replaces: qwen3_asr_tpu/ops/megakernel.py::_mega_kernel on either pack,
+// int4 weights (the `int4=True` pack) or int8 weights (the default pack),
+// with an int8 KV cache (entry mega_decode_step_i8), a bf16 one (entry
+// mega_decode_step) or a nibble-packed int4 one (entry mega_decode_step_i4,
+// `kv_i4=True`), in its resident mode and its streamed-KV one (`kv_stream`,
+// an online softmax over 256-row tiles, which only a VMEM budget needs:
+// here one attention path reads any S). It computes what the Pallas body computes
 // (megakernel.py:669-1058): per layer RMSNorm, per-row int8 activation
 // quantization, the QKV product (int4: per-(512-row group, column) scales,
 // groups summed in f32; int8: one int32 dot over the whole input dim, then
 // one scale per column, megakernel.py:728-738), QK-RMSNorm, NEOX RoPE at
 // `pos`, GQA attention over the cache rows < pos plus the fresh K/V column,
 // the in-place write of the fresh K/V row at row `pos` (int8 codes and their
-// scales, or bf16 rounded to nearest even), the output projection, the
-// residual, the SwiGLU MLP; then the final norm, the lm head over the padded
-// vocab (padding masked) and the first-index argmax.
+// scales, bf16 rounded to nearest even, or int4 codes and their scales
+// merged into the row's nibble of its byte row, which the reference leaves
+// to XLA outside the kernel, megakernel.py:1420-1440), the output
+// projection, the residual, the SwiGLU MLP; then the final norm, the lm head
+// over the padded vocab (padding masked) and the first-index argmax.
 //
 // What bounds it on an H100: bytes. A step streams ~0.30 GB of int4 weights
 // and scales (0.60 GB as int8) plus the live cache (int8: 2 KB of K/V and
 // 64 B of scales per layer per row, ~70 MB at pos 1200; bf16: 4 KB, ~140 MB)
-// and does ~1-2 operations per weight byte, so the floor is ~110 us (int4,
-// int8 cache) to ~220 us (int8, bf16 cache) at 3.35 TB/s. The TPU kernel was one launch because
-// its per-op dispatch gaps starved HBM; on the H100 this first version is a
+// and does ~1-2 operations per weight byte, so the floor is ~100 us (int4,
+// int4 cache: 1 KB of K/V per layer per row) to ~220 us (int8, bf16 cache)
+// at 3.35 TB/s. The TPU kernel was one launch because its per-op dispatch
+// gaps starved HBM; on the H100 this first version is a
 // fixed sequence of ten simple kernels per layer behind the one C entry
 // point below, and the design attacks bytes and parallelism: weights stay
 // nibble-packed in device memory and are expanded in registers (no
@@ -30,9 +36,10 @@
 // attention splits the cache rows < pos into 64-row chunks (one block per
 // KV head and chunk, its K/V rows copied to shared memory with cp.async,
 // then a combine block per KV head) so the cache read is spread over the
-// SMs. Launch overhead (~280 launches per step, which now bounds the step
-// from the host) is what a CUDA graph or a persistent kernel removes in a
-// later PR.
+// SMs; an int4 chunk stages its 64 rows as 32 byte rows and sign-extends
+// the nibbles where the scores and the V sum read them. Launch overhead
+// (~280 launches per step, which now bounds the step from the host) is what
+// a CUDA graph or a persistent kernel removes in a later PR.
 //
 // Numerics follow the Pallas body exactly where it is exact: int32 group
 // dots, f32 `part * (sx * s_g)` terms summed over groups in order, bf16
@@ -224,4 +231,10 @@ extern "C" int qw_mega_decode_step_i8(const MegaPtrs* p, const MegaDims* dp, voi
 // The same step over a bf16 KV cache (no scales).
 extern "C" int qw_mega_decode_step(const MegaPtrs* p, const MegaDims* dp, void* stream) {
   return run_step<__nv_bfloat16>(p, dp, stream);
+}
+
+// The same step over a nibble-packed int4 KV cache ([L, S/2, DKV] bytes, S
+// even) with f32 scales [L, S, NKV], on either pack.
+extern "C" int qw_mega_decode_step_i4(const MegaPtrs* p, const MegaDims* dp, void* stream) {
+  return run_step<nib2>(p, dp, stream);
 }

@@ -1,7 +1,7 @@
 // Device code shared by the single-sequence decode step (megakernel.cu, K1)
 // and the batched one (megakernel_batch.cu, K3): the per-row norm /
 // quantization kernels, attention and the lm-head argmax of one Qwen3 decode
-// step on int4 weights and an int8 KV cache.
+// step on int4 or int8 weights over an int8, bf16 or (K1 only) int4 KV cache.
 //
 // Every kernel here works on one sequence ("row") per block index along its
 // row axis and never mixes rows, so the batched step computes each row with
@@ -39,9 +39,9 @@ struct MegaPtrs {
   const void* wd_s;
   const void* head_q;      // [H/2, Vp] (int8: [H, Vp])
   const void* head_s;      // [H/g_head, Vp] (int8: [Vp])
-  void* k_cache;           // [L, S, DKV] int8 or bf16
+  void* k_cache;           // [L, S, DKV] int8 or bf16, or [L, S/2, DKV] int4 pairs
   void* v_cache;
-  void* k_scale;           // [L, S, NKV] f32 (int8 cache; null for bf16)
+  void* k_scale;           // [L, S, NKV] f32 (int8 / int4 cache; null for bf16)
   void* v_scale;
   const void* token_in;    // [1] int32, or null when x_in is given
   const void* x_in;        // [H] bf16, or null
@@ -71,6 +71,25 @@ constexpr int ARGMAX_THREADS = 256;
 constexpr int ARGMAX_COLS = 4096;  // vocab columns per argmax block
 constexpr int I8_SPLIT = 512;      // input rows per block of an int8 GEMV
 constexpr int I8_MAX_SPLIT = 1024; // largest unsplit input dim it takes
+
+// The int4 cache's element: one byte holding column e of two neighbouring
+// cache rows, row 2r in the low nibble and row 2r + 1 in the high one (the
+// order of qwen3_asr_tpu/ops/megakernel.py::pack_kv_int4 and of the port's
+// unpack_nibbles). A cache of nib2 is [L, S/2, DKV] with f32 scales per
+// (row, head), [L, S, NKV], as the int8 cache has.
+struct nib2 {
+  uint8_t b;
+};
+
+// Cache rows per stored row (2 for nib2) and whether rows carry scales.
+template <typename CT>
+__host__ __device__ constexpr int rows_per_elem() {
+  return std::is_same<CT, nib2>::value ? 2 : 1;
+}
+template <typename CT>
+__host__ __device__ constexpr bool scaled_cache() {
+  return !std::is_same<CT, __nv_bfloat16>::value;
+}
 
 __host__ __device__ inline int n_attn_chunks(int rows) {
   return (rows + ATTN_ROWS - 1) / ATTN_ROWS;
@@ -133,11 +152,12 @@ inline bool dims_ok(const MegaDims& d, int gemv_cols, int max_group) {
   return true;
 }
 
-// cache_bytes: the size of a cache element (1 int8, 2 bf16). At D = 128 a
-// bf16 chunk stages 32 KB of K/V rows, under the 48 KB static limit.
-inline size_t attn_partial_smem(const MegaDims& d, size_t cache_bytes) {
+// A chunk stages ATTN_ROWS cache rows of K and of V: at D = 128, 32 KB of
+// bf16 rows (under the 48 KB static limit), 16 KB of int8, 8 KB of int4.
+template <typename CT>
+inline size_t attn_partial_smem(const MegaDims& d) {
   const int GROUP = d.NH / d.NKV;
-  return 2 * (size_t)ATTN_ROWS * d.D * cache_bytes +
+  return 2 * (size_t)(ATTN_ROWS / rows_per_elem<CT>()) * d.D * sizeof(CT) +
          sizeof(float) * ((size_t)GROUP * (d.D + ATTN_ROWS + 2) + 2 * ATTN_ROWS);
 }
 
@@ -303,33 +323,59 @@ __device__ void prep_qkv(const float* __restrict__ terms, int n_g,
   __syncthreads();
 }
 
-// Four cache elements from shared memory as f32 (e is a multiple of 4).
-__device__ __forceinline__ void load4(const int8_t* p, float* f) {
-  const char4 c = *reinterpret_cast<const char4*>(p);
+// Elements of cache row r of a staged chunk (rows of D elements) as f32:
+// four at e .. e + 3 (e a multiple of 4), or one at e. An int4 row is the low
+// or high nibble of byte row r / 2, sign-extended.
+__device__ __forceinline__ void row4(const int8_t* rows, int r, int D, int e, float* f) {
+  const char4 c = *reinterpret_cast<const char4*>(rows + r * D + e);
   f[0] = (float)c.x;
   f[1] = (float)c.y;
   f[2] = (float)c.z;
   f[3] = (float)c.w;
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* f) {
-  const float2 a = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[0]);
-  const float2 b = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[1]);
+__device__ __forceinline__ void row4(const __nv_bfloat16* rows, int r, int D, int e,
+                                     float* f) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(rows + r * D + e);
+  const float2 a = __bfloat1622float2(p[0]);
+  const float2 b = __bfloat1622float2(p[1]);
   f[0] = a.x;
   f[1] = a.y;
   f[2] = b.x;
   f[3] = b.y;
 }
 
+__device__ __forceinline__ float nibble(uint32_t bits, int shift) {
+  return (float)((int)((bits >> shift) << 28) >> 28);
+}
+
+__device__ __forceinline__ void row4(const nib2* rows, int r, int D, int e, float* f) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(rows + (r >> 1) * D + e);
+  const int sh = (r & 1) * 4;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) f[k] = nibble(w, 8 * k + sh);
+}
+
+template <typename CT>
+__device__ __forceinline__ float row1(const CT* rows, int r, int D, int e) {
+  return to_f(rows[r * D + e]);
+}
+
+template <>
+__device__ __forceinline__ float row1(const nib2* rows, int r, int D, int e) {
+  return nibble(rows[(r >> 1) * D + e].b, (r & 1) * 4);
+}
+
 // The chunk's K and V rows are copied into shared memory with cp.async
-// (16-byte pieces, all in flight at once: D / 16 pieces a row for int8, D / 8
-// for bf16) while q is prepared; everything after reads shared memory. A
-// chunk at or past the row's pos exits (the grid is sized for the largest pos
-// of the batch). Dynamic shared memory: kv[2][ATTN_ROWS][D] of the cache type
-// CT, then floats q[GROUP][D], p[GROUP][ATTN_ROWS], ml[2 * GROUP],
-// kss[ATTN_ROWS], vss[ATTN_ROWS]. An int8 cache's row scales multiply the
-// scores and the probabilities of the V sum (the denominator takes the
-// unscaled sum); a bf16 cache has no scales (ksc / vsc null).
+// (16-byte pieces, all in flight at once: D / 16 pieces a stored row for
+// int8 and int4, D / 8 for bf16; an int4 chunk is ATTN_ROWS / 2 byte rows)
+// while q is prepared; everything after reads shared memory. A chunk at or
+// past the row's pos exits (the grid is sized for the largest pos of the
+// batch). Dynamic shared memory: kv[2][ATTN_ROWS / rows_per_elem][D] of the
+// cache type CT, then floats q[GROUP][D], p[GROUP][ATTN_ROWS], ml[2 *
+// GROUP], kss[ATTN_ROWS], vss[ATTN_ROWS]. An int8 or int4 cache's row scales
+// multiply the scores and the probabilities of the V sum (the denominator
+// takes the unscaled sum); a bf16 cache has no scales (ksc / vsc null).
 template <typename CT>
 __global__ void __launch_bounds__(ATTN_THREADS) attn_partial(
     const float* __restrict__ terms, int n_g, const float* __restrict__ qn,
@@ -337,7 +383,9 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_partial(
     const CT* __restrict__ vc, const float* __restrict__ ksc,
     const float* __restrict__ vsc, float* __restrict__ part,
     const int* __restrict__ pos_arr, size_t ts, size_t slab_kv, size_t slab_s) {
-  constexpr bool QUANT = std::is_same<CT, int8_t>::value;
+  constexpr bool QUANT = scaled_cache<CT>();
+  constexpr int RPB = rows_per_elem<CT>();
+  constexpr int CR = ATTN_ROWS / RPB;   // stored rows per chunk
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int D = d.D, NKV = d.NKV, GROUP = d.NH / NKV, DKV = NKV * D;
   const int kvh = blockIdx.x, c = blockIdx.y, row = blockIdx.z;
@@ -350,20 +398,21 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_partial(
   vc += row * slab_kv;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
-  CT* kv = reinterpret_cast<CT*>(smem_raw);   // [2][ATTN_ROWS][D]
-  float* q = reinterpret_cast<float*>(smem_raw + 2 * ATTN_ROWS * D * sizeof(CT));
+  CT* kv = reinterpret_cast<CT*>(smem_raw);   // [2][CR][D]
+  float* q = reinterpret_cast<float*>(smem_raw + 2 * CR * D * sizeof(CT));
   float* p = q + GROUP * D;             // [GROUP][ATTN_ROWS]
   float* ml = p + GROUP * ATTN_ROWS;    // m[GROUP], l[GROUP]
   float* kss = ml + 2 * GROUP;          // [ATTN_ROWS]
   float* vss = kss + ATTN_ROWS;         // [ATTN_ROWS]
 
   const int pieces = D * (int)sizeof(CT) / 16;
-  for (int i = tid; i < 2 * nr * pieces; i += blockDim.x) {
-    const int which = i / (nr * pieces), rem = i % (nr * pieces);
+  const int ns = (nr + RPB - 1) / RPB;  // stored rows holding the live rows
+  for (int i = tid; i < 2 * ns * pieces; i += blockDim.x) {
+    const int which = i / (ns * pieces), rem = i % (ns * pieces);
     const int r = rem / pieces, piece = rem % pieces;
-    const CT* src = (which ? vc : kc) + (size_t)(r0 + r) * DKV + kvh * D;
+    const CT* src = (which ? vc : kc) + (size_t)(r0 / RPB + r) * DKV + kvh * D;
     __pipeline_memcpy_async(
-        reinterpret_cast<unsigned char*>(kv + (which * ATTN_ROWS + r) * D) + piece * 16,
+        reinterpret_cast<unsigned char*>(kv + (which * CR + r) * D) + piece * 16,
         reinterpret_cast<const unsigned char*>(src) + piece * 16, 16);
   }
   __pipeline_commit();
@@ -379,17 +428,16 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_partial(
   __pipeline_wait_prior(0);
   __syncthreads();
   const CT* ks_rows = kv;
-  const CT* vs_rows = kv + ATTN_ROWS * D;
+  const CT* vs_rows = kv + CR * D;
 
   // scores (times the row's k scale): one warp per row, 4 elements per lane
   for (int r = warp; r < nr; r += nwarps) {
-    const CT* kr = ks_rows + r * D;
     for (int j = 0; j < GROUP; ++j) {
       const float* qj = q + j * D;
       float s = 0.f;
       for (int e = 4 * lane; e < D; e += 128) {
         float k4[4];
-        load4(kr + e, k4);
+        row4(ks_rows, r, D, e, k4);
         s += qj[e] * k4[0] + qj[e + 1] * k4[1] + qj[e + 2] * k4[2] + qj[e + 3] * k4[3];
       }
       s = warp_sum(s);
@@ -424,7 +472,7 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_partial(
     const int j = pr / D, e = pr % D;
     const float* pj = p + j * ATTN_ROWS;
     float o = 0.f;
-    for (int r = 0; r < nr; ++r) o = fmaf(pj[r], to_f(vs_rows[r * D + e]), o);
+    for (int r = 0; r < nr; ++r) o = fmaf(pj[r], row1(vs_rows, r, D, e), o);
     out[j * (D + 2) + 2 + e] = o;
   }
   if (tid < GROUP) {
@@ -436,8 +484,10 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_partial(
 // Block (kvh, row). Dynamic shared memory: vec[(GROUP + 2) * D], misc[3 *
 // GROUP]. Reads the row's n_attn_chunks(pos) partials; attn_out row stride
 // is DQ. The fresh K/V row enters the max and the sum in f32 and is stored
-// at cache row pos: quantized with its scale (int8), or rounded to nearest
-// even (bf16).
+// at cache row pos: quantized with its scale (int8: amax / 127, codes in
+// [-127, 127]; int4: amax / 7, codes in [-7, 7] written into their nibble of
+// byte row pos / 2, the other nibble kept), or rounded to nearest even
+// (bf16).
 template <typename CT>
 __global__ void __launch_bounds__(ATTN_THREADS) attn_combine(
     const float* __restrict__ terms, int n_g, const float* __restrict__ qn,
@@ -504,14 +554,25 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_combine(
   // the partial blocks read only rows < pos
   if (warp < 2) {
     const float* x = warp == 0 ? kf : vf;
-    CT* dst = (warp == 0 ? kc : vc) + (size_t)pos * DKV + kvh * D;
-    if constexpr (std::is_same<CT, int8_t>::value) {
+    CT* dst = (warp == 0 ? kc : vc) + (size_t)(pos / rows_per_elem<CT>()) * DKV + kvh * D;
+    if constexpr (scaled_cache<CT>()) {
+      // s = amax / qmax as the reference computes it under jit: a multiply
+      // by f32(1 / qmax)
+      constexpr bool I4 = std::is_same<CT, nib2>::value;
+      constexpr float QMAX = I4 ? 7.f : 127.f;
       float amax = 0.f;
       for (int e = lane; e < D; e += 32) amax = fmaxf(amax, fabsf(x[e]));
       amax = warp_max(amax);
-      const float s = fmaxf(amax * (1.f / 127.f), 1e-12f);
+      const float s = fmaxf(amax * (1.f / QMAX), 1e-12f);
       for (int e = lane; e < D; e += 32) {
-        dst[e] = (int8_t)fminf(fmaxf(rintf(x[e] / s), -127.f), 127.f);
+        const float qv = fminf(fmaxf(rintf(x[e] / s), -QMAX), QMAX);
+        if constexpr (I4) {
+          const int sh = (pos & 1) * 4;   // even pos: low nibble; odd: high
+          const uint32_t keep = dst[e].b & (0xF0u >> sh);
+          dst[e].b = (uint8_t)(keep | (((uint32_t)(int)qv & 0xFu) << sh));
+        } else {
+          dst[e] = (int8_t)qv;
+        }
       }
       if (lane == 0) (warp == 0 ? ksc : vsc)[row * slab_s + (size_t)pos * NKV + kvh] = s;
     } else {
@@ -656,20 +717,21 @@ inline size_t layout(const MegaDims& d, int B, char* base, Scratch* s) {
   return off;
 }
 
-// One decode step of B rows over a cache of element type CT (int8_t with
-// f32 row scales, or __nv_bfloat16): the launch sequence both entry points
-// share. `gemv(wq, ws, layer, n_in, N, G)` launches the product (int4 or
+// One decode step of B rows over a cache of element type CT (int8_t or nib2
+// with f32 row scales, or __nv_bfloat16): the launch sequence both entry
+// points share (K3 instantiates int8_t only). `gemv(wq, ws, layer, n_in, N, G)` launches the product (int4 or
 // int8 weights) of all B rows of s.xq (row scales s.sx) into s.terms;
 // pos_arr is null for K1.
 template <typename CT, typename Gemv>
 void decode_step(const MegaPtrs* p, const MegaDims& d, const int* pos_arr, int B,
                  const Scratch& s, cudaStream_t st, Gemv gemv) {
-  constexpr bool QUANT = std::is_same<CT, int8_t>::value;
+  constexpr bool QUANT = scaled_cache<CT>();
   const int DQ = d.NH * d.D, DKV = d.NKV * d.D;
+  const int SE = d.S / rows_per_elem<CT>();   // stored rows per layer
   const int nchunks = n_attn_chunks(d.pos);
   const size_t ts = terms_floats(d), qs = (size_t)widest_row(d);
-  const size_t slab_kv = (size_t)d.L * d.S * DKV, slab_s = (size_t)d.L * d.S * d.NKV;
-  const size_t smem_partial = attn_partial_smem(d, sizeof(CT));
+  const size_t slab_kv = (size_t)d.L * SE * DKV, slab_s = (size_t)d.L * d.S * d.NKV;
+  const size_t smem_partial = attn_partial_smem<CT>(d);
   const size_t smem_combine = attn_combine_smem(d);
 
   const __nv_bfloat16* embd = (const __nv_bfloat16*)p->embd;
@@ -697,8 +759,8 @@ void decode_step(const MegaPtrs* p, const MegaDims& d, const int* pos_arr, int B
     gemv(p->qkv_q, p->qkv_s, l, d.H, DQ + 2 * DKV, d.g_qkv);
     const float* qn = q_norm + (size_t)l * d.D;
     const float* kn = k_norm + (size_t)l * d.D;
-    CT* kl = kc + (size_t)l * d.S * DKV;
-    CT* vl = vc + (size_t)l * d.S * DKV;
+    CT* kl = kc + (size_t)l * SE * DKV;
+    CT* vl = vc + (size_t)l * SE * DKV;
     float* ksl = QUANT ? ksc + (size_t)l * d.S * d.NKV : nullptr;
     float* vsl = QUANT ? vsc + (size_t)l * d.S * d.NKV : nullptr;
     attn_partial<CT><<<dim3(d.NKV, nchunks, B), ATTN_THREADS, smem_partial, st>>>(
@@ -733,8 +795,8 @@ void decode_step(const MegaPtrs* p, const MegaDims& d, const int* pos_arr, int B
 // The checks both entry points make before a step over a cache of type CT.
 template <typename CT>
 inline bool step_ok(const MegaDims& d, int gemv_cols, int max_group) {
-  return dims_ok(d, gemv_cols, max_group) &&
-         attn_partial_smem(d, sizeof(CT)) <= 48 * 1024 &&
+  return dims_ok(d, gemv_cols, max_group) && d.S % rows_per_elem<CT>() == 0 &&
+         attn_partial_smem<CT>(d) <= 48 * 1024 &&
          attn_combine_smem(d) <= 48 * 1024;
 }
 

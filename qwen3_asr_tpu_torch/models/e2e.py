@@ -56,7 +56,9 @@ def transcribe_fused(params: dict, cfg: ASRModelConfig, samples: np.ndarray,
                      ) -> tuple[np.ndarray, int]:
     """int16 or float PCM -> (tokens [max_tokens], n_kept) on the device of
     `filters_t` ([201, n_mels] f32). cache_dtype: the KV cache's dtype, as
-    generate_greedy takes it (bf16 by default, as in the reference)."""
+    generate_greedy takes it: bf16 by default, as in the reference, int8,
+    or generate.INT4_KV (the decode pack's int4 cache, packed from the
+    prefill's int8 rows; int8 without a pack)."""
     samples = np.asarray(samples)
     if samples.dtype != np.int16:
         samples = samples.astype(np.float32)

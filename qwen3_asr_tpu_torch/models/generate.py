@@ -1,22 +1,32 @@
 """Greedy generation: the prefill, then the decode loop, for one sequence
 or (decode pack, int8 cache) a batch in lockstep.
 
-Port of qwen3_asr_tpu/models/generate.py:36-207 and of
-`prefill_batch_mega_cache` / `generate_greedy_batch_mega` (:465-578), the
-batched path. The branch follows what the tree holds, as in the reference:
-a decode pack (`"mega"`, int4 or int8 weights) runs each step through the
-decode megakernel, its entry picked by the cache dtype (`mega_decode_step_i8`
-for int8, `mega_decode_step` for bf16, generate.py:143-173); any other tree
-(dense bf16 or Q8_0 weights) runs the per-layer decode step,
-`decoder_forward` at T = 1, over a bf16 or int8 cache. The rules stay: the
-cache holds S = P + max_tokens rounded up to 128 rows; the token consumed by
-step i sits at position
-pos = n_prompt + i - 1; the loop stops at EOS or max_tokens; n_kept counts
-the tokens before the first EOS. The loop never needs the host for a token
-(each step reads the previous token from the device buffer); the host reads
-the buffer back every EOS_CHECK_EVERY steps to test for EOS, so up to
-EOS_CHECK_EVERY - 1 steps may run past an EOS. Their tokens are filler, as in
-the JAX package, and n_kept ignores them.
+Port of qwen3_asr_tpu/models/generate.py:36-462 (`generate_greedy`,
+`prefill_only`, the streaming path `generate_greedy_streaming` with its
+`decode_chunk*` functions) and of `prefill_batch_mega_cache` /
+`generate_greedy_batch_mega` (:465-578), the batched path. The branch
+follows what the tree holds, as in the reference: a decode pack (`"mega"`,
+int4 or int8 weights) runs each step through the decode megakernel, its
+entry picked by the cache dtype (`mega_decode_step_i8` for int8,
+`mega_decode_step` for bf16, `mega_decode_step_i4` for the int4 cache,
+generate.py:99-178); any other tree (dense bf16 or Q8_0 weights) runs the
+per-layer decode step, `decoder_forward` at T = 1, over a bf16 or int8
+cache. The int4 cache exists only as the decode pack's stream: the prefill
+writes the int8 layout, which is packed once before the first step, and
+without a decode pack an int4 cache runs as int8 (generate.py:60-64,
+:380-386). The reference's streamed-KV mode (`kv_stream`, past its VMEM
+budget) needs no switch here: the kernels read any S.
+
+The rules stay: the cache holds S = P + max_tokens rounded up to 128 rows;
+the token consumed by step i sits at position pos = n_prompt + i - 1; the
+loop stops at EOS or max_tokens; n_kept counts the tokens before the first
+EOS. `generate_greedy` never needs the host for a token (each step reads the
+previous token from the device buffer); the host reads the buffer back
+every EOS_CHECK_EVERY steps to test for EOS, so up to EOS_CHECK_EVERY - 1
+steps may run past an EOS. Their tokens are filler, as in the JAX package,
+and n_kept ignores them. The streaming path decodes `chunk` tokens per host
+read and calls its callbacks per token; its chunks also run to their end
+and keep the tokens up to the first EOS.
 """
 
 from __future__ import annotations
@@ -34,13 +44,22 @@ from qwen3_asr_tpu_torch.models.decoder import (
     lm_logits,
     lm_logits_block,
 )
-from qwen3_asr_tpu_torch.ops.megakernel import DecodeStep, mega_decode_step_ref
+from qwen3_asr_tpu_torch.ops.megakernel import (
+    DecodeStep,
+    mega_decode_step_ref,
+    pack_kv_int4,
+)
 from qwen3_asr_tpu_torch.ops.megakernel_batch import (
     BatchDecodeStep,
     mega_decode_step_batch_ref,
 )
 
 EOS_CHECK_EVERY = 16   # decode steps between the host's reads of the tokens
+STREAM_CHUNK = 8       # decode steps per host read on the streaming path
+# The cache_dtype that asks for the int4 cache: its stored type, nibble
+# pairs in bytes (torch has no int4 dtype; the reference uses jnp.int4 as
+# the same kind of marker).
+INT4_KV = torch.uint8
 
 
 def decode_token(dec_params: dict, cfg: DecoderConfig, cache: dict,
@@ -57,6 +76,74 @@ def decode_token(dec_params: dict, cfg: DecoderConfig, cache: dict,
     return logits
 
 
+def cache_rows(P: int, max_tokens: int) -> int:
+    """Cache rows for a prompt bucket P and a token budget: P + max_tokens
+    rounded up to 128."""
+    return -(-(P + max_tokens) // 128) * 128
+
+
+def kv_dtype(dec_params: dict, cache_dtype: torch.dtype) -> torch.dtype:
+    """The cache a request decodes over: the int4 cache only with a decode
+    pack (without one it runs as int8, as the reference's does)."""
+    if cache_dtype == INT4_KV and "mega" not in dec_params:
+        return torch.int8
+    return cache_dtype
+
+
+def prefill(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
+            n_prompt: int, audio: torch.Tensor | None, n_audio: int,
+            audio_offset: int, S: int, cache_dtype: torch.dtype):
+    """Port of `prefill_only`: the prompt block (tokens [P] int32 on the
+    device, rows >= n_prompt padding) into a fresh cache of S rows. ->
+    (the first greedy token int32 [1] on the device, the cache), an int8
+    cache for the int4 one."""
+    cache = init_kv_cache(cfg, S, tokens.device,
+                          torch.int8 if cache_dtype == INT4_KV else cache_dtype)
+    h0 = embed_with_audio(dec_params, tokens, audio, n_audio, audio_offset)
+    h = decoder_forward(dec_params, cfg, h0, cache, n_prompt)
+    first = torch.argmax(lm_logits(dec_params, cfg, h[n_prompt - 1]))
+    return first.to(torch.int32).reshape(1), cache
+
+
+def mega_caches(cfg: DecoderConfig, cache: dict, cache_dtype: torch.dtype):
+    """The decode pack's flat caches (k, v [L, S, DKV], k_s, v_s) over the
+    prefill's cache: views of it, or for the int4 cache its rows packed
+    once (k, v uint8 [L, S/2, DKV], scales * 127/7)."""
+    L, S = cache["k"].shape[:2]
+    DKV = cfg.n_kv_heads * cfg.head_dim
+    k, v = cache["k"].view(L, S, DKV), cache["v"].view(L, S, DKV)
+    if cache_dtype == INT4_KV:
+        (k, ks), (v, vs) = pack_kv_int4(k, cache["k_s"]), pack_kv_int4(v, cache["v_s"])
+        return k, v, ks, vs
+    return k, v, cache.get("k_s"), cache.get("v_s")
+
+
+def mega_runner(pack: dict, cfg: DecoderConfig, kvs):
+    """run(out, i, pos): one decode-pack step consuming out[i - 1] at
+    position pos over the flat caches kvs, writing out[i] on the device (the
+    kernels for CUDA tensors, the twin for CPU ones)."""
+    if kvs[0].device.type == "cuda":
+        step = DecodeStep(pack, cfg, *kvs)
+
+        def run(out, i, pos):
+            step(out[i - 1:i], pos, out[i:i + 1])
+    else:
+        def run(out, i, pos):
+            out[i:i + 1] = mega_decode_step_ref(pack, cfg, out[i - 1:i], pos, *kvs)[0]
+    return run
+
+
+def _step_runner(dec_params: dict, cfg: DecoderConfig, cache: dict,
+                 cache_dtype: torch.dtype):
+    """run(out, i, pos) over the prefill's cache: the decode pack's step, or
+    the per-layer step without one."""
+    if "mega" not in dec_params:
+        def run(out, i, pos):
+            decode_token(dec_params, cfg, cache, out, i, pos)
+        return run
+    return mega_runner(dec_params["mega"], cfg, mega_caches(cfg, cache, cache_dtype))
+
+
 def generate_greedy(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
                     n_prompt: int, audio: torch.Tensor | None, n_audio: int,
                     audio_offset: int, max_tokens: int,
@@ -65,54 +152,138 @@ def generate_greedy(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
     """tokens [P] int32 on the model's device (rows >= n_prompt are padding)
     -> (out_tokens [max_tokens] int32 on the host, n_kept). Tokens at index
     >= n_kept are filler; EOS is not counted. cache_dtype: torch.bfloat16
-    (the reference's default) or torch.int8."""
-    P = tokens.shape[0]
-    S = cache_rows(P, max_tokens)
-    dev = tokens.device
-    L, NKV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    mega = "mega" in dec_params
-    cache = init_kv_cache(cfg, S, dev, cache_dtype)
-
-    h0 = embed_with_audio(dec_params, tokens, audio, n_audio, audio_offset)
-    h = decoder_forward(dec_params, cfg, h0, cache, n_prompt)
-    first = torch.argmax(lm_logits(dec_params, cfg, h[n_prompt - 1]))
-
-    out = torch.zeros(max_tokens, dtype=torch.int32, device=dev)
-    out[0] = first.to(torch.int32)
-    if not mega:
-        def run(i, pos):
-            # the token consumed by step i sits at position pos = n_prompt + i - 1
-            decode_token(dec_params, cfg, cache, out, i, pos)
-    else:
-        pack = dec_params["mega"]
-        kv = (cache["k"].view(L, S, NKV * D), cache["v"].view(L, S, NKV * D),
-              cache.get("k_s"), cache.get("v_s"))
-        if dev.type == "cuda":
-            step = DecodeStep(pack, cfg, *kv)
-
-            def run(i, pos):
-                step(out[i - 1:i], pos, out[i:i + 1])
-        else:
-            def run(i, pos):
-                out[i:i + 1] = mega_decode_step_ref(pack, cfg, out[i - 1:i], pos,
-                                                    *kv)[0]
-
+    (the reference's default), torch.int8 or INT4_KV."""
+    cache_dtype = kv_dtype(dec_params, cache_dtype)
+    S = cache_rows(tokens.shape[0], max_tokens)
+    first, cache = prefill(dec_params, cfg, tokens, n_prompt, audio, n_audio,
+                           audio_offset, S, cache_dtype)
+    out = torch.zeros(max_tokens, dtype=torch.int32, device=tokens.device)
+    out[:1] = first
+    run = _step_runner(dec_params, cfg, cache, cache_dtype)
     eos = cfg.eos_token_id
     i = 1
     while i < max_tokens:
         if (i - 1) % EOS_CHECK_EVERY == 0 and bool((out[:i] == eos).any()):
             break
-        run(i, n_prompt + i - 1)
+        run(out, i, n_prompt + i - 1)   # the token of step i sits at n_prompt + i - 1
         i += 1
     host = out.cpu().numpy()
     hits = np.flatnonzero(host[:i] == eos)
     return host, int(hits[0]) if hits.size else i
 
 
-def cache_rows(P: int, max_tokens: int) -> int:
-    """Cache rows for a prompt bucket P and a token budget: P + max_tokens
-    rounded up to 128."""
-    return -(-(P + max_tokens) // 128) * 128
+# ---------------------------------------------------------------------------
+# the streaming path
+# ---------------------------------------------------------------------------
+
+def _chunk(run, token: torch.Tensor, pos0: int, n_steps: int, limit: int,
+           eos: int) -> tuple[np.ndarray, int]:
+    """Up to `limit` (<= n_steps) greedy successors of `token` (int32 [1] on
+    the device) at positions pos0, pos0 + 1, ..., with one host read. The
+    device runs all `limit` steps; the successors after the first EOS are
+    dropped (zeros). -> (successors int32 [n_steps] on the host,
+    n_generated: up to and with the first EOS)."""
+    buf = torch.zeros(n_steps + 1, dtype=torch.int32, device=token.device)
+    buf[:1] = token
+    for i in range(1, limit + 1):
+        run(buf, i, pos0 + i - 1)
+    succ = buf[1:].cpu().numpy()
+    hits = np.flatnonzero(succ[:limit] == eos)
+    n = int(hits[0]) + 1 if hits.size else limit
+    succ[n:] = 0
+    return succ, n
+
+
+def decode_chunk(dec_params: dict, cfg: DecoderConfig, token: torch.Tensor,
+                 pos0: int, cache: dict, n_steps: int, limit: int
+                 ) -> tuple[np.ndarray, int]:
+    """Up to `limit` greedy successors of `token` through the per-layer
+    step over `cache` (written in place). -> (successors [n_steps],
+    n_generated), n_generated counting up to and with the first EOS."""
+    def run(out, i, pos):
+        decode_token(dec_params, cfg, cache, out, i, pos)
+    return _chunk(run, token, pos0, n_steps, limit, cfg.eos_token_id)
+
+
+def _decode_chunk_mega_any(dec_params: dict, cfg: DecoderConfig, token: torch.Tensor,
+                           pos0: int, kvs, n_steps: int, limit: int, run=None
+                           ) -> tuple[np.ndarray, int]:
+    """decode_chunk through the decode pack's step over the flat caches
+    kvs = (k, v, k_s, v_s) (scales None for bf16), written in place; `run`
+    is a mega_runner bound to them (made here when None). Same
+    (successors, n_generated) contract as decode_chunk."""
+    run = run or mega_runner(dec_params["mega"], cfg, kvs)
+    return _chunk(run, token, pos0, n_steps, limit, cfg.eos_token_id)
+
+
+def decode_chunk_mega(dec_params, cfg, token, pos0, k3, v3, n_steps, limit):
+    """decode_chunk through the bf16-KV step (flat caches [L, S, DKV])."""
+    return _decode_chunk_mega_any(dec_params, cfg, token, pos0, (k3, v3, None, None),
+                                  n_steps, limit)
+
+
+def decode_chunk_mega_i8(dec_params, cfg, token, pos0, k3, v3, ks, vs, n_steps, limit):
+    """decode_chunk through the int8-KV step (scales [L, S, n_kv])."""
+    return _decode_chunk_mega_any(dec_params, cfg, token, pos0, (k3, v3, ks, vs),
+                                  n_steps, limit)
+
+
+def decode_chunk_mega_i4(dec_params, cfg, token, pos0, k3, v3, ks, vs, n_steps, limit):
+    """decode_chunk through the int4-KV step (nibble pairs [L, S/2, DKV],
+    scales [L, S, n_kv])."""
+    return _decode_chunk_mega_any(dec_params, cfg, token, pos0, (k3, v3, ks, vs),
+                                  n_steps, limit)
+
+
+def generate_greedy_streaming(dec_params: dict, cfg: DecoderConfig,
+                              tokens: torch.Tensor, n_prompt: int,
+                              audio: torch.Tensor | None, n_audio: int,
+                              audio_offset: int, max_tokens: int, on_token=None,
+                              cache_dtype: torch.dtype = torch.bfloat16,
+                              chunk: int = STREAM_CHUNK, on_token_id=None) -> list[int]:
+    """Greedy decode with a host loop, calling `on_token(i, max_tokens)` per
+    token (the reference's progress contract) and, when given,
+    `on_token_id(token)` with each token id (the server's SSE streams ride
+    it). Decodes `chunk` tokens per host read; the callbacks stay per token.
+    Same tokens as generate_greedy. -> the tokens, EOS not included."""
+    cache_dtype = kv_dtype(dec_params, cache_dtype)
+    S = cache_rows(tokens.shape[0], max_tokens)
+    token, cache = prefill(dec_params, cfg, tokens, n_prompt, audio, n_audio,
+                           audio_offset, S, cache_dtype)
+    if "mega" in dec_params:
+        kvs = mega_caches(cfg, cache, cache_dtype)
+        run = mega_runner(dec_params["mega"], cfg, kvs)
+
+        def decode(token, pos0, limit):
+            return _decode_chunk_mega_any(dec_params, cfg, token, pos0, kvs, chunk,
+                                          limit, run)
+    else:
+        def decode(token, pos0, limit):
+            return decode_chunk(dec_params, cfg, token, pos0, cache, chunk, limit)
+    out: list[int] = []
+
+    def emit(t: int) -> bool:
+        if t == cfg.eos_token_id or len(out) >= max_tokens:
+            return False
+        out.append(t)
+        if on_token:
+            on_token(len(out), max_tokens)
+        if on_token_id:
+            on_token_id(t)
+        return len(out) < max_tokens
+
+    if not emit(int(token[0])):
+        return out
+    while True:
+        limit = min(chunk, max_tokens - len(out))
+        succ, n = decode(token, n_prompt + len(out) - 1, limit)
+        arr = succ[:n]
+        if len(arr) == 0:
+            break
+        token = torch.tensor(arr[-1:], dtype=torch.int32, device=tokens.device)
+        if not all(emit(int(t)) for t in arr) or n < limit:
+            break
+    return out
 
 
 def prefill_batch_mega_cache(dec_params: dict, cfg: DecoderConfig,

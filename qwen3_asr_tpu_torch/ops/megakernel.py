@@ -1,11 +1,13 @@
 """Greedy decode step on the decode pack (int4 or int8 weights) with an
-int8 or bf16 KV cache: the CUDA kernels `csrc/megakernel.cu` and their
-plain PyTorch twin.
+int8, bf16 or int4 KV cache: the CUDA kernels `csrc/megakernel.cu` and
+their plain PyTorch twin.
 
-Port of qwen3_asr_tpu/ops/megakernel.py in its resident modes:
-`mega_decode_step_i8` (int8 KV) and `mega_decode_step` (bf16 KV), each on
+Port of qwen3_asr_tpu/ops/megakernel.py: `mega_decode_step_i8` (int8 KV),
+`mega_decode_step` (bf16 KV) and `mega_decode_step_i4` (int4 KV), each on
 the int8 pack (`pack_megakernel_params(int4=False)`, the default, which
-`--quantize auto` / `int8pc` runs) or the int4 one (`int4=True`). The int4
+`--quantize auto` / `int8pc` runs) or the int4 one (`int4=True`). The
+reference's streamed-KV mode (`kv_stream=True`) is the same function; the
+kernels read any S with one attention path, so it has no entry here. The int4
 quantizer (`_int4_group_for`, `_quant_int4_groups` with the MSE clip search)
 is ported as it is. The packs' layouts are the port's own, plain row major:
 int8 weights `[L, in, out]` with one f32 scale per output column `[L, out]`
@@ -18,7 +20,11 @@ TPU's tile-major packs, scale blocks and ring geometry are not ported.
 
 Cache layout at the public functions: k/v `[L, S, n_kv * head_dim]` int8
 with scales `[L, S, n_kv]` f32, or bf16 without scales (the prefill's
-layout). A step writes cache row `pos` in place and reads rows `< pos`.
+layout), or the int4 cache: uint8 `[L, S/2, n_kv * head_dim]`, byte row r
+holding cache row 2r in its low nibble and row 2r + 1 in its high one, with
+scales `[L, S, n_kv]` f32 (the reference keeps them as `[L, n_kv, S]`, a
+Mosaic layout). `pack_kv_int4` makes it from the prefill's int8 rows. A
+step writes cache row `pos` in place and reads rows `< pos`.
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ CHUNK_IN = 1024    # the reference's group sizes divide its 1024-row chunks
 HEAD_PAD = 128     # the lm head's vocab is zero-padded to this multiple
 _INT4_CLIP_CANDIDATES = (0.9, 0.8)
 INV7 = float(np.float32(1.0 / 7.0))  # amax / 7 as XLA computes it
+KV4_FROM8 = float(np.float32(7.0 / 127.0))   # pack_kv_int4's f32 constants
+KV4_SCALE = float(np.float32(127.0 / 7.0))
 
 
 # ---------------------------------------------------------------------------
@@ -87,10 +95,10 @@ def _quant_int4_groups(w: torch.Tensor, G: int | None = None
 
 
 def pack_nibbles(q: torch.Tensor) -> torch.Tensor:
-    """int4 values in int8 [in, out] -> uint8 [in/2, out]: byte row r =
-    (row 2r+1 << 4) | (row 2r & 0xF)."""
+    """int4 values in int8 [..., in, out] -> uint8 [..., in/2, out]: byte
+    row r = (row 2r+1 << 4) | (row 2r & 0xF)."""
     u = q.view(torch.uint8)
-    return ((u[1::2] & 0xF) << 4) | (u[0::2] & 0xF)
+    return ((u[..., 1::2, :] & 0xF) << 4) | (u[..., 0::2, :] & 0xF)
 
 
 def unpack_nibbles(b: torch.Tensor) -> torch.Tensor:
@@ -99,6 +107,18 @@ def unpack_nibbles(b: torch.Tensor) -> torch.Tensor:
     hi = ((b >> 4).to(torch.int16) ^ 8) - 8
     out = torch.stack([lo, hi], dim=-2)           # [..., in/2, 2, out]
     return out.reshape(*b.shape[:-2], 2 * b.shape[-2], b.shape[-1]).to(torch.int8)
+
+
+def pack_kv_int4(kq: torch.Tensor, scale: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The prefill's int8 cache -> the int4 cache, bit-equal to
+    qwen3_asr_tpu/ops/megakernel.py::pack_kv_int4: kq [L, S, DKV] int8 with
+    scales [L, S, n_kv] -> (uint8 [L, S/2, DKV] nibble pairs, scales * 127/7
+    [L, S, n_kv] f32), the codes requantized as clip(round(q * 7/127), -7,
+    7). Plain torch on the device: the reference runs it in XLA, once after
+    the prefill."""
+    q4 = torch.clamp(torch.round(kq.float() * KV4_FROM8), -7, 7).to(torch.int8)
+    return pack_nibbles(q4).contiguous(), scale.float() * KV4_SCALE
 
 
 def _pack_i4(w: torch.Tensor, G: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -202,17 +222,47 @@ def _bf(x):
     return x.to(torch.bfloat16).float()
 
 
+def _write_fresh_row(cache, sc, l: int, pos: int, rows_f):
+    """The fresh [n_kv, D] f32 rows into cache row pos of layer l: bf16
+    rounded to nearest even; int8 codes with s = amax / 127; int4 codes with
+    s = amax / 7 in their nibble of byte row pos // 2 (the other nibble
+    kept). The divisions by 127 and 7 are multiplies by their f32
+    reciprocals, as XLA compiles them."""
+    if cache.dtype == torch.bfloat16:
+        cache[l, pos] = rows_f.reshape(-1).to(cache.dtype)
+        return
+    i4 = cache.dtype == torch.uint8
+    qmax = 7 if i4 else 127
+    s = torch.clamp(rows_f.abs().amax(dim=1) * (INV7 if i4 else INV127), min=1e-12)
+    q = torch.clamp(torch.round(rows_f / s[:, None]), -qmax, qmax).to(torch.int8)
+    sc[l, pos] = s
+    if not i4:
+        cache[l, pos] = q.reshape(-1)
+        return
+    nib = q.reshape(-1).view(torch.uint8) & 0xF
+    old = cache[l, pos // 2]
+    cache[l, pos // 2] = ((old & 0xF0) | nib) if pos % 2 == 0 else ((nib << 4) | (old & 0xF))
+
+
+def _cache_rows(cache, l: int, pos: int) -> torch.Tensor:
+    """Cache rows < pos of layer l as f32 [pos, DKV] (int4 pairs unpacked)."""
+    if cache.dtype == torch.uint8:
+        return unpack_nibbles(cache[l, :(pos + 1) // 2])[:pos].float()
+    return cache[l, :pos].float()
+
+
 def mega_decode_step_ref(pack, cfg: DecoderConfig, token_or_x, pos: int,
                          k, v, k_s=None, v_s=None, return_logits: bool = False):
-    """Plain twin of the kernels, for either pack and either cache: the same
-    step in PyTorch ops, on any device. k, v int8 with scales k_s, v_s, or
-    bf16 (k_s, v_s None). Writes cache row `pos` in place. -> (token int32
-    [1], h f32 [1, H]) or, with return_logits, (token, h, logits f32 [V])."""
+    """Plain twin of the kernels, for either pack and any cache: the same
+    step in PyTorch ops, on any device. k, v int8 [L, S, DKV] or int4 pairs
+    uint8 [L, S/2, DKV], each with scales k_s, v_s [L, S, n_kv], or bf16
+    (k_s, v_s None). Writes cache row `pos` in place. -> (token int32 [1], h
+    f32 [1, H]) or, with return_logits, (token, h, logits f32 [V])."""
     H, NH, NKV, D = cfg.hidden_size, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     L, FF, eps = cfg.n_layers, cfg.intermediate_size, cfg.rms_norm_eps
     DQ, DKV, group = NH * D, NKV * D, NH // NKV
     scale = float(np.float32(1.0 / float(np.sqrt(D))))
-    quant = k.dtype == torch.int8
+    quant = k_s is not None
     if token_or_x.dtype == torch.int32:
         x = pack["embd"][token_or_x.reshape(-1)[0].long()].float()
     else:
@@ -227,8 +277,8 @@ def mega_decode_step_ref(pack, cfg: DecoderConfig, token_or_x, pos: int,
         k_all = rope_row(rms_norm_f32(rows[NH:NH + NKV], pack["k_norm"][l], eps),
                          pos, cfg.rope_theta)
         v_all = rows[NH + NKV:]
-        kc = k[l, :pos].reshape(pos, NKV, D).float()
-        vc = v[l, :pos].reshape(pos, NKV, D).float()
+        kc = _cache_rows(k, l, pos).reshape(pos, NKV, D)
+        vc = _cache_rows(v, l, pos).reshape(pos, NKV, D)
         heads = []
         for h in range(NKV):
             q = q_all[h * group:(h + 1) * group]        # [group, D]
@@ -245,14 +295,8 @@ def mega_decode_step_ref(pack, cfg: DecoderConfig, token_or_x, pos: int,
             o = (p_cache if p_v is None else p_cache * p_v) @ vc[:, h]
             heads.append((o + p_fresh * v_all[h][None, :]) / denom)
         attn = _bf(torch.cat(heads, dim=0).reshape(DQ))
-        for rows_f, cache, sc in ((k_all, k, k_s), (v_all, v, v_s)):
-            if not quant:
-                cache[l, pos] = rows_f.reshape(DKV).to(cache.dtype)
-                continue
-            s = torch.clamp(rows_f.abs().amax(dim=1) * INV127, min=1e-12)
-            q8 = torch.clamp(torch.round(rows_f / s[:, None]), -127, 127)
-            cache[l, pos] = q8.to(torch.int8).reshape(DKV)
-            sc[l, pos] = s
+        _write_fresh_row(k, k_s, l, pos, k_all)
+        _write_fresh_row(v, v_s, l, pos, v_all)
         xq, sx = _quant_row(attn)
         h1 = _bf(x + _bf(_gemv_ref(xq, sx, pack["wo_q"][l], pack["wo_s"][l])))
         xq, sx = _quant_row(_bf(rms_norm_f32(h1, pack["ffn_norm"][l], eps)))
@@ -322,35 +366,45 @@ def _check_pack(pack, cfg: DecoderConfig, dev) -> None:
     check(pack["embd"], "embd", torch.bfloat16, (cfg.vocab_size, H), dev)
 
 
+# entry point and launch counter by cache dtype
+_ENTRIES = {torch.int8: "qw_mega_decode_step_i8", torch.bfloat16: "qw_mega_decode_step",
+            torch.uint8: "qw_mega_decode_step_i4"}
+
+
 class DecodeStep:
     """The CUDA decode step bound to one pack (int4 or int8 weights) and one
-    cache (int8 with scales k_s / v_s, or bf16 with none): validates the
-    pack and the cache once, allocates the scratch once, and then launches
-    a step per call, through `qw_mega_decode_step_i8` (int8 cache) or
-    `qw_mega_decode_step` (bf16). `mega_decode_step_i8` and
-    `mega_decode_step` wrap it for single calls."""
+    cache (int8 or int4 pairs with scales k_s / v_s, or bf16 with none):
+    validates the pack and the cache once, allocates the scratch once, and
+    then launches a step per call, through `qw_mega_decode_step_i8` (int8
+    cache), `qw_mega_decode_step` (bf16) or `qw_mega_decode_step_i4` (int4).
+    `mega_decode_step_i8`, `mega_decode_step` and `mega_decode_step_i4` wrap
+    it for single calls."""
 
     def __init__(self, pack, cfg: DecoderConfig, k, v, k_s=None, v_s=None):
         from qwen3_asr_tpu_torch.ops.build import kernel
 
         dev = k.device
         require_cuda(k, "k cache")
-        L, S, DKV = k.shape
         _check_pack(pack, cfg, dev)
-        NKV = cfg.n_kv_heads
-        quant = k_s is not None
-        cdt = torch.int8 if quant else torch.bfloat16
-        check(k, "k cache", cdt, (cfg.n_layers, S, NKV * cfg.head_dim), dev)
-        check(v, "v cache", cdt, (cfg.n_layers, S, NKV * cfg.head_dim), dev)
-        if quant:
-            check(k_s, "k scales", torch.float32, (cfg.n_layers, S, NKV), dev)
-            check(v_s, "v scales", torch.float32, (cfg.n_layers, S, NKV), dev)
-        elif v_s is not None:
+        L, NKV, DKV = cfg.n_layers, cfg.n_kv_heads, cfg.n_kv_heads * cfg.head_dim
+        if k.dtype not in _ENTRIES:
+            raise TypeError(f"k cache: expected int8, uint8 (int4 pairs) or bf16, "
+                            f"got {k.dtype}")
+        rows = 2 if k.dtype == torch.uint8 else 1
+        S = k.shape[1] * rows
+        check(k, "k cache", k.dtype, (L, S // rows, DKV), dev)
+        check(v, "v cache", k.dtype, (L, S // rows, DKV), dev)
+        if k.dtype != torch.bfloat16:
+            if k_s is None or v_s is None:
+                raise ValueError(f"a {k.dtype} cache needs its scales")
+            check(k_s, "k scales", torch.float32, (L, S, NKV), dev)
+            check(v_s, "v scales", torch.float32, (L, S, NKV), dev)
+        elif k_s is not None or v_s is not None:
             raise ValueError("a bf16 cache takes no scales")
         self.cfg, self.dev, self.S = cfg, dev, S
         self.pack, self.cache = pack, (k, v, k_s, v_s)
-        self.counter = mega_decode_step_i8 if quant else mega_decode_step
-        self._fn = kernel("qw_mega_decode_step_i8" if quant else "qw_mega_decode_step",
+        self.counter = _COUNTERS[k.dtype]
+        self._fn = kernel(_ENTRIES[k.dtype],
                           [ctypes.POINTER(_Ptrs), ctypes.POINTER(_Dims),
                            ctypes.c_void_p])
         nbytes = kernel("qw_mega_scratch_bytes", [ctypes.POINTER(_Dims)],
@@ -362,8 +416,8 @@ class DecodeStep:
             "qkv_q", "qkv_s", "wo_q", "wo_s", "gu_q", "gu_s", "wd_q", "wd_s",
             "head_q", "head_s")}
         self.ptrs = _Ptrs(**p, k_cache=k.data_ptr(), v_cache=v.data_ptr(),
-                          k_scale=k_s.data_ptr() if quant else None,
-                          v_scale=v_s.data_ptr() if quant else None,
+                          k_scale=None if k_s is None else k_s.data_ptr(),
+                          v_scale=None if v_s is None else v_s.data_ptr(),
                           h_out=self.h.data_ptr(),
                           scratch=self.scratch.data_ptr())
 
@@ -416,5 +470,17 @@ def mega_decode_step(pack, cfg: DecoderConfig, token_or_x, pos: int, k, v):
     return _single_step(pack, cfg, token_or_x, pos, k, v, None, None)
 
 
+def mega_decode_step_i4(pack, cfg: DecoderConfig, token_or_x, pos: int,
+                        k, v, k_s, v_s):
+    """The same step over the int4 cache (k, v uint8 [L, S/2, n_kv *
+    head_dim] nibble pairs, scales [L, S, n_kv] f32, from pack_kv_int4): the
+    fresh row's codes (s = amax / 7) go into their nibble of byte row pos //
+    2, the other nibble kept."""
+    return _single_step(pack, cfg, token_or_x, pos, k, v, k_s, v_s)
+
+
 mega_decode_step_i8.launches = 0
 mega_decode_step.launches = 0
+mega_decode_step_i4.launches = 0
+_COUNTERS = {torch.int8: mega_decode_step_i8, torch.bfloat16: mega_decode_step,
+             torch.uint8: mega_decode_step_i4}

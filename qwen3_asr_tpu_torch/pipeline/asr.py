@@ -7,17 +7,22 @@ ships Q8_0 blocks, which then run as loaded), "int8pc" (per-channel int8
 weights) and "int4" (int4 decode weights, int8pc prefill), both with the
 decode pack (`ops/megakernel.py`), whose step the K1 kernels run; "q8_0"
 (also True) and False (dense), both through the per-layer decode step
-(K4-K7). Each takes a bf16 or int8 cache (`kv_cache`, or `kv_int8`).
+(K4-K7). Each takes a bf16 or int8 cache (`kv_cache`, or `kv_int8`); the
+int4 cache (`kv_cache="int4"`) is the decode pack's nibble-packed stream
+and runs as int8 without a pack and in batches.
 
 `transcribe` runs one utterance either fused (`models/e2e.py::
 transcribe_fused`: one upload, one fetch) or staged (mel, the encoder, the
 decode, each timed; the bucketed frontend at `mel_bucket > 0`), as the
-reference picks them. `transcribe_batch` (the bucketed batched frontend,
-the batched prefill and the lockstep batched decode step in chunks of at
-most 16 sequences, as the `mesh=None` branch of
+reference picks them; a progress or token callback (`set_progress_callback`,
+`set_token_callback`) or `print_progress` takes the staged path with the
+streaming decode (`generate_greedy_streaming`: callbacks per token, one host
+read per 8 tokens). `transcribe_batch` (the bucketed batched frontend, the
+batched prefill and the lockstep batched decode step in chunks of at most
+16 sequences, as the `mesh=None` branch of
 qwen3_asr_tpu/parallel/mesh.py::batched_transcribe_step runs them) takes a
-decode pack and the int8 cache. Sampled decoding, the streaming progress
-path, speculative decoding and the int4 cache are not ported and say so.
+decode pack and the int8 cache. Sampled decoding and speculative decoding
+are not ported and say so.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from qwen3_asr_tpu_torch.text.bpe import BPETokenizer
 from qwen3_asr_tpu_torch.text.prompt import audio_start_pos, build_asr_prompt
 from qwen3_asr_tpu_torch.audio.mel import filters_t, generate_mel_filters
 from qwen3_asr_tpu_torch.audio.wav import load_wav
+from qwen3_asr_tpu_torch.models.generate import INT4_KV
 from qwen3_asr_tpu_torch.ops.megakernel import pack_megakernel_params
 from qwen3_asr_tpu_torch.ops.support import resolve_device
 from qwen3_asr_tpu_torch.runtime.params import (
@@ -51,11 +57,8 @@ from qwen3_asr_tpu_torch.runtime.profiler import timer
 NOT_PORTED = {
     "sampling": "sampled decoding (temperature > 0) is not ported "
                 "(ROADMAP Queue 1 item 12)",
-    "progress": "the streaming progress path (print_progress) is not ported "
-                "(ROADMAP Queue 1 item 12)",
     "spec": "speculative decoding (spec_k > 0) is not ported "
             "(ROADMAP Queue 1 item 14)",
-    "kv_int4": "the int4 KV cache is not ported (ROADMAP, Do not port)",
 }
 
 
@@ -64,7 +67,7 @@ class TranscribeParams:
     max_tokens: int = 1024
     language: str = ""            # accepted for CLI parity; unused by the model
     system_prompt: str = ""
-    print_progress: bool = False  # not ported: NOT_PORTED["progress"]
+    print_progress: bool = False  # "Generated N tokens..." on stderr (streaming path)
     print_timing: bool = True     # the timing block on stderr
     # prompt-length bucket of the staged and batched paths (tokens)
     prompt_bucket: int = 128
@@ -100,8 +103,6 @@ def unported(params: TranscribeParams) -> str:
         return NOT_PORTED["sampling"]
     if params.spec_k > 0:
         return NOT_PORTED["spec"]
-    if params.print_progress:
-        return NOT_PORTED["progress"]
     return ""
 
 
@@ -114,15 +115,16 @@ class Qwen3ASR:
         """quantize: False / None / "" (dense), True or "q8_0" (GGUF Q8_0
         weights), "int8pc", "int4" or "auto" (int8pc for dense weights, none
         for a Q8_0 GGUF). kv_int8: an int8 KV cache instead of bf16;
-        kv_cache ("bf16" / "int8") overrides it. The defaults are the JAX
-        package's: dense weights, a bf16 cache."""
+        kv_cache ("bf16" / "int8" / "int4") overrides it. int4 is the
+        decode pack's nibble-packed cache (a quarter of bf16's cache bytes,
+        ~4x int8's quantization error); without a pack, and in batches, it
+        runs as int8. The defaults are the JAX package's: dense weights, a
+        bf16 cache."""
         quantize = "q8_0" if quantize is True else (quantize or "")
         if quantize not in ("", "q8_0", "int8pc", "int4", "auto"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
         if kv_cache not in (None, "bf16", "int8", "int4"):
             raise ValueError(f"kv_cache must be bf16/int8/int4, got {kv_cache!r}")
-        if kv_cache == "int4":
-            raise NotImplementedError(NOT_PORTED["kv_int4"])
         self.device = resolve_device(device)
         self.dtype = dtype
         self.quantize = quantize
@@ -131,6 +133,8 @@ class Qwen3ASR:
         self.params: dict | None = None
         self.tokenizer: BPETokenizer | None = None
         self.filters_t: torch.Tensor | None = None
+        self._progress_cb = None   # (i, max_tokens) per token
+        self._token_cb = None      # (token id) per token
         self.error_msg = ""
 
     # -- loading -----------------------------------------------------------
@@ -188,7 +192,24 @@ class Qwen3ASR:
 
     @property
     def cache_dtype(self) -> torch.dtype:
-        return torch.int8 if self.kv_cache == "int8" else torch.bfloat16
+        """torch.bfloat16, torch.int8 or INT4_KV (the int4 cache)."""
+        return {"bf16": torch.bfloat16, "int8": torch.int8,
+                "int4": INT4_KV}[self.kv_cache]
+
+    def set_progress_callback(self, cb) -> None:
+        """cb(i, max_tokens) after each decoded token; setting it routes
+        transcribe() through the streaming path. None clears it."""
+        self._progress_cb = cb
+
+    def set_token_callback(self, cb) -> None:
+        """cb(token_id) for each decoded token (the server's SSE text
+        deltas ride it); setting it routes transcribe() through the
+        streaming path. None clears it. Device work is single-threaded, so
+        setting it around a call is race-free."""
+        self._token_cb = cb
+
+    def _streaming(self, params: TranscribeParams) -> bool:
+        return bool(self._progress_cb or self._token_cb or params.print_progress)
 
     # -- transcription -------------------------------------------------------
 
@@ -207,7 +228,7 @@ class Qwen3ASR:
         samples = self._load_samples(audio, result)
         if samples is None:
             return result
-        if params.fused and params.mel_bucket == 0:
+        if params.fused and params.mel_bucket == 0 and not self._streaming(params):
             return self._transcribe_fused(samples, params, result)
         return self._transcribe_staged(samples, params, result)
 
@@ -240,11 +261,15 @@ class Qwen3ASR:
 
     def _transcribe_staged(self, samples, params, result) -> TranscribeResult:
         """Mel, the encoder (bucketed at mel_bucket > 0), then the prompt
-        padded to its bucket and generate_greedy: each stage ends in a
+        padded to its bucket and generate_greedy, or with callbacks or
+        print_progress generate_greedy_streaming: each stage ends in a
         synchronize, so the stage times are the device's."""
         from qwen3_asr_tpu_torch.models.e2e import _pad_pcm
         from qwen3_asr_tpu_torch.models.encoder import encode, encode_audio_padded
-        from qwen3_asr_tpu_torch.models.generate import generate_greedy
+        from qwen3_asr_tpu_torch.models.generate import (
+            generate_greedy,
+            generate_greedy_streaming,
+        )
         from qwen3_asr_tpu_torch.audio.mel import log_mel_spectrogram_padded, mel_device
 
         dcfg, dev = self.cfg.decoder, self.device
@@ -282,12 +307,23 @@ class Qwen3ASR:
         P = -(-n_prompt // params.prompt_bucket) * params.prompt_bucket
         toks = np.full(P, dcfg.pad_token_id, np.int32)
         toks[:n_prompt] = prompt
+        args = (self.params["decoder"], dcfg, torch.from_numpy(toks).to(dev), n_prompt,
+                feats, n_audio, audio_start_pos(prompt, dcfg), params.max_tokens)
         t0 = time.perf_counter()
         with timer("decode.generate"):
-            out, n_kept = generate_greedy(
-                self.params["decoder"], dcfg, torch.from_numpy(toks).to(dev), n_prompt,
-                feats, n_audio, audio_start_pos(prompt, dcfg), params.max_tokens,
-                self.cache_dtype)
+            if self._streaming(params):
+                def on_token(i, total):
+                    if self._progress_cb:
+                        self._progress_cb(i, total)
+                    if params.print_progress and i % 10 == 0:
+                        print(f"Generated {i} tokens...", file=sys.stderr, flush=True)
+
+                out = generate_greedy_streaming(
+                    *args, on_token=on_token, cache_dtype=self.cache_dtype,
+                    on_token_id=self._token_cb)
+                n_kept = len(out)
+            else:
+                out, n_kept = generate_greedy(*args, self.cache_dtype)
         result.t_decode_ms = (time.perf_counter() - t0) * 1000
         self._finish(result, out, n_kept, t_total)
         if params.print_timing:
@@ -318,14 +354,15 @@ class Qwen3ASR:
 
     def check_batched(self) -> None:
         """Raise NotImplementedError unless the model has a batched decode
-        path (transcribe_batch, the continuous engine): a decode pack (int4
-        or int8 weights) and the int8 cache."""
+        path: a decode pack (int4 or int8 weights) and the int8 cache. The
+        int4 cache is a single-sequence stream: transcribe_batch runs it as
+        int8, as the reference does."""
         if "mega" not in self.params["decoder"]:
             raise NotImplementedError(
                 f"transcribe_batch runs the batched decode step on the decode "
                 f"pack; quantize={self.quantize or False!r} has none (the "
                 "batched Q8_0 / dense path is not ported, ROADMAP Queue 1 item 13)")
-        if self.kv_cache != "int8":
+        if self.kv_cache == "bf16":
             raise NotImplementedError(
                 f"transcribe_batch runs the batched decode step over the int8 KV "
                 f"cache; kv_cache={self.kv_cache!r} in a batch is not ported "

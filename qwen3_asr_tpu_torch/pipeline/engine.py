@@ -103,6 +103,10 @@ class ContinuousEngine:
                  max_tokens: int = 1024, prompt_bucket: int = 128,
                  mel_bucket: int = 800, s_pool: int | None = None):
         asr.check_batched()
+        if asr.kv_cache != "int8":   # the reference's engine takes int8 only
+            raise NotImplementedError(
+                f"the continuous engine runs the batched decode step over the int8 "
+                f"KV cache only; kv_cache={asr.kv_cache!r}")
         self.asr = asr
         self.dcfg: DecoderConfig = asr.cfg.decoder
         self.pool = int(pool)

@@ -1,12 +1,14 @@
 """Where the time goes in one decode step, on the card.
 
     python3 -m qwen3_asr_tpu_torch.profile_decode [--quantize q8_0|int8pc|int4]
-                                                  [--kv-cache bf16|int8]
+                                                  [--kv-cache bf16|int8|int4]
 
 Builds Qwen3-ASR-0.6B's decoder at full width and depth with random weights
 (seed 0): Q8_0 weights (the default) for the per-layer path, or int8pc
 weights with the int8 decode pack (`int8pc`, what `--quantize auto` runs)
-or the int4 one (`int4`). Fills POS cache rows with random K/V, and runs
+or the int4 one (`int4`). Fills POS cache rows with random K/V (the int4
+cache packed from int8 rows, as generate_greedy packs it; without a pack
+it runs as int8), and runs
 STEPS greedy decode steps of `generate_greedy`'s own loop at positions POS,
 POS + 1, ...: `decode_token` (`decoder_forward` at T = 1, the lm head, the
 argmax written on the device) for Q8_0, K1's `DecodeStep` for a pack:
@@ -43,7 +45,12 @@ def main(argv=None) -> int:
 
     from qwen3_asr_tpu_torch.config import DecoderConfig
     from qwen3_asr_tpu_torch.models.decoder import _quantize_kv_rows, init_kv_cache
-    from qwen3_asr_tpu_torch.models.generate import decode_token
+    from qwen3_asr_tpu_torch.models.generate import (
+        INT4_KV,
+        decode_token,
+        kv_dtype,
+        mega_caches,
+    )
     from qwen3_asr_tpu_torch.ops.megakernel import DecodeStep, pack_megakernel_params
     from qwen3_asr_tpu_torch.runtime.params import (
         fuse_decoder_params,
@@ -53,7 +60,7 @@ def main(argv=None) -> int:
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--quantize", default="q8_0", choices=["q8_0", "int8pc", "int4"])
-    p.add_argument("--kv-cache", default="bf16", choices=["bf16", "int8"])
+    p.add_argument("--kv-cache", default="bf16", choices=["bf16", "int8", "int4"])
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device", file=sys.stderr)
@@ -70,7 +77,10 @@ def main(argv=None) -> int:
     dec = fuse_decoder_params(quantize_decoder_params(dec, "q8_0" if q8 else "int8pc"))
     n = STEPS
     S = -(-(POS + 3 * n) // 128) * 128
-    dt = torch.int8 if args.kv_cache == "int8" else torch.bfloat16
+    kv = {"bf16": torch.bfloat16, "int8": torch.int8, "int4": INT4_KV}[args.kv_cache]
+    if q8:   # no decode pack: the int4 cache runs as int8
+        kv = kv_dtype(dec, kv)
+    dt = torch.bfloat16 if kv == torch.bfloat16 else torch.int8
     cache = init_kv_cache(dcfg, S, "cuda", dt)
     fill = torch.randn(dcfg.n_layers, POS, dcfg.n_kv_heads, dcfg.head_dim,
                        generator=gen, device="cuda") * 0.5
@@ -87,9 +97,7 @@ def main(argv=None) -> int:
             decode_token(dec, dcfg, cache, out, i, pos)
     else:
         pack = pack_megakernel_params(dec, dcfg, int4=args.quantize == "int4")
-        L, DKV = dcfg.n_layers, dcfg.n_kv_heads * dcfg.head_dim
-        step = DecodeStep(pack, dcfg, cache["k"].view(L, S, DKV), cache["v"].view(L, S, DKV),
-                          cache.get("k_s"), cache.get("v_s"))
+        step = DecodeStep(pack, dcfg, *mega_caches(dcfg, cache, kv))
 
         def run(i, pos):
             step(out[i - 1:i], pos, out[i:i + 1])

@@ -1,7 +1,9 @@
 """Serving: batched transcription behind a thread-safe queue, and HTTP.
 
 Port of qwen3_asr_tpu/serve.py:89-1080 on one device, with its defaults
-(`--quantize auto`: int8pc weights for a dense GGUF; `--kv-cache int8`).
+(`--quantize auto`: int8pc weights for a dense GGUF; `--kv-cache int8`;
+`--kv-cache int4` runs lone requests over the int4 cache and batches over
+int8).
 `ASRServer` owns the model; a single worker thread does all device work, in
 one of two modes:
 
@@ -9,11 +11,14 @@ one of two modes:
   requests arriving within `max_wait_ms` and runs them as one
   `Qwen3ASR.transcribe_batch` call (a batch of one goes to `transcribe`;
   a batch needs the decode pack and the int8 cache, and a model without
-  them answers a batch with transcribe_batch's NotImplementedError);
+  them answers a batch with transcribe_batch's NotImplementedError); a
+  streaming request runs alone through the pipeline's token callback
+  (`_run_stream`: the streaming decode path, 8 tokens per host read);
 - continuous (`continuous=True`): greedy requests join a slot pool
   (`pipeline/engine.py::ContinuousEngine`) between decode rounds, and
   streaming requests get their text deltas from the pool's per-round
-  progress hook.
+  progress hook; what the pool cannot take (too long for its context)
+  takes the closed-batch path between rounds, streams alone.
 
 `serve_http()` is a stdlib `ThreadingHTTPServer` front end:
 
@@ -26,8 +31,7 @@ one of two modes:
 
 What the port does not carry yet answers 400 in the JAX package's error
 envelope, naming what is missing: forced alignment (`/v1/align`, word
-timestamps, srt / vtt), sampled decoding (`temperature` > 0), and
-streaming outside the continuous pool.
+timestamps, srt / vtt) and sampled decoding (`temperature` > 0).
 """
 
 from __future__ import annotations
@@ -61,8 +65,6 @@ NOT_PORTED = {
                  "which is not ported to the CUDA server yet",
     "sampling": "sampled decoding (temperature > 0) is not ported to the CUDA "
                 "server yet",
-    "stream": "streaming outside the continuous pool is not ported to the CUDA "
-              "server yet (start it with --continuous)",
 }
 
 # ISO-639-1 -> the language names the pipeline uses (detect_language emits
@@ -136,7 +138,7 @@ class ASRServer:
         self.max_batch = max_batch
         self.max_wait_ms = max_wait_ms
         self._queue: queue.Queue = queue.Queue()
-        self._pending: deque = deque()  # continuous worker only
+        self._pending: deque = deque()  # streams stashed from a window; the pool's leftovers
         self._stop = threading.Event()
         self._engine = None
         if continuous:
@@ -165,19 +167,13 @@ class ASRServer:
 
     def submit_stream(self, samples: np.ndarray) -> queue.Queue:
         """Enqueue a streaming transcription: returns a queue of events
-        ("delta", text) as rounds decode, then ("done", result) (result.text
-        prefix-stripped) or ("error", msg). Streams ride the continuous
-        pool; one the pool cannot take gets ("error", ...) at once."""
+        ("delta", text) as tokens decode, then ("done", result) (result.text
+        prefix-stripped) or ("error", msg). In continuous mode a stream the
+        pool can take rides it (deltas per decode round); otherwise it runs
+        alone on the worker (deltas per 8-token chunk)."""
         q: queue.Queue = queue.Queue()
-        if not self.can_stream(len(samples)):
-            q.put(("error", NOT_PORTED["stream"]))
-            return q
         self._queue.put(_Request(np.asarray(samples), Future(), stream_q=q))
         return q
-
-    def can_stream(self, n_samples: int) -> bool:
-        """Whether a streaming request of n_samples rides the pool."""
-        return self._engine is not None and self._engine.eligible(n_samples)
 
     def warmup(self, seconds: tuple = (5, 15, 30)) -> None:
         """Run one silent request per length before taking traffic (builds
@@ -198,12 +194,19 @@ class ASRServer:
     # -- closed-batch worker -----------------------------------------------
 
     def _collect(self) -> list[_Request]:
-        """Block for the first request, then batch requests arriving within
-        the window (up to max_batch)."""
-        first = self._queue.get()
-        if first is None:
-            return []
+        """Block for the first request (a stashed one first), then batch
+        same-kind requests arriving within the window (up to max_batch); a
+        stream runs alone, at once, and one arriving in the window is
+        stashed for the next round."""
+        if self._pending:
+            first = self._pending.popleft()
+        else:
+            first = self._queue.get()
+            if first is None:
+                return []
         batch = [first]
+        if first.stream_q is not None:
+            return batch
         deadline = time.perf_counter() + self.max_wait_ms / 1e3
         while len(batch) < self.max_batch:
             timeout = deadline - time.perf_counter()
@@ -215,6 +218,9 @@ class ASRServer:
                 break
             if req is None:
                 break
+            if req.stream_q is not None:
+                self._pending.append(req)
+                continue
             batch.append(req)
         return batch
 
@@ -225,10 +231,13 @@ class ASRServer:
                 self._process_batch(batch)
 
     def _process_batch(self, batch: list[_Request]) -> None:
-        """Run one closed batch (no streams: those ride the pool) and
-        deliver its results."""
+        """Run one closed batch, or one stream alone, and deliver its
+        results."""
         try:
-            if len(batch) == 1:
+            if batch[0].stream_q is not None:
+                self._run_stream(batch[0])
+                results = []
+            elif len(batch) == 1:
                 results = [self.asr.transcribe(batch[0].samples, self.params)]
             else:
                 results = self._run_transcribe(batch)
@@ -236,7 +245,9 @@ class ASRServer:
                 req.future.set_result(res)
         except Exception as e:  # noqa: BLE001 - propagate to all waiters
             for req in batch:
-                if not req.future.done():
+                if req.stream_q is not None:
+                    req.stream_q.put(("error", str(e)))
+                elif not req.future.done():
                     req.future.set_exception(e)
         self.n_served += len(batch)
         self.n_batches += 1
@@ -246,6 +257,32 @@ class ASRServer:
         server there is no split by context length: the batched step takes
         any context on the card."""
         return self.asr.transcribe_batch([r.samples for r in batch], self.params)
+
+    def _run_stream(self, req: _Request) -> None:
+        """One streaming transcription outside the pool: ride the
+        pipeline's token callback, turn the ids into text deltas
+        (_StreamDelta) on the request's queue, then ("done", result) with
+        result.text prefix-stripped, or ("error", msg)."""
+        sd = _StreamDelta(self.asr.tokenizer)
+
+        def on_id(tok: int):
+            delta = sd.feed([tok])
+            if delta:
+                req.stream_q.put(("delta", delta))
+
+        self.asr.set_token_callback(on_id)
+        try:
+            result = self.asr.transcribe(req.samples, self.params)
+        finally:
+            self.asr.set_token_callback(None)
+        if not result.success:
+            req.stream_q.put(("error", result.error_msg))
+            return
+        tail = sd.finish(result.text)
+        if tail:
+            req.stream_q.put(("delta", tail))
+        result.text = extract_transcript(result.text)
+        req.stream_q.put(("done", result))
 
     # -- continuous worker --------------------------------------------------
 
@@ -265,6 +302,16 @@ class ASRServer:
             if req is None:
                 return
             self._pending.append(req)
+
+    def _collect_pending_batch(self) -> list[_Request]:
+        """One closed batch from `_pending` (the continuous worker's path
+        for what the pool cannot take): a stream alone, or the plain
+        requests at its head, up to max_batch."""
+        batch = [self._pending.popleft()]
+        while (batch[0].stream_q is None and self._pending
+               and self._pending[0].stream_q is None and len(batch) < self.max_batch):
+            batch.append(self._pending.popleft())
+        return batch
 
     def _engine_progress(self, req: _Request, new_ids) -> None:
         """Engine on_progress hook: per-round text deltas for streaming
@@ -328,8 +375,7 @@ class ASRServer:
                     self.n_served += 1
                 self.n_batches += 1
             if self._pending:   # what the pool cannot take: one closed batch
-                n = min(len(self._pending), self.max_batch)
-                self._process_batch([self._pending.popleft() for _ in range(n)])
+                self._process_batch(self._collect_pending_batch())
 
 
 # ---------------------------------------------------------------------------
@@ -451,8 +497,6 @@ def _make_handler(server: ASRServer):
                 if fmt not in ("json", "text"):
                     self._openai_error(400, "stream=true supports response_format "
                                             "json or text")
-                elif not server.can_stream(len(samples)):
-                    self._openai_error(400, NOT_PORTED["stream"])
                 else:
                     self._sse_transcription(samples)
                 return
@@ -576,8 +620,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(auto/int8pc/int4) with the int8 cache")
     p.add_argument("--kv-cache", default="int8", choices=["int8", "bf16", "int4"],
                    help="KV cache dtype: int8 (default, the batched step's "
-                        "cache) or bf16 (single requests only); int4 is not "
-                        "ported")
+                        "cache), bf16 (single requests only) or int4 (the "
+                        "decode pack's nibble-packed cache for lone requests; "
+                        "batches still run int8, and --continuous needs int8)")
     p.add_argument("--warmup", default="",
                    help="comma-separated audio lengths (s) to run before serving")
     p.add_argument("--continuous", action="store_true",
@@ -589,6 +634,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="continuous mode: KV rows per slot (a multiple of 128); "
                         "0 = a 92 s prompt bucket plus --max-tokens, capped by "
                         "device memory")
+    p.add_argument("--engine-kv-stream", action="store_true",
+                   help="continuous mode: the streamed-KV slot pool (accepted "
+                        "for parity; no effect: the batched step reads any "
+                        "context with one attention path)")
     return p
 
 

@@ -7,7 +7,8 @@ Each case plants one fault at run time (a slice of a weight dropped, the
 dequant dtype flipped, a cache row dropped, RoPE one position off, the fresh
 row stored one row early, a kernel replaced by its twin, a kernel launched
 inside `twins()`, the int8 scales one column off, a bf16 fresh row one row
-early, a K3 row given its neighbour's position, the unpack probe's nibbles
+early, a K3 row given its neighbour's position, the int4 cache's
+neighbour nibble cleared or its nibbles swapped, the unpack probe's nibbles
 swapped) and asserts that the phase of `chip_smoke.py` that guards against
 it raises. The phases print their readings before they raise; run
 with `-s` to see them beside the bounds:
@@ -246,6 +247,31 @@ def test_bf16_fresh_row_one_early_caught(auto_asr):
     with patched(mk.DecodeStep, "__call__", early):
         caught("bf16 fresh row stored at pos - 1", lambda: cs.phase_mega(
             asr.cfg, asr.params["decoder"], "bf16", steps=4, floor_steps=0))
+
+
+@pytest.mark.parametrize("fault", ["neighbour_cleared", "nibbles_swapped"])
+def test_int4_nibble_faults_caught(auto_asr, fault):
+    """K1 over the int4 cache with byte row pos // 2 spoiled after each step:
+    the fresh row's neighbour nibble cleared (at an odd pos that is the live
+    row pos - 1), or the byte's two nibbles swapped (the fresh codes in the
+    other row's place): the int4-KV phase raises."""
+    from qwen3_asr_tpu_torch.ops import megakernel as mk
+
+    cs, asr = auto_asr
+    call = mk.DecodeStep.__call__
+
+    def spoiled(self, token_or_x, pos, out):
+        call(self, token_or_x, pos, out)
+        for c in self.cache[:2]:
+            b = c[:, pos // 2]
+            if fault == "nibbles_swapped":
+                c[:, pos // 2] = (b << 4) | (b >> 4)
+            else:
+                c[:, pos // 2] = b & (0xF0 if pos % 2 else 0x0F)
+
+    with patched(mk.DecodeStep, "__call__", spoiled):
+        caught(f"int4 cache, {fault}", lambda: cs.phase_mega(
+            asr.cfg, asr.params["decoder"], "int4", steps=4, floor_steps=0))
 
 
 def test_k3_int8_row_neighbour_position_caught(auto_asr):

@@ -5,7 +5,11 @@ defaults, the transcript (or the -o notice) on stdout and diagnostics on
 stderr, exit 1 on errors, and every mode the port does not carry refused
 before anything runs. The tokens (`--tokens`, printed on stderr) of the
 default configuration (`--quantize auto`: int8pc weights, the int8 decode
-pack, a bf16 cache) and of `--kv-int8` equal the JAX CLI's."""
+pack, a bf16 cache) and of `--kv-int8` equal the JAX CLI's; with `--kv-int4`
+(the int4 cache) and `--progress` (the streaming path) they equal the
+port's pipeline in that mode, and `--progress` prints the JAX CLI's
+"Generated N tokens..." lines on stderr only. (The JAX CLI on the CPU runs
+its XLA step, not the megakernel, so its `--kv-int4` decodes over int8.)"""
 
 import re
 
@@ -109,10 +113,44 @@ def test_save_mel_matches_the_oracle(files, capsys, tmp_path):
     ["--spec-k", "2"], ["--temperature", "0.7"], ["--progress"]],
     ids=["align", "transcribe-align", "kv-int4", "spec-k", "temperature", "progress"])
 def test_unported_flags_exit_1(files, capsys, flags):
+    """What the port does not carry exits 1 with "not ported" and nothing on
+    stdout. --kv-int4 and --progress, which it carries, run instead: exit 0,
+    the transcript alone on stdout and the tokens of the port's own
+    Qwen3ASR in that mode (the int4 cache; the streaming path, which gives
+    the fused path's tokens)."""
+    from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams
+
     model, wav, _ = files
-    assert main(["-m", model, "-f", wav, "--platform", "cpu"] + flags) == 1
+    argv = ["-m", model, "-f", wav, "--platform", "cpu"] + flags
+    if flags[0] not in ("--kv-int4", "--progress"):
+        assert main(argv) == 1
+        cap = capsys.readouterr()
+        assert cap.out == "" and "not ported" in cap.err
+        return
+    assert main(argv + ["--max-tokens", "6", "--no-timing", "--tokens"]) == 0
     cap = capsys.readouterr()
-    assert cap.out == "" and "not ported" in cap.err
+    asr = Qwen3ASR(quantize="auto", kv_cache="int4" if flags[0] == "--kv-int4" else None,
+                   device="cpu")
+    assert asr.load_model(model)
+    want = asr.transcribe(wav, TranscribeParams(max_tokens=6, fused=True, print_timing=False))
+    assert tokens(cap.err) == want.tokens and cap.out == want.text + "\n"
+
+
+def test_progress_lines_on_stderr(files, capsys):
+    """--progress: "Generated 10 tokens..." on stderr once ten tokens are
+    out (the tiny model runs to the 12-token budget), as the JAX CLI prints
+    it; stdout holds the transcript alone and equals the JAX CLI's."""
+    model, wav, _ = files
+    got = _run(main, model, wav, ["--max-tokens", "12", "--progress", "--tokens"], capsys)
+    want = _run(jax_main, model, wav, ["--max-tokens", "12", "--progress", "--tokens"], capsys)
+    assert len(tokens(got.err)) == 12 and tokens(got.err) == tokens(want.err)
+    assert got.out == want.out and "Generated" not in got.out
+    assert "Generated 10 tokens..." in got.err and "Generated 10 tokens..." in want.err
+
+
+def _run(fn, model, wav, extra, capsys):
+    assert fn(["-m", model, "-f", wav, "--no-timing", "--platform", "cpu", *extra]) == 0
+    return capsys.readouterr()
 
 
 def test_defaults_and_device(files, capsys, tmp_path):

@@ -58,7 +58,8 @@ def _tiny_pack(int4: bool = True):
 
 
 def _cache(dcfg, S, pos0, seed, kv="int8"):
-    """Rows < pos0 filled: (int8 codes, f32 scales) or (bf16 rows, None)."""
+    """Rows < pos0 filled: (int8 codes, f32 scales), (int4 pairs [L, S/2,
+    DKV], f32 scales) or (bf16 rows, None)."""
     L, NKV, D = dcfg.n_layers, dcfg.n_kv_heads, dcfg.head_dim
     g = torch.Generator(device="cuda").manual_seed(seed)
     rows = torch.randn(L, pos0, NKV, D, generator=g, device="cuda") * 0.5
@@ -71,10 +72,20 @@ def _cache(dcfg, S, pos0, seed, kv="int8"):
     sc = torch.zeros(L, S, NKV, dtype=torch.float32, device="cuda")
     c[:, :pos0] = q.reshape(L, pos0, NKV * D)
     sc[:, :pos0] = s
-    return c, sc
+    return tmk.pack_kv_int4(c, sc) if kv == "int4" else (c, sc)
 
 
-MODES = [(i4, kv) for i4 in (True, False) for kv in ("int8", "bf16")]
+MODES = [(i4, kv) for i4 in (True, False) for kv in ("int8", "bf16", "int4")]
+COUNTERS = {"int8": tmk.mega_decode_step_i8, "bf16": tmk.mega_decode_step,
+            "int4": tmk.mega_decode_step_i4}
+
+
+def _codes(c, pos):
+    """Cache row pos of every layer as int codes [L, DKV] (int4 pairs
+    unpacked)."""
+    if c.dtype == torch.uint8:
+        return tmk.unpack_nibbles(c[:, pos // 2:pos // 2 + 1])[:, pos % 2].int()
+    return c[:, pos].int()
 
 
 @pytest.mark.cuda
@@ -82,17 +93,19 @@ MODES = [(i4, kv) for i4 in (True, False) for kv in ("int8", "bf16")]
                                                 for a, b in MODES])
 @pytest.mark.parametrize("S,pos0", [(32, 12), (256, 150)])
 def test_megakernel_matches_twin(cuda_kernels, S, pos0, int4, kv):
-    """K1 in its four modes, teacher-forced over 4 steps: tokens equal or a
+    """K1 in its six modes, teacher-forced over 4 steps: tokens equal or a
     near tie of the twin's logits; h atol/rtol 2e-2; every layer's fresh
     cache rows within one code on <= 1% of entries, their scales at rtol
-    1e-2 (int8 cache), or at rtol 1e-2 (bf16 rows). pos0 = 150 spreads the
-    cache rows over three attention chunks."""
+    1e-2 (int8 and int4 caches), or at rtol 1e-2 (bf16 rows); the int4
+    cache's other bytes (the fresh row's neighbour nibble among them)
+    unchanged. pos0 = 150 spreads the cache rows over three attention
+    chunks; the steps write both nibbles of a byte row."""
     dcfg, pack = _tiny_pack(int4)
     k, ks = _cache(dcfg, S, pos0, 1, kv)
     v, vs = _cache(dcfg, S, pos0, 2, kv)
     ref = [None if t is None else t.clone() for t in (k, v, ks, vs)]
     step = tmk.DecodeStep(pack, dcfg, k, v, ks, vs)
-    counter = tmk.mega_decode_step_i8 if kv == "int8" else tmk.mega_decode_step
+    counter = COUNTERS[kv]
     before = counter.launches
     out = torch.empty(1, dtype=torch.int32, device="cuda")
     tok = torch.tensor([7], dtype=torch.int32, device="cuda")
@@ -111,14 +124,21 @@ def test_megakernel_matches_twin(cuda_kernels, S, pos0, int4, kv):
                 bound = (2 / 127) * hb.abs().amax(dim=2, keepdim=True)
                 assert bool(((ha - hb).abs() <= bound).all())
                 continue
-            d = (a[:, pos0 + i].int() - b[:, pos0 + i].int()).abs()
+            d = (_codes(a, pos0 + i) - _codes(b, pos0 + i)).abs()
             assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 0.01
-        if kv == "int8":
+            if kv == "int4":   # the twin's copy takes the kernel's fresh nibble only
+                r, lo = (pos0 + i) // 2, (pos0 + i) % 2 == 0
+                b[:, r] = ((b[:, r] & 0xF0) | (a[:, r] & 0xF) if lo
+                           else (a[:, r] & 0xF0) | (b[:, r] & 0xF))
+        if kv != "bf16":
             for a, b in ((ks, ref[2]), (vs, ref[3])):
                 torch.testing.assert_close(a[:, pos0 + i], b[:, pos0 + i],
                                            rtol=1e-2, atol=0)
-        assert torch.equal(k[:, :pos0], ref[0][:, :pos0])
+        assert torch.equal(k[:, :pos0 // 2 if kv == "int4" else pos0],
+                           ref[0][:, :pos0 // 2 if kv == "int4" else pos0])
         tok = rt.clone()
+    if kv == "int4":
+        assert torch.equal(k, ref[0]) and torch.equal(v, ref[1])
     assert counter.launches == before + 4
 
 

@@ -167,16 +167,22 @@ def test_pipeline_load_model_from_gguf(tmp_path):
 
 
 def test_pipeline_rejects_unported_modes():
-    with pytest.raises(NotImplementedError, match="int4 KV cache is not ported"):
-        Qwen3ASR(kv_cache="int4", device="cpu")
+    """Sampled and speculative decoding answer "not ported"; the int4 cache
+    and print_progress, which the port carries, are accepted (their runs:
+    tests/test_torch_kv4.py, tests/test_torch_streaming.py); an unknown
+    quantize mode raises."""
+    from qwen3_asr_tpu_torch.models.generate import INT4_KV
+    from qwen3_asr_tpu_torch.pipeline.asr import unported
+
+    assert Qwen3ASR(kv_cache="int4", device="cpu").cache_dtype == INT4_KV
     with pytest.raises(ValueError, match="unknown quantize"):
         Qwen3ASR(quantize="q4", device="cpu")
     asr = Qwen3ASR(device="cpu")
     asr.params = {"decoder": {}}
-    for kw, what in ((dict(temperature=0.5), "item 12"), (dict(spec_k=2), "item 14"),
-                     (dict(print_progress=True), "item 12")):
+    for kw, what in ((dict(temperature=0.5), "item 12"), (dict(spec_k=2), "item 14")):
         res = asr.transcribe(_pcm(0.5), TranscribeParams(**kw))
         assert not res.success and "not ported" in res.error_msg and what in res.error_msg
+    assert unported(TranscribeParams(print_progress=True)) == ""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Qwen3ASR(device="cuda")

@@ -30,7 +30,13 @@ from qwen3_asr_tpu_torch.audio.mel import filters_t, generate_mel_filters, mel_d
 from qwen3_asr_tpu_torch.models import decoder as tdec
 from qwen3_asr_tpu_torch.models.e2e import _pad_pcm, transcribe_fused
 from qwen3_asr_tpu_torch.models.encoder import encode
-from qwen3_asr_tpu_torch.models.generate import cache_rows, decode_token, generate_greedy
+from qwen3_asr_tpu_torch.models.generate import (
+    INT4_KV,
+    cache_rows,
+    decode_token,
+    generate_greedy,
+    kv_dtype,
+)
 from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams
 from qwen3_asr_tpu_torch.runtime.params import from_jax_params
 from qwen3_asr_tpu_torch.text.prompt import audio_start_pos, build_asr_prompt
@@ -158,8 +164,10 @@ def test_modes_and_their_errors():
     assert t.quantize == "q8_0" and t.kv_cache == "bf16" and t.cache_dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="batched"):
         t.transcribe_batch([pcm()])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Qwen3ASR(quantize="q8_0", kv_cache="int4", device="cpu")
+    # the int4 cache is the decode pack's: without one it runs as int8
+    int4 = Qwen3ASR(quantize="q8_0", kv_cache="int4", device="cpu")
+    assert int4.cache_dtype == INT4_KV
+    assert kv_dtype(t.params["decoder"], int4.cache_dtype) == torch.int8
     with pytest.raises(ValueError):
         Qwen3ASR(quantize="q4", device="cpu")
     with pytest.raises(NotImplementedError, match="KV cache dtype"):

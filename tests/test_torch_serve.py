@@ -1,10 +1,12 @@
 """The port's server (serve.py) on the CPU at the tiny config: ASRServer in
 both worker modes against the functions it drives, and the HTTP front end
 on 127.0.0.1, port 0: /v1/transcribe, /healthz, /v1/audio/transcriptions
-(json, text, verbose_json, SSE on the continuous pool) and the 400s for
-what is not ported. The model is the wide-init one of
-tests/test_torch_batch.py; its tokens are held equal to the functions the
-worker calls on the same requests."""
+(json, text, verbose_json, SSE on the continuous pool and, alone through
+the streaming decode path, outside it), `--kv-cache int4` (lone requests
+over the int4 cache, batches over int8) and the 400s for what is not
+ported. The model is the wide-init one of tests/test_torch_batch.py; its
+tokens are held equal to the functions the worker calls on the same
+requests."""
 
 import io
 import json
@@ -88,13 +90,33 @@ def test_continuous_server_matches_engine(model):
     assert deltas == events[-1][1].text
 
 
+def events_of(q) -> list:
+    events = []
+    while not events or events[-1][0] not in ("done", "error"):
+        events.append(q.get(timeout=300))
+    return events
+
+
 def test_stream_outside_the_pool_reports_error(model):
-    srv = ASRServer(model, PARAMS, max_batch=2, max_wait_ms=1)
+    """A stream on the closed-batch server runs alone through the streaming
+    decode path (it reported a not-ported error before that path was
+    ported): its deltas add up to the done event's text and its tokens are
+    transcribe's; a stream arriving inside a batch's window waits for the
+    next round and the batch stays whole."""
+    srv = ASRServer(model, PARAMS, max_batch=2, max_wait_ms=2000)
     try:
-        kind, msg = srv.submit_stream(AUDIO[0]).get(timeout=300)
+        futs = [srv.submit(AUDIO[0])]
+        q = srv.submit_stream(AUDIO[1])
+        futs.append(srv.submit(AUDIO[2]))
+        got = [f.result(timeout=300).tokens for f in futs]
+        events = events_of(q)
     finally:
         srv.close()
-    assert kind == "error" and msg == NOT_PORTED["stream"]
+    assert events[-1][0] == "done"
+    assert events[-1][1].tokens == model.transcribe(AUDIO[1], PARAMS).tokens
+    assert "".join(v for k, v in events if k == "delta") == events[-1][1].text
+    assert got == [r.tokens for r in model.transcribe_batch([AUDIO[0], AUDIO[2]], PARAMS)]
+    assert srv.n_batches == 2
 
 
 @pytest.fixture(scope="module")
@@ -182,6 +204,8 @@ def test_http_unported_answer_400(http, fields, path, msg):
 
 
 def test_http_stream_needs_the_pool(model):
+    """SSE on the closed-batch server (no pool, which it needed before the
+    streaming decode path was ported): 200, deltas, done, [DONE]."""
     srv = ASRServer(model, PARAMS, max_batch=2, max_wait_ms=1)
     httpd = serve_http(srv, "127.0.0.1", 0)
     th = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -194,25 +218,34 @@ def test_http_stream_needs_the_pool(model):
         httpd.shutdown()
         httpd.server_close()
         srv.close()
-    assert code == 400 and json.loads(out)["error"]["message"] == NOT_PORTED["stream"]
+    assert code == 200
+    data = [line[len("data: "):] for line in out.decode().split("\n")
+            if line.startswith("data: ")]
+    events = [json.loads(d) for d in data[:-1]]
+    assert data[-1] == "[DONE]" and events[-1]["type"] == "transcript.text.done"
+    assert "".join(e["delta"] for e in events[:-1]) == events[-1]["text"]
 
 
 def test_main_rejects_unported_modes(model, tmp_path, capsys):
     """The JAX server's modes are offered (--quantize auto by default, --kv-cache
-    int8): an unknown one fails in argparse; the int4 cache, which the port does
-    not carry, and a missing model fail at start-up with exit 1; the continuous
-    pool refuses a bf16 cache; a model without a batched path answers a batch
-    with transcribe_batch's NotImplementedError."""
+    int8; --kv-cache int4 and --engine-kv-stream, which changes no kernel, are
+    accepted): an unknown one fails in argparse; a missing model fails at
+    start-up with exit 1; the continuous pool refuses a bf16 and an int4
+    cache; a model without a batched path answers a batch with
+    transcribe_batch's NotImplementedError."""
     from qwen3_asr_tpu_torch.serve import build_parser, main
 
     args = build_parser().parse_args(["-m", "x.gguf"])
-    assert (args.quantize, args.kv_cache) == ("auto", "int8")
+    assert (args.quantize, args.kv_cache, args.engine_kv_stream) == ("auto", "int8", False)
+    args = build_parser().parse_args(["-m", "x.gguf", "--kv-cache", "int4",
+                                      "--engine-kv-stream"])
+    assert (args.kv_cache, args.engine_kv_stream) == ("int4", True)
     with pytest.raises(SystemExit) as e:
         main(["-m", str(tmp_path / "none.gguf"), "--quantize", "q4", "--device", "cpu"])
     assert e.value.code == 2 and "invalid choice" in capsys.readouterr().err
     assert main(["-m", str(tmp_path / "none.gguf"), "--kv-cache", "int4",
                  "--device", "cpu"]) == 1
-    assert "int4 KV cache is not ported" in capsys.readouterr().err
+    assert "Failed to load model" in capsys.readouterr().err
     assert main(["-m", str(tmp_path / "none.gguf"), "--device", "cpu"]) == 1
     import copy
 
@@ -220,6 +253,10 @@ def test_main_rejects_unported_modes(model, tmp_path, capsys):
     bf16.kv_cache = "bf16"
     with pytest.raises(NotImplementedError, match="int8 KV cache"):
         ASRServer(bf16, PARAMS, continuous=True, pool=2, engine_context=KW["s_pool"])
+    int4 = copy.copy(model)
+    int4.kv_cache = "int4"
+    with pytest.raises(NotImplementedError, match="int8 KV cache"):
+        ASRServer(int4, PARAMS, continuous=True, pool=2, engine_context=KW["s_pool"])
     srv = ASRServer(bf16, PARAMS, max_batch=2, max_wait_ms=2000)
     try:
         futs = [srv.submit(a) for a in AUDIO[:2]]
@@ -228,3 +265,21 @@ def test_main_rejects_unported_modes(model, tmp_path, capsys):
                 f.result(timeout=300)
     finally:
         srv.close()
+
+
+def test_kv_cache_int4_lone_and_batch(model):
+    """--kv-cache int4: a lone request decodes over the int4 cache
+    (transcribe's tokens in that mode, through K1's int4 step), a batch
+    over int8 (transcribe_batch's tokens, the same as the int8 model's)."""
+    import copy
+
+    int4 = copy.copy(model)
+    int4.kv_cache = "int4"
+    srv = ASRServer(int4, PARAMS, max_batch=2, max_wait_ms=2000)
+    try:
+        batch = [f.result(timeout=300).tokens for f in [srv.submit(a) for a in AUDIO[:2]]]
+        lone = srv.submit(AUDIO[2]).result(timeout=300)
+    finally:
+        srv.close()
+    assert batch == [r.tokens for r in model.transcribe_batch(AUDIO[:2], PARAMS)]
+    assert lone.tokens == int4.transcribe(AUDIO[2], PARAMS).tokens
