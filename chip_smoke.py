@@ -4,13 +4,16 @@
 
 Builds the port's CUDA kernels from `qwen3_asr_tpu_torch/csrc` (into
 `build/torch_kernels/`) and holds each kernel against its plain PyTorch
-twin at the shapes of the main paths: flash attention (K2) single and
-batched (timed beside `scaled_dot_product_attention` at the same shapes),
-the decode step (K1) in its six modes ({int4, int8 weights} x {int8, bf16,
-int4 KV cache}: teacher-forced steps, an int4 step keeping the other nibble
-of its byte row at even and odd positions, and every layer alone on the
-twin's input) and at a long context (S 8,192, pos 7,996..7,999, on each
-cache),
+twin at the shapes of the main paths: flash attention (K2, on the tensor
+cores) single and batched (timed beside `scaled_dot_product_attention` at
+the same shapes), the decode step (K1) in its six modes ({int4, int8
+weights} x {int8, bf16, int4 KV cache}: teacher-forced steps, an int4 step
+keeping the other nibble of its byte row at even and odd positions, and
+every layer alone on the twin's input; timed as the decode loops run it,
+replayed from its CUDA graph) and at a long context (S 8,192, pos
+7,996..7,999, on each cache), K1 replayed from its CUDA graph against eager
+steps on the CLI default mode (64 steps each, bit for bit; ms/step and the
+host's enqueue both ways, with programmatic dependent launch on and off),
 the batched decode step (K3) on either pack, whose rows must equal K1 run on
 each row's slab bit for bit, the Q8_0 products K5 / K6 / K7 at the decode
 step's T = 1 and a 5 s prompt's T, the decode attention K4 with a bf16 and
@@ -435,13 +438,7 @@ def phase_mega(cfg, dec, kv: str = "int8", steps: int = 32,
     n_exact = sum(r == 0.0 for r in rels)
     layer_rels = (phase_mega_layers(dcfg, pack, got, ref, pos0 + steps, tok) if layers
                   else [0.0])
-    ms = cuda_ms(lambda: step(tok, pos0 + steps, out), 50)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        step(tok, pos0 + steps, out)
-    enqueue = (time.perf_counter() - t0) * 1e3 / 20
-    torch.cuda.synchronize()
+    ms, enqueue = graphed_ms(step, tok, pos0 + steps)
     plain = cuda_ms(lambda: mk.mega_decode_step_ref(
         pack, dcfg, tok, pos0 + steps, *ref), 3, warmup=1)
     floor_txt = (f"twin cpu vs twin cuda rel_l2(h) {', '.join(f'{f:.4f}' for f in floors)}; "
@@ -450,7 +447,7 @@ def phase_mega(cfg, dec, kv: str = "int8", steps: int = 32,
         f"max_abs_err(h)={max_err:.3e} rel_l2(h) max {max(rels):.4f}, "
         f"bit-exact on {n_exact}/{steps} steps; {floor_txt}token "
         f"mismatches={mism}/{steps} (worst twin logit gap {worst_gap:.4f}); "
-        f"kernel {ms:.4f} ms/step (host enqueue {enqueue:.4f} ms/step), "
+        f"kernel {ms:.4f} ms/step graphed (host enqueue {enqueue:.4f} ms/step), "
         f"twin {plain:.4f} ms/step")
     log("  rel_l2(h) per step: " + " ".join(f"{r:.4f}" for r in rels))
     if layers:
@@ -469,6 +466,114 @@ def phase_mega(cfg, dec, kv: str = "int8", steps: int = 32,
     b_ms, b_by = mega_step_bound(pack, dcfg, [pos0 + steps], kv)
     log(f"  K1 ({name}) bound at pos {pos0 + steps}: {b_ms:.4f} ms ({b_by})")
     return max_err, ms, plain, b_ms, b_by
+
+
+def graphed_ms(step, tok, pos: int, n: int = 50) -> tuple[float, float]:
+    """K1's step as the decode loops run it (a GraphStep over `step`: one
+    eager step, the capture, then replays) from position pos: (device ms per
+    replayed step between CUDA events, the host's enqueue ms per replayed
+    step: the run() calls of 20 steps on the host clock, before the
+    synchronize). Writes cache rows pos .. pos + n + 22."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops import megakernel as mk
+
+    run = mk.GraphStep(step)
+    buf = torch.zeros(n + 24, dtype=torch.int32, device="cuda")
+    buf[0] = tok[0]
+    run(buf, 1, pos)       # eager, then the capture
+    run(buf, 2, pos + 1)   # the first replay
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for i in range(3, n + 3):
+        run(buf, i, pos + i - 1)
+    end.record()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n + 3, n + 23):
+        run(buf, i, pos + i - 1)
+    enqueue = (time.perf_counter() - t0) * 1e3 / 20
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n, enqueue
+
+
+def eager_ms(step, tok, pos: int, n: int = 50) -> tuple[float, float]:
+    """The same for eager steps (one call of the step per token, every
+    launch from the host): device ms per step between CUDA events and the
+    host's enqueue ms per step. Writes cache rows pos .. pos + n + 21."""
+    import torch
+
+    out = torch.zeros(n + 23, dtype=torch.int32, device="cuda")
+    out[0] = tok[0]
+    step(out[0:1], pos, out[1:2])
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for i in range(2, n + 2):
+        step(out[i - 1:i], pos + i - 1, out[i:i + 1])
+    end.record()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n + 2, n + 22):
+        step(out[i - 1:i], pos + i - 1, out[i:i + 1])
+    enqueue = (time.perf_counter() - t0) * 1e3 / 20
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n, enqueue
+
+
+GRAPH_STEPS = 64   # eager and graphed steps compared bit for bit
+
+
+def phase_mega_graph(cfg, dec, kv: str = "bf16", S: int = 1664,
+                     pos0: int = MEGA_TIMED_POS - GRAPH_STEPS):
+    """K1 replayed from a CUDA graph (GraphStep, as generate_greedy, the
+    streaming chunks and a lone server request run it) against eager steps,
+    on the CLI default mode (int8 pack, bf16 cache): GRAPH_STEPS free-running
+    steps from the same token and the same filled cache, each way; tokens
+    and h torch.equal on every step and the caches torch.equal after the
+    last. Then ms/step and the host's enqueue per step, eager and graphed,
+    each with programmatic dependent launch on (the default) and off. ->
+    {(graphed, pdl): (ms, enqueue)}."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops import megakernel as mk
+
+    dcfg, pack = cfg.decoder, dec["mega"]
+    name = mode_name(pack, kv)
+    a = _filled_cache(dcfg, S, pos0, torch.Generator(device="cuda").manual_seed(3), kv)
+    b = _clone(a)
+    eager = mk.DecodeStep(pack, dcfg, *a)
+    graphed = mk.GraphStep(mk.DecodeStep(pack, dcfg, *b))
+    toks = torch.zeros(GRAPH_STEPS + 1, dtype=torch.int32, device="cuda")
+    buf = torch.zeros(GRAPH_STEPS + 1, dtype=torch.int32, device="cuda")
+    toks[0] = buf[0] = 1000
+    n_equal = 0
+    for i in range(1, GRAPH_STEPS + 1):
+        eager(toks[i - 1:i], pos0 + i - 1, toks[i:i + 1])
+        graphed(buf, i, pos0 + i - 1)
+        torch.cuda.synchronize()
+        if not (torch.equal(toks[i], buf[i]) and torch.equal(eager.h, graphed.step.h)):
+            raise AssertionError(f"K1 ({name}) graphed step {i} (pos {pos0 + i - 1}) "
+                                 f"differs from the eager step")
+        n_equal += 1
+    if not all(x is None or torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"K1 ({name}): the graphed steps' caches differ from the "
+                             f"eager steps' after {GRAPH_STEPS} steps")
+    times = {}
+    for pdl in (True, False):
+        for graph in (False, True):
+            st = mk.DecodeStep(pack, dcfg, *_clone(a), pdl=pdl)
+            pos = pos0 + GRAPH_STEPS
+            times[(graph, pdl)] = (graphed_ms if graph else eager_ms)(st, toks[-1:], pos)
+            del st
+    log(f"phase K1 graph ({name}) S={S} pos={pos0}..{pos0 + GRAPH_STEPS - 1}: "
+        f"{n_equal}/{GRAPH_STEPS} graphed steps torch.equal to eager (token, h), caches "
+        f"torch.equal after the last; {mk.step_kernels(dcfg.n_layers)} kernels a step")
+    for (graph, pdl), (ms, enq) in sorted(times.items()):
+        log(f"  {'graphed' if graph else 'eager  '} pdl={'on ' if pdl else 'off'}: "
+            f"{ms:.4f} ms/step, host enqueue {enq:.4f} ms/step")
+    return times
 
 
 LAYER_LEAVES = ("qkv_q", "qkv_s", "wo_q", "wo_s", "gu_q", "gu_s", "wd_q",
@@ -1739,6 +1844,7 @@ def main() -> int:
     auto, auto_step, auto_stages = phase_auto()
     m8 = phase_mega(auto.cfg, auto.params["decoder"], "int8", steps=16, floor_steps=0)
     m8b = phase_mega(auto.cfg, auto.params["decoder"], "bf16", steps=16, floor_steps=0)
+    k1_graph = phase_mega_graph(auto.cfg, auto.params["decoder"])
     m8i4 = phase_mega(auto.cfg, auto.params["decoder"], "int4", steps=16, floor_steps=0)
     # long context: K1 (int8 pack) at S 8,192 on each cache
     long_ctx = {kv: phase_mega(auto.cfg, auto.params["decoder"], kv, steps=4, floor_steps=0,
@@ -1784,7 +1890,11 @@ def main() -> int:
             s8192_ms=long_ctx["int8"][1], s8192_bound_ms=long_ctx["int8"][3]),
         row("mega_decode_step (int8 weights, bf16 KV)", "megakernel.cu", k1,
             launches_of("mega_bf16", 8), *m8b,
-            s8192_ms=long_ctx["bf16"][1], s8192_bound_ms=long_ctx["bf16"][3]),
+            s8192_ms=long_ctx["bf16"][1], s8192_bound_ms=long_ctx["bf16"][3],
+            step_ms={f"{'graphed' if g else 'eager'}_pdl_{'on' if p else 'off'}": t[0]
+                     for (g, p), t in k1_graph.items()},
+            enqueue_ms={f"{'graphed' if g else 'eager'}_pdl_{'on' if p else 'off'}": t[1]
+                        for (g, p), t in k1_graph.items()}),
         row("mega_decode_step_i4 (int4 weights, int4 KV)", "megakernel.cu",
             "qwen3_asr_tpu/ops/megakernel.py:1520", launches_of("mega_i4", 4), *m4i4),
         row("mega_decode_step_i4 (int8 weights, int4 KV)", "megakernel.cu",

@@ -117,6 +117,9 @@ def mel_device(padded: torch.Tensor, filters_t: torch.Tensor,
     per item. `n_valid` (an int, or [B] int32 for a batch): frames at index
     >= n_valid are set to exactly 0.0, the zero-fill the bucketed encoder's
     chunk padding expects."""
+    if n_frames == 0:   # under one frame: an empty mel, as the JAX package returns
+        return torch.zeros(*padded.shape[:-1], 0, filters_t.shape[-1],
+                           device=padded.device)
     hann, cos_t, sin_t = _dft_device(padded.device)
     if padded.dtype == torch.int16:
         padded = padded.float() / 32768.0

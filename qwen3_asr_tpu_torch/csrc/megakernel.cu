@@ -26,20 +26,28 @@
 // and does ~1-2 operations per weight byte, so the floor is ~100 us (int4,
 // int4 cache: 1 KB of K/V per layer per row) to ~220 us (int8, bf16 cache)
 // at 3.35 TB/s. The TPU kernel was one launch because its per-op dispatch
-// gaps starved HBM; on the H100 this first version is a
-// fixed sequence of ten simple kernels per layer behind the one C entry
-// point below, and the design attacks bytes and parallelism: weights stay
-// nibble-packed in device memory and are expanded in registers (no
-// dequantized copy), the GEMV splits work over (64-column tile, 512-row
-// group) so even the narrow wo / wd products fill the SMs and reads them as
-// 16-byte vectors with every load of a thread in flight at once, and
-// attention splits the cache rows < pos into 64-row chunks (one block per
-// KV head and chunk, its K/V rows copied to shared memory with cp.async,
-// then a combine block per KV head) so the cache read is spread over the
-// SMs; an int4 chunk stages its 64 rows as 32 byte rows and sign-extends
-// the nibbles where the scores and the V sum read them. Launch overhead
-// (~280 launches per step, which now bounds the step from the host) is what
-// a CUDA graph or a persistent kernel removes in a later PR.
+// gaps starved HBM; on the H100 the step is a fixed sequence of five kernels
+// per layer (144 a step at 28 layers) behind the one C entry point below:
+// the QKV GEMV, attention, then the Wo, gate-up and down GEMVs, and after
+// the layers the final norm, the lm head and a two-pass argmax. The
+// position is read on the device, so the caller captures the whole step
+// once in a CUDA graph and replays it, which takes the host's launches off
+// the critical path. The design attacks bytes and
+// parallelism: weights stay nibble-packed in device memory and are
+// expanded in registers (no dequantized copy); each GEMV makes its own
+// input codes (RMSNorm + residual, or the SwiGLU, and the int8
+// quantization) in a prologue that every block runs on the row in L2,
+// instead of a single-block kernel of its own, so a layer's row work costs
+// no launch and no SM sits alone; the GEMV splits work over (64-column
+// tile, 512-row group) so even the narrow wo / wd products fill the SMs,
+// reads them as 16-byte vectors with a round of loads in flight before the
+// prologue, and may start under its predecessor's tail (programmatic
+// dependent launch); attention splits the cache rows < pos into 64-row
+// chunks (one block per KV head and chunk, its K/V rows copied to shared
+// memory with cp.async; the chunk that finishes last merges them) so the
+// cache read is spread over the SMs; an int4 chunk stages its 64 rows as 32
+// byte rows and sign-extends the nibbles where the scores and the V sum
+// read them.
 //
 // Numerics follow the Pallas body exactly where it is exact: int32 group
 // dots, f32 `part * (sx * s_g)` terms summed over groups in order, bf16
@@ -65,55 +73,86 @@ constexpr int GEMV_COLS = 64;      // output columns per GEMV block
 constexpr int GEMV_THREADS = 256;  // 4 threads x 16 columns, 64 row slices
 constexpr int GEMV_SLICES = GEMV_THREADS / (GEMV_COLS / 16);
 constexpr int GEMV_MAX_GROUP = 1024;
+static_assert(GEMV_THREADS == PRO_THREADS, "row_codes plays norm_quant's threads");
+
+// A GEMV block's shared memory: the input prologue's row as f32 and its
+// reduction buffer (row_codes), then, in the same bytes, the row slices'
+// column sums; the block's codes apart, read in between.
+struct GemvSmem {
+  union {
+    struct {
+      float ys[NORM_MAX];
+      float red[32];
+    } pro;
+    int part[GEMV_SLICES][GEMV_COLS + 1];  // +1: fewer bank conflicts
+  } u;
+  __align__(16) int8_t codes[GEMV_MAX_GROUP];
+};
 
 // -- int4 GEMV with fused group scales ---------------------------------------
 //
 // Block (x, g): columns [64x, 64x+64) of group g. terms[g, n] =
-// f32(sum_{r in group g} xq[r] * w4[r, n]) * (sx * s[g, n]). Weight bytes
-// [in/2, N]: row 2r is the low nibble of byte row r, row 2r+1 the high one.
-// Each thread reads 16-byte vectors = 16 neighbouring columns of one row
-// pair, from G/128 row pairs (4 at G = 512) whose loads are all in flight
-// at once; 64 row slices are then summed per column in shared memory.
+// f32(sum_{r in group g} xq[r] * w4[r, n]) * (sx * s[g, n]), xq the codes of
+// `in` (row_codes). Weight bytes [in/2, N]: row 2r is the low nibble of byte
+// row r, row 2r+1 the high one. Each thread reads 16-byte vectors = 16
+// neighbouring columns of one row pair, from G/128 row pairs (4 at G = 512):
+// the first round's loads are issued before the prologue (and, launched
+// with programmatic dependent launch, before the wait for the predecessor),
+// so the weights stream while the codes are made; 64 row slices are then
+// summed per column in shared memory.
 __global__ void __launch_bounds__(GEMV_THREADS) gemv_i4(
-    const int8_t* __restrict__ xq, const float* __restrict__ sx_ptr,
-    const uint8_t* __restrict__ wq, const float* __restrict__ ws, int G, int N,
+    RowIn in, const uint8_t* __restrict__ wq, const float* __restrict__ ws, int G, int N,
     float* __restrict__ terms) {
-  __shared__ int xs[GEMV_MAX_GROUP];
-  __shared__ int part[GEMV_SLICES][GEMV_COLS + 1];  // +1: fewer bank conflicts
+  constexpr int RPR = 4;  // row pairs a thread loads per round
+  __shared__ GemvSmem sm;
+  pdl_trigger();
   const int g = blockIdx.y;
   const int seg = threadIdx.x % (GEMV_COLS / 16);
   const int slice = threadIdx.x / (GEMV_COLS / 16);
   const int col0 = blockIdx.x * GEMV_COLS + seg * 16;
-  for (int r = threadIdx.x; r < G; r += blockDim.x) xs[r] = xq[(size_t)g * G + r];
-  __syncthreads();
+  const uint8_t* wg = wq + (size_t)g * (G / 2) * N + col0;
+  const int npairs = G / 2;
+  const int rounds = (npairs + RPR * GEMV_SLICES - 1) / (RPR * GEMV_SLICES);
   int acc[16];
 #pragma unroll
   for (int c = 0; c < 16; ++c) acc[c] = 0;
-  const uint8_t* wg = wq + (size_t)g * (G / 2) * N + col0;
-#pragma unroll 4
-  for (int rp = slice; rp < G / 2; rp += GEMV_SLICES) {
-    const uint4 v = *reinterpret_cast<const uint4*>(wg + (size_t)rp * N);
-    const int x0 = xs[2 * rp], x1 = xs[2 * rp + 1];
-    const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+  float sx = 0.f;
+  for (int rd = 0; rd < rounds; ++rd) {
+    uint4 v[RPR];
 #pragma unroll
-    for (int w = 0; w < 4; ++w) {
+    for (int i = 0; i < RPR; ++i) {
+      const int rp = (rd * RPR + i) * GEMV_SLICES + slice;
+      if (rp < npairs) v[i] = *reinterpret_cast<const uint4*>(wg + (size_t)rp * N);
+    }
+    if (rd == 0) {
+      pdl_wait();
+      sx = row_codes(in, g * G, G, sm.codes, sm.u.pro.ys, sm.u.pro.red);
+    }
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const uint32_t b = (words[w] >> (8 * k)) & 0xffu;
-        const int lo = ((int)(int8_t)(uint8_t)((b << 4) & 0xf0u)) >> 4;
-        const int hi = ((int)(int8_t)(uint8_t)(b & 0xf0u)) >> 4;
-        acc[4 * w + k] += x0 * lo + x1 * hi;
+    for (int i = 0; i < RPR; ++i) {
+      const int rp = (rd * RPR + i) * GEMV_SLICES + slice;
+      if (rp >= npairs) continue;
+      const int x0 = sm.codes[2 * rp], x1 = sm.codes[2 * rp + 1];
+      const uint32_t words[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const uint32_t b = (words[w] >> (8 * k)) & 0xffu;
+          const int lo = ((int)(int8_t)(uint8_t)((b << 4) & 0xf0u)) >> 4;
+          const int hi = ((int)(int8_t)(uint8_t)(b & 0xf0u)) >> 4;
+          acc[4 * w + k] += x0 * lo + x1 * hi;
+        }
       }
     }
   }
 #pragma unroll
-  for (int c = 0; c < 16; ++c) part[slice][seg * 16 + c] = acc[c];
+  for (int c = 0; c < 16; ++c) sm.u.part[slice][seg * 16 + c] = acc[c];
   __syncthreads();
   if (threadIdx.x < GEMV_COLS) {
     int tot = 0;
-    for (int s = 0; s < GEMV_SLICES; ++s) tot += part[s][threadIdx.x];
+    for (int s = 0; s < GEMV_SLICES; ++s) tot += sm.u.part[s][threadIdx.x];
     const int n = blockIdx.x * GEMV_COLS + threadIdx.x;
-    const float sx = *sx_ptr;
     terms[(size_t)g * N + n] = (float)tot * (sx * ws[(size_t)g * N + n]);
   }
 }
@@ -124,56 +163,71 @@ __global__ void __launch_bounds__(GEMV_THREADS) gemv_i4(
 // [in, N] int8 weight. Thread t takes 16 columns (t % 4) and the row quads
 // q = t / 4, t / 4 + 64, ...: four 16-byte loads (rows 4q .. 4q+3), a byte
 // transpose into one 4-row word per column, and a dp4a with the quad's four
-// activation codes. The block's int32 column sums are exact; with one block
-// row (KC = in) it writes terms[n] = f32(sum) * (sx * s[n]) itself, else the
-// sums meet in iacc and the tile's last block writes terms (i8_tile_done).
+// activation codes (row_codes of `in`; the first round's loads are in flight
+// meanwhile, as in gemv_i4). The block's int32 column sums are exact; with
+// one block row (KC = in) it writes terms[n] = f32(sum) * (sx * s[n])
+// itself, else the sums meet in iacc and the tile's last block writes terms
+// (i8_tile_done).
 __global__ void __launch_bounds__(GEMV_THREADS) gemv_i8(
-    const int8_t* __restrict__ xq, const float* __restrict__ sx_ptr,
-    const int8_t* __restrict__ wq, const float* __restrict__ ws, int KC, int N,
+    RowIn in, const int8_t* __restrict__ wq, const float* __restrict__ ws, int KC, int N,
     int* __restrict__ iacc, int* __restrict__ tiles, float* __restrict__ terms) {
-  __shared__ int xs[I8_MAX_SPLIT / 4];
-  __shared__ int part[GEMV_SLICES][GEMV_COLS + 1];
+  constexpr int QPR = 2;  // row quads a thread loads per round
+  __shared__ GemvSmem sm;
+  pdl_trigger();
   const int c = blockIdx.y;
   const int seg = threadIdx.x % (GEMV_COLS / 16);
   const int slice = threadIdx.x / (GEMV_COLS / 16);
   const int col0 = blockIdx.x * GEMV_COLS + seg * 16;
   const int nq = KC / 4;
-  for (int i = threadIdx.x; i < nq; i += blockDim.x)
-    xs[i] = reinterpret_cast<const int*>(xq + (size_t)c * KC)[i];
-  __syncthreads();
+  const int rounds = (nq + QPR * GEMV_SLICES - 1) / (QPR * GEMV_SLICES);
+  const int8_t* wc = wq + (size_t)c * KC * N + col0;
+  const int* xs = reinterpret_cast<const int*>(sm.codes);
   int acc[16];
 #pragma unroll
   for (int k = 0; k < 16; ++k) acc[k] = 0;
-  const int8_t* wc = wq + (size_t)c * KC * N + col0;
-#pragma unroll 2
-  for (int q = slice; q < nq; q += GEMV_SLICES) {
-    const int8_t* w = wc + (size_t)(4 * q) * N;
-    const uint4 r0 = *reinterpret_cast<const uint4*>(w);
-    const uint4 r1 = *reinterpret_cast<const uint4*>(w + N);
-    const uint4 r2 = *reinterpret_cast<const uint4*>(w + 2 * (size_t)N);
-    const uint4 r3 = *reinterpret_cast<const uint4*>(w + 3 * (size_t)N);
-    const uint32_t a[4] = {r0.x, r0.y, r0.z, r0.w}, b[4] = {r1.x, r1.y, r1.z, r1.w};
-    const uint32_t e[4] = {r2.x, r2.y, r2.z, r2.w}, f[4] = {r3.x, r3.y, r3.z, r3.w};
-    const int xw = xs[q];
+  float sx = 0.f;
+  for (int rd = 0; rd < rounds; ++rd) {
+    uint4 r[QPR][4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      // word k holds columns 4k .. 4k+3 of each row; regroup by column
-      const uint32_t t0 = __byte_perm(a[k], b[k], 0x5140), t1 = __byte_perm(a[k], b[k], 0x7362);
-      const uint32_t t2 = __byte_perm(e[k], f[k], 0x5140), t3 = __byte_perm(e[k], f[k], 0x7362);
-      acc[4 * k] = __dp4a((int)__byte_perm(t0, t2, 0x5410), xw, acc[4 * k]);
-      acc[4 * k + 1] = __dp4a((int)__byte_perm(t0, t2, 0x7632), xw, acc[4 * k + 1]);
-      acc[4 * k + 2] = __dp4a((int)__byte_perm(t1, t3, 0x5410), xw, acc[4 * k + 2]);
-      acc[4 * k + 3] = __dp4a((int)__byte_perm(t1, t3, 0x7632), xw, acc[4 * k + 3]);
+    for (int i = 0; i < QPR; ++i) {
+      const int q = (rd * QPR + i) * GEMV_SLICES + slice;
+      if (q >= nq) continue;
+      const int8_t* w = wc + (size_t)(4 * q) * N;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) r[i][j] = *reinterpret_cast<const uint4*>(w + j * (size_t)N);
+    }
+    if (rd == 0) {
+      pdl_wait();
+      sx = row_codes(in, c * KC, KC, sm.codes, sm.u.pro.ys, sm.u.pro.red);
+    }
+#pragma unroll
+    for (int i = 0; i < QPR; ++i) {
+      const int q = (rd * QPR + i) * GEMV_SLICES + slice;
+      if (q >= nq) continue;
+      const uint32_t a[4] = {r[i][0].x, r[i][0].y, r[i][0].z, r[i][0].w};
+      const uint32_t b[4] = {r[i][1].x, r[i][1].y, r[i][1].z, r[i][1].w};
+      const uint32_t e[4] = {r[i][2].x, r[i][2].y, r[i][2].z, r[i][2].w};
+      const uint32_t f[4] = {r[i][3].x, r[i][3].y, r[i][3].z, r[i][3].w};
+      const int xw = xs[q];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        // word k holds columns 4k .. 4k+3 of each row; regroup by column
+        const uint32_t t0 = __byte_perm(a[k], b[k], 0x5140), t1 = __byte_perm(a[k], b[k], 0x7362);
+        const uint32_t t2 = __byte_perm(e[k], f[k], 0x5140), t3 = __byte_perm(e[k], f[k], 0x7362);
+        acc[4 * k] = __dp4a((int)__byte_perm(t0, t2, 0x5410), xw, acc[4 * k]);
+        acc[4 * k + 1] = __dp4a((int)__byte_perm(t0, t2, 0x7632), xw, acc[4 * k + 1]);
+        acc[4 * k + 2] = __dp4a((int)__byte_perm(t1, t3, 0x5410), xw, acc[4 * k + 2]);
+        acc[4 * k + 3] = __dp4a((int)__byte_perm(t1, t3, 0x7632), xw, acc[4 * k + 3]);
+      }
     }
   }
 #pragma unroll
-  for (int k = 0; k < 16; ++k) part[slice][seg * 16 + k] = acc[k];
+  for (int k = 0; k < 16; ++k) sm.u.part[slice][seg * 16 + k] = acc[k];
   __syncthreads();
   const int n = blockIdx.x * GEMV_COLS + threadIdx.x;
   int tot = 0;
   if (threadIdx.x < GEMV_COLS)
-    for (int sl = 0; sl < GEMV_SLICES; ++sl) tot += part[sl][threadIdx.x];
-  const float sx = *sx_ptr;
+    for (int sl = 0; sl < GEMV_SLICES; ++sl) tot += sm.u.part[sl][threadIdx.x];
   if (gridDim.y == 1) {
     if (threadIdx.x < GEMV_COLS) terms[n] = (float)tot * (sx * ws[n]);
     return;
@@ -185,6 +239,25 @@ __global__ void __launch_bounds__(GEMV_THREADS) gemv_i8(
   }
 }
 
+// Launch kernel<<<grid, GEMV_THREADS>>>(args...) on st, with programmatic
+// dependent launch when pdl is set: the GEMV may start while its
+// predecessor drains and waits for it in pdl_wait, after its first weight
+// loads are issued. The edge survives CUDA-graph capture.
+template <typename... Params, typename... Args>
+void launch_gemv(void (*kernel)(Params...), dim3 grid, cudaStream_t st, bool pdl,
+                 Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(GEMV_THREADS);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
 }  // namespace
 
 extern "C" size_t qw_mega_scratch_bytes(const MegaDims* d) {
@@ -194,47 +267,55 @@ extern "C" size_t qw_mega_scratch_bytes(const MegaDims* d) {
 
 namespace {
 
-// One decode step over a cache of element type CT.
+// One decode step over a cache of element type CT: decode_step's sequence
+// with one GEMV launch per product (each making its own input codes).
 template <typename CT>
-int run_step(const MegaPtrs* p, const MegaDims* dp, void* stream) {
+int run_step(const MegaPtrs* p, const MegaDims* dp, const int* pos, void* stream) {
   const MegaDims d = *dp;
   cudaStream_t st = (cudaStream_t)stream;
-  if (!step_ok<CT>(d, GEMV_COLS, GEMV_MAX_GROUP)) return (int)cudaErrorInvalidValue;
+  if (!pos || !step_ok<CT>(d, GEMV_COLS, GEMV_MAX_GROUP)) return (int)cudaErrorInvalidValue;
   Scratch s;
   layout(d, 1, (char*)p->scratch, &s);
-  auto gemv = [&](const void* wq, const void* ws, size_t l, int n_in, int N, int G) {
+  auto gemv = [&](const void* wq, const void* ws, size_t l, int n_in, int N, int G,
+                  const RowIn& in, float* terms, bool first) {
     // G = n_in for int8 weights, so the scale offset is l * N for both packs
     const float* sc = (const float*)ws + l * (size_t)(n_in / G) * N;
+    const bool pdl = d.pdl && !first;   // the first GEMV follows the memset
     if (d.wbits == 8) {
       const int kc = split_rows(n_in);
-      gemv_i8<<<dim3(N / GEMV_COLS, n_in / kc), GEMV_THREADS, 0, st>>>(
-          s.xq, s.sx, (const int8_t*)wq + l * (size_t)n_in * N, sc, kc, N, s.iacc,
-          s.tiles, s.terms);
+      launch_gemv(gemv_i8, dim3(N / GEMV_COLS, n_in / kc), st, pdl, in,
+                  (const int8_t*)wq + l * (size_t)n_in * N, sc, kc, N, s.iacc, s.tiles, terms);
     } else {
-      gemv_i4<<<dim3(N / GEMV_COLS, n_in / G), GEMV_THREADS, 0, st>>>(
-          s.xq, s.sx, (const uint8_t*)wq + l * (size_t)(n_in / 2) * N, sc, G, N, s.terms);
+      launch_gemv(gemv_i4, dim3(N / GEMV_COLS, n_in / G), st, pdl, in,
+                  (const uint8_t*)wq + l * (size_t)(n_in / 2) * N, sc, G, N, terms);
     }
   };
-  decode_step<CT>(p, d, nullptr, 1, s, st, gemv);
+  decode_step<CT>(p, d, pos, 1, s, st, gemv);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // One decode step over an int8 KV cache (k_scale / v_scale set), on either
-// pack. Everything runs on `stream`; nothing is allocated and the host is
-// never waited on. Returns a cudaError_t code.
-extern "C" int qw_mega_decode_step_i8(const MegaPtrs* p, const MegaDims* dp, void* stream) {
-  return run_step<int8_t>(p, dp, stream);
+// pack, at the position pos[0] (int32 on the device, in [1, S)); dp->pos is
+// S - 1 or any bound >= pos[0]. Everything runs on `stream`; nothing is
+// allocated and the host is never waited on or read from the device, so the
+// call can be captured in a CUDA graph and replayed at other positions.
+// Returns a cudaError_t code.
+extern "C" int qw_mega_decode_step_i8(const MegaPtrs* p, const MegaDims* dp, const int* pos,
+                                      void* stream) {
+  return run_step<int8_t>(p, dp, pos, stream);
 }
 
 // The same step over a bf16 KV cache (no scales).
-extern "C" int qw_mega_decode_step(const MegaPtrs* p, const MegaDims* dp, void* stream) {
-  return run_step<__nv_bfloat16>(p, dp, stream);
+extern "C" int qw_mega_decode_step(const MegaPtrs* p, const MegaDims* dp, const int* pos,
+                                   void* stream) {
+  return run_step<__nv_bfloat16>(p, dp, pos, stream);
 }
 
 // The same step over a nibble-packed int4 KV cache ([L, S/2, DKV] bytes, S
 // even) with f32 scales [L, S, NKV], on either pack.
-extern "C" int qw_mega_decode_step_i4(const MegaPtrs* p, const MegaDims* dp, void* stream) {
-  return run_step<nib2>(p, dp, stream);
+extern "C" int qw_mega_decode_step_i4(const MegaPtrs* p, const MegaDims* dp, const int* pos,
+                                      void* stream) {
+  return run_step<nib2>(p, dp, pos, stream);
 }

@@ -1,15 +1,18 @@
 // Device code shared by the single-sequence decode step (megakernel.cu, K1)
 // and the batched one (megakernel_batch.cu, K3): the per-row norm /
-// quantization kernels, attention and the lm-head argmax of one Qwen3 decode
-// step on int4 or int8 weights over an int8, bf16 or (K1 only) int4 KV cache.
+// quantization kernels and the GEMV input prologues that compute the same
+// codes, attention and the lm-head argmax of one Qwen3 decode step on int4
+// or int8 weights over an int8, bf16 or (K1 only) int4 KV cache.
 //
 // Every kernel here works on one sequence ("row") per block index along its
 // row axis and never mixes rows, so the batched step computes each row with
 // the same instructions and the same f32 summation orders as the
 // single-sequence step: K3's rows equal K1 run on the row's slab alone, bit
-// for bit. K1 launches them with one row (row strides unused, `pos_arr` null
-// and the position taken from MegaDims::pos); K3 passes per-row strides and a
-// device array of positions.
+// for bit. Both read each row's position from a device array (`pos_arr`,
+// one int32 for K1), so a step does not depend on a host value and K1's can
+// be captured once in a CUDA graph and replayed at every position;
+// MegaDims::pos is the host's upper bound of the positions, which sizes the
+// attention grid (K1: S - 1, blocks past the row's position exit).
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -50,14 +53,15 @@ struct MegaPtrs {
   void* scratch;           // qw_mega_scratch_bytes(dims) bytes
 };
 
-// pos: the cache row the step writes (K1), or the host's upper bound of the
-// rows' positions, which sizes the attention grid (K3). wbits: 4 (the int4
-// pack, scale groups g_*) or 8 (the int8 pack: one scale per column, every
-// g_* equal to its product's input dim).
+// pos: the host's upper bound of the rows' positions, which sizes the
+// attention grid (the positions themselves are on the device). wbits: 4
+// (the int4 pack, scale groups g_*) or 8 (the int8 pack: one scale per
+// column, every g_* equal to its product's input dim). pdl: K1 launches its
+// GEMVs with programmatic dependent launch (K3 ignores it).
 struct MegaDims {
   int L, H, NH, NKV, D, FF, V, Vp, S, pos;
   int g_qkv, g_wo, g_gu, g_wd, g_head;
-  int wbits;
+  int wbits, pdl;
   float eps, rope_coef, scale;
 };
 
@@ -66,7 +70,7 @@ namespace {
 constexpr int NORM_THREADS = 1024;
 constexpr int NORM_MAX = 4096;     // widest row the norm/quant kernels take
 constexpr int ATTN_THREADS = 256;
-constexpr int ATTN_ROWS = 64;      // cache rows per attn_partial block
+constexpr int ATTN_ROWS = 64;      // cache rows per attention chunk block
 constexpr int ARGMAX_THREADS = 256;
 constexpr int ARGMAX_COLS = 4096;  // vocab columns per argmax block
 constexpr int I8_SPLIT = 512;      // input rows per block of an int8 GEMV
@@ -153,30 +157,65 @@ inline bool dims_ok(const MegaDims& d, int gemv_cols, int max_group) {
 }
 
 // A chunk stages ATTN_ROWS cache rows of K and of V: at D = 128, 32 KB of
-// bf16 rows (under the 48 KB static limit), 16 KB of int8, 8 KB of int4.
+// bf16 rows (under the 48 KB static limit), 16 KB of int8, 8 KB of int4;
+// then floats vec[(GROUP + 2) * D] (q, k, v), p[GROUP][ATTN_ROWS] (the
+// merge's misc[3 * GROUP] after), ml[2 * GROUP], kss, vss[ATTN_ROWS].
 template <typename CT>
-inline size_t attn_partial_smem(const MegaDims& d) {
+inline size_t attn_smem(const MegaDims& d) {
   const int GROUP = d.NH / d.NKV;
   return 2 * (size_t)(ATTN_ROWS / rows_per_elem<CT>()) * d.D * sizeof(CT) +
-         sizeof(float) * ((size_t)GROUP * (d.D + ATTN_ROWS + 2) + 2 * ATTN_ROWS);
+         sizeof(float) * ((size_t)(GROUP + 2) * d.D + GROUP * (ATTN_ROWS + 2) +
+                          2 * ATTN_ROWS);
 }
 
-inline size_t attn_combine_smem(const MegaDims& d) {
-  const int GROUP = d.NH / d.NKV;
-  return sizeof(float) * ((size_t)(GROUP + 2) * d.D + 3 * GROUP);
-}
-
-__device__ __forceinline__ int row_pos(const int* pos_arr, int row, const MegaDims& d) {
-  return pos_arr ? pos_arr[row] : d.pos;
-}
 
 // -- per-row RMSNorm + residual + int8 quantization ------------------------
 //
-// Block = row. x = base (+ bf16(sum_g terms[g]) when terms is given, rounded
-// to bf16), y = bf16(rms(x) * w) (or x when w is null), then xq = rint(y /
-// sx) with sx = max(amax / 127, 1e-12). `base` is a bf16 [N] row, or the
-// embedding row of token[row] when token is non-null. Row strides: N for
-// base / x_out / h_out, ts for terms, qs for xq.
+// The element math of the row kernels below and of the GEMV prologues that
+// replace them on K1's path (RowIn, row_codes): one definition, so both give
+// the same codes.
+
+// x = base (+ bf16(sum_g terms[g]) when terms is given, rounded to bf16)
+__device__ __forceinline__ float resid_elem(const __nv_bfloat16* __restrict__ base,
+                                            const float* __restrict__ terms, int n_g, int N,
+                                            int n) {
+  float x = bf2f(base[n]);
+  if (terms) {
+    float t = terms[n];
+    for (int g = 1; g < n_g; ++g) t += terms[(size_t)g * N + n];
+    x = bf16_round(x + bf16_round(t));
+  }
+  return x;
+}
+
+// act = bf16(silu(bf16(gate)) * bf16(up)) in f32 from the gate-up terms [n_g][2FF]
+__device__ __forceinline__ float silu_elem(const float* __restrict__ terms, int n_g, int FF,
+                                           int n) {
+  const int N2 = 2 * FF;
+  float g = terms[n], u = terms[FF + n];
+  for (int k = 1; k < n_g; ++k) {
+    g += terms[(size_t)k * N2 + n];
+    u += terms[(size_t)k * N2 + FF + n];
+  }
+  g = bf16_round(g);
+  u = bf16_round(u);
+  return bf16_round((g * (1.f / (1.f + expf(-g)))) * u);
+}
+
+__device__ __forceinline__ float quant_scale(float amax) {
+  return fmaxf(amax * (1.f / 127.f), 1e-12f);
+}
+
+__device__ __forceinline__ int8_t quant_code(float y, float sx) {
+  return (int8_t)fminf(fmaxf(rintf(y / sx), -127.f), 127.f);
+}
+
+// Block = row. x = resid_elem(...), y = bf16(rms(x) * w) (or x when w is
+// null), then xq = rint(y / sx) with sx = max(amax / 127, 1e-12). `base` is
+// a bf16 [N] row, or the embedding row of token[row] when token is
+// non-null. Row strides: N for base / x_out / h_out, ts for terms, qs for
+// xq. The sum of squares is each thread's strided sum, then block_sum: the
+// order row_codes reproduces with fewer threads.
 __global__ void __launch_bounds__(NORM_THREADS) norm_quant(
     const __nv_bfloat16* __restrict__ base, const __nv_bfloat16* __restrict__ embd,
     const int* __restrict__ token, const float* __restrict__ terms, int n_g,
@@ -194,16 +233,11 @@ __global__ void __launch_bounds__(NORM_THREADS) norm_quant(
   xq += row * qs;
   float sq = 0.f;
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    float x = bf2f(base[n]);
-    if (terms) {
-      float t = terms[n];
-      for (int g = 1; g < n_g; ++g) t += terms[(size_t)g * N + n];
-      x = bf16_round(x + bf16_round(t));
-    }
+    const float x = resid_elem(base, terms, n_g, N, n);
     if (x_out) x_out[n] = __float2bfloat16_rn(x);
     if (h_out) h_out[n] = x;
     xs[n] = x;
-    sq += x * x;
+    sq = fmaf(x, x, sq);
   }
   float r = 1.f;
   if (w) {
@@ -218,18 +252,14 @@ __global__ void __launch_bounds__(NORM_THREADS) norm_quant(
     amax = fmaxf(amax, fabsf(y));
   }
   amax = block_max(amax, red);
-  const float sx = fmaxf(amax * (1.f / 127.f), 1e-12f);
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    const float qv = fminf(fmaxf(rintf(xs[n] / sx), -127.f), 127.f);
-    xq[n] = (int8_t)qv;
-  }
+  const float sx = quant_scale(amax);
+  for (int n = threadIdx.x; n < N; n += blockDim.x) xq[n] = quant_code(xs[n], sx);
   if (threadIdx.x == 0) sx_out[row] = sx;
 }
 
 // -- SwiGLU activation + int8 quantization ---------------------------------
 //
-// Block = row. gu = bf16(sum_g terms[g]) over [2FF]; act = bf16(silu(gate) *
-// up) in f32.
+// Block = row. gu = bf16(sum_g terms[g]) over [2FF]; act = silu_elem.
 __global__ void __launch_bounds__(NORM_THREADS) silu_quant(
     const float* __restrict__ terms, int n_g, int FF, int8_t* __restrict__ xq,
     float* __restrict__ sx_out, size_t ts, size_t qs) {
@@ -238,38 +268,137 @@ __global__ void __launch_bounds__(NORM_THREADS) silu_quant(
   const int row = blockIdx.x;
   terms += row * ts;
   xq += row * qs;
-  const int N2 = 2 * FF;
   float amax = 0.f;
   for (int n = threadIdx.x; n < FF; n += blockDim.x) {
-    float g = terms[n], u = terms[FF + n];
-    for (int k = 1; k < n_g; ++k) {
-      g += terms[(size_t)k * N2 + n];
-      u += terms[(size_t)k * N2 + FF + n];
-    }
-    g = bf16_round(g);
-    u = bf16_round(u);
-    const float a = bf16_round((g * (1.f / (1.f + expf(-g)))) * u);
+    const float a = silu_elem(terms, n_g, FF, n);
     xs[n] = a;
     amax = fmaxf(amax, fabsf(a));
   }
   amax = block_max(amax, red);
-  const float sx = fmaxf(amax * (1.f / 127.f), 1e-12f);
-  for (int n = threadIdx.x; n < FF; n += blockDim.x) {
-    xq[n] = (int8_t)fminf(fmaxf(rintf(xs[n] / sx), -127.f), 127.f);
-  }
+  const float sx = quant_scale(amax);
+  for (int n = threadIdx.x; n < FF; n += blockDim.x) xq[n] = quant_code(xs[n], sx);
   if (threadIdx.x == 0) sx_out[row] = sx;
+}
+
+// -- GEMV input prologues (K1) -------------------------------------------------
+//
+// On K1's path no kernel of its own quantizes a GEMV's input row: each GEMV
+// block recomputes the whole row from its f32 terms and bf16 rows in L2 (4-12
+// KB), its RMS and its amax, and keeps the int8 codes of the input rows it
+// reads. The codes and the scale equal norm_quant's / silu_quant's bit for
+// bit: the same element functions, max reductions (exact in any order) and
+// the sum of squares in norm_quant's order, the NORM_THREADS virtual
+// threads' strided sums reduced by the same warp butterflies (four virtual
+// threads per thread of a 256-thread block). Kinds:
+enum RowKind {
+  ROW_CODES = 0,  // codes and scale already in memory (xq, sx): the lm head
+  ROW_NORM = 1,   // x = resid_elem(base, terms), y = bf16(rms(x) * w)
+  ROW_QUANT = 2,  // y = base (the attention row)
+  ROW_SILU = 3,   // y = silu_elem(terms)
+};
+
+struct RowIn {
+  int kind, N, n_g;
+  const __nv_bfloat16* base;  // [N] bf16, or null: the embedding row of *token
+  const __nv_bfloat16* embd;
+  const int* token;
+  const float* terms;         // [n_g][N] (SILU: [n_g][2N])
+  const float* w;             // norm weight [N] (NORM)
+  float eps;
+  __nv_bfloat16* x_out;       // NORM: x, written by block (0, 0) (the residual)
+  const int8_t* xq;           // CODES
+  const float* sx;
+};
+
+constexpr int PRO_THREADS = 256;                      // the GEMVs' block size
+constexpr int PRO_VIRT = NORM_THREADS / PRO_THREADS;  // virtual threads a thread plays
+
+// The codes of input rows [r0, r0 + n) into codes[0 .. n) (shared), and the
+// row's scale, returned to every thread. ys: shared scratch of NORM_MAX
+// floats; red: 32. Every thread of the (PRO_THREADS) block calls it.
+__device__ float row_codes(const RowIn& in, int r0, int n, int8_t* codes, float* ys,
+                           float* red) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (in.kind == ROW_CODES) {
+    for (int i = tid; i < n; i += PRO_THREADS) codes[i] = in.xq[r0 + i];
+    __syncthreads();
+    return *in.sx;
+  }
+  const int N = in.N;
+  float amax = 0.f;
+  if (in.kind == ROW_SILU) {
+    for (int i = tid; i < N; i += PRO_THREADS) {
+      const float a = silu_elem(in.terms, in.n_g, N, i);
+      ys[i] = a;
+      amax = fmaxf(amax, fabsf(a));
+    }
+  } else {
+    const __nv_bfloat16* base = in.base ? in.base : in.embd + (size_t)(*in.token) * N;
+    const bool norm = in.kind == ROW_NORM;
+    const bool write = norm && in.x_out && blockIdx.x == 0 && blockIdx.y == 0;
+    float sq[PRO_VIRT];
+#pragma unroll
+    for (int j = 0; j < PRO_VIRT; ++j) {
+      sq[j] = 0.f;
+      for (int i = tid + j * PRO_THREADS; i < N; i += NORM_THREADS) {
+        const float x = norm ? resid_elem(base, in.terms, in.n_g, N, i) : bf2f(base[i]);
+        if (write) in.x_out[i] = __float2bfloat16_rn(x);
+        ys[i] = x;
+        sq[j] = fmaf(x, x, sq[j]);
+      }
+    }
+    float r = 1.f;
+    if (norm) {
+      // block_sum over NORM_THREADS threads: virtual thread tid + 256 j is
+      // lane `lane` of virtual warp warp + 8 j
+#pragma unroll
+      for (int j = 0; j < PRO_VIRT; ++j) {
+        const float v = warp_sum(sq[j]);
+        if (lane == 0) red[warp + j * (PRO_THREADS / 32)] = v;
+      }
+      __syncthreads();
+      const float tot = warp_sum(red[lane]);
+      r = rsqrtf(tot / (float)N + in.eps);
+    }
+    for (int i = tid; i < N; i += PRO_THREADS) {
+      float y = ys[i];
+      if (norm) y = bf16_round(y * r * in.w[i]);
+      ys[i] = y;
+      amax = fmaxf(amax, fabsf(y));
+    }
+  }
+  amax = warp_max(amax);
+  __syncthreads();  // red is free again, and ys complete
+  if (lane == 0) red[warp] = amax;
+  __syncthreads();
+  amax = warp_max(lane < PRO_THREADS / 32 ? red[lane] : 0.f);
+  const float sx = quant_scale(amax);
+  for (int i = tid; i < n; i += PRO_THREADS) codes[i] = quant_code(ys[r0 + i], sx);
+  __syncthreads();
+  return sx;
+}
+
+// Programmatic dependent launch: a kernel launched with it may start while
+// its predecessor runs; it waits here before it reads anything the
+// predecessor writes (a no-op for a kernel launched without it). A kernel
+// lets its dependents start early once all its blocks have begun.
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
+__device__ __forceinline__ void pdl_trigger() {
+  asm volatile("griddepcontrol.launch_dependents;" :::);
 }
 
 // -- attention ------------------------------------------------------------------
 //
-// Split over cache rows: attn_partial blocks (kvh, c, row) each take
-// ATTN_ROWS cache rows < pos for the GROUP q heads that share KV head kvh and
-// write the chunk's max m, unscaled sum l = sum exp(s - m) and o = sum
-// exp(s - m) * v_scale * v; attn_combine blocks (kvh, row) merge the row's
-// chunks with the fresh column, write the bf16 attention rows and the fresh
-// int8 K/V row at pos. Partial layout: part[row][kvh][c][j] = {m, l, o[D]}
-// with cstride (the partial grid's chunk count) chunks per (row, kvh). The
-// caches' row strides are slab_kv (K/V bytes) and slab_s (scale floats).
+// One kernel, attn_step, split over cache rows: block (kvh, c, row) takes
+// ATTN_ROWS cache rows < pos for the GROUP q heads that share KV head kvh
+// and writes the chunk's max m, unscaled sum l = sum exp(s - m) and o = sum
+// exp(s - m) * v_scale * v. The last of the row's n_attn_chunks(pos) chunk
+// blocks of head kvh to finish (an atomic count per (row, kvh), as
+// i8_tile_done counts a GEMV's tiles) then merges the chunks with the fresh
+// column, writes the bf16 attention rows and the fresh K/V row at pos.
+// Partial layout: part[row][kvh][c][j] = {m, l, o[D]} with gridDim.y chunks
+// per (row, kvh). The caches' row strides are slab_kv (K/V elements) and
+// slab_s (scale floats).
 
 // q (times the softmax scale), k and v of KV head kvh into vec[nvec][D]
 // (nvec = GROUP: the q heads only; GROUP + 2: q, k, v): bf16(sum of the
@@ -369,38 +498,31 @@ __device__ __forceinline__ float row1(const nib2* rows, int r, int D, int e) {
 // The chunk's K and V rows are copied into shared memory with cp.async
 // (16-byte pieces, all in flight at once: D / 16 pieces a stored row for
 // int8 and int4, D / 8 for bf16; an int4 chunk is ATTN_ROWS / 2 byte rows)
-// while q is prepared; everything after reads shared memory. A chunk at or
-// past the row's pos exits (the grid is sized for the largest pos of the
-// batch). Dynamic shared memory: kv[2][ATTN_ROWS / rows_per_elem][D] of the
-// cache type CT, then floats q[GROUP][D], p[GROUP][ATTN_ROWS], ml[2 *
-// GROUP], kss[ATTN_ROWS], vss[ATTN_ROWS]. An int8 or int4 cache's row scales
-// multiply the scores and the probabilities of the V sum (the denominator
-// takes the unscaled sum); a bf16 cache has no scales (ksc / vsc null).
+// while q, k and v are prepared (k and v for the merge, if this block does
+// it); everything after reads shared memory. Dynamic shared memory (attn_smem):
+// kv[2][ATTN_ROWS / rows_per_elem][D] of the cache type CT, then floats
+// vec[GROUP + 2][D], p[GROUP][ATTN_ROWS], ml[2 * GROUP], kss[ATTN_ROWS],
+// vss[ATTN_ROWS]. An int8 or int4 cache's row scales multiply the scores and
+// the probabilities of the V sum (the denominator takes the unscaled sum); a
+// bf16 cache has no scales (ksc / vsc null).
 template <typename CT>
-__global__ void __launch_bounds__(ATTN_THREADS) attn_partial(
-    const float* __restrict__ terms, int n_g, const float* __restrict__ qn,
-    const float* __restrict__ kn, MegaDims d, const CT* __restrict__ kc,
-    const CT* __restrict__ vc, const float* __restrict__ ksc,
-    const float* __restrict__ vsc, float* __restrict__ part,
-    const int* __restrict__ pos_arr, size_t ts, size_t slab_kv, size_t slab_s) {
+__device__ void attn_chunk(const float* __restrict__ terms, int n_g,
+                           const float* __restrict__ qn, const float* __restrict__ kn,
+                           const MegaDims& d, const CT* __restrict__ kc,
+                           const CT* __restrict__ vc, const float* __restrict__ ksc,
+                           const float* __restrict__ vsc, float* __restrict__ part, int pos,
+                           int kvh, int c, int row, unsigned char* smem_raw) {
   constexpr bool QUANT = scaled_cache<CT>();
   constexpr int RPB = rows_per_elem<CT>();
   constexpr int CR = ATTN_ROWS / RPB;   // stored rows per chunk
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int D = d.D, NKV = d.NKV, GROUP = d.NH / NKV, DKV = NKV * D;
-  const int kvh = blockIdx.x, c = blockIdx.y, row = blockIdx.z;
-  const int pos = row_pos(pos_arr, row, d);
   const int r0 = c * ATTN_ROWS;
-  if (r0 >= pos) return;
   const int nr = min(ATTN_ROWS, pos - r0);
-  terms += row * ts;
-  kc += row * slab_kv;
-  vc += row * slab_kv;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
   CT* kv = reinterpret_cast<CT*>(smem_raw);   // [2][CR][D]
   float* q = reinterpret_cast<float*>(smem_raw + 2 * CR * D * sizeof(CT));
-  float* p = q + GROUP * D;             // [GROUP][ATTN_ROWS]
+  float* p = q + (GROUP + 2) * D;       // [GROUP][ATTN_ROWS]
   float* ml = p + GROUP * ATTN_ROWS;    // m[GROUP], l[GROUP]
   float* kss = ml + 2 * GROUP;          // [ATTN_ROWS]
   float* vss = kss + ATTN_ROWS;         // [ATTN_ROWS]
@@ -417,14 +539,12 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_partial(
   }
   __pipeline_commit();
   if constexpr (QUANT) {
-    ksc += row * slab_s;
-    vsc += row * slab_s;
     for (int r = tid; r < nr; r += blockDim.x) {
       kss[r] = ksc[(size_t)(r0 + r) * NKV + kvh];
       vss[r] = vsc[(size_t)(r0 + r) * NKV + kvh];
     }
   }
-  prep_qkv(terms, n_g, qn, kn, d, pos, kvh, GROUP, q);
+  prep_qkv(terms, n_g, qn, kn, d, pos, kvh, GROUP + 2, q);
   __pipeline_wait_prior(0);
   __syncthreads();
   const CT* ks_rows = kv;
@@ -472,6 +592,7 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_partial(
     const int j = pr / D, e = pr % D;
     const float* pj = p + j * ATTN_ROWS;
     float o = 0.f;
+#pragma unroll 8
     for (int r = 0; r < nr; ++r) o = fmaf(pj[r], row1(vs_rows, r, D, e), o);
     out[j * (D + 2) + 2 + e] = o;
   }
@@ -481,52 +602,47 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_partial(
   }
 }
 
-// Block (kvh, row). Dynamic shared memory: vec[(GROUP + 2) * D], misc[3 *
-// GROUP]. Reads the row's n_attn_chunks(pos) partials; attn_out row stride
-// is DQ. The fresh K/V row enters the max and the sum in f32 and is stored
-// at cache row pos: quantized with its scale (int8: amax / 127, codes in
-// [-127, 127]; int4: amax / 7, codes in [-7, 7] written into their nibble of
-// byte row pos / 2, the other nibble kept), or rounded to nearest even
-// (bf16).
+// The merge of (kvh, row)'s n_attn_chunks(pos) partials with the fresh
+// column, by the chunk block that finished last: vec[(GROUP + 2) * D] holds
+// the chunk's q, k and v (prep_qkv's values for any nvec); misc[3 * GROUP]
+// and wc[nchunks * GROUP] are shared scratch (wc in the chunk's K/V staging
+// bytes); attn_out is the row's [DQ]. The partials of the other blocks are
+// read from L2 (ld.cg). The
+// fresh K/V row enters the max and the sum in f32 and is stored at cache
+// row pos: quantized with its scale (int8: amax / 127, codes in [-127, 127];
+// int4: amax / 7, codes in [-7, 7] written into their nibble of byte row
+// pos / 2, the other nibble kept), or rounded to nearest even (bf16).
 template <typename CT>
-__global__ void __launch_bounds__(ATTN_THREADS) attn_combine(
-    const float* __restrict__ terms, int n_g, const float* __restrict__ qn,
-    const float* __restrict__ kn, MegaDims d, const float* __restrict__ part,
-    int cstride, CT* __restrict__ kc, CT* __restrict__ vc,
-    float* __restrict__ ksc, float* __restrict__ vsc,
-    __nv_bfloat16* __restrict__ attn_out, const int* __restrict__ pos_arr, size_t ts,
-    size_t slab_kv, size_t slab_s) {
-  extern __shared__ float smem[];
+__device__ void attn_merge(const MegaDims& d, const float* part, CT* __restrict__ kc,
+                           CT* __restrict__ vc, float* __restrict__ ksc,
+                           float* __restrict__ vsc, __nv_bfloat16* __restrict__ attn_out,
+                           int pos, int kvh, int row, const float* vec, float* misc,
+                           float* wc) {
   const int D = d.D, NKV = d.NKV, GROUP = d.NH / NKV, DKV = NKV * D;
-  const int kvh = blockIdx.x, row = blockIdx.y;
-  const int pos = row_pos(pos_arr, row, d);
   const int nchunks = n_attn_chunks(pos);
-  terms += row * ts;
-  kc += row * slab_kv;
-  vc += row * slab_kv;
-  attn_out += (size_t)row * d.NH * D;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
-  float* vec = smem;                          // q heads, k, v
-  float* misc = vec + (GROUP + 2) * D;        // p_fresh[GROUP], m[GROUP], den[GROUP]
-  prep_qkv(terms, n_g, qn, kn, d, pos, kvh, GROUP + 2, vec);
+  // misc: p_fresh[GROUP], m[GROUP], den[GROUP]
   const float* kf = vec + GROUP * D;
   const float* vf = kf + D;
-  const float* pk = part + ((size_t)row * NKV + kvh) * cstride * GROUP * (D + 2);
+  const float* pk = part + ((size_t)row * NKV + kvh) * gridDim.y * GROUP * (D + 2);
 
-  // per q head (one warp each): fresh score, overall max, denominator
+  // per q head (one warp each): fresh score, overall max, each chunk's
+  // weight exp(m_c - max) (kept in wc[c][j]) and the denominator
   for (int j = warp; j < GROUP; j += nwarps) {
     float sf = 0.f;
     for (int e = lane; e < D; e += 32) sf += vec[j * D + e] * kf[e];
     sf = warp_sum(sf);
     float mx = sf;
     for (int c = lane; c < nchunks; c += 32)
-      mx = fmaxf(mx, pk[((size_t)c * GROUP + j) * (D + 2)]);
+      mx = fmaxf(mx, __ldcg(pk + ((size_t)c * GROUP + j) * (D + 2)));
     mx = warp_max(mx);
     float den = 0.f;
     for (int c = lane; c < nchunks; c += 32) {
       const float* pc = pk + ((size_t)c * GROUP + j) * (D + 2);
-      den += pc[1] * expf(pc[0] - mx);
+      const float w = expf(__ldcg(pc) - mx);
+      wc[c * GROUP + j] = w;
+      den += __ldcg(pc + 1) * w;
     }
     den = warp_sum(den);
     const float pf = expf(sf - mx);
@@ -540,18 +656,16 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_combine(
 
   for (int pr = tid; pr < GROUP * D; pr += blockDim.x) {
     const int j = pr / D, e = pr % D;
-    const float mx = misc[GROUP + j];
     float o = 0.f;
-    for (int c = 0; c < nchunks; ++c) {
-      const float* pc = pk + ((size_t)c * GROUP + j) * (D + 2);
-      o = fmaf(pc[2 + e], expf(pc[0] - mx), o);
-    }
+#pragma unroll 4
+    for (int c = 0; c < nchunks; ++c)
+      o = fmaf(__ldcg(pk + ((size_t)c * GROUP + j) * (D + 2) + 2 + e), wc[c * GROUP + j], o);
     const float res = (o + misc[j] * vf[e]) / misc[2 * GROUP + j];
     attn_out[(kvh * GROUP + j) * D + e] = __float2bfloat16_rn(res);
   }
 
   // the fresh K and V rows of this head (warps 0 and 1) into cache row pos;
-  // the partial blocks read only rows < pos
+  // the chunk blocks read only rows < pos
   if (warp < 2) {
     const float* x = warp == 0 ? kf : vf;
     CT* dst = (warp == 0 ? kc : vc) + (size_t)(pos / rows_per_elem<CT>()) * DKV + kvh * D;
@@ -574,11 +688,52 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_combine(
           dst[e] = (int8_t)qv;
         }
       }
-      if (lane == 0) (warp == 0 ? ksc : vsc)[row * slab_s + (size_t)pos * NKV + kvh] = s;
+      if (lane == 0) (warp == 0 ? ksc : vsc)[(size_t)pos * NKV + kvh] = s;
     } else {
       for (int e = lane; e < D; e += 32) dst[e] = __float2bfloat16_rn(x[e]);
     }
   }
+}
+
+// Block (kvh, c, row): chunk c of (kvh, row), then the merge in the last of
+// the row's chunk blocks to finish. A chunk at or past the row's pos exits
+// at once (the grid is sized for the host's bound of the positions). cnt
+// [B][NKV] is zero between steps: the last block resets its count.
+template <typename CT>
+__global__ void __launch_bounds__(ATTN_THREADS) attn_step(
+    const float* __restrict__ terms, int n_g, const float* __restrict__ qn,
+    const float* __restrict__ kn, MegaDims d, CT* __restrict__ kc, CT* __restrict__ vc,
+    float* __restrict__ ksc, float* __restrict__ vsc, float* part, int* __restrict__ cnt,
+    __nv_bfloat16* __restrict__ attn_out, const int* __restrict__ pos_arr, size_t ts,
+    size_t slab_kv, size_t slab_s) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int last;
+  pdl_trigger();
+  const int kvh = blockIdx.x, c = blockIdx.y, row = blockIdx.z;
+  const int pos = pos_arr[row];
+  if (c * ATTN_ROWS >= pos) return;
+  terms += row * ts;
+  kc += row * slab_kv;
+  vc += row * slab_kv;
+  if (ksc) {
+    ksc += row * slab_s;
+    vsc += row * slab_s;
+  }
+  attn_chunk<CT>(terms, n_g, qn, kn, d, kc, vc, ksc, vsc, part, pos, kvh, c, row, smem_raw);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int* n = cnt + row * d.NKV + kvh;
+    last = atomicAdd(n, 1) == n_attn_chunks(pos) - 1;
+    if (last) *n = 0;
+  }
+  __syncthreads();
+  if (!last) return;
+  const int RPB = rows_per_elem<CT>();
+  float* vec = reinterpret_cast<float*>(smem_raw + 2 * (ATTN_ROWS / RPB) * d.D * sizeof(CT));
+  attn_merge<CT>(d, part, kc, vc, ksc, vsc, attn_out + (size_t)row * d.NH * d.D, pos, kvh,
+                 row, vec, vec + (d.NH / d.NKV + 2) * d.D,
+                 reinterpret_cast<float*>(smem_raw));
 }
 
 // -- lm-head argmax -----------------------------------------------------------
@@ -680,17 +835,21 @@ __device__ __forceinline__ bool i8_tile_done(int* tiles) {
 // -- scratch layout -------------------------------------------------------------
 
 // Per-row activations of B rows: row b of each array at b * (its row size).
+// The GEMVs write their f32 group terms into terms[0] and terms[1] in turn,
+// so a GEMV that rebuilds its input from its predecessor's terms never
+// writes over them.
 struct Scratch {
   __nv_bfloat16 *x, *h1, *attn;  // [B][H], [B][H], [B][DQ]
   int8_t* xq;                    // [B][widest_row]
   float* sx;                     // [B]
-  float* terms;                  // [B][terms_floats]
+  float* terms[2];               // [B][terms_floats] each
   float* part;                   // [B][NKV][n_attn_chunks(S)][GROUP][D + 2]
   float* pmax;                   // [B][n_argmax_blocks]
   int* pidx;
   int* iacc;                     // [B][widest_out] int8 GEMVs' column sums
   int* tiles;                    // [widest_out / 64] their tile counters
-  size_t i8_bytes;               // bytes of iacc and tiles (zeroed per step)
+  int* acnt;                     // [B][NKV] attention chunks done
+  size_t zero_bytes;             // bytes of iacc, tiles and acnt (zeroed per step)
 };
 
 inline size_t layout(const MegaDims& d, int B, char* base, Scratch* s) {
@@ -706,22 +865,30 @@ inline size_t layout(const MegaDims& d, int B, char* base, Scratch* s) {
   s->attn = (__nv_bfloat16*)take(2 * (size_t)B * DQ);
   s->xq = (int8_t*)take((size_t)B * widest_row(d));
   s->sx = (float*)take(4 * (size_t)B);
-  s->terms = (float*)take(4 * (size_t)B * terms_floats(d));
+  s->terms[0] = (float*)take(4 * (size_t)B * terms_floats(d));
+  s->terms[1] = (float*)take(4 * (size_t)B * terms_floats(d));
   s->part = (float*)take(4 * (size_t)B * d.NH * n_attn_chunks(d.S) * (d.D + 2));
   s->pmax = (float*)take(4 * (size_t)B * n_argmax_blocks(d));
   s->pidx = (int*)take(4 * (size_t)B * n_argmax_blocks(d));
-  const size_t i8_off = off;
+  const size_t zero_off = off;
   s->iacc = (int*)take(4 * (size_t)B * widest_out(d));
   s->tiles = (int*)take(4 * (size_t)(widest_out(d) / 64 + 1));
-  s->i8_bytes = off - i8_off;
+  s->acnt = (int*)take(4 * (size_t)B * d.NKV);
+  s->zero_bytes = off - zero_off;
   return off;
 }
 
 // One decode step of B rows over a cache of element type CT (int8_t or nib2
 // with f32 row scales, or __nv_bfloat16): the launch sequence both entry
-// points share (K3 instantiates int8_t only). `gemv(wq, ws, layer, n_in, N, G)` launches the product (int4 or
-// int8 weights) of all B rows of s.xq (row scales s.sx) into s.terms;
-// pos_arr is null for K1.
+// points share (K3 instantiates int8_t only). `gemv(wq, ws, layer, n_in, N,
+// G, in, terms_out, first)` launches the product (int4 or int8 weights) of
+// all B rows of the input row `in` (RowIn: how its int8 codes are made) into
+// terms_out; K1 launches one GEMV whose blocks make the codes themselves
+// (row_codes), K3 a norm_quant / silu_quant launch into s.xq / s.sx and then
+// its batched GEMV. `first` marks the step's first GEMV. Per layer: the QKV
+// GEMV, attn_step, then the Wo, gate-up and down GEMVs; then the final norm
+// (h_out = the pre-norm hidden state), the lm head and the argmax. pos_arr:
+// the rows' positions [B] on the device.
 template <typename CT, typename Gemv>
 void decode_step(const MegaPtrs* p, const MegaDims& d, const int* pos_arr, int B,
                  const Scratch& s, cudaStream_t st, Gemv gemv) {
@@ -731,10 +898,8 @@ void decode_step(const MegaPtrs* p, const MegaDims& d, const int* pos_arr, int B
   const int nchunks = n_attn_chunks(d.pos);
   const size_t ts = terms_floats(d), qs = (size_t)widest_row(d);
   const size_t slab_kv = (size_t)d.L * SE * DKV, slab_s = (size_t)d.L * d.S * d.NKV;
-  const size_t smem_partial = attn_partial_smem<CT>(d);
-  const size_t smem_combine = attn_combine_smem(d);
+  const size_t smem_attn = attn_smem<CT>(d);
 
-  const __nv_bfloat16* embd = (const __nv_bfloat16*)p->embd;
   const float* attn_norm = (const float*)p->attn_norm;
   const float* ffn_norm = (const float*)p->ffn_norm;
   const float* q_norm = (const float*)p->q_norm;
@@ -743,61 +908,81 @@ void decode_step(const MegaPtrs* p, const MegaDims& d, const int* pos_arr, int B
   CT* vc = (CT*)p->v_cache;
   float* ksc = (float*)p->k_scale;
   float* vsc = (float*)p->v_scale;
-  if (d.wbits == 8) cudaMemsetAsync(s.iacc, 0, s.i8_bytes, st);
+  float* ta = s.terms[0];
+  float* tb = s.terms[1];
+  cudaMemsetAsync(s.iacc, 0, s.zero_bytes, st);
 
   for (int l = 0; l < d.L; ++l) {
-    // x = embedding row (layer 0) or h1 + bf16(wd); xq = quant(bf16(rms(x) * attn_norm))
+    // x = embedding row (layer 0) or h1 + bf16(wd); codes of bf16(rms(x) * attn_norm)
+    RowIn in{};
+    in.kind = ROW_NORM;
+    in.N = d.H;
+    in.embd = (const __nv_bfloat16*)p->embd;
     if (l == 0) {
-      norm_quant<<<B, NORM_THREADS, 0, st>>>(
-          (const __nv_bfloat16*)p->x_in, embd, (const int*)p->token_in, nullptr, 0,
-          d.H, attn_norm, d.eps, s.x, nullptr, s.xq, s.sx, ts, qs);
+      in.base = (const __nv_bfloat16*)p->x_in;
+      in.token = (const int*)p->token_in;
     } else {
-      norm_quant<<<B, NORM_THREADS, 0, st>>>(
-          s.h1, nullptr, nullptr, s.terms, d.FF / d.g_wd, d.H,
-          attn_norm + (size_t)l * d.H, d.eps, s.x, nullptr, s.xq, s.sx, ts, qs);
+      in.base = s.h1;
+      in.terms = tb;
+      in.n_g = d.FF / d.g_wd;
     }
-    gemv(p->qkv_q, p->qkv_s, l, d.H, DQ + 2 * DKV, d.g_qkv);
+    in.w = attn_norm + (size_t)l * d.H;
+    in.eps = d.eps;
+    in.x_out = s.x;
+    gemv(p->qkv_q, p->qkv_s, l, d.H, DQ + 2 * DKV, d.g_qkv, in, ta, l == 0);
     const float* qn = q_norm + (size_t)l * d.D;
     const float* kn = k_norm + (size_t)l * d.D;
     CT* kl = kc + (size_t)l * SE * DKV;
     CT* vl = vc + (size_t)l * SE * DKV;
     float* ksl = QUANT ? ksc + (size_t)l * d.S * d.NKV : nullptr;
     float* vsl = QUANT ? vsc + (size_t)l * d.S * d.NKV : nullptr;
-    attn_partial<CT><<<dim3(d.NKV, nchunks, B), ATTN_THREADS, smem_partial, st>>>(
-        s.terms, d.H / d.g_qkv, qn, kn, d, kl, vl, ksl, vsl, s.part, pos_arr, ts,
+    attn_step<CT><<<dim3(d.NKV, nchunks, B), ATTN_THREADS, smem_attn, st>>>(
+        ta, d.H / d.g_qkv, qn, kn, d, kl, vl, ksl, vsl, s.part, s.acnt, s.attn, pos_arr, ts,
         slab_kv, slab_s);
-    attn_combine<CT><<<dim3(d.NKV, B), ATTN_THREADS, smem_combine, st>>>(
-        s.terms, d.H / d.g_qkv, qn, kn, d, s.part, nchunks, kl, vl, ksl, vsl, s.attn,
-        pos_arr, ts, slab_kv, slab_s);
-    norm_quant<<<B, NORM_THREADS, 0, st>>>(s.attn, nullptr, nullptr, nullptr, 0, DQ,
-                                           nullptr, d.eps, nullptr, nullptr, s.xq, s.sx,
-                                           ts, qs);
-    gemv(p->wo_q, p->wo_s, l, DQ, d.H, d.g_wo);
-    norm_quant<<<B, NORM_THREADS, 0, st>>>(s.x, nullptr, nullptr, s.terms, DQ / d.g_wo,
-                                           d.H, ffn_norm + (size_t)l * d.H, d.eps, s.h1,
-                                           nullptr, s.xq, s.sx, ts, qs);
-    gemv(p->gu_q, p->gu_s, l, d.H, 2 * d.FF, d.g_gu);
-    silu_quant<<<B, NORM_THREADS, 0, st>>>(s.terms, d.H / d.g_gu, d.FF, s.xq, s.sx, ts,
-                                           qs);
-    gemv(p->wd_q, p->wd_s, l, d.FF, d.H, d.g_wd);
+    in = RowIn{};
+    in.kind = ROW_QUANT;
+    in.N = DQ;
+    in.base = s.attn;
+    gemv(p->wo_q, p->wo_s, l, DQ, d.H, d.g_wo, in, tb, false);
+    // h1 = x + bf16(wo); codes of bf16(rms(h1) * ffn_norm)
+    in = RowIn{};
+    in.kind = ROW_NORM;
+    in.N = d.H;
+    in.base = s.x;
+    in.terms = tb;
+    in.n_g = DQ / d.g_wo;
+    in.w = ffn_norm + (size_t)l * d.H;
+    in.eps = d.eps;
+    in.x_out = s.h1;
+    gemv(p->gu_q, p->gu_s, l, d.H, 2 * d.FF, d.g_gu, in, ta, false);
+    in = RowIn{};
+    in.kind = ROW_SILU;
+    in.N = d.FF;
+    in.terms = ta;
+    in.n_g = d.H / d.g_gu;
+    gemv(p->wd_q, p->wd_s, l, d.FF, d.H, d.g_wd, in, tb, false);
   }
-  // final norm (h_out = the pre-norm hidden state), the lm head, argmax
-  norm_quant<<<B, NORM_THREADS, 0, st>>>(s.h1, nullptr, nullptr, s.terms, d.FF / d.g_wd,
-                                         d.H, (const float*)p->out_norm, d.eps, nullptr,
+  norm_quant<<<B, NORM_THREADS, 0, st>>>(s.h1, nullptr, nullptr, tb, d.FF / d.g_wd, d.H,
+                                         (const float*)p->out_norm, d.eps, nullptr,
                                          (float*)p->h_out, s.xq, s.sx, ts, qs);
-  gemv(p->head_q, p->head_s, 0, d.H, d.Vp, d.g_head);
+  RowIn in{};
+  in.kind = ROW_CODES;
+  in.xq = s.xq;
+  in.sx = s.sx;
+  gemv(p->head_q, p->head_s, 0, d.H, d.Vp, d.g_head, in, ta, false);
   const int nb = n_argmax_blocks(d);
-  argmax_partial<<<dim3(nb, B), ARGMAX_THREADS, 0, st>>>(s.terms, d.H / d.g_head, d.Vp,
-                                                         d.V, s.pmax, s.pidx, ts);
+  argmax_partial<<<dim3(nb, B), ARGMAX_THREADS, 0, st>>>(ta, d.H / d.g_head, d.Vp, d.V,
+                                                         s.pmax, s.pidx, ts);
   argmax_final<<<B, ARGMAX_THREADS, 0, st>>>(s.pmax, s.pidx, nb, (int*)p->token_out);
 }
 
 // The checks both entry points make before a step over a cache of type CT.
 template <typename CT>
 inline bool step_ok(const MegaDims& d, int gemv_cols, int max_group) {
+  const size_t staging = 2 * (size_t)(ATTN_ROWS / rows_per_elem<CT>()) * d.D * sizeof(CT);
   return dims_ok(d, gemv_cols, max_group) && d.S % rows_per_elem<CT>() == 0 &&
-         attn_partial_smem<CT>(d) <= 48 * 1024 &&
-         attn_combine_smem(d) <= 48 * 1024;
+         attn_smem<CT>(d) <= 48 * 1024 &&
+         sizeof(float) * n_attn_chunks(d.S) * (d.NH / d.NKV) <= staging;
 }
 
 }  // namespace

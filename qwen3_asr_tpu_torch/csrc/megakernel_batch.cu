@@ -19,15 +19,19 @@
 // __byte_perm) and feeds them to one dp4a per (batch row, column). Register
 // pressure is what shapes it: 16 rows x 4 columns = 64 int32 sums a thread
 // (16 columns, as K1's thread holds, would take 256). Everything else is the
-// launch sequence of megakernel.cuh with one block row per sequence:
-// attention launches a block per (KV head, 64-row chunk, sequence) over the
-// host's upper bound of the positions, and chunks at or past a row's own
-// position exit at once.
+// launch sequence of megakernel.cuh with one block row per sequence: each
+// GEMV's input codes come from a norm_quant / silu_quant launch with a block
+// per row (K1's GEMVs make the same codes in their prologue), and attention
+// launches a block per (KV head, 64-row chunk, sequence) over the host's
+// upper bound of the positions, chunks at or past a row's own position
+// exiting at once.
 //
 // Numerics: each row equals megakernel.cu run on that row alone, bit for
 // bit. The products are int32 sums, exact in any order; the f32 terms are
 // formed as K1 forms them, `f32(dot) * (sx_b * s_g)` (int4, per group) or
-// `f32(dot) * (sx_b * s[n])` (int8), and the rest is the same device code.
+// `f32(dot) * (sx_b * s[n])` (int8); the codes are norm_quant's, which K1's
+// prologue reproduces in the same f32 order, and the rest is the same
+// device code.
 #include "megakernel.cuh"
 
 namespace {
@@ -195,20 +199,36 @@ __global__ void __launch_bounds__(BGEMV_THREADS) gemv_i8_batch(
 }
 
 // One GEMV of the step at batch tile BT (the smallest of 1, 2, 4, 8, 16 that
-// holds B): the int4 or the int8 kernel by d.wbits.
+// holds B): the int4 or the int8 kernel by d.wbits, from s.xq / s.sx into
+// terms.
 template <int BT>
 void launch_gemv(const MegaDims& d, const Scratch& s, cudaStream_t st, const void* wq,
-                 const float* sc, size_t l, int n_in, int N, int G, int B) {
+                 const float* sc, size_t l, int n_in, int N, int G, int B, float* terms) {
   const size_t qs = (size_t)widest_row(d), ts = terms_floats(d);
   if (d.wbits == 8) {
     const int kc = split_rows(n_in);
     gemv_i8_batch<BT><<<dim3(N / BGEMV_COLS, n_in / kc), BGEMV_THREADS, 0, st>>>(
         s.xq, qs, s.sx, (const int8_t*)wq + l * (size_t)n_in * N, sc, kc, N, s.iacc,
-        s.tiles, s.terms, ts, B);
+        s.tiles, terms, ts, B);
   } else {
     gemv_i4_batch<BT><<<dim3(N / BGEMV_COLS, n_in / G), BGEMV_THREADS, 0, st>>>(
         s.xq, qs, s.sx, (const uint8_t*)wq + l * (size_t)(n_in / 2) * N, sc, G, N,
-        s.terms, ts, B);
+        terms, ts, B);
+  }
+}
+
+// The codes of a GEMV's input rows (RowIn) for all B rows into s.xq / s.sx:
+// one norm_quant or silu_quant launch, a block per row (nothing for codes
+// already there). K1's GEMVs make the same codes in their prologue.
+void row_kernel(const RowIn& in, const MegaDims& d, const Scratch& s, cudaStream_t st,
+                int B) {
+  const size_t qs = (size_t)widest_row(d), ts = terms_floats(d);
+  if (in.kind == ROW_NORM || in.kind == ROW_QUANT) {
+    norm_quant<<<B, NORM_THREADS, 0, st>>>(in.base, in.embd, in.token, in.terms, in.n_g,
+                                           in.N, in.w, in.eps, in.x_out, nullptr, s.xq,
+                                           s.sx, ts, qs);
+  } else if (in.kind == ROW_SILU) {
+    silu_quant<<<B, NORM_THREADS, 0, st>>>(in.terms, in.n_g, in.N, s.xq, s.sx, ts, qs);
   }
 }
 
@@ -233,14 +253,16 @@ extern "C" int qw_mega_decode_step_batch_i8(const MegaPtrs* p, const MegaDims* d
   if (!step_ok<int8_t>(d, BGEMV_COLS, BGEMV_MAX_GROUP)) return (int)cudaErrorInvalidValue;
   Scratch s;
   layout(d, B, (char*)p->scratch, &s);
-  auto gemv = [&](const void* wq, const void* ws, size_t l, int n_in, int N, int G) {
+  auto gemv = [&](const void* wq, const void* ws, size_t l, int n_in, int N, int G,
+                  const RowIn& in, float* terms, bool) {
+    row_kernel(in, d, s, st, B);
     // G = n_in for int8 weights, so the scale offset is l * N for both packs
     const float* sc = (const float*)ws + l * (size_t)(n_in / G) * N;
-    if (B <= 1) launch_gemv<1>(d, s, st, wq, sc, l, n_in, N, G, B);
-    else if (B <= 2) launch_gemv<2>(d, s, st, wq, sc, l, n_in, N, G, B);
-    else if (B <= 4) launch_gemv<4>(d, s, st, wq, sc, l, n_in, N, G, B);
-    else if (B <= 8) launch_gemv<8>(d, s, st, wq, sc, l, n_in, N, G, B);
-    else launch_gemv<16>(d, s, st, wq, sc, l, n_in, N, G, B);
+    if (B <= 1) launch_gemv<1>(d, s, st, wq, sc, l, n_in, N, G, B, terms);
+    else if (B <= 2) launch_gemv<2>(d, s, st, wq, sc, l, n_in, N, G, B, terms);
+    else if (B <= 4) launch_gemv<4>(d, s, st, wq, sc, l, n_in, N, G, B, terms);
+    else if (B <= 8) launch_gemv<8>(d, s, st, wq, sc, l, n_in, N, G, B, terms);
+    else launch_gemv<16>(d, s, st, wq, sc, l, n_in, N, G, B, terms);
   };
   decode_step<int8_t>(p, d, pos, B, s, st, gemv);
   return (int)cudaGetLastError();

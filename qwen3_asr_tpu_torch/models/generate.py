@@ -46,6 +46,7 @@ from qwen3_asr_tpu_torch.models.decoder import (
 )
 from qwen3_asr_tpu_torch.ops.megakernel import (
     DecodeStep,
+    GraphStep,
     mega_decode_step_ref,
     pack_kv_int4,
 )
@@ -120,16 +121,15 @@ def mega_caches(cfg: DecoderConfig, cache: dict, cache_dtype: torch.dtype):
 
 def mega_runner(pack: dict, cfg: DecoderConfig, kvs):
     """run(out, i, pos): one decode-pack step consuming out[i - 1] at
-    position pos over the flat caches kvs, writing out[i] on the device (the
-    kernels for CUDA tensors, the twin for CPU ones)."""
+    position pos over the flat caches kvs, writing out[i] on the device: for
+    CUDA tensors the kernels' step, captured once in a CUDA graph at the
+    first call and replayed for every later token (GraphStep), for CPU ones
+    the twin."""
     if kvs[0].device.type == "cuda":
-        step = DecodeStep(pack, cfg, *kvs)
+        return GraphStep(DecodeStep(pack, cfg, *kvs))
 
-        def run(out, i, pos):
-            step(out[i - 1:i], pos, out[i:i + 1])
-    else:
-        def run(out, i, pos):
-            out[i:i + 1] = mega_decode_step_ref(pack, cfg, out[i - 1:i], pos, *kvs)[0]
+    def run(out, i, pos):
+        out[i:i + 1] = mega_decode_step_ref(pack, cfg, out[i - 1:i], pos, *kvs)[0]
     return run
 
 

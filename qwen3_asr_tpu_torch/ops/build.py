@@ -24,6 +24,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# Entry points run once right after the library loads (kernel attributes
+# such as a dynamic shared-memory limit above 48 KB), so that no first call
+# sets them lazily, inside a CUDA graph's capture for one.
+INIT_ENTRIES = ("qw_flash_init",)
+
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None  # wall time of this process's build
@@ -84,7 +89,12 @@ def library() -> ctypes.CDLL:
                 raise RuntimeError("nvcc failed:\n" + "\n".join(outs)[-4000:])
             os.replace(tmp, so)
             build_seconds = time.perf_counter() - t0
-        _lib = ctypes.CDLL(str(so))
+        lib = ctypes.CDLL(str(so))
+        for name in INIT_ENTRIES:
+            rc = getattr(lib, name)()
+            if rc != 0:
+                raise RuntimeError(f"{name}: CUDA error {rc}")
+        _lib = lib
         return _lib
 
 

@@ -1,5 +1,5 @@
-"""Flash attention: the CUDA kernel `csrc/flash_attention.cu` and its plain
-PyTorch twin.
+"""Flash attention: the CUDA kernel `csrc/flash_attention.cu` (bf16 tensor-core
+products, mma.sync) and its plain PyTorch twin.
 
 Port of qwen3_asr_tpu/ops/pallas_attention.py (`_flash_kernel`,
 `flash_attention_batch`, `flash_attention`). Layouts are the JAX package's:
@@ -48,9 +48,14 @@ def flash_attention_ref(q, k, v, valid_lens, *, causal: bool, scale: float):
     return out.to(q.dtype)
 
 
-def _launch(q, k, v, valid, causal: bool, scale: float) -> torch.Tensor:
-    from qwen3_asr_tpu_torch.ops.build import kernel
-
+def check_kernel_args(q, k, v, valid) -> None:
+    """What the kernel takes, checked before a launch on any device: bf16
+    contiguous q [B, T, NH, D] and k, v [B, S, NKV, D] on q's device, int32
+    valid [B], D 64 or 128, NH a multiple of NKV (GQA). Raises TypeError or
+    ValueError."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"flash kernel takes q [B, T, NH, D] and k, v [B, S, NKV, D] "
+                         f"(got {tuple(q.shape)}, {tuple(k.shape)})")
     B, T, NH, D = q.shape
     _, S, NKV, _ = k.shape
     dev = q.device
@@ -61,6 +66,15 @@ def _launch(q, k, v, valid, causal: bool, scale: float) -> torch.Tensor:
     if D not in (64, 128) or NH % NKV:
         raise ValueError(f"flash kernel takes D in (64, 128) and NH % NKV == 0"
                          f" (got D={D}, NH={NH}, NKV={NKV})")
+
+
+def _launch(q, k, v, valid, causal: bool, scale: float) -> torch.Tensor:
+    from qwen3_asr_tpu_torch.ops.build import kernel
+
+    check_kernel_args(q, k, v, valid)
+    B, T, NH, D = q.shape
+    _, S, NKV, _ = k.shape
+    dev = q.device
     out = torch.empty_like(q)
     fn = kernel("qw_flash_attention", [ctypes.c_void_p] * 5
                 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])

@@ -328,11 +328,13 @@ class _Ptrs(ctypes.Structure):
 class _Dims(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
         "L", "H", "NH", "NKV", "D", "FF", "V", "Vp", "S", "pos",
-        "g_qkv", "g_wo", "g_gu", "g_wd", "g_head", "wbits")] + [
+        "g_qkv", "g_wo", "g_gu", "g_wd", "g_head", "wbits", "pdl")] + [
         (n, ctypes.c_float) for n in ("eps", "rope_coef", "scale")]
 
 
-def _dims(pack, cfg: DecoderConfig, S: int, pos: int) -> _Dims:
+def _dims(pack, cfg: DecoderConfig, S: int, pos: int, pdl: bool = False) -> _Dims:
+    """The kernels' dimensions; pos is the host's bound of the positions
+    (it sizes the attention grid), pdl K1's programmatic dependent launch."""
     H, D = cfg.hidden_size, cfg.head_dim
     DQ, FF = cfg.n_heads * D, cfg.intermediate_size
     return _Dims(
@@ -340,7 +342,7 @@ def _dims(pack, cfg: DecoderConfig, S: int, pos: int) -> _Dims:
         V=cfg.vocab_size, Vp=pack["head_q"].shape[1], S=S, pos=pos,
         g_qkv=scale_group(pack, H), g_wo=scale_group(pack, DQ),
         g_gu=scale_group(pack, H), g_wd=scale_group(pack, FF),
-        g_head=scale_group(pack, H), wbits=weight_bits(pack),
+        g_head=scale_group(pack, H), wbits=weight_bits(pack), pdl=int(pdl),
         eps=cfg.rms_norm_eps, rope_coef=rope_coef(cfg.rope_theta, D),
         scale=float(np.float32(1.0 / float(np.sqrt(D)))))
 
@@ -371,16 +373,29 @@ _ENTRIES = {torch.int8: "qw_mega_decode_step_i8", torch.bfloat16: "qw_mega_decod
             torch.uint8: "qw_mega_decode_step_i4"}
 
 
+# Kernel launches of one K1 step at L layers: per layer the QKV GEMV,
+# attention, the Wo, gate-up and down GEMVs (each GEMV making its own input
+# codes); then the final norm, the lm head and the two argmax passes
+# (csrc/megakernel.cuh, decode_step; the scratch memset is no kernel).
+def step_kernels(n_layers: int) -> int:
+    return 5 * n_layers + 4
+
+
 class DecodeStep:
     """The CUDA decode step bound to one pack (int4 or int8 weights) and one
     cache (int8 or int4 pairs with scales k_s / v_s, or bf16 with none):
-    validates the pack and the cache once, allocates the scratch once, and
-    then launches a step per call, through `qw_mega_decode_step_i8` (int8
-    cache), `qw_mega_decode_step` (bf16) or `qw_mega_decode_step_i4` (int4).
+    validates the pack and the cache once, allocates the scratch and the
+    device position once, and then launches a step per call, through
+    `qw_mega_decode_step_i8` (int8 cache), `qw_mega_decode_step` (bf16) or
+    `qw_mega_decode_step_i4` (int4). The kernels read the position from the
+    device and size their grids by S, so a step can be captured in a CUDA
+    graph and replayed at any position (`GraphStep`). `pdl`: the GEMVs start
+    under their predecessors' tails (programmatic dependent launch).
     `mega_decode_step_i8`, `mega_decode_step` and `mega_decode_step_i4` wrap
     it for single calls."""
 
-    def __init__(self, pack, cfg: DecoderConfig, k, v, k_s=None, v_s=None):
+    def __init__(self, pack, cfg: DecoderConfig, k, v, k_s=None, v_s=None, *,
+                 pdl: bool = True):
         from qwen3_asr_tpu_torch.ops.build import kernel
 
         dev = k.device
@@ -406,11 +421,13 @@ class DecodeStep:
         self.counter = _COUNTERS[k.dtype]
         self._fn = kernel(_ENTRIES[k.dtype],
                           [ctypes.POINTER(_Ptrs), ctypes.POINTER(_Dims),
-                           ctypes.c_void_p])
+                           ctypes.c_void_p, ctypes.c_void_p])
+        self.dims = _dims(pack, cfg, S, S - 1, pdl)
         nbytes = kernel("qw_mega_scratch_bytes", [ctypes.POINTER(_Dims)],
-                        ctypes.c_size_t)(ctypes.byref(_dims(pack, cfg, S, 1)))
+                        ctypes.c_size_t)(ctypes.byref(self.dims))
         self.scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
         self.h = torch.empty(1, cfg.hidden_size, dtype=torch.float32, device=dev)
+        self.pos = torch.ones(1, dtype=torch.int32, device=dev)
         p = {n: pack[n].data_ptr() for n in (
             "embd", "attn_norm", "ffn_norm", "q_norm", "k_norm", "out_norm",
             "qkv_q", "qkv_s", "wo_q", "wo_s", "gu_q", "gu_s", "wd_q", "wd_s",
@@ -421,13 +438,24 @@ class DecodeStep:
                           h_out=self.h.data_ptr(),
                           scratch=self.scratch.data_ptr())
 
-    def __call__(self, token_or_x: torch.Tensor, pos: int,
-                 out: torch.Tensor) -> None:
+    def __call__(self, token_or_x: torch.Tensor, pos, out: torch.Tensor) -> None:
         """One step: reads the int32 token (or bf16 [1, H] row) on the
-        device, writes the next token into `out` (int32 [1] on the
-        device) and the cache row `pos`."""
-        if not 1 <= pos < self.S:
-            raise ValueError(f"pos {pos} outside [1, {self.S})")
+        device, writes the next token into `out` (int32 [1] on the device;
+        it may be the token's own buffer) and the cache row at the
+        position: `pos` a host int (written into self.pos on the stream) or
+        an int32 [1] tensor on the device, read there."""
+        self.enqueue(token_or_x, pos, out)
+        self.counter.launches += 1
+
+    def enqueue(self, token_or_x: torch.Tensor, pos, out: torch.Tensor) -> None:
+        """__call__ without the launch count (GraphStep's capture)."""
+        if isinstance(pos, torch.Tensor):
+            check(pos, "pos", torch.int32, (1,), self.dev)
+        else:
+            if not 1 <= pos < self.S:
+                raise ValueError(f"pos {pos} outside [1, {self.S})")
+            self.pos.fill_(pos)
+            pos = self.pos
         if token_or_x.dtype == torch.int32:
             check(token_or_x, "token", torch.int32, (1,), self.dev)
             self.ptrs.token_in, self.ptrs.x_in = token_or_x.data_ptr(), None
@@ -437,11 +465,67 @@ class DecodeStep:
             self.ptrs.token_in, self.ptrs.x_in = None, token_or_x.data_ptr()
         check(out, "token out", torch.int32, (1,), self.dev)
         self.ptrs.token_out = out.data_ptr()
-        dims = _dims(self.pack, self.cfg, self.S, pos)
-        rc = self._fn(ctypes.byref(self.ptrs), ctypes.byref(dims),
-                      stream_ptr(self.dev))
+        rc = self._fn(ctypes.byref(self.ptrs), ctypes.byref(self.dims),
+                      ctypes.c_void_p(pos.data_ptr()), stream_ptr(self.dev))
         raise_on_error(rc, self.counter.__name__)
-        self.counter.launches += 1
+
+
+class GraphStep:
+    """A DecodeStep captured once in a CUDA graph and replayed per token.
+
+    The graph holds the step on two buffers of its own, the token (read,
+    then overwritten with the next token) and the position, and one device
+    op after it that advances the position, so consecutive replays decode
+    consecutive tokens with no host work but the replay. `run(out, i, pos)`
+    decodes the token of out[i - 1] at position pos into out[i]: the first
+    call runs the step eagerly (which also loads every kernel) and then
+    captures it; later calls copy out[i - 1] in and write the position only
+    when the previous replay did not leave them there. The host's checks
+    ran at capture. A capture that fails raises; there is no eager
+    fallback. Counts one launch of the step's entry per replay."""
+
+    def __init__(self, step: DecodeStep):
+        self.step = step
+        self.tok = torch.zeros(1, dtype=torch.int32, device=step.dev)
+        self.pos = torch.ones(1, dtype=torch.int32, device=step.dev)
+        self.graph = None
+        self._last = None   # (out's data pointer, index) the token buffer holds
+        self._next_pos = None
+
+    def _capture(self) -> None:
+        cur = torch.cuda.current_stream(self.step.dev)
+        side = torch.cuda.Stream(self.step.dev)
+        side.wait_stream(cur)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.step.enqueue(self.tok, self.pos, self.tok)
+                self._advance()
+            finally:
+                graph.capture_end()
+        cur.wait_stream(side)
+        self.graph = graph
+
+    def _advance(self) -> None:
+        """The graph's last node: the position of the next replay."""
+        self.pos.add_(1)
+
+    def __call__(self, out: torch.Tensor, i: int, pos: int) -> None:
+        if self.graph is None:
+            self.step(out[i - 1:i], pos, out[i:i + 1])
+            self._capture()
+            return
+        if not 1 <= pos < self.step.S:
+            raise ValueError(f"pos {pos} outside [1, {self.step.S})")
+        if self._next_pos != pos:
+            self.pos.fill_(pos)
+        if self._last != (out.data_ptr(), i - 1):
+            self.tok.copy_(out[i - 1:i])
+        self.graph.replay()
+        out[i:i + 1].copy_(self.tok)
+        self._last, self._next_pos = (out.data_ptr(), i), pos + 1
+        self.step.counter.launches += 1
 
 
 def _single_step(pack, cfg, token_or_x, pos, k, v, k_s, v_s):

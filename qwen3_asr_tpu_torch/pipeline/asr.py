@@ -186,7 +186,7 @@ class Qwen3ASR:
             print(f"Model loaded in {int((time.perf_counter() - t0) * 1000)} ms",
                   file=sys.stderr, flush=True)
             return True
-        except (OSError, ValueError, KeyError) as e:
+        except Exception as e:  # noqa: BLE001 - the JAX pipeline's bool + error surface
             self.error_msg = f"Failed to load model: {e}"
             return False
 

@@ -255,7 +255,13 @@ class ASRServer:
     def _run_transcribe(self, batch: list[_Request]) -> list:
         """One batched transcription of a closed batch. Unlike the JAX
         server there is no split by context length: the batched step takes
-        any context on the card."""
+        any context on the card. In a mode transcribe_batch refuses (no
+        decode pack, or a bf16 cache) the batch runs one request at a time
+        through transcribe, as the JAX server runs a one-item group."""
+        try:
+            self.asr.check_batched()
+        except NotImplementedError:
+            return [self.asr.transcribe(r.samples, self.params) for r in batch]
         return self.asr.transcribe_batch([r.samples for r in batch], self.params)
 
     def _run_stream(self, req: _Request) -> None:

@@ -9,8 +9,10 @@ row stored one row early, a kernel replaced by its twin, a kernel launched
 inside `twins()`, the int8 scales one column off, a bf16 fresh row one row
 early, a K3 row given its neighbour's position, the int4 cache's
 neighbour nibble cleared or its nibbles swapped, the unpack probe's nibbles
-swapped) and asserts that the phase of `chip_smoke.py` that guards against
-it raises. The phases print their readings before they raise; run
+swapped, flash attention's causal mask one key late or its last partial key
+tile skipped, K1's graph replayed without advancing the position, K1's
+GEMV prologue reading no attn_norm weight) and asserts that the phase of
+`chip_smoke.py` that guards against it raises. The phases print their readings before they raise; run
 with `-s` to see them beside the bounds:
 
     python3 -m pytest tests/test_torch_chip_faults.py -m cuda -q -s --noconftest -p no:cacheprovider
@@ -307,3 +309,97 @@ def test_unpack_nibbles_swapped_caught(q8_asr):
     swapped.launches = 0
     with patched(ms, "unpack_probe", swapped):
         caught("unpack probe nibbles swapped", cs.phase_microbench)
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    """chip_smoke; skips only without an sm_90 device."""
+    from qwen3_asr_tpu_torch.ops import build
+    from qwen3_asr_tpu_torch.ops.support import has_sm90
+
+    if not has_sm90():
+        pytest.skip("needs a CUDA device of compute capability 9.0")
+    build.library()
+    import chip_smoke as cs
+
+    return cs
+
+
+def test_flash_causal_mask_one_key_late_caught(smoke):
+    """K2 whose causal mask lets row t see key t + 1 (the kernel fed q one
+    row later, out read one row earlier: its own mask then admits one key
+    past the diagonal): the causal flash phase raises."""
+    from qwen3_asr_tpu_torch.ops import flash_attention as fa
+
+    kernel = fa.flash_attention_batch
+
+    def late(q, k, v, valid_lens, *, causal, scale):
+        if not causal:
+            return kernel(q, k, v, valid_lens, causal=causal, scale=scale)
+        q1 = torch.cat([torch.zeros_like(q[:, :1]), q], dim=1)
+        return kernel(q1, k, v, valid_lens, causal=True, scale=scale)[:, 1:]
+
+    late.launches = 0   # the kernel's wrapper counts on its module's name
+
+    with patched(fa, "flash_attention_batch", late):
+        caught("flash causal mask one key late", lambda: smoke.phase_flash(
+            True, 1280, 16, 8, 128, [1216]))
+
+
+@pytest.mark.parametrize("phase", [(False, 1196, 14, 14, 64, [1196]),
+                                   (True, 1280, 16, 8, 128, [1216, 904, 512, 77])],
+                         ids=["bidirectional", "causal_batch"])
+def test_flash_last_partial_tile_skipped_caught(smoke, phase):
+    """K2 stopping at the last whole 64-key tile (its valid lengths rounded
+    down to the tile: the keys of the partial tile never read): the flash
+    phases raise."""
+    from qwen3_asr_tpu_torch.ops import flash_attention as fa
+
+    kernel = fa.flash_attention_batch
+
+    def whole_tiles(q, k, v, valid_lens, *, causal, scale):
+        vl = torch.as_tensor(valid_lens, device=q.device)
+        return kernel(q, k, v, (vl // 64) * 64, causal=causal, scale=scale)
+
+    whole_tiles.launches = 0
+
+    with patched(fa, "flash_attention_batch", whole_tiles):
+        caught(f"flash last partial tile skipped ({phase[-1]})",
+               lambda: smoke.phase_flash(*phase))
+
+
+def test_k1_graph_replayed_without_pos_advance_caught(auto_asr):
+    """K1's graph captured without its last node, the position's advance:
+    consecutive replays decode at a stale position, and the graph phase
+    (graphed steps torch.equal to eager) raises."""
+    from qwen3_asr_tpu_torch.ops import megakernel as mk
+
+    cs, asr = auto_asr
+    with patched(mk.GraphStep, "_advance", lambda self: None):
+        caught("K1 graph without the position's advance", lambda: cs.phase_mega_graph(
+            asr.cfg, asr.params["decoder"]))
+
+
+def test_k1_prologue_without_attn_norm_caught(auto_asr):
+    """K1's QKV GEMV prologue reading an all-ones attn_norm (the weight
+    dropped) on a pack whose attn_norm is not ones (the random model's is,
+    so the pack's copy takes 1 + N(0, 0.25) per element, the twin reading
+    it too): the K1 phase raises."""
+    from qwen3_asr_tpu_torch.ops import megakernel as mk
+
+    cs, asr = auto_asr
+    g = torch.Generator(device="cuda").manual_seed(11)
+    pack = dict(asr.params["decoder"]["mega"])
+    pack["attn_norm"] = (1 + 0.5 * torch.randn(pack["attn_norm"].shape, generator=g,
+                                               device="cuda")).contiguous()
+    dec = dict(asr.params["decoder"], mega=pack)
+    init = mk.DecodeStep.__init__
+
+    def dropped(self, pk, cfg, *a, **k):
+        init(self, pk, cfg, *a, **k)
+        self._ones = torch.ones_like(pk["attn_norm"])
+        self.ptrs.attn_norm = self._ones.data_ptr()
+
+    with patched(mk.DecodeStep, "__init__", dropped):
+        caught("K1 prologue without attn_norm", lambda: cs.phase_mega(
+            asr.cfg, dec, "bf16", steps=4, floor_steps=0))

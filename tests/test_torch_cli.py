@@ -91,6 +91,27 @@ def test_bad_inputs_exit_1(files, capsys, tmp_path):
         assert cap.out == "" and msg in cap.err
 
 
+def test_truncated_gguf_exits_1_without_traceback(files, capsys, tmp_path):
+    """A 9-byte GGUF (magic and version 3, then nothing) fails to load as in
+    the JAX CLI: `Error: Failed to load model: ...` on stderr, exit 1, no
+    traceback; the port's server start-up fails the same way."""
+    import struct
+
+    from qwen3_asr_tpu_torch.serve import main as serve_main
+
+    _, wav, _ = files
+    bad = tmp_path / "short.gguf"
+    bad.write_bytes(b"GGUF" + struct.pack("<I", 3) + b"\x00")
+    for run, argv in ((jax_main, ["-m", str(bad), "-f", wav, "--no-timing"]),
+                      (main, ["-m", str(bad), "-f", wav, "--no-timing",
+                              "--platform", "cpu"]),
+                      (serve_main, ["-m", str(bad), "--device", "cpu"])):
+        assert run(argv) == 1
+        cap = capsys.readouterr()
+        assert cap.out == "" and "Error: Failed to load model:" in cap.err
+        assert "Traceback" not in cap.err
+
+
 def test_save_mel_matches_the_oracle(files, capsys, tmp_path):
     """--save-mel writes the golden-layout [n_mels, n_frames] f32 .npy within
     1e-4 of the JAX package's oracle, then transcribes."""

@@ -50,6 +50,33 @@ def test_flash_kernel_matches_twin(cuda_kernels, causal, T, NH, NKV, D, valid):
     torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=1e-2)
 
 
+FLASH_CASES = [(D, causal, valid) for D in (64, 128) for causal in (True, False)
+               for valid in (1, 77, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,causal,valid", FLASH_CASES,
+                         ids=[f"D{d}-{'causal' if c else 'bidir'}-valid{v}"
+                              for d, c, v in FLASH_CASES])
+def test_flash_tensor_core_kernel_matches_twin(cuda_kernels, D, causal, valid):
+    """K2 on the tensor cores at both head dims (D 64: 14 heads, no GQA, as
+    the encoder; D 128: 16 q heads over 8 KV heads, as the decoder), causal
+    and bidirectional, T = 200 (not a multiple of the 64-row tiles), valid
+    lengths 1, 77 and T, in a batch of two with the second item's valid
+    length T: atol 1e-3, rtol 1e-2 against the twin, as chip_smoke.py
+    holds it."""
+    T = 200
+    NH, NKV = (14, 14) if D == 64 else (16, 8)
+    g = torch.Generator(device="cuda").manual_seed(D + valid + int(causal))
+    q, k, v = (torch.randn(2, T, h, D, generator=g, device="cuda").to(torch.bfloat16)
+               for h in (NH, NKV, NKV))
+    vl = torch.tensor([valid, T], dtype=torch.int32, device="cuda")
+    scale = 1.0 / np.sqrt(D)
+    got = tfa.flash_attention_batch(q, k, v, vl, causal=causal, scale=scale)
+    want = tfa.flash_attention_ref(q, k, v, vl, causal=causal, scale=scale)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=1e-2)
+
+
 def _tiny_pack(int4: bool = True):
     cfg = tiny_asr_config()
     dec = tparams.init_asr_params(cfg, seed=3, device="cuda")["decoder"]
@@ -140,6 +167,61 @@ def test_megakernel_matches_twin(cuda_kernels, S, pos0, int4, kv):
     if kv == "int4":
         assert torch.equal(k, ref[0]) and torch.equal(v, ref[1])
     assert counter.launches == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int4,kv", MODES, ids=[f"{'int4' if a else 'int8'}-{b}"
+                                                for a, b in MODES])
+def test_graphed_steps_equal_eager(cuda_kernels, int4, kv):
+    """K1 replayed from its CUDA graph (GraphStep, the decode loops' runner)
+    against eager steps in each of the six modes: 64 free-running steps
+    from the same token and cache; tokens and h torch.equal on every step,
+    the caches torch.equal after the last (the int4 cache's byte rows
+    whole); one launch counted per step either way."""
+    dcfg, pack = _tiny_pack(int4)
+    S, pos0, n = 256, 150, 64
+    k, ks = _cache(dcfg, S, pos0, 1, kv)
+    v, vs = _cache(dcfg, S, pos0, 2, kv)
+    a = [k, v, ks, vs]
+    b = [None if t is None else t.clone() for t in a]
+    eager = tmk.DecodeStep(pack, dcfg, *a)
+    run = tmk.GraphStep(tmk.DecodeStep(pack, dcfg, *b))
+    counter = COUNTERS[kv]
+    before = counter.launches
+    toks = torch.zeros(n + 1, dtype=torch.int32, device="cuda")
+    buf = torch.zeros(n + 1, dtype=torch.int32, device="cuda")
+    toks[0] = buf[0] = 7
+    for i in range(1, n + 1):
+        eager(toks[i - 1:i], pos0 + i - 1, toks[i:i + 1])
+        run(buf, i, pos0 + i - 1)
+        assert torch.equal(toks[i], buf[i]), i
+        assert torch.equal(eager.h, run.step.h), i
+    assert run.graph is not None
+    for x, y in zip(a, b):
+        assert x is None or torch.equal(x, y)
+    assert counter.launches == before + 2 * n
+
+
+@pytest.mark.cuda
+def test_graphed_steps_follow_a_new_buffer_and_position(cuda_kernels):
+    """A GraphStep reused across buffers and positions (the streaming path's
+    chunks): replays after a jump in position or a new token buffer equal
+    the eager step on the same inputs."""
+    dcfg, pack = _tiny_pack(False)
+    S, pos0 = 256, 100
+    a = [_cache(dcfg, S, pos0 + 40, 1, "bf16")[0], _cache(dcfg, S, pos0 + 40, 2, "bf16")[0],
+         None, None]
+    b = [None if t is None else t.clone() for t in a]
+    eager = tmk.DecodeStep(pack, dcfg, *a)
+    run = tmk.GraphStep(tmk.DecodeStep(pack, dcfg, *b))
+    for pos, tok in ((pos0, 5), (pos0 + 1, 9), (pos0 + 30, 11), (pos0 + 31, 3)):
+        want = torch.zeros(2, dtype=torch.int32, device="cuda")
+        got = torch.zeros(2, dtype=torch.int32, device="cuda")
+        want[0] = got[0] = tok
+        eager(want[:1], pos, want[1:])
+        run(got, 1, pos)
+        assert torch.equal(want, got) and torch.equal(eager.h, run.step.h), pos
+    assert all(x is None or torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.cuda

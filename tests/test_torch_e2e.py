@@ -166,6 +166,45 @@ def test_pipeline_load_model_from_gguf(tmp_path):
     assert "Failed to load model" in bad.error_msg
 
 
+def test_load_model_truncated_gguf_returns_false(tmp_path):
+    """A 9-byte GGUF (magic and version 3, then nothing): load_model returns
+    False with the error message, as the JAX pipeline's does, instead of
+    raising the reader's struct.error."""
+    import struct
+
+    from qwen3_asr_tpu.pipeline.asr import Qwen3ASR as JaxASR
+
+    path = tmp_path / "short.gguf"
+    path.write_bytes(b"GGUF" + struct.pack("<I", 3) + b"\x00")
+    for asr in (JaxASR(), Qwen3ASR(device="cpu")):
+        assert not asr.load_model(str(path))
+        assert asr.error_msg.startswith("Failed to load model:")
+    assert asr.params is None
+
+
+@pytest.fixture(scope="module")
+def wide_pair():
+    from test_torch_batch import GAIN, jax_and_port
+
+    return jax_and_port(gain=GAIN)
+
+
+@pytest.mark.parametrize("n_samples", [0, 100])
+def test_staged_under_one_mel_frame_matches_jax(wide_pair, n_samples):
+    """Audio under one mel frame (160 samples) on the staged exact-shape
+    path, TranscribeParams()'s default: the mel is empty, as the JAX
+    package's is, and both answer success with the same tokens."""
+    from qwen3_asr_tpu.pipeline.asr import TranscribeParams as JaxParams
+
+    j, t = wide_pair
+    pcm = (np.random.default_rng(n_samples).standard_normal(n_samples)
+           * 3000).astype(np.int16)
+    want = j.transcribe(pcm, JaxParams(max_tokens=6, print_timing=False))
+    got = t.transcribe(pcm, TranscribeParams(max_tokens=6, print_timing=False))
+    assert want.success and got.success, got.error_msg
+    assert got.tokens == want.tokens and len(got.tokens) == 6
+
+
 def test_pipeline_rejects_unported_modes():
     """Sampled and speculative decoding answer "not ported"; the int4 cache
     and print_progress, which the port carries, are accepted (their runs:

@@ -47,3 +47,34 @@ def test_single_item_entry():
                                    torch.tensor([11], dtype=torch.int32),
                                    causal=True, scale=0.5)[0]
     assert torch.equal(got, want)
+
+
+def _bf(*shape):
+    return torch.zeros(*shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("case,exc", [
+    ("head_dim_96", ValueError), ("gqa_13_over_3", ValueError),
+    ("k_shape", ValueError), ("f32_q", TypeError), ("valid_shape", ValueError),
+    ("valid_f32", TypeError), ("three_dims", ValueError)])
+def test_kernel_argument_checks_raise(case, exc):
+    """The checks the wrapper makes before any launch (check_kernel_args),
+    on CPU tensors: a head dim other than 64 / 128, NH not a multiple of NKV,
+    mismatched k / v, wrong dtypes or valid lengths raise; the kernel's own
+    shapes pass."""
+    q, k, v = _bf(2, 40, 16, 128), _bf(2, 40, 8, 128), _bf(2, 40, 8, 128)
+    valid = torch.tensor([40, 7], dtype=torch.int32)
+    tfa.check_kernel_args(q, k, v, valid)
+    tfa.check_kernel_args(_bf(1, 9, 14, 64), _bf(1, 9, 14, 64), _bf(1, 9, 14, 64),
+                          valid[:1])
+    args = {"head_dim_96": (_bf(2, 40, 16, 96), _bf(2, 40, 8, 96), _bf(2, 40, 8, 96),
+                            valid),
+            "gqa_13_over_3": (_bf(2, 40, 13, 64), _bf(2, 40, 3, 64), _bf(2, 40, 3, 64),
+                              valid),
+            "k_shape": (q, _bf(2, 40, 8, 64), v, valid),
+            "f32_q": (q.float(), k, v, valid),
+            "valid_shape": (q, k, v, valid[:1]),
+            "valid_f32": (q, k, v, valid.float()),
+            "three_dims": (q[0], k[0], v[0], valid)}[case]
+    with pytest.raises(exc):
+        tfa.check_kernel_args(*args)
