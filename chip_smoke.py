@@ -6,7 +6,9 @@ Builds the port's CUDA kernels from `qwen3_asr_tpu_torch/csrc` (into
 `build/torch_kernels/`) and holds each kernel against its plain PyTorch
 twin at the shapes of the main paths: flash attention (K2, on the tensor
 cores) single and batched (timed beside `scaled_dot_product_attention` at
-the same shapes), the decode step (K1) in its six modes ({int4, int8
+the same shapes; also at the forced aligner's causal T 2,944, valid 2,845,
+and a batch of four valid lengths), the capability probe (K8), the decode
+step (K1) in its six modes ({int4, int8
 weights} x {int8, bf16, int4 KV cache}: teacher-forced steps, an int4 step
 keeping the other nibble of its byte row at even and odd positions, and
 every layer alone on the twin's input; timed as the decode loops run it,
@@ -53,7 +55,16 @@ the launch counts set to 0 just before it and read just after:
    ms/step beside `generate_greedy`'s;
 9. `ASRServer --kv-cache int4` (closed batches) behind HTTP: a lone
    `/v1/transcribe` request and a lone SSE stream outside any pool, text
-   equal to `transcribe`'s.
+   equal to `transcribe`'s;
+10. the forced aligner, Qwen3-ForcedAligner-0.6B at full width and depth,
+   on bench_align.py's 92 s / 183-word workload (`phase_aligner`): `align`
+   staged, bucketed and fused (28 K2 launches each, none in the windowed
+   encoder), every layer of the NAR pass against the twins and the
+   classes at the <ts> rows against theirs under the near-tie rule, the
+   windowed encoder's attention against masked full attention,
+   `align_batch` of four against single passes, stage times (dense and
+   quantize="auto"), `transcribe_and_align`, and `ASRServer(aligner=...)`
+   behind HTTP (/v1/align, the OpenAI route's srt and word timestamps).
 
 It checks that every parameter and cache tensor of paths 1 and 2 is on the
 GPU, that each kernel of a path ran there (launch counts against a formula
@@ -1096,6 +1107,11 @@ def window(label: str, wbits, got: dict) -> dict:
     return got
 
 
+def launches_of_label(label: str, key: str) -> int:
+    """A wrapper's launches in the checked window named `label`."""
+    return sum(c[key] for lab, _, c in WINDOWS if lab == label)
+
+
 def launches_of(key: str, wbits=None) -> int:
     """A wrapper's launches over the checked windows (those of one pack's
     weight bits when wbits is given)."""
@@ -1636,6 +1652,36 @@ def phase_microbench():
     return out, res, lib
 
 
+def phase_probe() -> tuple[float, float]:
+    """K8, the capability probe (y = 2 x over 8 x 128 f32), timed from a CUDA
+    graph of 20 launches; its bound is its bytes (x read, y written). ->
+    (ms, bound ms)."""
+    import ctypes
+
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.build import kernel
+    from qwen3_asr_tpu_torch.ops.support import stream_ptr
+
+    fn = kernel("qw_probe", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    dev = torch.device("cuda", 0)
+    x = torch.arange(8 * 128, dtype=torch.float32, device=dev)
+    y = torch.empty_like(x)
+
+    def probe():
+        fn(x.data_ptr(), y.data_ptr(), x.numel(), stream_ptr(dev))
+
+    probe()
+    torch.cuda.synchronize()
+    if not torch.equal(y, 2 * x):
+        raise AssertionError("the probe kernel's y != 2 x")
+    ms = graph_ms(probe)
+    b_ms, _ = bound(2.0 * x.numel() * 4, x.numel(), F32_FLOPS)
+    log(f"phase probe (K8): {ms:.4f} ms a launch, bound {b_ms:.6f} ms (bytes: "
+        f"{2 * x.numel() * 4} B)")
+    return ms, b_ms
+
+
 def wav_bytes(samples) -> bytes:
     import io
     import struct
@@ -1731,6 +1777,545 @@ def phase_http(asr):
     return got
 
 
+# ---------------------------------------------------------------------------
+# the forced aligner (Qwen3-ForcedAligner-0.6B) and the combined mode
+# ---------------------------------------------------------------------------
+
+ALIGN_SECONDS, ALIGN_WORDS = 92, 183      # bench_align.py's workload
+ALIGN_BATCH = ((92, 183), (60, 120), (30, 60), (5, 10))   # (seconds, words)
+ALIGN_BUCKET = 500      # mel frames: the server's bucket
+ALIGN_REPS = 5          # timed runs per stage (after one warm-up)
+# One layer of the NAR pass on the twin's input to it: the kernel's hidden
+# state over all P rows (padding rows included, which attend only keys <
+# n_valid) within ALIGN_LAYER_REL relative L2 of the twin's. K2 and its
+# twin round each attention output to bf16 once; where one rounds the other
+# way the layer's output moves by ~1e-3.
+ALIGN_LAYER_REL = 1e-2
+# The windowed encoder's attention (block-diagonal, plain PyTorch) against
+# full attention with a block-diagonal mask built here, on the same q, k, v:
+# the same f32 math in another order, then one bf16 rounding, so each row's
+# rel L2 stays within ALIGN_ATTN_REL (a row whose window is wrong reads
+# other keys and moves by far more).
+ALIGN_ATTN_REL = 2e-2
+
+
+def align_pcm(seconds: float, seed: int = 0):
+    """bench_align.py's audio: a 440 Hz tone plus noise, int16."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000
+    a = (0.3 * np.sin(2 * np.pi * 440 * t)
+         + 0.05 * rng.standard_normal(t.shape)).astype(np.float32)
+    return (a * 32767.0).clip(-32768, 32767).astype(np.int16)
+
+
+def align_text(n_words: int) -> str:
+    return " ".join(f"word{i:03d}" for i in range(n_words))
+
+
+def byte_vocab(V: int, word_tokens: bool = False) -> list[str]:
+    """256 byte tokens, then fillers: "[PADi]" (decoded to nothing), or
+    with word_tokens " t<i>" (each decodes to a word, so a random model's
+    transcript has words to align)."""
+    from qwen3_asr_tpu_torch.text.bpe import _byte_to_unicode
+
+    table = _byte_to_unicode()
+    space = table[ord(" ")]
+    return [table[b] for b in range(256)] + [
+        f"{space}t{i}" if word_tokens else f"[PAD{i}]" for i in range(256, V)]
+
+
+def load_aligner(quantize):
+    """Qwen3-ForcedAligner-0.6B at full width and depth, random weights from
+    seed 0 on the card, bench_align.py's byte vocabulary."""
+    import torch
+
+    from qwen3_asr_tpu_torch.config import AlignerModelConfig
+    from qwen3_asr_tpu_torch.pipeline.aligner import ForcedAligner
+    from qwen3_asr_tpu_torch.runtime.params import assert_on_device
+
+    t0 = time.perf_counter()
+    cfg = AlignerModelConfig()
+    fa = ForcedAligner(quantize=quantize, device="cuda")
+    fa.load_random(cfg, seed=0, vocab=byte_vocab(cfg.decoder.vocab_size))
+    torch.cuda.synchronize()
+    assert_on_device(fa.params, "cuda")
+    dec = fa.params["decoder"]
+    if "lm_head_pc" in dec or "lm_head_q8" in dec or "mega" in dec:
+        raise AssertionError("the aligner carries an lm head copy or a decode pack")
+    log(f"aligner load_random (quantize={quantize!r}): {time.perf_counter() - t0:.1f} s")
+    return fa
+
+
+def check_words(what: str, r, n_words: int, seconds: float) -> None:
+    """183 words (or n_words), start <= end <= the audio's length, starts
+    non-decreasing."""
+    if not r.success or len(r.words) != n_words:
+        raise AssertionError(f"{what}: success={r.success}, {len(r.words)} words")
+    starts = [w.start for w in r.words]
+    if any(not 0.0 <= w.start <= w.end <= seconds for w in r.words) or \
+            starts != sorted(starts):
+        raise AssertionError(f"{what}: timestamps out of order or past {seconds} s")
+
+
+def ts_logits(fa, prompts, feats, n_audio):
+    """The classify head's f32 logits at each prompt's <ts> rows, from one
+    batched NAR pass."""
+    from qwen3_asr_tpu_torch.models.decoder import classify_logits
+
+    h = fa.nar_pass(prompts, feats, n_audio)
+    ts = fa.cfg.timestamp_token_id
+    return [classify_logits(fa.params["decoder"], fa.cfg.decoder,
+                            h[b, [i for i, t in enumerate(p) if t == ts]])
+            for b, p in enumerate(prompts)]
+
+
+def near_tie_mismatches(got, want, gap) -> tuple[int, int]:
+    """(classes that differ, how many of those are NOT near ties): a class
+    may differ only where the reference's top-two gap < NEAR_TIE_TOL."""
+    bad = got != want
+    return int(bad.sum()), int((bad & (gap >= NEAR_TIE_TOL)).sum())
+
+
+def top2_gap(logits):
+    top = logits.float().topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).cpu()
+
+
+def random_mel(fa, n_frames: int, n_bucket: int = 0):
+    """A seeded standard-normal mel [128, n_bucket or n_frames] on the
+    aligner's device, frames past n_frames zero: unlike the tone, its
+    encoder rows differ from one another, so a window that reads the wrong
+    rows shows."""
+    import torch
+
+    g = torch.Generator(device=fa.device.type).manual_seed(n_frames)
+    mel = torch.randn(128, n_bucket or n_frames, generator=g, device=fa.device)
+    mel[:, n_frames:] = 0
+    return mel
+
+
+def check_window_attention(fa, mel, n_frames: int, bucket: int) -> float:
+    """The encoder's windowed attention against full attention under a
+    block-diagonal mask built here (windows of 13 rows per 100-frame chunk
+    of n_window_infer; keys past n_audio masked): in every layer the window
+    the encoder passes must be that one, and on the encoder's own q, k, v
+    and on standard-normal ones of the same shape (whose rows differ, so
+    attention over the wrong keys moves a row by about its own size) each
+    real row's rel L2 must stay within ALIGN_ATTN_REL. -> the worst row's."""
+    import torch
+
+    from qwen3_asr_tpu_torch.models import encoder as emod
+    from qwen3_asr_tpu_torch.ops.attention import mha_attention
+
+    ecfg = fa.cfg.encoder
+    window = 13 * (ecfg.n_window_infer // ecfg.chunk_size)
+    calls, run = [], emod.block_diagonal_attention_batch
+
+    def recording(q, k, v, w, scale, n_valid=None):
+        out = run(q, k, v, w, scale, n_valid)
+        calls.append((q, k, v, w, scale, n_valid, out))
+        return out
+
+    emod.block_diagonal_attention_batch = recording
+    try:
+        fa.encode(mel, n_frames, bucket)
+    finally:
+        emod.block_diagonal_attention_batch = run
+    if len(calls) != ecfg.n_layers:
+        raise AssertionError(f"windowed attention ran {len(calls)} times, not "
+                             f"{ecfg.n_layers}")
+    g = torch.Generator(device=mel.device.type).manual_seed(bucket)
+    worst = 0.0
+    for q, k, v, w, scale, n_valid, out in calls:
+        if w != window:
+            raise AssertionError(f"the encoder's attention window is {w} rows, not {window}")
+        rq, rk, rv = (torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
+                      for _ in range(3))
+        B, T = q.shape[:2]
+        seg = torch.arange(T, device=q.device) // window
+        for qq, kk, vv, oo in ((q, k, v, out), (rq, rk, rv, run(rq, rk, rv, w, scale, n_valid))):
+            for b in range(B):
+                n = T if n_valid is None else int(n_valid[b])
+                mask = (seg[:, None] == seg[None, :]) & (torch.arange(T, device=q.device) < n)
+                ref = mha_attention(qq[b], kk[b], vv[b], mask, scale)[:n].float().flatten(1)
+                err = (oo[b, :n].float().flatten(1) - ref).norm(dim=1) / ref.norm(dim=1)
+                worst = max(worst, float(err.max()))
+    if not worst <= ALIGN_ATTN_REL:
+        raise AssertionError(f"windowed attention rel L2 {worst:.3e} > {ALIGN_ATTN_REL} "
+                             f"(bucket {bucket})")
+    return worst
+
+
+def phase_nar_layers(fa, prompt, feats, n_audio: int):
+    """The NAR pass one layer at a time: each layer with K2 on the twin's
+    input to it, against the twins (K2's plain version): rel L2 over the
+    prompt's rows, and each padding row's own rel L2 (a padding row attends
+    only keys < n_valid, so a kernel that reads padding keys moves the last
+    rows most), each within ALIGN_LAYER_REL. -> (per layer the larger of
+    the two, the twin's final hidden state [1, P, hidden])."""
+    import torch
+
+    from qwen3_asr_tpu_torch.models import decoder as dmod
+
+    dec, dcfg = fa.params["decoder"], fa.cfg.decoder
+    toks = torch.from_numpy(fa.prompt_tokens([prompt])[0]).to(fa.device)
+    x = dmod.embed_with_audio(dec, toks, feats, n_audio, 1)[None]
+    valid = torch.tensor([len(prompt)], dtype=torch.int32, device=fa.device)
+    cfg1 = dataclasses.replace(dcfg, n_layers=1)
+
+    def keep(l, k, v):
+        return None
+
+    rels = []
+    for l in range(dcfg.n_layers):
+        d1 = dict(dec, layers={n: ({a: b[l:l + 1] for a, b in t.items()}
+                                   if isinstance(t, dict) else t[l:l + 1])
+                               for n, t in dec["layers"].items()})
+        got = dmod._prefill_layers(d1, cfg1, x, valid, keep)
+        with twins():
+            ref = dmod._prefill_layers(d1, cfg1, x, valid, keep)
+        n = len(prompt)
+        pad = ((got[0, n:].float() - ref[0, n:].float()).norm(dim=1)
+               / ref[0, n:].float().norm(dim=1))
+        rels.append(max(_rel(got[:, :n], ref[:, :n]), float(pad.max())))
+        x = ref
+    log(f"  NAR pass per layer on the twin's input, rel L2 over the {len(prompt)} "
+        f"prompt rows or of one of the {x.shape[1] - len(prompt)} padding rows "
+        f"(the larger): "
+        f"max {max(rels):.3e} (layer {rels.index(max(rels))}), "
+        + ", ".join(f"{r:.1e}" for r in rels) + f" (bound {ALIGN_LAYER_REL})")
+    if not max(rels) <= ALIGN_LAYER_REL:
+        raise AssertionError(f"NAR layer rel L2 {max(rels):.3e} > {ALIGN_LAYER_REL}")
+    return rels, x
+
+
+def align_stage_ms(fa, audio, text: str) -> dict:
+    """Median ms of ALIGN_REPS staged alignments after a warm-up: mel,
+    encode and the NAR classify (the pass, the argmax and the fetch of the
+    classes) between CUDA events; the host's prompt and post-processing
+    (tokens, LIS repair, pairing) on the host clock; and the whole align
+    call, staged and fused, on the host clock."""
+    import numpy as np
+    import torch
+
+    dur = len(audio) / 16000
+    rows = {k: [] for k in ("mel", "encode", "classify", "host", "staged", "fused")}
+    for rep in range(ALIGN_REPS + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        mel, nf = fa.frontend(audio)
+        ev[1].record()
+        feats, na = fa.encode(mel, nf)
+        ev[2].record()
+        t0 = time.perf_counter()
+        prompt, words = fa.prompt(text, "", nf)
+        t_prompt = time.perf_counter() - t0
+        pred = fa.classify([prompt], feats[None], [na])[0]
+        ev[3].record()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fa.words(prompt, pred, words, dur)
+        host = (time.perf_counter() - t0 + t_prompt) * 1e3
+        t0 = time.perf_counter()
+        fa.align(audio, text)
+        staged = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        fa.align(audio, text, fused=True)
+        fused = (time.perf_counter() - t0) * 1e3
+        if rep == 0:
+            continue   # warm-up
+        for k, t in (("mel", ev[0].elapsed_time(ev[1])), ("encode", ev[1].elapsed_time(ev[2])),
+                     ("classify", ev[2].elapsed_time(ev[3])), ("host", host),
+                     ("staged", staged), ("fused", fused)):
+            rows[k].append(t)
+    return {k: float(np.median(v)) for k, v in rows.items()}
+
+
+def profile_align(fa, audio, text: str, label: str, top: int = 8) -> None:
+    """One staged alignment under torch.profiler (after the warm-ups): the
+    wall time, the device's busy time (the kernels' self device time) and
+    the kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fa.align(audio, text)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        if dev_us > 0 and "CUDA" in str(getattr(evt, "device_type", "")):
+            kernels.append((dev_us / 1e3, evt.count, evt.key))
+    if not kernels:
+        log(f"  profile ({label}): the profiler recorded no device time")
+        return
+    kernels.sort(reverse=True)
+    busy = sum(k[0] for k in kernels)
+    log(f"  profile ({label}, one staged align): wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms ({busy / wall:.2f}), {sum(k[1] for k in kernels)} kernels; top: "
+        + "; ".join(f"{name[:60]} {ms:.3f} ms x{n}" for ms, n, name in kernels[:top]))
+
+
+def phase_aligner():
+    """The forced aligner at Qwen3-ForcedAligner-0.6B's full width and depth
+    (24 x d 1,024 windowed encoder, 28-layer decoder at vocab 152,064, 5,000
+    classes), random weights from seed 0, on bench_align.py's workload: 92 s
+    of tone plus noise and the 183 words word000..word182 (7 byte tokens and
+    two <ts> slots each: a prompt of 2,845 rows, bucketed to 2,944).
+    - the windowed attention of the encoder against masked full attention,
+      exact shape and bucketed;
+    - `align` staged, bucketed (mel_bucket 500) and fused, each a window
+      (28 K2 launches, none in the encoder): 183 words, start <= end <=
+      92.0, starts non-decreasing;
+    - every layer of the NAR pass alone on the twin's input, and the classes
+      at the <ts> rows against the twins' (K2 -> its plain version): equal
+      outside near ties; the three paths' classes likewise;
+    - `align_batch` of 4 (92, 60, 30, 5 s with 183, 120, 60, 10 words), one
+      window (28 K2 launches): classes equal to four single bucketed calls
+      outside near ties;
+    - stage times, dense bf16 and quantize="auto" (int8pc layers);
+    - `transcribe_and_align` (quantize="auto" for both models): the ASR
+      leg's tokens equal `transcribe`'s;
+    - `ASRServer(aligner=...)` behind HTTP: /v1/align in multipart and in
+      JSON, and the OpenAI route with response_format=srt and with word
+      timestamps, each 200 with the aligner's words.
+    -> (the K2 launch windows' counts, the stage times per mode)."""
+    import torch
+
+    from qwen3_asr_tpu_torch.models import encoder as emod
+    from qwen3_asr_tpu_torch.models.e2e import align_fused
+
+    t_phase = time.perf_counter()
+    fa = load_aligner(False)
+    L = fa.cfg.decoder.n_layers
+    audio, text = align_pcm(ALIGN_SECONDS), align_text(ALIGN_WORDS)
+    fa.align(audio, text)   # warm-up
+
+    # the windowed encoder: attention against masked full attention, no K2
+    mel, nf = fa.frontend(audio)
+    reset_counts()
+    feats, na = fa.encode(mel, nf)
+    torch.cuda.synchronize()
+    if counts() != no_launches():
+        raise AssertionError(f"the windowed encoder launched a kernel: {counts()}")
+    mel_b, nf_b = fa.frontend(audio, ALIGN_BUCKET)
+    attn = (check_window_attention(fa, random_mel(fa, nf), nf, 0),
+            check_window_attention(fa, random_mel(fa, nf, mel_b.shape[1]), nf, ALIGN_BUCKET))
+    log(f"phase aligner: windowed encoder attention vs masked full attention, worst "
+        f"row rel L2 {attn[0]:.3e} (exact, T {na}) / {attn[1]:.3e} (bucketed "
+        f"{ALIGN_BUCKET} frames; bound {ALIGN_ATTN_REL}); K2 launches in the encoder: 0")
+
+    prompt, _ = fa.prompt(text, "", nf)
+    P = fa.prompt_tokens([prompt]).shape[1]
+    ts = [i for i, t in enumerate(prompt) if t == fa.cfg.timestamp_token_id]
+    log(f"  prompt {len(prompt)} rows (bucket {P}), {len(ts)} <ts> rows, n_audio {na}")
+    if len(ts) != 2 * ALIGN_WORDS:
+        raise AssertionError(f"{len(ts)} <ts> rows for {ALIGN_WORDS} words")
+
+    # align on its three paths, each a window: 28 K2 launches
+    got_launches = {}
+    for name, kw in (("staged", {}), ("bucketed", {"mel_bucket": ALIGN_BUCKET}),
+                     ("fused", {"fused": True})):
+        torch.cuda.synchronize()
+        reset_counts()
+        r = fa.align(audio, text, **kw)
+        torch.cuda.synchronize()
+        got = window(f"aligner {name}", None, counts())
+        got_launches[name] = got
+        want = dict(no_launches(), flash=L)
+        log(f"  align {name}: {len(r.words)} words, first {r.words[0]}, last "
+            f"{r.words[-1]}; launches {got}")
+        if got != want:
+            raise AssertionError(f"aligner {name}: launch counts {got} != {want}")
+        check_words(f"aligner {name}", r, ALIGN_WORDS, float(ALIGN_SECONDS))
+
+    # each layer alone on the twin's input; classes against the twins'
+    rels, h_twin = phase_nar_layers(fa, prompt, feats, na)
+    from qwen3_asr_tpu_torch.models.decoder import classify_logits
+
+    twin_logits = classify_logits(fa.params["decoder"], fa.cfg.decoder, h_twin[0, ts])
+    twin_cls, gap = twin_logits.argmax(-1).cpu(), top2_gap(twin_logits)
+    k_logits = ts_logits(fa, [prompt], feats[None], [na])[0]
+    k_cls = k_logits.argmax(-1).cpu()
+    n_bad, n_hard = near_tie_mismatches(k_cls, twin_cls, gap)
+    near = int((gap < NEAR_TIE_TOL).sum())
+    log(f"  classes at the {len(ts)} <ts> rows vs the twins: {n_bad} differ, "
+        f"{n_hard} of them outside near ties; {near} rows are near ties "
+        f"(top-two gap < {NEAR_TIE_TOL}); logits max |diff| "
+        f"{float((k_logits - twin_logits).abs().max()):.3e}")
+    if n_hard:
+        raise AssertionError(f"{n_hard} classes differ from the twins' outside near ties")
+
+    # the three paths' classes
+    feats_b, na_b = fa.encode(mel_b, nf_b, ALIGN_BUCKET)
+    paths = {"staged": k_cls,
+             "bucketed": ts_logits(fa, [prompt], feats_b[None], [na_b])[0].argmax(-1).cpu(),
+             "fused": torch.from_numpy(align_fused(fa.params, fa.cfg, audio, fa.filters_t,
+                                                   prompt)[ts]).long()}
+    for name, cls in paths.items():
+        n_bad, n_hard = near_tie_mismatches(cls, twin_cls, gap)
+        log(f"  {name} classes vs the twins': {n_bad} differ ({n_hard} outside near ties)")
+        if n_hard:
+            raise AssertionError(f"aligner {name}: classes differ outside near ties")
+
+    # align_batch of four against four single bucketed calls: the raw
+    # classes at the <ts> rows (align_batch's own, recorded from its one
+    # classify call)
+    pairs = [(align_pcm(s, seed=i), align_text(n)) for i, (s, n) in enumerate(ALIGN_BATCH)]
+    recorded, classify = [], fa.classify
+    fa.classify = lambda *a: recorded.append(classify(*a)) or recorded[-1]
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        batch = fa.align_batch([a for a, _ in pairs], [t for _, t in pairs],
+                               mel_bucket=ALIGN_BUCKET)
+        torch.cuda.synchronize()
+        got = window("aligner align_batch", None, counts())
+    finally:
+        del fa.classify
+    got_launches["align_batch"] = got
+    want = dict(no_launches(), flash=L)
+    log(f"  align_batch of {len(pairs)} ({[s for s, _ in ALIGN_BATCH]} s): launches {got}")
+    if got != want or len(recorded) != 1:
+        raise AssertionError(f"align_batch launch counts {got} != {want} or "
+                             f"{len(recorded)} classify calls")
+    for b, ((s, n), r, (a, t)) in enumerate(zip(ALIGN_BATCH, batch, pairs)):
+        check_words(f"align_batch {s} s", r, n, float(s))
+        mel1, nf1 = fa.frontend(a, ALIGN_BUCKET)
+        f1, na1 = fa.encode(mel1, nf1, ALIGN_BUCKET)
+        p1, _ = fa.prompt(t, "", nf1)
+        ts1 = [i for i, tok in enumerate(p1) if tok == fa.cfg.timestamp_token_id]
+        lg = ts_logits(fa, [p1], f1[None], [na1])[0]
+        n_bad, n_hard = near_tie_mismatches(torch.from_numpy(recorded[0][b][ts1]).long(),
+                                            lg.argmax(-1).cpu(), top2_gap(lg))
+        log(f"  align_batch item {s} s / {n} words vs a single bucketed pass: "
+            f"{n_bad} of {len(ts1)} classes differ ({n_hard} outside near ties)")
+        if n_hard:
+            raise AssertionError(f"align_batch {s} s: classes differ outside near ties")
+
+    stages = {"dense": align_stage_ms(fa, audio, text)}
+    profile_align(fa, audio, text, "dense")
+    del fa
+    fa8 = load_aligner("auto")
+    if not isinstance(fa8.params["decoder"]["layers"]["wqkv"], dict):
+        raise AssertionError("quantize='auto' did not give the aligner int8pc layers")
+    check_words("aligner auto", fa8.align(audio, text), ALIGN_WORDS, float(ALIGN_SECONDS))
+    stages["auto"] = align_stage_ms(fa8, audio, text)
+    profile_align(fa8, audio, text, "auto")
+    for mode, st in stages.items():
+        log(f"  aligner stage ms ({mode}; median of {ALIGN_REPS}): mel {st['mel']:.4f}, "
+            f"encode {st['encode']:.4f}, NAR classify {st['classify']:.4f}, host "
+            f"{st['host']:.4f}; align staged {st['staged']:.4f}, fused {st['fused']:.4f}")
+    phase_combined_and_server(fa8)
+    log(f"phase aligner: {time.perf_counter() - t_phase:.1f} s")
+    return got_launches, stages
+
+
+def phase_combined_and_server(fa):
+    """`transcribe_and_align` and `ASRServer(aligner=fa)` over HTTP with the
+    CLI's default ASR (quantize="auto", EOS off) whose tokens decode to
+    words."""
+    import base64
+    import json
+    import threading
+    import urllib.request
+
+    from qwen3_asr_tpu_torch.config import ASRModelConfig
+    from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams
+    from qwen3_asr_tpu_torch.pipeline.combined import transcribe_and_align
+    from qwen3_asr_tpu_torch.serve import ASRServer, serve_http
+    from qwen3_asr_tpu_torch.text import extract_transcript
+    from qwen3_asr_tpu_torch.text.subtitles import words_to_srt
+
+    cfg = ASRModelConfig()
+    asr = Qwen3ASR(quantize="auto", device="cuda")
+    asr.load_random(cfg, seed=0, vocab=byte_vocab(cfg.decoder.vocab_size, word_tokens=True))
+    eos_off(asr)
+    audio = align_pcm(ALIGN_SECONDS)
+    want = asr.transcribe(audio, tparams(32))
+    t0 = time.perf_counter()
+    out = transcribe_and_align(asr, fa, audio, tparams(32))
+    ms = (time.perf_counter() - t0) * 1e3
+    log(f"  transcribe_and_align (auto, fused, 92 s, 32 tokens): {ms:.1f} ms, "
+        f"success={out.success}, {len(out.alignment.words) if out.alignment else 0} words, "
+        f"transcript {out.transcript[:60]!r}...")
+    if not out.success or out.asr.tokens != want.tokens:
+        raise AssertionError("transcribe_and_align: the ASR leg's tokens differ from "
+                             "transcribe's")
+    check_words("transcribe_and_align", out.alignment, len(out.transcript.split()),
+                float(ALIGN_SECONDS))
+
+    params = TranscribeParams(max_tokens=32, mel_bucket=ALIGN_BUCKET, print_timing=False)
+    server = ASRServer(asr, params, max_batch=4, aligner=fa)
+    httpd = serve_http(server, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def post(path, body, ctype):
+        req = urllib.request.Request(base + path, data=body, headers={"Content-Type": ctype})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read()
+
+    def multipart(fields):
+        b = "chipsmokealign"
+        body = b"".join(f"--{b}\r\nContent-Disposition: form-data; name=\"{k}\"\r\n\r\n"
+                        .encode() + (v if isinstance(v, bytes) else v.encode()) + b"\r\n"
+                        for k, v in fields.items()) + f"--{b}--\r\n".encode()
+        return body, f"multipart/form-data; boundary={b}"
+
+    def triples(words):
+        return [(w["word"], w["start"], w["end"]) if isinstance(w, dict)
+                else (w.word, w.start, w.end) for w in words]
+
+    s30, t30 = align_pcm(30, seed=2), align_text(60)
+    wav = wav_bytes(s30)
+    try:
+        codes, got = [], []
+        code, body = post("/v1/align", *multipart({"audio": wav, "text": t30}))
+        codes.append(code)
+        got.append(triples(json.loads(body)["words"]))
+        code, body = post("/v1/align", json.dumps({"audio_b64": base64.b64encode(wav).decode(),
+                                                   "text": t30}).encode(), "application/json")
+        codes.append(code)
+        got.append(triples(json.loads(body)["words"]))
+        want_align = triples(fa.align_batch([s30], [t30], mel_bucket=ALIGN_BUCKET)[0].words)
+        code, srt = post("/v1/audio/transcriptions",
+                         *multipart({"file": wav, "response_format": "srt"}))
+        codes.append(code)
+        code, body = post("/v1/audio/transcriptions",
+                          *multipart({"file": wav, "response_format": "verbose_json",
+                                      "timestamp_granularities[]": "word"}))
+        codes.append(code)
+        verbose = json.loads(body)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+    transcript = extract_transcript(asr.transcribe(s30, params).text)
+    want_words = triples(fa.align_batch([s30], [transcript], mel_bucket=ALIGN_BUCKET)[0].words)
+    log(f"  HTTP with --aligner-model: codes {codes}; /v1/align {len(got[0])} words "
+        f"(multipart == JSON == align_batch: {got[0] == got[1] == want_align}); OpenAI "
+        f"verbose_json {len(verbose['words'])} words, srt {srt.count(b'-->')} cues")
+    if codes != [200] * 4:
+        raise AssertionError(f"an HTTP request with the aligner was not answered 200: {codes}")
+    if not (got[0] == got[1] == want_align) or len(want_align) != 60:
+        raise AssertionError("/v1/align words differ from align_batch's")
+    if triples(verbose["words"]) != want_words or not want_words:
+        raise AssertionError("the OpenAI route's words differ from the aligner's")
+    from qwen3_asr_tpu_torch.pipeline.aligner import AlignedWord
+
+    if srt.decode() != words_to_srt([AlignedWord(*w) for w in want_words]):
+        raise AssertionError("the OpenAI route's srt differs from the aligner's words")
+
+
 def main() -> int:
     import torch
 
@@ -1763,6 +2348,11 @@ def main() -> int:
     f_b = phase_flash(False, 1196, 14, 14, 64, [1196])
     f_cb = phase_flash(True, 1280, 16, 8, 128, [1216, 904, 512, 77])
     f_bb = phase_flash(False, 1235, 14, 14, 64, [1235, 1196, 650, 130])
+    # the aligner's NAR pass: a 2,845-row prompt bucketed to 2,944, and a
+    # batch of four prompts of different lengths in that bucket
+    f_ac = phase_flash(True, 2944, 16, 8, 128, [2845])
+    f_acb = phase_flash(True, 2944, 16, 8, 128, [2845, 1900, 950, 300])
+    k8 = phase_probe()
     da_ms = phase_decode_attention(ASRModelConfig().decoder, 1248, 1664)
 
     t0 = time.perf_counter()
@@ -1861,6 +2451,7 @@ def main() -> int:
     window("engine (int4 weights)", 4, engine_launches)
     window("HTTP (int4 weights)", 4, phase_http(asr))
     del asr
+    _, align_stages = phase_aligner()
     mb, mb_res, mb_lib = phase_microbench()
     total = {k: launches_of(k) for k in no_launches()}
     log(f"pool decode {engine_tps:.1f} tokens/s; q8_0 decode {q8_step_ms:.4f} "
@@ -1868,7 +2459,8 @@ def main() -> int:
         f"{auto_step[False]:.4f}); int4 + int4 KV decode {i4_step:.4f} ms/step; "
         f"streaming decode (vs generate_greedy, staged) " + ", ".join(
             f"{k} {a:.4f} ({b:.4f})" for k, (a, b) in stream_ms.items())
-        + f"; launches over every checked window {total}")
+        + f"; launches over every checked window {total}; K8 probe {k8[0]:.4f} ms "
+        f"(bound {k8[1]:.6f} ms, bytes)")
 
     def row(name, src, replaces, launches, err, ms, plain, b_ms, b_by, lib=None, **extra):
         return {"name": name, "route": "cuda",
@@ -1902,8 +2494,13 @@ def main() -> int:
             s8192_ms=long_ctx["int4"][1], s8192_bound_ms=long_ctx["int4"][3]),
         row("flash_attention", "flash_attention.cu",
             "qwen3_asr_tpu/ops/pallas_attention.py:32", total["flash"],
-            max(f[0] for f in (f_c, f_b, f_cb, f_bb)), f_c[1], f_c[2], f_c[4], f_c[5],
-            lib=f_c[3]),
+            max(f[0] for f in (f_c, f_b, f_cb, f_bb, f_ac, f_acb)), f_c[1], f_c[2],
+            f_c[4], f_c[5], lib=f_c[3],
+            aligner_t2944={"ms": f_ac[1], "plain_ms": f_ac[2], "library_ms": f_ac[3],
+                           "bound_ms": f_ac[4], "bound_by": f_ac[5]},
+            aligner_t2944_b4={"ms": f_acb[1], "plain_ms": f_acb[2], "library_ms": f_acb[3],
+                              "bound_ms": f_acb[4], "bound_by": f_acb[5]},
+            launches_per_alignment=launches_of_label("aligner staged", "flash")),
         row("mega_decode_step_batch", "megakernel_batch.cu", k3_src,
             launches_of("mega_batch", 4), *k3),
         row("mega_decode_step_batch (int8 weights)", "megakernel_batch.cu", k3_src,

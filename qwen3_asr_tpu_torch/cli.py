@@ -1,17 +1,22 @@
-"""qwen3-asr-cuda-cli — the port's command-line interface, transcription mode.
+"""qwen3-asr-cuda-cli — the port's command-line interface.
 
     python -m qwen3_asr_tpu_torch.cli -m model.gguf -f audio.wav [--platform cpu]
+    python -m qwen3_asr_tpu_torch.cli -m fa.gguf -f audio.wav --align --text "..."
+    python -m qwen3_asr_tpu_torch.cli -m asr.gguf --aligner-model fa.gguf -f audio.wav -a
 
-Port of qwen3_asr_tpu/cli.py for transcription: the same flags, defaults and
-contract (the transcript, or the `-o` file's notice, on stdout; diagnostics
-on stderr; exit 1 on any error). It runs on the CUDA card; `--platform cpu`
-runs the port's plain PyTorch versions on the CPU instead, and no other
-value falls back to the CPU. `--progress` takes the streaming decode path
-and prints "Generated N tokens..." on stderr every 10 tokens; `--kv-int4`
-decodes over the int4 KV cache. What the port does not carry yet (forced
-alignment, `--transcribe-align`, speculative and sampled decoding) is
-refused with `Error: ... not ported` before anything runs. `--threads` is
-accepted and printed, and has no effect.
+Port of qwen3_asr_tpu/cli.py: its three modes (transcription, `--align`
+with `--text`, and `-a/--transcribe-align` with `--aligner-model`), flags,
+defaults, argument checks and messages, and its contract (the transcript or
+the alignment, `--output-format json | srt | vtt`, or the `-o` file's
+notice, on stdout; diagnostics on stderr; exit 1 on any error). It runs on
+the CUDA card; `--platform cpu` runs the port's plain PyTorch versions on
+the CPU instead, and no other value falls back to the CPU. `--progress`
+takes the streaming decode path and prints "Generated N tokens..." on
+stderr every 10 tokens; `--kv-int4` decodes over the int4 KV cache;
+`--language korean` splits an alignment's words with the repo's Korean
+dictionary. What the port does not carry yet (speculative and sampled
+decoding) is refused with `Error: ... not ported` before anything runs.
+`--threads` is accepted and printed, and has no effect.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Path to audio file (WAV, 16kHz mono)")
     p.add_argument("-o", "--output", default="", help="Output file (default stdout)")
     p.add_argument("-l", "--language", "--lang", default="",
-                   help="Language code (accepted; the model detects it)")
+                   help="Language (e.g. 'korean' for the Korean word split of "
+                        "an alignment); transcription detects it")
     p.add_argument("-t", "--threads", type=int, default=4,
                    help="Host thread count (accepted for parity; no effect)")
     p.add_argument("--max-tokens", type=int, default=1024)
@@ -48,13 +54,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", action="store_true",
                    help="Print the named-section timing profile")
     p.add_argument("--align", action="store_true", dest="align_mode",
-                   help="Forced alignment (not ported)")
+                   help="Forced alignment of --text against the audio (-m is "
+                        "the aligner GGUF)")
     p.add_argument("--text", default="", dest="align_text",
                    help="Reference transcript for alignment")
     p.add_argument("-a", "--transcribe-align", action="store_true",
-                   dest="transcribe_align_mode", help="Transcribe + align (not ported)")
+                   dest="transcribe_align_mode",
+                   help="Transcribe, then align the transcript's words")
     p.add_argument("--aligner-model", default="",
-                   help="Forced aligner GGUF (with --transcribe-align)")
+                   help="Forced aligner GGUF (required with --transcribe-align)")
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"],
                    help="Compute dtype of the weights and activations")
     p.add_argument("--quantize", default="auto",
@@ -91,24 +99,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace-dir", default="",
                    help="Write a torch.profiler trace (Chrome JSON) here")
     p.add_argument("--output-format", default="json", choices=["json", "srt", "vtt"],
-                   help="Alignment output format (with --align; not ported)")
+                   help="Alignment output (--align / --transcribe-align): the "
+                        "words JSON (default), or SubRip / WebVTT subtitles "
+                        "built from the word timestamps")
     p.add_argument("--save-mel", default="", metavar="PATH",
                    help="Debug hook: also write the input's log-mel spectrogram "
                         "as a .npy ([n_mels, n_frames] f32, the golden-file "
                         "layout) before transcribing")
     return p
-
-
-def _not_ported(args, tp) -> str:
-    """The first mode `args` asks for that the port does not carry, as an
-    error message, or "": alignment here, the decode modes of
-    TranscribeParams through pipeline/asr.py::unported."""
-    from qwen3_asr_tpu_torch.pipeline.asr import unported
-
-    if args.align_mode or args.transcribe_align_mode:
-        return ("forced alignment (--align, --transcribe-align) is not ported "
-                "(ROADMAP Queue 1 item 9)")
-    return unported(tp)
 
 
 def _write_output(text: str, output_path: str) -> int:
@@ -123,6 +121,124 @@ def _write_output(text: str, output_path: str) -> int:
         return 1
     _eprint(f"Output written to: {output_path}")
     return 0
+
+
+def _finish(args, text: str) -> int:
+    """The result on stdout (or the -o file), then --profile's report."""
+    from qwen3_asr_tpu_torch.runtime.profiler import profiler
+
+    rc = _write_output(text, args.output)
+    if args.profile:
+        _eprint(profiler.report())
+    return rc
+
+
+def _check_args(args) -> str:
+    """The JAX CLI's argument errors, or ""."""
+    if args.align_mode and not args.align_text:
+        return "Reference text is required for alignment mode (--text)"
+    if args.align_mode and args.transcribe_align_mode:
+        return "--align and --transcribe-align cannot be used together"
+    if args.transcribe_align_mode and not args.aligner_model:
+        return "--aligner-model is required for --transcribe-align"
+    return ""
+
+
+def _render_alignment(args, result) -> str:
+    from qwen3_asr_tpu_torch.pipeline.combined import alignment_to_json
+    from qwen3_asr_tpu_torch.text.subtitles import words_to_srt, words_to_vtt
+
+    if args.output_format == "srt":
+        return words_to_srt(result.words)
+    if args.output_format == "vtt":
+        return words_to_vtt(result.words)
+    return alignment_to_json(result)
+
+
+def _run_transcribe_align(args, tp, asr, aligner) -> int:
+    from qwen3_asr_tpu_torch.pipeline.combined import transcribe_and_align
+
+    _eprint("qwen3-asr-cuda-cli (Transcribe + Align Mode)")
+    _eprint(f"  ASR Model: {args.model}")
+    _eprint(f"  Aligner Model: {args.aligner_model}")
+    _eprint(f"  Audio: {args.audio}\n")
+    if not asr.load_model(args.model):
+        _eprint(f"Error (ASR): {asr.error_msg}")
+        return 1
+    if not aligner.load_model(args.aligner_model):
+        _eprint(f"Error (Aligner): {aligner.error_msg}")
+        return 1
+    combined = transcribe_and_align(asr, aligner, args.audio, tp,
+                                    language_override=args.language)
+    if not combined.success:
+        _eprint(f"Error: {combined.error_msg}")
+        return 1
+    _eprint(f"  Detected language: {combined.detected_language or '(none)'}")
+    _eprint(f"  Transcript: {combined.transcript}")
+    if args.print_timing:
+        asr_ms, align_ms = combined.asr.t_total_ms, combined.alignment.t_total_ms
+        _eprint(f"\nCombined Timing:\n"
+                f"  ASR:           {asr_ms:.0f} ms\n"
+                f"  Alignment:     {align_ms:.0f} ms\n"
+                f"  Total:         {asr_ms + align_ms:.0f} ms\n"
+                f"  Words aligned: {len(combined.alignment.words)}")
+    return _finish(args, _render_alignment(args, combined.alignment))
+
+
+def _run_align(args, aligner) -> int:
+    from qwen3_asr_tpu_torch.text.korean import find_korean_dict
+
+    _eprint("qwen3-asr-cuda-cli (Forced Alignment Mode)")
+    _eprint(f"  Model: {args.model}")
+    _eprint(f"  Audio: {args.audio}")
+    _eprint(f"  Text: {args.align_text}")
+    if args.language:
+        _eprint(f"  Language: {args.language}")
+    _eprint("")
+    if not aligner.load_model(args.model):
+        _eprint(f"Error: {aligner.error_msg}")
+        return 1
+    if args.language == "korean":
+        dict_path = find_korean_dict(args.model)
+        if not dict_path:
+            _eprint("Warning: Korean dictionary not found. "
+                    "Falling back to whitespace splitting.")
+        elif not aligner.load_korean_dict(dict_path):
+            _eprint(f"Warning: Failed to load Korean dictionary from {dict_path}")
+    _eprint("Model loaded. Running alignment...")
+    result = aligner.align(args.audio, args.align_text, args.language,
+                           mel_bucket=args.mel_bucket,
+                           fused=args.fused and args.mel_bucket == 0)
+    if not result.success:
+        _eprint(f"Error: {result.error_msg}")
+        return 1
+    if args.print_timing:
+        _eprint(f"\nTiming:\n"
+                f"  Mel spectrogram: {result.t_mel_ms:.0f} ms\n"
+                f"  Audio encoding:  {result.t_encode_ms:.0f} ms\n"
+                f"  Text decoding:   {result.t_decode_ms:.0f} ms\n"
+                f"  Total:           {result.t_total_ms:.0f} ms\n"
+                f"  Words aligned:   {len(result.words)}")
+    return _finish(args, _render_alignment(args, result))
+
+
+def _run_transcribe(args, tp, asr) -> int:
+    _eprint("qwen3-asr-cuda-cli")
+    _eprint(f"  Model: {args.model}")
+    _eprint(f"  Audio: {args.audio}")
+    _eprint(f"  Threads: {args.threads}\n")
+    if not asr.load_model(args.model):
+        _eprint(f"Error: {asr.error_msg}")
+        return 1
+    result = asr.transcribe(args.audio, tp)
+    if not result.success:
+        _eprint(f"Error: {result.error_msg}")
+        return 1
+    if args.print_tokens:
+        _eprint(f"\nTokens ({len(result.tokens)}):")
+        for i, t in enumerate(result.tokens):
+            _eprint(f"  [{i}] {t}")
+    return _finish(args, result.text)
 
 
 def _save_mel(args, device) -> int:
@@ -155,10 +271,14 @@ def _save_mel(args, device) -> int:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    err = _check_args(args)
+    if err:
+        _eprint(f"Error: {err}")
+        return 1
     import torch
 
-    from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams
-    from qwen3_asr_tpu_torch.runtime.profiler import profiler
+    from qwen3_asr_tpu_torch.pipeline.aligner import ForcedAligner
+    from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams, unported
 
     tp = TranscribeParams(
         max_tokens=args.max_tokens, language=args.language,
@@ -166,21 +286,26 @@ def main(argv: list[str] | None = None) -> int:
         fused=args.fused, mel_bucket=args.mel_bucket, spec_k=args.spec_k,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         seed=args.seed)
-    err = _not_ported(args, tp)
+    err = "" if args.align_mode else unported(tp)
     if err:
         _eprint(f"Error: {err}")
         return 1
 
     device = "cpu" if args.platform == "cpu" else "cuda"
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    quantize = "" if args.quantize == "none" else args.quantize
     try:
-        asr = Qwen3ASR(quantize="" if args.quantize == "none" else args.quantize,
-                       kv_int8=args.kv_int8, kv_cache="int4" if args.kv_int4 else None,
-                       device=device,
-                       dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32)
+        asr = aligner = None
+        if not args.align_mode:
+            asr = Qwen3ASR(quantize=quantize, kv_int8=args.kv_int8,
+                           kv_cache="int4" if args.kv_int4 else None,
+                           device=device, dtype=dtype)
+        if args.align_mode or args.transcribe_align_mode:
+            aligner = ForcedAligner(quantize=quantize, device=device, dtype=dtype)
     except RuntimeError as e:   # no CUDA device: never a quiet CPU run
         _eprint(f"Error: {e}")
         return 1
-    if args.save_mel and _save_mel(args, asr.device):
+    if args.save_mel and _save_mel(args, (asr or aligner).device):
         return 1
 
     trace = None
@@ -188,19 +313,16 @@ def main(argv: list[str] | None = None) -> int:
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
-                                         if asr.device.type == "cuda" else [])
+                                         if device == "cuda" else [])
         trace = profile(activities=acts)
         trace.__enter__()
-
-    _eprint("qwen3-asr-cuda-cli")
-    _eprint(f"  Model: {args.model}")
-    _eprint(f"  Audio: {args.audio}")
-    _eprint(f"  Threads: {args.threads}\n")
     try:
-        if not asr.load_model(args.model):
-            _eprint(f"Error: {asr.error_msg}")
-            return 1
-        result = asr.transcribe(args.audio, tp)
+        if args.transcribe_align_mode:
+            rc = _run_transcribe_align(args, tp, asr, aligner)
+        elif args.align_mode:
+            rc = _run_align(args, aligner)
+        else:
+            rc = _run_transcribe(args, tp, asr)
     finally:
         if trace is not None:
             trace.__exit__(None, None, None)
@@ -210,16 +332,6 @@ def main(argv: list[str] | None = None) -> int:
             path = os.path.join(args.trace_dir, "trace.json")
             trace.export_chrome_trace(path)
             _eprint(f"Trace written to: {path}")
-    if not result.success:
-        _eprint(f"Error: {result.error_msg}")
-        return 1
-    if args.print_tokens:
-        _eprint(f"\nTokens ({len(result.tokens)}):")
-        for i, t in enumerate(result.tokens):
-            _eprint(f"  [{i}] {t}")
-    rc = _write_output(result.text, args.output)
-    if args.profile:
-        _eprint(profiler.report())
     return rc
 
 

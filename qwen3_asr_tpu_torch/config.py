@@ -1,8 +1,9 @@
 """Hyperparameter dataclasses of the ASR model.
 
-The port's own copy of qwen3_asr_tpu/config.py (the ASR part: the audio
-frontend constants, `AudioEncoderConfig`, `DecoderConfig`,
-`ASRModelConfig` and `tiny_asr_config`), with the same fields and defaults,
+The port's own copy of qwen3_asr_tpu/config.py (the audio frontend
+constants, `AudioEncoderConfig`, `DecoderConfig`, `ASRModelConfig`,
+`AlignerModelConfig` and the tiny test configs), with the same fields and
+defaults,
 so that a config converts between the packages field by field. Defaults
 mirror the reference's compiled-in defaults, so a GGUF file with missing
 keys loads the same in both packages.
@@ -42,7 +43,7 @@ class AudioEncoderConfig:
     # chunking: 100 mel frames (1 s) per conv chunk; downsample 8x -> 13
     n_window: int = 50
     # attention windowing: None = full bidirectional (ASR); an int =
-    # block-diagonal windows of `n_window_infer` mel frames (not ported)
+    # block-diagonal windows of `n_window_infer` mel frames (the aligner)
     n_window_infer: int | None = None
 
     @property
@@ -96,7 +97,8 @@ class DecoderConfig:
     # (ops/decode_attention.py); False is not ported
     use_decode_attn_kernel: bool = True
 
-    # forced-aligner classification head (not ported)
+    # forced-aligner classification head: its class count (timestamp
+    # classes of timestamp_segment_time_ms each); None for the ASR model
     classify_num: int | None = None
 
 
@@ -104,6 +106,24 @@ class DecoderConfig:
 class ASRModelConfig:
     encoder: AudioEncoderConfig = dataclasses.field(default_factory=AudioEncoderConfig)
     decoder: DecoderConfig = dataclasses.field(default_factory=DecoderConfig)
+
+
+@dataclasses.dataclass(frozen=True)
+class AlignerModelConfig:
+    """Forced aligner (Qwen3-ForcedAligner-0.6B): a wider, windowed encoder,
+    the same decoder backbone at vocab 152,064, and a classification head
+    of 5,000 timestamp classes in place of the lm head."""
+
+    encoder: AudioEncoderConfig = dataclasses.field(
+        default_factory=lambda: AudioEncoderConfig(
+            n_layers=24, d_model=1024, n_heads=16, ffn_dim=4096, n_window_infer=800
+        )
+    )
+    decoder: DecoderConfig = dataclasses.field(
+        default_factory=lambda: DecoderConfig(vocab_size=152064, classify_num=5000)
+    )
+    timestamp_token_id: int = 151705
+    timestamp_segment_time_ms: int = 80
 
 
 def tiny_asr_config(vocab_size: int = 512) -> ASRModelConfig:
@@ -137,4 +157,36 @@ def tiny_asr_config(vocab_size: int = 512) -> ASRModelConfig:
             assistant_token_id=vocab_size - 9,
             newline_token_id=vocab_size - 10,
         ),
+    )
+
+
+def tiny_aligner_config(vocab_size: int = 512) -> AlignerModelConfig:
+    """Small aligner config for tests: the windowed encoder and the
+    classify head at tiny dims."""
+    return AlignerModelConfig(
+        encoder=AudioEncoderConfig(
+            n_layers=2,
+            d_model=32,
+            n_heads=4,
+            ffn_dim=64,
+            conv_channels=8,
+            output_dim=64,
+            n_window_infer=800,
+        ),
+        decoder=DecoderConfig(
+            vocab_size=vocab_size,
+            hidden_size=64,
+            n_layers=2,
+            n_heads=4,
+            n_kv_heads=2,
+            head_dim=16,
+            intermediate_size=96,
+            classify_num=50,
+            pad_token_id=0,
+            eos_token_id=vocab_size - 1,
+            audio_start_token_id=vocab_size - 4,
+            audio_end_token_id=vocab_size - 3,
+            audio_pad_token_id=vocab_size - 2,
+        ),
+        timestamp_token_id=vocab_size - 5,
     )

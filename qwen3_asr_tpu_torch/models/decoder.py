@@ -4,7 +4,8 @@ Port of qwen3_asr_tpu/models/decoder.py: `rms_norm`, `rope_neox`,
 `init_kv_cache` (bf16 rows, or int8 rows + per-(row, head) f32 scales),
 `_quantize_kv_rows`, `embed_with_audio`, `decoder_forward` (the prefill, and
 the decode step at T = 1 through the decode-attention kernel),
-`decoder_prefill_batch`, and `lm_logits` / `lm_logits_block`.
+`decoder_prefill_batch`, `lm_logits` / `lm_logits_block`, and the
+aligner's `classify_logits`.
 
 The layers take the fused weight layout (`wqkv`, `w_gate_up`) with dense
 bf16 matrices, Q8_0 leaves or int8pc leaves:
@@ -269,3 +270,19 @@ def lm_logits_block(dec_params: dict, cfg: DecoderConfig,
     if "lm_head_pc" in dec_params:
         return matmul_any(x.float(), dec_params["lm_head_pc"])
     return _dense_logits(x, dec_params["token_embd"])
+
+
+def classify_logits(dec_params: dict, cfg: DecoderConfig,
+                    h: torch.Tensor) -> torch.Tensor:
+    """The aligner's classification head over every row: the final RMSNorm,
+    then [T, hidden] @ classify_w with an f32 result, plus the bias in f32
+    -> [T, classify_num] f32."""
+    x = rms_norm(h, dec_params["output_norm"], cfg.rms_norm_eps)
+    w = dec_params["classify_w"]
+    if x.device.type == "cuda" and x.dtype == w.dtype == torch.bfloat16:
+        logits = torch.mm(x, w, out_dtype=torch.float32)
+    else:
+        logits = x.float() @ w.float()
+    if dec_params.get("classify_b") is not None:
+        logits = logits + dec_params["classify_b"].float()
+    return logits

@@ -1,6 +1,7 @@
-"""Whisper-style audio encoder (the ASR tower, full bidirectional attention).
+"""Whisper-style audio encoder: the ASR tower (full bidirectional
+attention) and the aligner's tower (block-diagonal windows).
 
-Port of qwen3_asr_tpu/models/encoder.py:41-194: three 3x3 stride-2 convs
+Port of qwen3_asr_tpu/models/encoder.py:41-411: three 3x3 stride-2 convs
 with exact GELU on zero-padded 100-frame chunks, conv_out, the sinusoidal
 positional embedding per chunk, the validity gather of each chunk's output
 rows, LayerNorm/GELU transformer blocks, ln_post and proj1/proj2. Weights
@@ -10,7 +11,11 @@ layers). Attention in the exact-shape `encode` is the plain `mha_attention`
 the bucketed, batched encoder (`encode_audio_padded_batch`, the serving
 path; port of `_encode_padded_core_batch`) runs the flash kernel K2
 bidirectionally with per-item valid lengths, as `_encoder_block_batch`
-does.
+does. A config with `n_window_infer` (the aligner) attends within windows
+of 13 * n_window_infer / 100 rows (104) in every entry point, through the
+plain `block_diagonal_attention`, as the JAX package runs it in XLA: the
+bucketed entries mask each item's keys past its n_audio, as the JAX
+package's vmapped `_encode_padded_core` does per item, and launch no K2.
 """
 
 from __future__ import annotations
@@ -22,7 +27,10 @@ import torch
 import torch.nn.functional as F
 
 from qwen3_asr_tpu_torch.config import AudioEncoderConfig
-from qwen3_asr_tpu_torch.ops.attention import mha_attention
+from qwen3_asr_tpu_torch.ops.attention import (
+    block_diagonal_attention_batch,
+    mha_attention,
+)
 from qwen3_asr_tpu_torch.ops.flash_attention import flash_attention_batch
 from qwen3_asr_tpu_torch.ops.support import full_f32
 
@@ -80,6 +88,15 @@ def _conv_frontend(params: dict, mel_chunks: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2).reshape(B, W, C * H)
 
 
+def attention_window(cfg: AudioEncoderConfig) -> int | None:
+    """Rows per attention window of a windowed (aligner) encoder: the
+    conv's 13 output rows per chunk times the chunks per n_window_infer
+    frames (104 for 800); None for full attention."""
+    if cfg.n_window_infer is None:
+        return None
+    return chunk_output_len(cfg.chunk_size) * (cfg.n_window_infer // cfg.chunk_size)
+
+
 def _encoder_block(cfg: AudioEncoderConfig, h, layer):
     scale = 1.0 / float(np.sqrt(cfg.head_dim))
     T = h.shape[0]
@@ -87,8 +104,13 @@ def _encoder_block(cfg: AudioEncoderConfig, h, layer):
     q = (x @ layer["wq"] + layer["bq"]).reshape(T, cfg.n_heads, cfg.head_dim)
     k = (x @ layer["wk"] + layer["bk"]).reshape(T, cfg.n_heads, cfg.head_dim)
     v = (x @ layer["wv"] + layer["bv"]).reshape(T, cfg.n_heads, cfg.head_dim)
-    attn = mha_attention(q, k, v, None, scale).reshape(T, cfg.d_model)
-    h = h + (attn @ layer["wo"] + layer["bo"])
+    window = attention_window(cfg)
+    if window is None:
+        attn = mha_attention(q, k, v, None, scale)
+    else:
+        attn = block_diagonal_attention_batch(q[None], k[None], v[None], window,
+                                              scale)[0]
+    h = h + (attn.reshape(T, cfg.d_model) @ layer["wo"] + layer["bo"])
     x = _layer_norm(h, layer["ffn_norm_w"], layer["ffn_norm_b"], cfg.layer_norm_eps)
     x = F.gelu(x @ layer["w_up"] + layer["b_up"])
     return h + (x @ layer["w_down"] + layer["b_down"])
@@ -98,9 +120,6 @@ def encode(params: dict, cfg: AudioEncoderConfig, mel: torch.Tensor,
            n_frames: int) -> torch.Tensor:
     """mel [n_mel, n_frames] -> features [n_ctx, output_dim], n_ctx = 13 per
     full 100-frame chunk plus the tail chunk's rows."""
-    if cfg.n_window_infer is not None:
-        raise NotImplementedError("windowed (aligner) encoder attention is "
-                                  "not ported yet")
     n_mel, chunk = cfg.n_mel_bins, cfg.chunk_size
     n_chunks = -(-n_frames // chunk)
     max_out = chunk_output_len(chunk)
@@ -136,8 +155,9 @@ def _post(params: dict, cfg: AudioEncoderConfig, h: torch.Tensor) -> torch.Tenso
 
 
 def _encoder_block_batch(cfg: AudioEncoderConfig, h, layer, n_valid):
-    """One block on h [B, T, d]; attention is the flash kernel (K2),
-    bidirectional, keys at index >= n_valid[b] masked."""
+    """One block on h [B, T, d]; keys at index >= n_valid[b] masked.
+    Attention is the flash kernel (K2), bidirectional, or for a windowed
+    encoder the plain block-diagonal attention."""
     scale = 1.0 / float(np.sqrt(cfg.head_dim))
     B, T, _ = h.shape
     shape = (B, T, cfg.n_heads, cfg.head_dim)
@@ -145,7 +165,11 @@ def _encoder_block_batch(cfg: AudioEncoderConfig, h, layer, n_valid):
     q = (x @ layer["wq"] + layer["bq"]).reshape(shape)
     k = (x @ layer["wk"] + layer["bk"]).reshape(shape)
     v = (x @ layer["wv"] + layer["bv"]).reshape(shape)
-    attn = flash_attention_batch(q, k, v, n_valid, causal=False, scale=scale)
+    window = attention_window(cfg)
+    if window is None:
+        attn = flash_attention_batch(q, k, v, n_valid, causal=False, scale=scale)
+    else:
+        attn = block_diagonal_attention_batch(q, k, v, window, scale, n_valid)
     h = h + (attn.reshape(B, T, cfg.d_model) @ layer["wo"] + layer["bo"])
     x = _layer_norm(h, layer["ffn_norm_w"], layer["ffn_norm_b"], cfg.layer_norm_eps)
     x = F.gelu(x @ layer["w_up"] + layer["b_up"])
@@ -179,9 +203,6 @@ def encode_audio_padded_batch(params: dict, cfg: AudioEncoderConfig,
     conv; a close-the-gap gather removes the tail chunk's missing rows, and
     attention is masked to the first n_audio rows. Rows past n_audio are
     padding the caller never reads."""
-    if cfg.n_window_infer is not None:
-        raise NotImplementedError("windowed (aligner) encoder attention is "
-                                  "not ported yet")
     B, n_mel, F_b = mel_b.shape
     chunk = cfg.chunk_size
     if F_b % chunk:

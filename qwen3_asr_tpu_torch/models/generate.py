@@ -1,5 +1,6 @@
 """Greedy generation: the prefill, then the decode loop, for one sequence
-or (decode pack, int8 cache) a batch in lockstep.
+or (decode pack, int8 cache) a batch in lockstep; and the aligner's one
+non-autoregressive pass (`nar_forward`, `nar_forward_batch`).
 
 Port of qwen3_asr_tpu/models/generate.py:36-462 (`generate_greedy`,
 `prefill_only`, the streaming path `generate_greedy_streaming` with its
@@ -36,6 +37,7 @@ import torch
 
 from qwen3_asr_tpu_torch.config import DecoderConfig
 from qwen3_asr_tpu_torch.models.decoder import (
+    _prefill_layers,
     _quantize_kv_rows,
     decoder_forward,
     decoder_prefill_batch,
@@ -361,3 +363,32 @@ def generate_greedy_batch_mega(dec_params: dict, cfg: DecoderConfig,
         done = done | hit
         cur = new
     return out.cpu().numpy(), nk.cpu().numpy()
+
+
+def nar_forward_batch(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
+                      audio: torch.Tensor, n_audio, audio_offset: int,
+                      n_valid) -> torch.Tensor:
+    """The aligner's non-autoregressive pass on a batch: tokens [B, P]
+    (prompts left-aligned, right-padded), audio [B, N, hidden] spliced over
+    rows [audio_offset, audio_offset + n_audio[b]), n_valid [B] the real
+    prompt lengths -> hidden states [B, P, hidden]. One causal prefill
+    through the decoder's layer stack (K2 causal, batched, keys at index >=
+    n_valid[b] masked); rows past n_valid[b] are padding the caller
+    ignores. Unlike the JAX package, which allocates a KV cache and drops
+    it, no cache is kept: the layer stack's on_rows stores nothing."""
+    B = tokens.shape[0]
+    h = torch.stack([embed_with_audio(dec_params, tokens[b], audio[b], int(n_audio[b]),
+                                      audio_offset) for b in range(B)])
+    valid = torch.as_tensor(np.asarray(n_valid, np.int32), device=h.device)
+    return _prefill_layers(dec_params, cfg, h, valid, lambda l, k, v: None)
+
+
+def nar_forward(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
+                audio: torch.Tensor, n_audio: int, audio_offset: int,
+                n_valid: int | None = None) -> torch.Tensor:
+    """Port of qwen3_asr_tpu/models/generate.py::nar_forward: one sequence,
+    tokens [P], audio [N, hidden], n_valid the real prompt length (P when
+    None) -> hidden states [P, hidden] (nar_forward_batch at B = 1)."""
+    P = tokens.shape[0]
+    return nar_forward_batch(dec_params, cfg, tokens[None], audio[None], [n_audio],
+                             audio_offset, [P if n_valid is None else n_valid])[0]

@@ -43,13 +43,13 @@ from qwen3_asr_tpu_torch.models.generate import INT4_KV
 from qwen3_asr_tpu_torch.ops.megakernel import pack_megakernel_params
 from qwen3_asr_tpu_torch.ops.support import resolve_device
 from qwen3_asr_tpu_torch.runtime.params import (
-    _DEC_QUANT_KEYS,
     assert_on_device,
     dequantize_decoder_params,
     fuse_decoder_params,
     init_asr_params,
     load_asr_model,
     quantize_decoder_params,
+    resolve_quantize,
 )
 from qwen3_asr_tpu_torch.runtime.profiler import timer
 
@@ -141,11 +141,8 @@ class Qwen3ASR:
 
     def _resolve_quantize(self, dec: dict) -> str:
         """'auto' -> int8pc for dense weights, "" when the GGUF already
-        shipped int8 blocks (quantized leaves are dicts)."""
-        if self.quantize != "auto":
-            return self.quantize
-        already = any(isinstance(dec["layers"].get(k), dict) for k in _DEC_QUANT_KEYS)
-        return "" if already else "int8pc"
+        shipped int8 blocks (runtime/params.py::resolve_quantize)."""
+        return resolve_quantize(self.quantize, dec)
 
     def _finish_load(self, cfg, params, vocab, merges) -> None:
         dec = params["decoder"]
@@ -215,8 +212,11 @@ class Qwen3ASR:
 
     def transcribe(self, audio, params: TranscribeParams | None = None
                    ) -> TranscribeResult:
-        """`audio`: path to a 16 kHz mono WAV, or a sample array (int16 PCM
-        is scaled on the device)."""
+        """`audio`: path to a 16 kHz mono WAV, a sample array (int16 PCM is
+        scaled on the device), or a PreparedPCM (the padded PCM already on
+        the device; only the fused path reads that copy)."""
+        from qwen3_asr_tpu_torch.models.e2e import PreparedPCM
+
         params = params or TranscribeParams()
         result = TranscribeResult()
         if self.params is None:
@@ -225,11 +225,17 @@ class Qwen3ASR:
         result.error_msg = unported(params)
         if result.error_msg:
             return result
+        if params.fused and params.mel_bucket == 0 and not self._streaming(params):
+            samples = audio if isinstance(audio, PreparedPCM) else \
+                self._load_samples(audio, result)
+            if samples is None:
+                return result
+            return self._transcribe_fused(samples, params, result)
+        if isinstance(audio, PreparedPCM):
+            audio = audio.samples
         samples = self._load_samples(audio, result)
         if samples is None:
             return result
-        if params.fused and params.mel_bucket == 0 and not self._streaming(params):
-            return self._transcribe_fused(samples, params, result)
         return self._transcribe_staged(samples, params, result)
 
     def _sys_tokens(self, params: TranscribeParams):

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from qwen3_asr_tpu_torch.config import (
+    AlignerModelConfig,
     ASRModelConfig,
     AudioEncoderConfig,
     DecoderConfig,
@@ -45,12 +46,14 @@ def _map(tree, fn):
     return None if tree is None else fn(tree)
 
 
-def from_jax_params(tree: dict, cfg: ASRModelConfig, device="cpu",
-                    int4: bool = True) -> dict:
-    """The JAX package's ASR parameter tree, as numpy arrays (the dense tree
-    of `init_asr_params`, or one whose decoder went through
-    `quantize_decoder_params('int8pc' or 'q8_0')` and `fuse_decoder_params`,
-    Q8_0 leaves and `lm_head_q8` included) -> the port's tree on `device`.
+def from_jax_params(tree: dict, cfg: ASRModelConfig | AlignerModelConfig,
+                    device="cpu", int4: bool = True) -> dict:
+    """The JAX package's ASR or aligner parameter tree, as numpy arrays (the
+    dense tree of `init_asr_params` / `init_aligner_params`, or one whose
+    decoder went through `quantize_decoder_params('int8pc' or 'q8_0')` and
+    `fuse_decoder_params`, Q8_0 leaves and `lm_head_q8` included; an
+    aligner's `classify_w` / `classify_b` carried across as they are) ->
+    the port's tree on `device`.
     An int8pc, fused decoder also gets the decode pack (`dec["mega"]`),
     built from its int8pc leaves as the JAX package's
     `pack_megakernel_params(int4=int4)` builds it."""
@@ -87,13 +90,26 @@ def assert_on_device(tree, device) -> None:
 # quantization and fusion
 # ---------------------------------------------------------------------------
 
-def quantize_decoder_params(dec_params: dict, mode: str = "int8pc") -> dict:
+def resolve_quantize(quantize: str, dec_params: dict) -> str:
+    """A weight mode for this decoder: "auto" -> "int8pc" for dense
+    weights, "" when the GGUF already shipped int8 blocks (quantized leaves
+    are dicts); any other mode as it is."""
+    if quantize != "auto":
+        return quantize
+    already = any(isinstance(dec_params["layers"].get(k), dict) for k in _DEC_QUANT_KEYS)
+    return "" if already else "int8pc"
+
+
+def quantize_decoder_params(dec_params: dict, mode: str = "int8pc",
+                            lm_head: bool = True) -> dict:
     """int8 leaves for the per-layer matmul weights (leaves that are already
     quantized, as a Q8_0 GGUF loads them, stay) and an int8 copy of the tied
     lm head. mode="int8pc": per-output-channel leaves and `lm_head_pc`
     [hidden, vocab]; mode="q8_0": Q8_0 leaves (per-32-row-block scales,
     codes bit-equal to the reference's numpy quantizer) and `lm_head_q8`,
-    its vocab zero-padded to a multiple of 4,096."""
+    its vocab zero-padded to a multiple of 4,096. lm_head=False leaves the
+    head dense: the aligner ends in its classify head and would never read
+    an int8 copy of the 152k-row table."""
     if mode not in ("int8pc", "q8_0"):
         raise NotImplementedError(f"quantize mode {mode!r} is not ported "
                                   "(only 'int8pc' and 'q8_0')")
@@ -109,6 +125,8 @@ def quantize_decoder_params(dec_params: dict, mode: str = "int8pc") -> dict:
         qs, ss = zip(*(quantize_q8_weights(w) for w in layers[key]))
         layers[key] = {"q8:q": torch.stack(qs), "q8:s": torch.stack(ss)}
     out["layers"] = layers
+    if not lm_head:
+        return out
     head = dec_params["token_embd"].float().T            # [hidden, vocab]
     if mode == "int8pc" and "lm_head_pc" not in out:
         q, s = quantize_pc_weights(head)
@@ -219,7 +237,7 @@ def init_decoder_params(cfg: DecoderConfig, gen, dtype, device) -> dict:
     def o(*shape):
         return torch.ones(shape, dtype=dtype, device=device)
 
-    return {
+    out = {
         "token_embd": nrm(cfg.vocab_size, h),
         "output_norm": o(h),
         "layers": {
@@ -232,6 +250,10 @@ def init_decoder_params(cfg: DecoderConfig, gen, dtype, device) -> dict:
             "w_down": nrm(L, inter, h),
         },
     }
+    if cfg.classify_num is not None:
+        out["classify_w"] = nrm(h, cfg.classify_num)
+        out["classify_b"] = torch.zeros(cfg.classify_num, dtype=dtype, device=device)
+    return out
 
 
 def init_asr_params(cfg: ASRModelConfig, seed: int = 0, device="cpu",
@@ -247,6 +269,13 @@ def init_asr_params(cfg: ASRModelConfig, seed: int = 0, device="cpu",
     }
 
 
+def init_aligner_params(cfg: AlignerModelConfig, seed: int = 0, device="cpu",
+                        dtype=torch.bfloat16) -> dict:
+    """Synthetic aligner weights (the windowed encoder, the decoder with its
+    classify head), as init_asr_params makes them."""
+    return init_asr_params(cfg, seed, device, dtype)
+
+
 # ---------------------------------------------------------------------------
 # GGUF loading
 # ---------------------------------------------------------------------------
@@ -256,11 +285,23 @@ def load_asr_model(path: str, device="cpu", dtype=torch.bfloat16):
     matmul weight stored as Q8_0 in every layer loads its GGML blocks
     directly as a Q8_0 leaf (no requantization); other Q8_0 tensors are
     decoded to float."""
+    return _load_model(path, device, dtype, aligner=False)
+
+
+def load_aligner_model(path: str, device="cpu", dtype=torch.bfloat16):
+    """Forced-aligner GGUF -> (AlignerModelConfig, params, vocab, merges):
+    the windowed encoder, the decoder and its classify head
+    (`classify_head.weight` / `.bias`, or `output.weight` without a bias,
+    as the reference's loader names it)."""
+    return _load_model(path, device, dtype, aligner=True)
+
+
+def _load_model(path: str, device, dtype, aligner: bool):
     from qwen3_asr_tpu_torch.runtime.gguf import GGML_TYPE_Q8_0, GGUFFile
 
     g = GGUFFile(path)
     try:
-        cfg = _config_from_gguf(g)
+        cfg = _config_from_gguf(g, aligner)
         enc_cfg, dec_cfg = cfg.encoder, cfg.decoder
 
         def get(name, dt=dtype, transpose=False):
@@ -344,6 +385,13 @@ def load_asr_model(path: str, device="cpu", dtype=torch.bfloat16):
             "output_norm": get("output_norm.weight"),
             "layers": dec_layers,
         }
+        if dec_cfg.classify_num is not None:
+            if "classify_head.weight" in g.tensors:
+                decoder["classify_w"] = get("classify_head.weight", transpose=True)
+                decoder["classify_b"] = maybe("classify_head.bias")
+            else:
+                decoder["classify_w"] = get("output.weight", transpose=True)
+                decoder["classify_b"] = None
         vocab = list(g.metadata.get("tokenizer.ggml.tokens", []))
         merges = list(g.metadata.get("tokenizer.ggml.merges", []))
     finally:
@@ -351,18 +399,19 @@ def load_asr_model(path: str, device="cpu", dtype=torch.bfloat16):
     return cfg, {"encoder": encoder, "decoder": decoder}, vocab, merges
 
 
-def _config_from_gguf(g) -> ASRModelConfig:
-    """Hyperparameters from GGUF metadata, with the JAX loader's keys and
-    defaults (qwen3_asr_tpu/runtime/params.py::decoder_config_from_gguf /
-    encoder_config_from_gguf)."""
+def decoder_config_from_gguf(g, classify: bool) -> DecoderConfig:
+    """Decoder hyperparameters from GGUF metadata, with the JAX loader's
+    keys and defaults (qwen3_asr_tpu/runtime/params.py::
+    decoder_config_from_gguf): an aligner (classify=True) defaults to vocab
+    152,064 and reads `qwen3-asr.classify_num` (default 5,000)."""
     md = g.metadata
 
     def get(key, default):
         return type(default)(md.get(key, default))
 
     d = DecoderConfig()
-    dec = DecoderConfig(
-        vocab_size=get("qwen3-asr.vocab_size", d.vocab_size),
+    return DecoderConfig(
+        vocab_size=get("qwen3-asr.vocab_size", 152064 if classify else d.vocab_size),
         hidden_size=get("qwen3-asr.embedding_length", d.hidden_size),
         n_layers=get("qwen3-asr.block_count", d.n_layers),
         n_heads=get("qwen3-asr.attention.head_count", d.n_heads),
@@ -382,15 +431,46 @@ def _config_from_gguf(g) -> ASRModelConfig:
         user_token_id=get("qwen3-asr.chat.user_token_id", d.user_token_id),
         assistant_token_id=get("qwen3-asr.chat.assistant_token_id", d.assistant_token_id),
         newline_token_id=get("qwen3-asr.chat.newline_token_id", d.newline_token_id),
+        classify_num=get("qwen3-asr.classify_num", 5000) if classify else None,
     )
-    e = AudioEncoderConfig()
-    enc = AudioEncoderConfig(
+
+
+def encoder_config_from_gguf(g, output_dim: int, aligner: bool) -> AudioEncoderConfig:
+    """Encoder hyperparameters from GGUF metadata; an aligner's defaults are
+    AlignerModelConfig's (24 x d 1,024, windows of 800 mel frames)."""
+    md = g.metadata
+
+    def get(key, default):
+        return type(default)(md.get(key, default))
+
+    e = AlignerModelConfig().encoder if aligner else AudioEncoderConfig()
+    return AudioEncoderConfig(
         n_layers=get("qwen3-asr.audio.encoder.layer_count", e.n_layers),
         d_model=get("qwen3-asr.audio.encoder.embedding_length", e.d_model),
         n_heads=get("qwen3-asr.audio.encoder.attention.head_count", e.n_heads),
         ffn_dim=get("qwen3-asr.audio.encoder.feed_forward_length", e.ffn_dim),
         conv_channels=get("qwen3-asr.audio.conv_channels", e.conv_channels),
         n_mel_bins=get("qwen3-asr.audio.num_mel_bins", e.n_mel_bins),
-        output_dim=dec.hidden_size,
+        output_dim=output_dim,
+        n_window_infer=e.n_window_infer,
     )
-    return ASRModelConfig(encoder=enc, decoder=dec)
+
+
+def is_aligner_gguf(g) -> bool:
+    """Aligner GGUFs carry classify metadata and/or a classify head tensor."""
+    return ("qwen3-asr.classify_num" in g.metadata
+            or "classify_head.weight" in g.tensors)
+
+
+def _config_from_gguf(g, aligner: bool = False):
+    """ASRModelConfig, or with aligner=True AlignerModelConfig (its
+    timestamp token and segment length read too), from GGUF metadata."""
+    dec = decoder_config_from_gguf(g, classify=aligner)
+    enc = encoder_config_from_gguf(g, dec.hidden_size, aligner)
+    if not aligner:
+        return ASRModelConfig(encoder=enc, decoder=dec)
+    md = g.metadata
+    return AlignerModelConfig(
+        encoder=enc, decoder=dec,
+        timestamp_token_id=int(md.get("qwen3-asr.timestamp_token_id", 151705)),
+        timestamp_segment_time_ms=int(md.get("qwen3-asr.timestamp_segment_time", 80)))

@@ -4,39 +4,50 @@ Port of qwen3_asr_tpu/serve.py:89-1080 on one device, with its defaults
 (`--quantize auto`: int8pc weights for a dense GGUF; `--kv-cache int8`;
 `--kv-cache int4` runs lone requests over the int4 cache and batches over
 int8).
-`ASRServer` owns the model; a single worker thread does all device work, in
-one of two modes:
+`ASRServer` owns the model and, with `--aligner-model`, a `ForcedAligner`;
+a single worker thread does all device work, in one of two modes:
 
 - closed batches (the default): the worker groups up to `max_batch`
   requests arriving within `max_wait_ms` and runs them as one
   `Qwen3ASR.transcribe_batch` call (a batch of one goes to `transcribe`;
   a batch needs the decode pack and the int8 cache, and a model without
-  them answers a batch with transcribe_batch's NotImplementedError); a
+  them runs the batch one request at a time through `transcribe`); a
   streaming request runs alone through the pipeline's token callback
   (`_run_stream`: the streaming decode path, 8 tokens per host read);
+  alignments arriving together run as one `align_batch` per language, and
+  a request of another kind arriving in the window is stashed for the
+  next round (mixed traffic does not split batches);
 - continuous (`continuous=True`): greedy requests join a slot pool
   (`pipeline/engine.py::ContinuousEngine`) between decode rounds, and
   streaming requests get their text deltas from the pool's per-round
-  progress hook; what the pool cannot take (too long for its context)
-  takes the closed-batch path between rounds, streams alone.
+  progress hook; what the pool cannot take (alignments, requests too long
+  for its context) takes the closed-batch path between rounds, streams
+  alone.
 
 `serve_http()` is a stdlib `ThreadingHTTPServer` front end:
 
     GET  /healthz                  -> {"status": "ok", ...} (+ engine stats)
     POST /v1/transcribe            (body: 16 kHz mono WAV) -> {"text": ...}
+    POST /v1/align                 (multipart `audio` + `text` [+ `language`],
+                                   JSON {"audio_b64", "text", "language"},
+                                   or a WAV body + X-Align-Text header)
+                                   -> {"words": [...], "latency_ms": ...}
     POST /v1/audio/transcriptions  OpenAI-compatible (multipart `file`,
                                    `response_format` json | text |
-                                   verbose_json, `stream=true` as SSE
-                                   when the request rides the pool)
+                                   verbose_json | srt | vtt,
+                                   `timestamp_granularities[]=word`, both
+                                   through the aligner; `stream=true` as
+                                   SSE)
 
-What the port does not carry yet answers 400 in the JAX package's error
-envelope, naming what is missing: forced alignment (`/v1/align`, word
-timestamps, srt / vtt) and sampled decoding (`temperature` > 0).
+Without an aligner, alignment, word timestamps and srt / vtt answer 400
+with the JAX package's messages. Sampled decoding (`temperature` > 0) is
+not ported and answers 400 in the JAX package's error envelope.
 """
 
 from __future__ import annotations
 
 import argparse
+import base64
 import json
 import queue
 import sys
@@ -56,16 +67,19 @@ from qwen3_asr_tpu_torch.text.prompt import (
 )
 from qwen3_asr_tpu_torch.audio.wav import load_wav_bytes
 from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams
+from qwen3_asr_tpu_torch.text.subtitles import (
+    group_words_into_cues,
+    words_to_srt,
+    words_to_vtt,
+)
 
 NOT_PORTED = {
-    "align": "forced alignment (/v1/align) is not ported to the CUDA server yet",
-    "words": "word timestamps need the forced aligner, which is not ported to "
-             "the CUDA server yet",
-    "subtitles": "srt and vtt need word timestamps from the forced aligner, "
-                 "which is not ported to the CUDA server yet",
     "sampling": "sampled decoding (temperature > 0) is not ported to the CUDA "
                 "server yet",
 }
+NO_ALIGNER_WORDS = ("word timestamps need an aligner model "
+                    "(start the server with --aligner-model)")
+NO_ALIGNER = "no aligner model loaded"
 
 # ISO-639-1 -> the language names the pipeline uses (detect_language emits
 # lowercase full names). OpenAI clients send the ISO codes.
@@ -121,17 +135,27 @@ class _Request:
     future: Future
     stream_q: queue.Queue | None = None     # set: SSE streaming request
     delta: object = None                    # worker-side _StreamDelta (pool streams)
+    align_text: str | None = None           # set: forced-alignment request
+    language: str = ""
+
+
+def _request_kind(req: _Request) -> str:
+    if req.align_text is not None:
+        return "align"
+    return "asr" if req.stream_q is None else "stream"
 
 
 class ASRServer:
-    """Batching wrapper around a loaded `Qwen3ASR` (one worker thread owns
-    the device)."""
+    """Batching wrapper around a loaded `Qwen3ASR`, and an optional loaded
+    `ForcedAligner` for alignments (one worker thread owns the device)."""
 
     def __init__(self, asr: Qwen3ASR, params: TranscribeParams | None = None,
                  max_batch: int = 8, max_wait_ms: float = 5.0,
                  continuous: bool = False, round_tokens: int = 64,
-                 pool: int | None = None, engine_context: int | None = None):
+                 pool: int | None = None, engine_context: int | None = None,
+                 aligner=None):
         self.asr = asr
+        self.aligner = aligner
         # mel_bucket=500 (5 s granularity): same-bucket requests share one
         # batched frontend pass
         self.params = params or TranscribeParams(mel_bucket=500)
@@ -165,6 +189,16 @@ class ASRServer:
         self._queue.put(_Request(np.asarray(samples), fut))
         return fut
 
+    def submit_align(self, samples: np.ndarray, text: str,
+                     language: str = "") -> Future:
+        """Enqueue a forced alignment -> Future of an AlignmentResult.
+        Alignments arriving together run as one `ForcedAligner.align_batch`
+        per language."""
+        fut: Future = Future()
+        self._queue.put(_Request(np.asarray(samples), fut, align_text=text,
+                                 language=language))
+        return fut
+
     def submit_stream(self, samples: np.ndarray) -> queue.Queue:
         """Enqueue a streaming transcription: returns a queue of events
         ("delta", text) as tokens decode, then ("done", result) (result.text
@@ -193,11 +227,24 @@ class ASRServer:
 
     # -- closed-batch worker -----------------------------------------------
 
+    def _take_pending(self, batch: list[_Request]) -> None:
+        """Move stashed requests of the batch's kind into it (up to
+        max_batch), in arrival order."""
+        kind = _request_kind(batch[0])
+        i = 0
+        while i < len(self._pending) and len(batch) < self.max_batch:
+            if _request_kind(self._pending[i]) == kind:
+                batch.append(self._pending[i])
+                del self._pending[i]
+            else:
+                i += 1
+
     def _collect(self) -> list[_Request]:
         """Block for the first request (a stashed one first), then batch
-        same-kind requests arriving within the window (up to max_batch); a
-        stream runs alone, at once, and one arriving in the window is
-        stashed for the next round."""
+        same-kind requests, stashed ones first, then those arriving within
+        the window (up to max_batch); a stream runs alone, at once. A
+        request of another kind arriving in the window is stashed for the
+        next round."""
         if self._pending:
             first = self._pending.popleft()
         else:
@@ -205,8 +252,10 @@ class ASRServer:
             if first is None:
                 return []
         batch = [first]
-        if first.stream_q is not None:
+        kind = _request_kind(first)
+        if kind == "stream":
             return batch
+        self._take_pending(batch)
         deadline = time.perf_counter() + self.max_wait_ms / 1e3
         while len(batch) < self.max_batch:
             timeout = deadline - time.perf_counter()
@@ -218,7 +267,7 @@ class ASRServer:
                 break
             if req is None:
                 break
-            if req.stream_q is not None:
+            if _request_kind(req) != kind:
                 self._pending.append(req)
                 continue
             batch.append(req)
@@ -237,6 +286,8 @@ class ASRServer:
             if batch[0].stream_q is not None:
                 self._run_stream(batch[0])
                 results = []
+            elif batch[0].align_text is not None:
+                results = self._run_align(batch)
             elif len(batch) == 1:
                 results = [self.asr.transcribe(batch[0].samples, self.params)]
             else:
@@ -263,6 +314,23 @@ class ASRServer:
         except NotImplementedError:
             return [self.asr.transcribe(r.samples, self.params) for r in batch]
         return self.asr.transcribe_batch([r.samples for r in batch], self.params)
+
+    def _run_align(self, batch: list[_Request]) -> list:
+        """One align_batch per language group (usually one), its mel bucket
+        the server's (500 frames when the server has none)."""
+        if self.aligner is None:
+            raise RuntimeError(NO_ALIGNER)
+        results: list = [None] * len(batch)
+        groups: dict[str, list[int]] = {}
+        for i, req in enumerate(batch):
+            groups.setdefault(req.language, []).append(i)
+        for language, idxs in groups.items():
+            outs = self.aligner.align_batch(
+                [batch[i].samples for i in idxs], [batch[i].align_text for i in idxs],
+                language=language, mel_bucket=self.params.mel_bucket or 500)
+            for i, out in zip(idxs, outs):
+                results[i] = out
+        return results
 
     def _run_stream(self, req: _Request) -> None:
         """One streaming transcription outside the pool: ride the
@@ -311,12 +379,11 @@ class ASRServer:
 
     def _collect_pending_batch(self) -> list[_Request]:
         """One closed batch from `_pending` (the continuous worker's path
-        for what the pool cannot take): a stream alone, or the plain
-        requests at its head, up to max_batch."""
+        for what the pool cannot take): a stream alone, or the first
+        request and the pending ones of its kind, up to max_batch."""
         batch = [self._pending.popleft()]
-        while (batch[0].stream_q is None and self._pending
-               and self._pending[0].stream_q is None and len(batch) < self.max_batch):
-            batch.append(self._pending.popleft())
+        if batch[0].stream_q is None:
+            self._take_pending(batch)
         return batch
 
     def _engine_progress(self, req: _Request, new_ids) -> None:
@@ -330,8 +397,9 @@ class ASRServer:
 
     def _run_continuous(self):
         """Continuous worker: requests (plain or streaming) prefill into
-        the slot pool between decode rounds; too-long ones take the
-        closed-batch path between rounds. One thread, one device owner."""
+        the slot pool between decode rounds; alignments and too-long
+        requests take the closed-batch path between rounds. One thread,
+        one device owner."""
         eng = self._engine
         eng.on_progress = self._engine_progress
         backlog: deque = deque()  # pool-eligible requests awaiting a slot
@@ -342,7 +410,7 @@ class ASRServer:
                 break
             rest: deque = deque()
             for req in self._pending:
-                if eng.eligible(len(req.samples)):
+                if req.align_text is None and eng.eligible(len(req.samples)):
                     if req.stream_q is not None:
                         req.delta = _StreamDelta(self.asr.tokenizer)
                     backlog.append(req)
@@ -420,6 +488,30 @@ def _parse_multipart(data: bytes, content_type: str) -> dict[str, list[bytes]]:
     return fields
 
 
+def _parse_align_request(headers, body: bytes) -> tuple[bytes, str, str]:
+    """-> (WAV bytes, text, language) of a /v1/align request: multipart
+    fields `audio`, `text` and optional `language`; JSON {"audio_b64",
+    "text", "language"}; or a raw WAV body with the text in the
+    X-Align-Text header (latin-1 only: headers cannot carry Korean)."""
+    ctype = headers.get("Content-Type", "")
+    if ctype.startswith("multipart/form-data"):
+        fields = _parse_multipart(body, ctype)
+        if "audio" not in fields or "text" not in fields:
+            raise ValueError("multipart fields 'audio' and 'text' required")
+        return (fields["audio"][-1], fields["text"][-1].decode("utf-8"),
+                fields.get("language", [b""])[-1].decode("utf-8"))
+    if ctype.startswith("application/json"):
+        req = json.loads(body.decode("utf-8"))
+        if "audio_b64" not in req or "text" not in req:
+            raise ValueError("JSON fields 'audio_b64' and 'text' required")
+        return base64.b64decode(req["audio_b64"]), req["text"], req.get("language", "")
+    text = headers.get("X-Align-Text", "")
+    if not text:
+        raise ValueError("align request needs multipart (audio+text fields), JSON "
+                         "(audio_b64+text), or the legacy X-Align-Text header")
+    return body, text, headers.get("X-Align-Language", "")
+
+
 def _make_handler(server: ASRServer):
     from http.server import BaseHTTPRequestHandler
 
@@ -459,10 +551,13 @@ def _make_handler(server: ASRServer):
 
         def _openai_transcription(self, data: bytes):
             """OpenAI-compatible `POST /v1/audio/transcriptions`: multipart
-            `file` required; `response_format` json | text | verbose_json;
+            `file` required; `response_format` json | text | verbose_json |
+            srt | vtt; `timestamp_granularities[]=word` (with verbose_json);
             `stream=true` (json or text) as SSE; `language` names the
-            verbose_json language; `model` / `prompt` are accepted and
-            ignored."""
+            language (ISO codes map to the pipeline's names, so `ko` gets
+            the Korean word split); `model` / `prompt` are accepted and
+            ignored. Word timestamps and the srt / vtt cues come from the
+            aligner run on the transcript."""
             ctype = self.headers.get("Content-Type", "")
             if not ctype.startswith("multipart/form-data"):
                 self._openai_error(400, "multipart/form-data with a 'file' field required")
@@ -476,16 +571,27 @@ def _make_handler(server: ASRServer):
                 return fields.get(name, [default.encode()])[-1].decode().strip()
 
             fmt = field("response_format", "json")
-            if fmt in ("srt", "vtt"):
-                self._openai_error(400, NOT_PORTED["subtitles"])
-                return
-            if fmt not in ("json", "text", "verbose_json"):
+            if fmt not in ("json", "text", "verbose_json", "srt", "vtt"):
                 self._openai_error(400, f"response_format '{fmt}' not supported "
-                                        "(json, text, verbose_json)")
+                                        "(json, text, verbose_json, srt, vtt)")
                 return
+            stream = field("stream").lower() in ("true", "1")
             grans = [g.decode().strip() for g in fields.get("timestamp_granularities[]", [])]
-            if "word" in grans:
-                self._openai_error(400, NOT_PORTED["words"])
+            want_words = "word" in grans
+            if stream:
+                if fmt not in ("json", "text"):
+                    self._openai_error(400, "stream=true supports response_format json "
+                                            "or text (timestamps need the full result)")
+                    return
+                if want_words:
+                    self._openai_error(400, "stream=true cannot carry word timestamps")
+                    return
+            if want_words and fmt != "verbose_json":
+                self._openai_error(400, "timestamp_granularities requires "
+                                        "response_format=verbose_json")
+                return
+            if (want_words or fmt in ("srt", "vtt")) and server.aligner is None:
+                self._openai_error(400, NO_ALIGNER_WORDS)
                 return
             try:
                 temp = float(field("temperature", "0") or "0")
@@ -499,34 +605,51 @@ def _make_handler(server: ASRServer):
             if sr != SAMPLE_RATE:
                 self._openai_error(400, f"Audio must be 16kHz, got {sr} Hz")
                 return
-            if field("stream").lower() in ("true", "1"):
-                if fmt not in ("json", "text"):
-                    self._openai_error(400, "stream=true supports response_format "
-                                            "json or text")
-                else:
-                    self._sse_transcription(samples)
+            if stream:
+                self._sse_transcription(samples)
                 return
             result = server.submit(samples).result()
             if not result.success:
                 self._openai_error(500, result.error_msg, "server_error")
                 return
             transcript = extract_transcript(result.text)
+            # a language the client names wins over the detected one
+            language = _normalize_language(field("language")) or detect_language(result.text)
             if fmt == "text":
                 self._reply_text(200, transcript + "\n")
                 return
             if fmt == "json":
                 self._reply(200, {"text": transcript})
                 return
+            aligned = None
+            if (want_words or fmt in ("srt", "vtt")) and transcript.strip():
+                aligned = server.submit_align(samples, transcript, language).result()
+                if not aligned.success:
+                    self._openai_error(500, aligned.error_msg, "server_error")
+                    return
+            words = aligned.words if aligned is not None else []
+            if fmt in ("srt", "vtt"):
+                self._reply_text(200, (words_to_srt if fmt == "srt" else words_to_vtt)(words))
+                return
             duration = round(len(samples) / SAMPLE_RATE, 3)
-            segments = [] if not transcript.strip() else [{
-                "id": 0, "seek": 0, "start": 0.0, "end": duration, "text": transcript,
-                "tokens": [], "temperature": 0.0, "avg_logprob": 0.0,
-                "compression_ratio": 1.0, "no_speech_prob": 0.0}]
-            self._reply(200, {
-                "task": "transcribe",
-                "language": (_normalize_language(field("language"))
-                             or detect_language(result.text)),
-                "duration": duration, "text": transcript, "segments": segments})
+
+            def segment(i, start, end, text):
+                return {"id": i, "seek": 0, "start": start, "end": end, "text": text,
+                        "tokens": [], "temperature": 0.0, "avg_logprob": 0.0,
+                        "compression_ratio": 1.0, "no_speech_prob": 0.0}
+
+            if aligned is not None:   # one segment per subtitle cue
+                segments = [segment(i, c.start, c.end, c.text)
+                            for i, c in enumerate(group_words_into_cues(words))]
+            else:                     # the transcript as one segment
+                segments = [] if not transcript.strip() else [
+                    segment(0, 0.0, duration, transcript)]
+            payload = {"task": "transcribe", "language": language, "duration": duration,
+                       "text": transcript, "segments": segments}
+            if want_words:
+                payload["words"] = [{"word": w.word, "start": w.start, "end": w.end}
+                                    for w in words]
+            self._reply(200, payload)
 
         def _sse_transcription(self, samples):
             """Server-sent events (OpenAI `stream=true`): one
@@ -561,6 +684,26 @@ def _make_handler(server: ASRServer):
             emit("[DONE]")
             self.wfile.write(b"0\r\n\r\n")  # chunked terminator
 
+        def _align(self, data: bytes, t0: float):
+            """`POST /v1/align` -> {"words": [{"word", "start", "end"}],
+            "latency_ms"}."""
+            if server.aligner is None:
+                self._reply(400, {"error": NO_ALIGNER})
+                return
+            wav, text, language = _parse_align_request(self.headers, data)
+            samples, sr = load_wav_bytes(wav, raw_int16=True)
+            if sr != SAMPLE_RATE:
+                self._reply(400, {"error": f"Audio must be 16kHz, got {sr} Hz"})
+                return
+            result = server.submit_align(samples, text, language).result()
+            if not result.success:
+                self._reply(500, {"error": result.error_msg})
+                return
+            self._reply(200, {
+                "words": [{"word": w.word, "start": w.start, "end": w.end}
+                          for w in result.words],
+                "latency_ms": round((time.perf_counter() - t0) * 1e3, 1)})
+
         def do_POST(self):  # noqa: N802
             if self.path not in ("/v1/transcribe", "/v1/align",
                                  "/v1/audio/transcriptions"):
@@ -570,7 +713,7 @@ def _make_handler(server: ASRServer):
                 data = self.rfile.read(int(self.headers.get("Content-Length", "0")))
                 t0 = time.perf_counter()
                 if self.path == "/v1/align":
-                    self._reply(400, {"error": NOT_PORTED["align"]})
+                    self._align(data, t0)
                     return
                 if self.path == "/v1/audio/transcriptions":
                     self._openai_transcription(data)
@@ -640,6 +783,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="continuous mode: KV rows per slot (a multiple of 128); "
                         "0 = a 92 s prompt bucket plus --max-tokens, capped by "
                         "device memory")
+    p.add_argument("--aligner-model", default="",
+                   help="forced-aligner GGUF: enables POST /v1/align (multipart "
+                        "audio+text, JSON audio_b64+text, or a WAV body + "
+                        "X-Align-Text header) and word timestamps / srt / vtt on "
+                        "/v1/audio/transcriptions")
     p.add_argument("--engine-kv-stream", action="store_true",
                    help="continuous mode: the streamed-KV slot pool (accepted "
                         "for parity; no effect: the batched step reads any "
@@ -658,12 +806,25 @@ def main(argv=None) -> int:
     if not asr.load_model(args.model):
         print(f"Error: {asr.error_msg}", file=sys.stderr)
         return 1
+    aligner = None
+    if args.aligner_model:
+        from qwen3_asr_tpu_torch.pipeline.aligner import ForcedAligner
+        from qwen3_asr_tpu_torch.text.korean import find_korean_dict
+
+        aligner = ForcedAligner(quantize="" if args.quantize == "none" else args.quantize,
+                                device=args.device)
+        if not aligner.load_model(args.aligner_model):
+            print(f"Error (aligner): {aligner.error_msg}", file=sys.stderr)
+            return 1
+        dict_path = find_korean_dict(args.aligner_model)
+        if dict_path:   # language=korean requests get the dictionary split
+            aligner.load_korean_dict(dict_path)
     try:
         server = ASRServer(asr, TranscribeParams(max_tokens=args.max_tokens,
                                                  mel_bucket=500),
                            max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
                            continuous=args.continuous, round_tokens=args.round_tokens,
-                           engine_context=args.engine_context or None)
+                           engine_context=args.engine_context or None, aligner=aligner)
     except (ValueError, NotImplementedError) as e:   # the continuous pool's settings
         print(f"Error: {e}", file=sys.stderr)
         return 1

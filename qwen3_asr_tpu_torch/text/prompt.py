@@ -1,8 +1,8 @@
 """Prompt construction and ASR-output post-processing.
 
 The port's own copy of the parts of qwen3_asr_tpu/text/prompt.py that it
-calls: the ASR chat template, the audio offset, and the transcript's
-'language Xxx' prefix handling (whole and streamed).
+calls: the ASR chat template, the aligner's prompt, the audio offset, and
+the transcript's 'language Xxx' prefix handling (whole and streamed).
 """
 
 from __future__ import annotations
@@ -29,6 +29,17 @@ def build_asr_prompt(
     toks += [cfg.im_end_token_id, cfg.newline_token_id,
              cfg.im_start_token_id, cfg.assistant_token_id,
              cfg.newline_token_id]
+    return toks
+
+
+def build_aligner_prompt(text_tokens: list[int], n_audio_frames: int,
+                         cfg: DecoderConfig) -> list[int]:
+    """<audio_start><audio_pad>*N<audio_end><text tokens>, no chat
+    template."""
+    toks = [cfg.audio_start_token_id]
+    toks.extend([cfg.audio_pad_token_id] * n_audio_frames)
+    toks.append(cfg.audio_end_token_id)
+    toks.extend(text_tokens)
     return toks
 
 

@@ -1,7 +1,7 @@
 """Planted faults against `chip_smoke.py`'s checks, on the card, at
-Qwen3-ASR-0.6B's full width (random weights, seed 0): the per-layer decode
-path (Q8_0 weights), K1 / K3 on the int8 pack (`quantize="auto"`) and the
-weight-stream microbenchmarks.
+Qwen3-ASR-0.6B's and Qwen3-ForcedAligner-0.6B's full width (random weights,
+seed 0): the per-layer decode path (Q8_0 weights), K1 / K3 on the int8 pack
+(`quantize="auto"`), the weight-stream microbenchmarks and the aligner.
 
 Each case plants one fault at run time (a slice of a weight dropped, the
 dequant dtype flipped, a cache row dropped, RoPE one position off, the fresh
@@ -11,7 +11,9 @@ early, a K3 row given its neighbour's position, the int4 cache's
 neighbour nibble cleared or its nibbles swapped, the unpack probe's nibbles
 swapped, flash attention's causal mask one key late or its last partial key
 tile skipped, K1's graph replayed without advancing the position, K1's
-GEMV prologue reading no attn_norm weight) and asserts that the phase of
+GEMV prologue reading no attn_norm weight, the aligner's NAR pass or K2 at
+its shape ignoring the prompt's valid length, the aligner's encoder window
+one row off or its bucketed attention ignoring n_audio) and asserts that the phase of
 `chip_smoke.py` that guards against it raises. The phases print their readings before they raise; run
 with `-s` to see them beside the bounds:
 
@@ -403,3 +405,88 @@ def test_k1_prologue_without_attn_norm_caught(auto_asr):
     with patched(mk.DecodeStep, "__init__", dropped):
         caught("K1 prologue without attn_norm", lambda: cs.phase_mega(
             asr.cfg, dec, "bf16", steps=4, floor_steps=0))
+
+
+@pytest.fixture(scope="module")
+def aligner(smoke):
+    """(chip_smoke, Qwen3-ForcedAligner-0.6B on the card (dense bf16, random
+    weights, seed 0), bench_align.py's 92 s audio and its mel, n_frames,
+    features, n_audio and 183-word prompt)."""
+    cs = smoke
+    fa = cs.load_aligner(False)
+    audio = cs.align_pcm(cs.ALIGN_SECONDS)
+    mel, nf = fa.frontend(audio)
+    feats, na = fa.encode(mel, nf)
+    prompt, _ = fa.prompt(cs.align_text(cs.ALIGN_WORDS), "", nf)
+    return cs, fa, nf, feats, na, prompt
+
+
+def test_nar_pass_with_n_valid_ignored_caught(aligner):
+    """The NAR pass's K2 given the bucketed length in place of each
+    prompt's real length (padding keys attended): the prompt's own rows
+    never see them (causal), but the padding rows past the prompt do, and
+    the per-layer check against the twins raises."""
+    from qwen3_asr_tpu_torch.models import decoder as dmod
+
+    cs, fa, _, feats, na, prompt = aligner
+    kernel = dmod.flash_attention_batch
+
+    def ignored(q, k, v, valid_lens, *, causal, scale):
+        full = torch.full_like(torch.as_tensor(valid_lens), q.shape[1])
+        return kernel(q, k, v, full, causal=causal, scale=scale)
+
+    with patched(dmod, "flash_attention_batch", ignored):
+        caught("NAR pass with n_valid ignored",
+               lambda: cs.phase_nar_layers(fa, prompt, feats, na))
+
+
+@pytest.mark.parametrize("shift", [1, -1], ids=["plus_one", "minus_one"])
+def test_encoder_window_off_by_one_caught(aligner, shift):
+    """The windowed encoder with its window one row longer or shorter (105
+    or 103 rows, not 13 x 800 / 100): the windowed-attention check raises,
+    on the exact shape and on the 500-frame bucket."""
+    from qwen3_asr_tpu_torch.models import encoder as emod
+
+    cs, fa, nf, _, _, _ = aligner
+    window = emod.attention_window
+    with patched(emod, "attention_window", lambda cfg: window(cfg) + shift):
+        caught(f"encoder window {shift:+d} row (exact)",
+               lambda: cs.check_window_attention(fa, cs.random_mel(fa, nf), nf, 0))
+        bucket = -(-nf // cs.ALIGN_BUCKET) * cs.ALIGN_BUCKET
+        caught(f"encoder window {shift:+d} row (bucketed)",
+               lambda: cs.check_window_attention(fa, cs.random_mel(fa, nf, bucket), nf,
+                                                 cs.ALIGN_BUCKET))
+
+
+def test_flash_n_valid_ignored_at_aligner_shape_caught(smoke):
+    """K2 at the aligner's shape (causal T 2,944, valid 2,845, and the batch
+    of four) ignoring the valid lengths: the flash phases raise."""
+    from qwen3_asr_tpu_torch.ops import flash_attention as fa
+
+    kernel = fa.flash_attention_batch
+
+    def ignored(q, k, v, valid_lens, *, causal, scale):
+        full = torch.full_like(torch.as_tensor(valid_lens, device=q.device), q.shape[1])
+        return kernel(q, k, v, full, causal=causal, scale=scale)
+
+    ignored.launches = 0
+    with patched(fa, "flash_attention_batch", ignored):
+        for valid in ([2845], [2845, 1900, 950, 300]):
+            caught(f"flash n_valid ignored {valid}",
+                   lambda: smoke.phase_flash(True, 2944, 16, 8, 128, valid))
+
+
+def test_windowed_attention_ignoring_n_audio_caught(aligner):
+    """The encoder's windowed attention ignoring each item's n_audio on the
+    bucketed path (the zero frames past the audio attended as keys): the
+    windowed-attention check raises."""
+    from qwen3_asr_tpu_torch.models import encoder as emod
+
+    cs, fa, nf, _, _, _ = aligner
+    attn = emod.block_diagonal_attention_batch
+    bucket = -(-nf // cs.ALIGN_BUCKET) * cs.ALIGN_BUCKET
+    with patched(emod, "block_diagonal_attention_batch",
+                 lambda q, k, v, w, scale, n_valid=None: attn(q, k, v, w, scale)):
+        caught("windowed attention ignoring n_audio",
+               lambda: cs.check_window_attention(fa, cs.random_mel(fa, nf, bucket), nf,
+                                                 cs.ALIGN_BUCKET))

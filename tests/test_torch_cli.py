@@ -3,7 +3,8 @@ CPU against the JAX package's (qwen3_asr_tpu/cli.py), mirroring the
 transcription cases of tests/test_cli.py on a tiny GGUF: the same flags and
 defaults, the transcript (or the -o notice) on stdout and diagnostics on
 stderr, exit 1 on errors, and every mode the port does not carry refused
-before anything runs. The tokens (`--tokens`, printed on stderr) of the
+before anything runs. The alignment modes (`--align`, `-a`) print the JAX
+CLI's stdout byte for byte in json, srt and vtt, on a tiny aligner GGUF. The tokens (`--tokens`, printed on stderr) of the
 default configuration (`--quantize auto`: int8pc weights, the int8 decode
 pack, a bf16 cache) and of `--kv-int8` equal the JAX CLI's; with `--kv-int4`
 (the int4 cache) and `--progress` (the streaming path) they equal the
@@ -129,19 +130,49 @@ def test_save_mel_matches_the_oracle(files, capsys, tmp_path):
     assert capsys.readouterr().out.endswith("\n")
 
 
+@pytest.fixture(scope="module")
+def fa_files(tmp_path_factory):
+    """(a tiny aligner GGUF of tests/test_torch_aligner.py's wide weights, a
+    4.3 s WAV whose words' timestamps are not all clamped to its end)."""
+    from qwen3_asr_tpu.config import tiny_aligner_config
+    from test_torch_aligner import AUDIO, jax_tree
+
+    d = tmp_path_factory.mktemp("cli_fa")
+    cfg = tiny_aligner_config()
+    fa = str(d / "fa.gguf")
+    write_tiny_gguf(fa, cfg, jax_tree(), aligner=True,
+                    vocab=make_byte_vocab(cfg.decoder.vocab_size, {}), merges=[])
+    wav = str(d / "long.wav")
+    write_wav(wav, AUDIO[0].astype(np.float32) / 32768.0)
+    return fa, wav
+
+
 @pytest.mark.parametrize("flags", [
-    ["--align", "--text", "hi"], ["-a", "--aligner-model", "fa.gguf"], ["--kv-int4"],
+    ["--align", "--text", "hello bucketed world", "-m", "FA"],
+    ["-a", "--aligner-model", "FA"], ["--kv-int4"],
     ["--spec-k", "2"], ["--temperature", "0.7"], ["--progress"]],
     ids=["align", "transcribe-align", "kv-int4", "spec-k", "temperature", "progress"])
-def test_unported_flags_exit_1(files, capsys, flags):
+def test_unported_flags_exit_1(files, fa_files, capsys, flags):
     """What the port does not carry exits 1 with "not ported" and nothing on
     stdout. --kv-int4 and --progress, which it carries, run instead: exit 0,
     the transcript alone on stdout and the tokens of the port's own
     Qwen3ASR in that mode (the int4 cache; the streaming path, which gives
-    the fused path's tokens)."""
+    the fused path's tokens). --align and --transcribe-align, which it
+    carries since the aligner was ported, run too: exit 0 and stdout equal
+    to the JAX CLI's (f32 weights, on a tiny aligner GGUF)."""
     from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams
 
     model, wav, _ = files
+    fa, long_wav = fa_files
+    if flags[0] in ("--align", "-a"):
+        argv = ["-m", model, "-f", long_wav, "--dtype", "float32", "--no-timing",
+                "--max-tokens", "6"] + [fa if f == "FA" else f for f in flags]
+        assert jax_main(argv + ["--platform", "cpu"]) == 0
+        want = capsys.readouterr()
+        assert main(argv + ["--platform", "cpu"]) == 0
+        got = capsys.readouterr()
+        assert got.out == want.out and '"words"' in got.out
+        return
     argv = ["-m", model, "-f", wav, "--platform", "cpu"] + flags
     if flags[0] not in ("--kv-int4", "--progress"):
         assert main(argv) == 1
@@ -155,6 +186,49 @@ def test_unported_flags_exit_1(files, capsys, flags):
     assert asr.load_model(model)
     want = asr.transcribe(wav, TranscribeParams(max_tokens=6, fused=True, print_timing=False))
     assert tokens(cap.err) == want.tokens and cap.out == want.text + "\n"
+
+
+@pytest.mark.parametrize("fmt", ["json", "srt", "vtt"])
+@pytest.mark.parametrize("mode", [["--align", "--text", "one two three four five six"],
+                                  ["--align", "--text", "ab cd", "--no-fused", "--quantize", "q8_0"],
+                                  ["-a", "--aligner-model", "FA", "--mel-bucket", "300"]],
+                         ids=["align", "align-staged-q8_0", "transcribe-align-bucketed"])
+def test_align_output_formats_equal_jax_cli(files, fa_files, capsys, tmp_path, fmt, mode):
+    """--output-format json / srt / vtt: stdout byte-equal to the JAX CLI's
+    in align mode (fused, and staged with q8_0 weights) and in
+    transcribe-align mode (bucketed); the timing block on stderr only; -o
+    writes the same bytes."""
+    model, _, _ = files
+    fa, wav = fa_files
+    argv = ["-f", wav, "--dtype", "float32", "--max-tokens", "6", "--platform", "cpu",
+            "--output-format", fmt, "-m", fa if mode[0] == "--align" else model]
+    argv += [fa if f == "FA" else f for f in mode]
+    assert jax_main(argv) == 0
+    want = capsys.readouterr()
+    assert main(argv) == 0
+    got = capsys.readouterr()
+    assert got.out == want.out and "Timing" not in got.out and "Timing" in got.err
+    if mode[0] == "--align":   # the tiny ASR model's transcript is empty
+        head = {"json": '{\n  "words"', "srt": "1\n", "vtt": "WEBVTT\n"}[fmt]
+        assert got.out.startswith(head)
+    out = tmp_path / f"out.{fmt}"
+    assert main(argv + ["-o", str(out)]) == 0
+    assert capsys.readouterr().out == "" and out.read_text() == got.out
+
+
+@pytest.mark.parametrize("flags,msg", [
+    (["--align"], "Reference text is required for alignment mode (--text)"),
+    (["--align", "--text", "hi", "-a"], "--align and --transcribe-align cannot be used together"),
+    (["-a"], "--aligner-model is required for --transcribe-align")],
+    ids=["no-text", "both-modes", "no-aligner-model"])
+def test_align_argument_errors(files, capsys, flags, msg):
+    """The JAX CLI's three argument errors, with its messages: exit 1,
+    nothing on stdout, before any model loads."""
+    model, wav, _ = files
+    for run in (jax_main, main):
+        assert run(["-m", model, "-f", wav, "--platform", "cpu"] + flags) == 1
+        cap = capsys.readouterr()
+        assert cap.out == "" and cap.err.strip() == f"Error: {msg}"
 
 
 def test_progress_lines_on_stderr(files, capsys):

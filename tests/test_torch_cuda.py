@@ -254,6 +254,108 @@ def test_flash_kernel_batched_valid_lengths(cuda_kernels):
         torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=1e-2)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("valid", [[2845], [2845, 1900, 950, 300]], ids=["B1", "B4"])
+def test_flash_kernel_at_aligner_shape(cuda_kernels, valid):
+    """The forced aligner's NAR pass: causal, T 2,944 (bench_align.py's
+    2,845-row prompt bucketed to 128 rows), 16 q heads over 8 KV heads, D
+    128, alone and in a batch of four valid lengths: the one-ulp bound of
+    the other cases on every row, the padding rows past each valid length
+    included (they attend only keys < valid)."""
+    T, NH, NKV, D = 2944, 16, 8, 128
+    g = torch.Generator(device="cuda").manual_seed(len(valid))
+    q, k, v = (torch.randn(len(valid), T, h, D, generator=g, device="cuda").to(torch.bfloat16)
+               for h in (NH, NKV, NKV))
+    vl = torch.tensor(valid, dtype=torch.int32, device="cuda")
+    scale = 1.0 / np.sqrt(D)
+    before = tfa.flash_attention_batch.launches
+    got = tfa.flash_attention_batch(q, k, v, vl, causal=True, scale=scale)
+    assert tfa.flash_attention_batch.launches == before + 1
+    want = tfa.flash_attention_ref(q, k, v, vl, causal=True, scale=scale)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=1e-2)
+
+
+def _mid_aligner(quantize):
+    """A forced aligner between the tiny and the full config (4-layer
+    encoder at d 256, 4-layer decoder at hidden 512 with K2's D 128, 500
+    classes), random weights on the card, a byte vocabulary; the classify
+    head 8 times wider than the init, so most logit gaps clear the near-tie
+    rule."""
+    from qwen3_asr_tpu_torch.config import (
+        AlignerModelConfig,
+        AudioEncoderConfig,
+        DecoderConfig,
+    )
+    from qwen3_asr_tpu_torch.pipeline.aligner import ForcedAligner
+    from qwen3_asr_tpu_torch.text.bpe import _byte_to_unicode
+
+    V = 2048
+    cfg = AlignerModelConfig(
+        encoder=AudioEncoderConfig(n_layers=4, d_model=256, n_heads=4, ffn_dim=1024,
+                                   conv_channels=64, output_dim=512, n_window_infer=800),
+        decoder=DecoderConfig(vocab_size=V, hidden_size=512, n_layers=4, n_heads=8,
+                              n_kv_heads=4, head_dim=128, intermediate_size=1024,
+                              classify_num=500, pad_token_id=0, eos_token_id=V - 1,
+                              audio_start_token_id=V - 4, audio_end_token_id=V - 3,
+                              audio_pad_token_id=V - 2),
+        timestamp_token_id=V - 5)
+    table = _byte_to_unicode()
+    vocab = [table[b] for b in range(256)] + [f"[PAD{i}]" for i in range(256, V)]
+    fa = ForcedAligner(quantize=quantize, device="cuda")
+    fa.load_random(cfg, seed=0, vocab=vocab)
+    fa.params["decoder"]["classify_w"] = fa.params["decoder"]["classify_w"] * 8
+    return fa
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", [False, "auto"], ids=["dense", "auto"])
+def test_forced_aligner_matches_twins(cuda_kernels, quantize):
+    """`ForcedAligner` on the card at a mid-size config against the same
+    model with K2 swapped for its plain version: one K2 launch per decoder
+    layer in an alignment (none in the windowed encoder), the classes at the
+    <ts> rows equal wherever the twin's top-two logit gap is at least
+    NEAR_TIE_TOL (most of them), and align, align fused and align_batch give
+    words inside the audio."""
+    from qwen3_asr_tpu_torch.models import decoder as dmod
+    from qwen3_asr_tpu_torch.models.decoder import classify_logits
+
+    fa = _mid_aligner(quantize)
+    rng = np.random.default_rng(0)
+    t = np.arange(30 * 16000) / 16000
+    audio = ((0.3 * np.sin(2 * np.pi * 440 * t) + 0.05 * rng.standard_normal(t.shape))
+             * 32767).astype(np.int16)
+    text = " ".join(f"word{i:03d}" for i in range(60))
+    before = tfa.flash_attention_batch.launches
+    r = fa.align(audio, text)
+    assert tfa.flash_attention_batch.launches == before + fa.cfg.decoder.n_layers
+    for res in (r, fa.align(audio, text, fused=True),
+                fa.align_batch([audio, audio[:80000]], [text, "a b c"])[0]):
+        assert res.success and len(res.words) == 60
+        assert all(0.0 <= w.start <= w.end <= 30.0 for w in res.words)
+
+    mel, nf = fa.frontend(audio)
+    feats, na = fa.encode(mel, nf)
+    prompt, _ = fa.prompt(text, "", nf)
+    ts = [i for i, tok in enumerate(prompt) if tok == fa.cfg.timestamp_token_id]
+
+    def logits():
+        h = fa.nar_pass([prompt], feats[None], [na])
+        return classify_logits(fa.params["decoder"], fa.cfg.decoder, h[0, ts])
+
+    got = logits()
+    kernel = dmod.flash_attention_batch
+    dmod.flash_attention_batch = tfa.flash_attention_ref
+    try:
+        want = logits()
+    finally:
+        dmod.flash_attention_batch = kernel
+    top = want.topk(2, dim=-1).values
+    sure = (top[:, 0] - top[:, 1]) >= NEAR_TIE_TOL
+    assert sure.float().mean() > 0.5
+    assert torch.equal(got.argmax(-1)[sure], want.argmax(-1)[sure])
+
+
 def _pool(dcfg, S, pos, seed):
     """[B, L, S, ...] caches with rows < pos[b] filled in slab b."""
     slabs = [(*_cache(dcfg, S, p, seed + 2 * b), *_cache(dcfg, S, p, seed + 2 * b + 1))

@@ -51,7 +51,10 @@ def test_no_jax_package_in_import_chain():
     process: no module named qwen3_asr_tpu or qwen3_asr_tpu.* is loaded."""
     mods = _modules() + _chip_smoke_imports() + ["chip_smoke"]
     assert {"qwen3_asr_tpu_torch.pipeline.asr", "qwen3_asr_tpu_torch.cli",
-            "qwen3_asr_tpu_torch.microbench_stream", "torch"} <= set(mods)
+            "qwen3_asr_tpu_torch.microbench_stream", "torch",
+            "qwen3_asr_tpu_torch.pipeline.aligner", "qwen3_asr_tpu_torch.pipeline.combined",
+            "qwen3_asr_tpu_torch.text.korean", "qwen3_asr_tpu_torch.text.subtitles",
+            "qwen3_asr_tpu_torch.text.timestamps"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -28,13 +28,18 @@ NEAR_TIE_TOL = 0.2  # scripts/chipgate.py: argmax flips below this logit gap
 
 
 def port_config(cfg):
-    """A JAX package config (ASRModelConfig, DecoderConfig or
-    AudioEncoderConfig) -> the port's own dataclass, rebuilt field by field
-    from dataclasses.asdict: the port's functions take only their own
-    configs."""
+    """A JAX package config (ASRModelConfig, AlignerModelConfig,
+    DecoderConfig or AudioEncoderConfig) -> the port's own dataclass,
+    rebuilt field by field from dataclasses.asdict: the port's functions
+    take only their own configs."""
     if isinstance(cfg, jconfig.ASRModelConfig):
         return tconfig.ASRModelConfig(encoder=port_config(cfg.encoder),
                                       decoder=port_config(cfg.decoder))
+    if isinstance(cfg, jconfig.AlignerModelConfig):
+        return tconfig.AlignerModelConfig(
+            encoder=port_config(cfg.encoder), decoder=port_config(cfg.decoder),
+            timestamp_token_id=cfg.timestamp_token_id,
+            timestamp_segment_time_ms=cfg.timestamp_segment_time_ms)
     cls = {jconfig.DecoderConfig: tconfig.DecoderConfig,
            jconfig.AudioEncoderConfig: tconfig.AudioEncoderConfig}[type(cfg)]
     return cls(**dataclasses.asdict(cfg))

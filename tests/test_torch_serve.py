@@ -3,10 +3,14 @@ both worker modes against the functions it drives, and the HTTP front end
 on 127.0.0.1, port 0: /v1/transcribe, /healthz, /v1/audio/transcriptions
 (json, text, verbose_json, SSE on the continuous pool and, alone through
 the streaming decode path, outside it), `--kv-cache int4` (lone requests
-over the int4 cache, batches over int8) and the 400s for what is not
-ported. The model is the wide-init one of tests/test_torch_batch.py; its
-tokens are held equal to the functions the worker calls on the same
-requests."""
+over the int4 cache, batches over int8), the 400s for what is not ported
+and, without an aligner, the JAX package's no-aligner 400s. With an aligner
+(`--aligner-model`): /v1/align in its three encodings, concurrent aligns in
+one `align_batch`, mixed ASR + align traffic in same-kind batches, and the
+OpenAI route's word timestamps, srt and vtt. The models are the wide-init
+ones of tests/test_torch_batch.py and tests/test_torch_aligner.py; their
+tokens and words are held equal to the functions the worker calls on the
+same requests."""
 
 import io
 import json
@@ -20,7 +24,13 @@ import pytest
 
 from qwen3_asr_tpu_torch.pipeline.asr import TranscribeParams
 from qwen3_asr_tpu_torch.pipeline.engine import ContinuousEngine
-from qwen3_asr_tpu_torch.serve import NOT_PORTED, ASRServer, serve_http
+from qwen3_asr_tpu_torch.serve import (
+    NO_ALIGNER,
+    NO_ALIGNER_WORDS,
+    NOT_PORTED,
+    ASRServer,
+    serve_http,
+)
 from test_torch_batch import AUDIO, GAIN, jax_and_port
 from test_torch_engine import KW, drive
 
@@ -189,12 +199,15 @@ def test_http_sse_stream(http):
 
 @pytest.mark.parametrize("fields,path,msg", [
     ({"timestamp_granularities[]": "word", "response_format": "verbose_json"},
-     "/v1/audio/transcriptions", NOT_PORTED["words"]),
-    ({"response_format": "srt"}, "/v1/audio/transcriptions", NOT_PORTED["subtitles"]),
+     "/v1/audio/transcriptions", NO_ALIGNER_WORDS),
+    ({"response_format": "srt"}, "/v1/audio/transcriptions", NO_ALIGNER_WORDS),
     ({"temperature": "0.5"}, "/v1/audio/transcriptions", NOT_PORTED["sampling"]),
-    ({"text": "hello"}, "/v1/align", NOT_PORTED["align"]),
+    ({"text": "hello"}, "/v1/align", NO_ALIGNER),
 ])
 def test_http_unported_answer_400(http, fields, path, msg):
+    """Sampled decoding is not ported; word timestamps, srt and /v1/align
+    on a server started without --aligner-model answer the JAX package's
+    no-aligner messages."""
     _, base = http
     body, ctype = multipart({"file": wav_bytes(AUDIO[0]), **fields})
     code, _, out = post(base + path, body, ctype)
@@ -290,3 +303,193 @@ def test_kv_cache_int4_lone_and_batch(model):
         srv.close()
     assert batch == [r.tokens for r in model.transcribe_batch(AUDIO[:2], PARAMS)]
     assert lone.tokens == int4.transcribe(AUDIO[2], PARAMS).tokens
+
+
+# -- with an aligner ---------------------------------------------------------
+
+ALIGN_TEXTS = ["hello bucketed world", "one two three", "zeta eta"]
+
+
+@pytest.fixture(scope="module")
+def fa():
+    """The port's aligner of tests/test_torch_aligner.py (f32, CPU), with
+    the repo's Korean dictionary loaded as `serve.py main` loads it."""
+    from qwen3_asr_tpu_torch.text.korean import find_korean_dict
+    from test_torch_aligner import aligners
+
+    aligner = aligners(False)[1]
+    assert aligner.load_korean_dict(find_korean_dict())
+    return aligner
+
+
+def _words(r):
+    assert r.success, r.error_msg
+    return [(w.word, w.start, w.end) for w in r.words]
+
+
+def _want_words(fa, samples, text, language=""):
+    return _words(fa.align_batch([samples], [text], language=language,
+                                 mel_bucket=PARAMS.mel_bucket)[0])
+
+
+@pytest.fixture(scope="module")
+def http_fa(model, fa):
+    srv = ASRServer(model, PARAMS, max_batch=4, max_wait_ms=5, aligner=fa)
+    httpd = serve_http(srv, "127.0.0.1", 0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    yield srv, f"http://127.0.0.1:{httpd.server_address[1]}"
+    httpd.shutdown()
+    httpd.server_close()
+    srv.close()
+
+
+@pytest.mark.parametrize("encoding", ["multipart", "json", "header"])
+def test_http_align_encodings(http_fa, fa, encoding):
+    """/v1/align in multipart (Korean text, language korean: the dictionary
+    split), JSON (audio_b64) and a WAV body with the X-Align-Text header:
+    200 and the words of align_batch on the same request."""
+    import base64
+    import urllib.request as ur
+
+    from qwen3_asr_tpu_torch.text.korean import tokenize_korean
+
+    _, base = http_fa
+    samples = AUDIO[1]
+    wav = wav_bytes(samples)
+    text, lang = ALIGN_TEXTS[0], ""
+    if encoding == "multipart":
+        text, lang = "안녕하세요 여러분", "korean"
+        body, ctype = multipart({"audio": wav, "text": text, "language": lang})
+        code, _, out = post(base + "/v1/align", body, ctype)
+    elif encoding == "json":
+        body = json.dumps({"audio_b64": base64.b64encode(wav).decode(),
+                           "text": text}).encode()
+        code, _, out = post(base + "/v1/align", body, "application/json")
+    else:
+        req = ur.Request(base + "/v1/align", data=wav,
+                         headers={"X-Align-Text": text, "Content-Type": "audio/wav"})
+        with ur.urlopen(req, timeout=300) as r:
+            code, out = r.status, r.read()
+    assert code == 200
+    got = [(w["word"], w["start"], w["end"]) for w in json.loads(out)["words"]]
+    assert got == _want_words(fa, samples, text, lang)
+    if lang == "korean":
+        assert [w for w, _, _ in got] == tokenize_korean(text, fa.ko_dict) and len(got) >= 3
+    code, _, out = post(base + "/v1/align", b"no text here")
+    assert code == 400 and "X-Align-Text" in json.loads(out)["error"]
+
+
+def test_concurrent_aligns_one_batch(model, fa):
+    """Three alignments arriving together run as one align_batch, with its
+    words."""
+    calls = []
+    run = fa.align_batch
+    srv = ASRServer(model, PARAMS, max_batch=4, max_wait_ms=2000, aligner=fa)
+    fa.align_batch = lambda *a, **k: calls.append(len(a[0])) or run(*a, **k)
+    try:
+        futs = [srv.submit_align(AUDIO[i], t) for i, t in enumerate(ALIGN_TEXTS)]
+        got = [_words(f.result(timeout=300)) for f in futs]
+    finally:
+        fa.align_batch = run
+        srv.close()
+    assert calls == [3]
+    want = fa.align_batch(AUDIO, ALIGN_TEXTS, mel_bucket=PARAMS.mel_bucket)
+    assert got == [_words(r) for r in want]
+
+
+def test_mixed_asr_align_traffic(model, fa):
+    """Interleaved ASR and align requests: one batch of each kind (the
+    other kind is stashed for the next round), tokens equal to
+    transcribe_batch's and words to align_batch's."""
+    srv = ASRServer(model, PARAMS, max_batch=4, max_wait_ms=2000, aligner=fa)
+    kinds = []
+    run_t, run_a = srv._run_transcribe, srv._run_align
+    srv._run_transcribe = lambda b: kinds.append(("asr", len(b))) or run_t(b)
+    srv._run_align = lambda b: kinds.append(("align", len(b))) or run_a(b)
+    try:
+        futs = []
+        for i in range(2):
+            futs.append(srv.submit(AUDIO[i]))
+            futs.append(srv.submit_align(AUDIO[i], ALIGN_TEXTS[i]))
+        res = [f.result(timeout=300) for f in futs]
+    finally:
+        srv.close()
+    assert sorted(kinds) == [("align", 2), ("asr", 2)]
+    want_t = model.transcribe_batch(AUDIO[:2], PARAMS)
+    want_a = fa.align_batch(AUDIO[:2], ALIGN_TEXTS[:2], mel_bucket=PARAMS.mel_bucket)
+    assert [res[0].tokens, res[2].tokens] == [r.tokens for r in want_t]
+    assert [_words(res[1]), _words(res[3])] == [_words(r) for r in want_a]
+
+
+@pytest.mark.parametrize("fmt", ["verbose_json", "srt", "vtt"])
+def test_http_openai_words_and_subtitles(http_fa, model, fa, fmt):
+    """The OpenAI route with an aligner: verbose_json with
+    timestamp_granularities[]=word carries the aligner's words on the
+    transcript (and one segment per cue); srt and vtt render them as the
+    subtitle functions do. An ISO language code names the language."""
+    from qwen3_asr_tpu_torch.text import extract_transcript
+    from qwen3_asr_tpu_torch.text.subtitles import (
+        group_words_into_cues,
+        words_to_srt,
+        words_to_vtt,
+    )
+
+    class Spoken:
+        """The tiny model's tokens decode to an empty transcript: this
+        tokenizer gives every decode a fixed one, so the aligner has words
+        to place."""
+
+        def decode(self, ids):
+            return "language English hello bucketed world"
+
+    _, base = http_fa
+    samples = AUDIO[0]
+    fields = {"file": wav_bytes(samples), "response_format": fmt, "language": "en"}
+    if fmt == "verbose_json":
+        fields["timestamp_granularities[]"] = "word"
+    body, ctype = multipart(fields)
+    tok, model.tokenizer = model.tokenizer, Spoken()
+    try:
+        code, rtype, out = post(base + "/v1/audio/transcriptions", body, ctype)
+        transcript = extract_transcript(model.transcribe(samples, PARAMS).text)
+    finally:
+        model.tokenizer = tok
+    assert code == 200 and transcript == "hello bucketed world"
+    want = _want_words(fa, samples, transcript, "english")
+    assert len(want) == 3
+    if fmt == "verbose_json":
+        payload = json.loads(out)
+        assert payload["text"] == transcript and payload["language"] == "english"
+        assert [(w["word"], w["start"], w["end"]) for w in payload["words"]] == want
+        assert len(payload["segments"]) == len(group_words_into_cues(want))
+        return
+    assert rtype.startswith("text/plain")
+    render = words_to_srt if fmt == "srt" else words_to_vtt
+    assert out.decode() == render(want)
+    code, _, _ = post(base + "/v1/audio/transcriptions",
+                      *multipart({"file": wav_bytes(samples), "response_format": fmt,
+                                  "timestamp_granularities[]": "word"}))
+    assert code == 400   # granularities need verbose_json
+
+
+def test_main_loads_the_aligner(tmp_path, capsys):
+    """serve.py main with --aligner-model: a missing aligner file fails at
+    start-up with the JAX server's message, exit 1."""
+    import jax
+    import jax.numpy as jnp
+
+    from qwen3_asr_tpu.config import tiny_asr_config
+    from qwen3_asr_tpu.runtime.params import init_asr_params
+    from qwen3_asr_tpu_torch.serve import build_parser, main
+    from helpers import make_byte_vocab, write_tiny_gguf
+
+    cfg = tiny_asr_config()
+    asr = str(tmp_path / "asr.gguf")
+    write_tiny_gguf(asr, cfg, jax.tree.map(np.asarray, init_asr_params(cfg, 3, jnp.float32)),
+                    vocab=make_byte_vocab(cfg.decoder.vocab_size, {}), merges=[])
+    assert build_parser().parse_args(["-m", "x"]).aligner_model == ""
+    assert main(["-m", asr, "--device", "cpu",
+                 "--aligner-model", str(tmp_path / "none.gguf")]) == 1
+    err = capsys.readouterr().err
+    assert "Error (aligner): Failed to load model" in err
