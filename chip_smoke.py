@@ -64,7 +64,22 @@ the launch counts set to 0 just before it and read just after:
    windowed encoder's attention against masked full attention,
    `align_batch` of four against single passes, stage times (dense and
    quantize="auto"), `transcribe_and_align`, and `ASRServer(aligner=...)`
-   behind HTTP (/v1/align, the OpenAI route's srt and word timestamps).
+   behind HTTP (/v1/align, the OpenAI route's srt and word timestamps);
+11. sampled decoding (`phase_sampling`, `TranscribeParams(temperature,
+   top_k, top_p, seed)`, the bench's 92 s audio) on the auto path (K1,
+   int8 pack, bf16 KV), the int4 pack with the int8 and the int4 cache, and
+   q8_0 (K4-K7): temperature 0 and top_k 1 against greedy, the same seed
+   twice and another seed, a request a launch window, its tokens inside the
+   twins' kept sets and its head's rows against the twins' h, sampled and
+   greedy ms/step;
+12. greedy self-speculation (`phase_spec`, `generate_greedy_spec`, 92 s /
+   323 tokens) on the int8 and the int4 pack at k 1, 4 and 8, each run a
+   window (K1 = drafted tokens), tokens against the per-layer int8pc greedy
+   sequence, rounds and acceptance, ms per emitted token; one request with
+   a cache past S 8,192;
+13. the server (auto, int8 KV) behind HTTP with sampled OpenAI requests
+   beside a greedy batch and the JAX package's 400s, and the CLI's
+   `--temperature 0.7 --seed 3` and `--spec-k 4` in this process.
 
 It checks that every parameter and cache tensor of paths 1 and 2 is on the
 GPU, that each kernel of a path ran there (launch counts against a formula
@@ -749,14 +764,18 @@ def phase_mega_batch(dcfg, pack):
     return max_err, times[8], plain, b_ms, b_by
 
 
-def check_tokens_vs_twins(asr, samples, tokens, mel_bucket: int = 0):
-    """The kernel path's tokens on one request vs the twins, teacher-forced
-    on those tokens: each is the twin's argmax or within NEAR_TIE_TOL.
+def twin_steps(asr, samples, tokens, mel_bucket: int = 0) -> list:
+    """The twins (the plain versions of K1, K2 and K4-K7) teacher-forced on
+    `tokens` for one request: -> per token i, (h, logits): h the hidden
+    state before the final norm that predicts token i (the prompt's last
+    row for i = 0, else the step consuming tokens[i - 1]; bf16 from the
+    prefill and the per-layer step, f32 from K1's twin, as the sampled
+    path hands them to its head), logits the
+    greedy path's (the decode pack's own head on a pack, else lm_logits(h)).
     mel_bucket > 0: the frontend is the bucketed batched one (the serving
     path), with the flash kernel's plain version in its encoder too. A tree
-    without the int4 pack runs the per-layer decode step with the twins of
+    without a decode pack runs the per-layer decode step with the twins of
     K4-K7."""
-    import numpy as np
     import torch
 
     from qwen3_asr_tpu_torch.audio.mel import mel_device
@@ -785,23 +804,36 @@ def check_tokens_vs_twins(asr, samples, tokens, mel_bucket: int = 0):
         cache = dmod.init_kv_cache(dcfg, S, "cuda", torch.int8 if kv == gen.INT4_KV else kv)
         h0 = dmod.embed_with_audio(dec, torch.tensor(prompt, device="cuda"), feats,
                                    n_audio, off)
-        h = dmod.decoder_forward(dec, dcfg, h0, cache, P)
-        logits = [dmod.lm_logits(dec, dcfg, h[P - 1])]
+        h = dmod.decoder_forward(dec, dcfg, h0, cache, P)[P - 1]
+        steps = [(h, dmod.lm_logits(dec, dcfg, h))]
         kvs = gen.mega_caches(dcfg, cache, kv) if mega else None
         for i in range(1, len(tokens)):
             pos = P + i - 1
-            t = torch.tensor([tokens[i - 1], 0], dtype=torch.int32, device="cuda")
+            t = torch.tensor([tokens[i - 1]], dtype=torch.int32, device="cuda")
             if mega:
-                logits.append(mk.mega_decode_step_ref(
-                    dec["mega"], dcfg, t[:1], pos, *kvs, return_logits=True)[2])
+                _, h, lg = mk.mega_decode_step_ref(dec["mega"], dcfg, t, pos, *kvs,
+                                                   return_logits=True)
+                steps.append((h.reshape(-1), lg))
             else:
-                logits.append(gen.decode_token(dec, dcfg, cache, t, 1, pos))
+                h = gen.decode_hidden(dec, dcfg, cache, t, pos)
+                steps.append((h, dmod.lm_logits(dec, dcfg, h)))
+    return steps
+
+
+def check_tokens_vs_twins(asr, samples, tokens, mel_bucket: int = 0):
+    """The kernel path's tokens on one request vs the twins, teacher-forced
+    on those tokens (twin_steps): each is the twin's argmax or within
+    NEAR_TIE_TOL."""
+    import numpy as np
+    import torch
+
     gaps = []
-    for lg, tok in zip(logits, tokens):
+    for (_, lg), tok in zip(twin_steps(asr, samples, tokens, mel_bucket), tokens):
         best = int(torch.argmax(lg))
         gaps.append(float(lg[best] - lg[tok]))
     agree = sum(g == 0.0 for g in gaps)
-    what = mode_name(dec["mega"], asr.kv_cache) if mega else asr.quantize or "dense"
+    dec = asr.params["decoder"]
+    what = mode_name(dec["mega"], asr.kv_cache) if "mega" in dec else asr.quantize or "dense"
     log(f"{what} path vs twins "
         f"({len(samples) / 16000:.0f} s request, {len(tokens)} tokens): {agree} "
         f"argmax-equal, worst gap {max(gaps):.4f}")
@@ -1652,10 +1684,11 @@ def phase_microbench():
     return out, res, lib
 
 
-def phase_probe() -> tuple[float, float]:
-    """K8, the capability probe (y = 2 x over 8 x 128 f32), timed from a CUDA
-    graph of 20 launches; its bound is its bytes (x read, y written). ->
-    (ms, bound ms)."""
+def phase_probe() -> tuple[float, float, float, float]:
+    """K8, the capability probe (y = 2 x over 8 x 128 f32, exact), and its
+    plain version `torch.mul`, each timed from a CUDA graph of 20 launches;
+    its bound is its bytes (x read, y written). -> (max abs err, ms, plain
+    ms, bound ms)."""
     import ctypes
 
     import torch
@@ -1673,13 +1706,16 @@ def phase_probe() -> tuple[float, float]:
 
     probe()
     torch.cuda.synchronize()
+    err = float((y - 2 * x).abs().max())
     if not torch.equal(y, 2 * x):
         raise AssertionError("the probe kernel's y != 2 x")
     ms = graph_ms(probe)
+    y2 = torch.empty_like(x)
+    plain = graph_ms(lambda: torch.mul(x, 2, out=y2))
     b_ms, _ = bound(2.0 * x.numel() * 4, x.numel(), F32_FLOPS)
-    log(f"phase probe (K8): {ms:.4f} ms a launch, bound {b_ms:.6f} ms (bytes: "
-        f"{2 * x.numel() * 4} B)")
-    return ms, b_ms
+    log(f"phase probe (K8): {ms:.4f} ms a launch, torch.mul {plain:.4f} ms, bound "
+        f"{b_ms:.6f} ms (bytes: {2 * x.numel() * 4} B)")
+    return err, ms, plain, b_ms
 
 
 def wav_bytes(samples) -> bytes:
@@ -2316,6 +2352,614 @@ def phase_combined_and_server(fa):
         raise AssertionError("the OpenAI route's srt differs from the aligner's words")
 
 
+# ---------------------------------------------------------------------------
+# sampled decoding and greedy self-speculation
+# ---------------------------------------------------------------------------
+
+SAMPLE_SECONDS = 92
+SAMPLE_CHECK = 24       # tokens held against greedy and, teacher-forced, the twins
+SAMPLED = dict(temperature=1.0, top_k=50, top_p=0.9)
+# A sampled token outside the twin's kept set passes only within EDGE_TOL
+# (logits at temperature 1) of the set's smallest kept logit: its
+# probability within e^0.2 of the cutoff's, where K1's rounding against the
+# twin's (MEGA_H_REL) moves the set's edge.
+EDGE_TOL = NEAR_TIE_TOL
+SPEC_KS, SPEC_TOKENS = (1, 4, 8), 323
+SPEC_SHORT = 32         # spec tokens at k 1 and on the int4 pack; the reference's
+SPEC_LONG = (640, 16)   # seconds, tokens: a prompt of ~8,330 rows, S past LONG_S
+
+
+def kept_ref(logits, temperature: float, top_k: int, top_p: float):
+    """The reference's kept set, written apart from filter_logits: the
+    logits over the temperature (clamped at 1e-4), sorted descending; the
+    first top_k and their ties; then the prefix through the first index
+    whose inclusive cumsum of the kept softmax (in float64, as
+    filter_logits sums it) reaches top_p, and the logits tied with its
+    last. -> bool [V]."""
+    import numpy as np
+    import torch
+
+    t = max(np.float32(temperature), np.float32(1e-4))
+    x = logits.float() / torch.tensor(t, dtype=torch.float32, device=logits.device)
+    srt = torch.sort(x, descending=True).values
+    cut = srt[top_k - 1] if 0 < top_k < x.numel() else srt[-1]
+    if top_p < 1.0:
+        p = torch.softmax(torch.where(srt >= cut, srt, float("-inf")), dim=-1).double()
+        n = int((torch.cumsum(p, dim=-1) < float(np.float32(top_p))).sum()) + 1
+        cut = torch.maximum(cut, srt[min(n, x.numel()) - 1])
+    return x >= cut
+
+
+def check_sampled(what: str, asr, samples, tokens, rows, temperature: float,
+                  top_k: int, top_p: float) -> tuple[int, float, float]:
+    """A sampled request's tokens and the rows its head was given, against
+    the twins teacher-forced on those tokens: every row within MEGA_H_REL
+    relative L2 of the twin's h (the hidden state before the final norm);
+    filter_logits' kept set on the twin's logits (the tree's lm_logits of
+    its h) equal to kept_ref's; every token inside that set, or within
+    EDGE_TOL of its smallest kept logit. -> (tokens at the edge, worst h rel
+    L2, mean kept-set size)."""
+    import torch
+
+    from qwen3_asr_tpu_torch.models import decoder as dmod
+    from qwen3_asr_tpu_torch.models.generate import NEG, filter_logits
+
+    dec, dcfg = asr.params["decoder"], asr.cfg.decoder
+    rels, sizes, edge = [], [], 0
+    for i, ((h, _), tok, row) in enumerate(zip(twin_steps(asr, samples, tokens),
+                                               tokens, rows)):
+        rels.append(_rel(row.reshape(-1), h.reshape(-1)))
+        lg = dmod.lm_logits(dec, dcfg, h.reshape(-1))
+        keep = kept_ref(lg, temperature, top_k, top_p)
+        if not torch.equal(filter_logits(lg, temperature, top_k, top_p) > NEG, keep):
+            raise AssertionError(f"{what}: filter_logits' kept set differs from the "
+                                 f"reference's at step {i}")
+        sizes.append(int(keep.sum()))
+        if not bool(keep[tok]):
+            x = lg.float() / temperature
+            gap = float(x[keep].min() - x[tok])
+            if gap > EDGE_TOL:
+                raise AssertionError(f"{what}: step {i} token {tok} outside the twin's "
+                                     f"kept set by {gap:.4f}")
+            edge += 1
+    log(f"  {what}: {len(tokens)} sampled tokens vs the twins' kept sets: {edge} at "
+        f"the edge (within {EDGE_TOL}), kept set {sum(sizes) / len(sizes):.1f} tokens "
+        f"on average; head rows vs the twins' h: rel L2 max {max(rels):.3e}")
+    if max(rels) > MEGA_H_REL:
+        raise AssertionError(f"{what}: the sampled head's row differs from the twin's h "
+                             f"by {max(rels):.3f} rel L2")
+    return edge, max(rels), sum(sizes) / len(sizes)
+
+
+def check_greedy_limit(what: str, asr, samples, greedy, limit) -> int:
+    """temperature 0.8 with top_k 1, the argmax of lm_logits (the tree's
+    int8pc or Q8_0 head) on the step's h, against the greedy path's tokens,
+    the argmax of the kernel's own head. Where the two heads are one (the
+    int8 pack, q8_0): equal up to the first difference, which must be a near
+    tie in the twins' lm_logits teacher-forced on the greedy tokens. The
+    int4 pack's K1 head is int4 (the sampled head int8pc), so there the
+    first 16 top_k 1 tokens hold against the twins' lm_logits argmax
+    teacher-forced on them (the near-tie rule) and their first departure
+    from greedy is only reported. -> the index of that departure (len when
+    none)."""
+    from qwen3_asr_tpu_torch.models import decoder as dmod
+    from qwen3_asr_tpu_torch.ops.megakernel import weight_bits
+
+    dec, dcfg = asr.params["decoder"], asr.cfg.decoder
+    if len(limit) != len(greedy):
+        raise AssertionError(f"{what}: {len(limit)} tokens at top_k 1, {len(greedy)} greedy")
+    diff = [i for i, (a, b) in enumerate(zip(greedy, limit)) if a != b]
+    j = diff[0] if diff else len(greedy)
+    if "mega" in dec and weight_bits(dec["mega"]) == 4:
+        gaps = []
+        for (h, _), tok in zip(twin_steps(asr, samples, limit[:16]), limit):
+            lg = dmod.lm_logits(dec, dcfg, h.reshape(-1))
+            gaps.append(float(lg.max() - lg[tok]))
+        log(f"  {what}: top_k 1 vs the twins' int8pc head, teacher-forced: worst gap "
+            f"{max(gaps):.4f}; it leaves K1's int4-head greedy tokens at step {j}")
+        if max(gaps) > NEAR_TIE_TOL:
+            raise AssertionError(f"{what}: top_k 1 token off the int8pc head's argmax by "
+                                 f"{max(gaps):.4f}")
+        return j
+    if not diff:
+        return j
+    h = twin_steps(asr, samples, greedy[:j + 1])[j][0]
+    lg = dmod.lm_logits(dec, dcfg, h.reshape(-1))
+    gap = abs(float(lg[greedy[j]] - lg[limit[j]]))
+    log(f"  {what}: top_k 1 leaves the greedy tokens at step {j}, a gap of {gap:.4f}")
+    if gap > NEAR_TIE_TOL:
+        raise AssertionError(f"{what}: top_k 1 differs from greedy at step {j} by {gap:.4f}")
+    return j
+
+
+def check_rows_replay(what: str, asr, tokens, rows, max_tokens: int) -> None:
+    """The rows a sampled request's head was given (its first len(tokens)),
+    against the kernels' eager steps teacher-forced on the drawn tokens from
+    the same prefill (decode_args, the cache of the request's S): equal bit
+    for bit, as a graph replay equals the eager step when it consumes the
+    drawn token. A loop that fed K1's own argmax instead leaves the rows
+    from the second on different."""
+    import torch
+
+    from qwen3_asr_tpu_torch.models import generate as gen
+    from qwen3_asr_tpu_torch.ops.megakernel import DecodeStep
+
+    dec, dcfg, toks, n_prompt, feats, n_audio, off, _ = decode_args(
+        asr, SAMPLE_SECONDS, max_tokens)
+    kv = gen.kv_dtype(dec, asr.cache_dtype)
+    h, cache = gen.prefill_hidden(dec, dcfg, toks, n_prompt, feats, n_audio, off,
+                                  gen.cache_rows(toks.shape[0], max_tokens), kv)
+    got = [h]
+    step = (DecodeStep(dec["mega"], dcfg, *gen.mega_caches(dcfg, cache, kv))
+            if "mega" in dec else None)
+    nxt = torch.empty(1, dtype=torch.int32, device="cuda")
+    for i in range(1, len(tokens)):
+        t = torch.tensor([tokens[i - 1]], dtype=torch.int32, device="cuda")
+        if step is None:
+            got.append(gen.decode_hidden(dec, dcfg, cache, t, n_prompt + i - 1))
+        else:
+            step(t, n_prompt + i - 1, nxt)
+            got.append(step.h.clone())
+    bad = [i for i, (a, b) in enumerate(zip(got, rows))
+           if not torch.equal(a.reshape(-1), b.reshape(-1))]
+    log(f"  {what}: head rows equal to the eager steps' on {len(tokens) - len(bad)} of "
+        f"{len(tokens)} steps")
+    if bad:
+        raise AssertionError(f"{what}: the head's rows differ from the eager steps fed "
+                             f"the drawn tokens at steps {bad[:8]}")
+
+
+def decode_args(asr, seconds: float, max_tokens: int) -> tuple:
+    """The staged path's decode arguments for one request of `seconds`
+    (mel and the encoder with the kernels, the prompt padded to 128 rows):
+    (dec, dcfg, tokens, n_prompt, feats, n_audio, offset, max_tokens)."""
+    import numpy as np
+    import torch
+
+    from qwen3_asr_tpu_torch.audio.mel import mel_device
+    from qwen3_asr_tpu_torch.models.e2e import _pad_pcm
+    from qwen3_asr_tpu_torch.models.encoder import encode
+    from qwen3_asr_tpu_torch.text.prompt import audio_start_pos, build_asr_prompt
+
+    dcfg = asr.cfg.decoder
+    buf, n_frames = _pad_pcm(pcm(seconds))
+    mel = mel_device(torch.from_numpy(buf).cuda(), asr.filters_t, n_frames).T
+    feats = encode(asr.params["encoder"], asr.cfg.encoder, mel, n_frames)
+    n_audio = int(feats.shape[0])
+    prompt = build_asr_prompt(n_audio, dcfg)
+    toks = np.full(-(-len(prompt) // 128) * 128, dcfg.pad_token_id, np.int32)
+    toks[:len(prompt)] = prompt
+    return (asr.params["decoder"], dcfg, torch.from_numpy(toks).cuda(), len(prompt),
+            feats, n_audio, audio_start_pos(prompt, dcfg), max_tokens)
+
+
+def event_ms(fn) -> float:
+    """Milliseconds between CUDA events around fn() (host work included)."""
+    import torch
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def decode_step_ms(run, steps: int, reps: int = 5) -> float:
+    """Decode ms/step of run(max_tokens): (the median of reps runs of
+    steps + 1 tokens minus the median of reps runs of one) / steps; each
+    run has its prefill and, on a pack, its graph capture."""
+    import statistics
+
+    many = statistics.median(event_ms(lambda: run(steps + 1)) for _ in range(reps))
+    one = statistics.median(event_ms(lambda: run(1)) for _ in range(reps))
+    return (many - one) / steps
+
+
+def phase_sampling(asr, label: str, wbits, key: str | None, n_tokens: int,
+                   timed_steps: int) -> dict:
+    """Sampled decoding through `Qwen3ASR.transcribe` on the bench's 92 s
+    audio (EOS off): temperature 0 gives transcribe's greedy tokens
+    exactly; temperature 0.8 with top_k 1 gives them under the near-tie rule
+    (check_greedy_limit); one request at temperature 1.0, top_k 50, top_p
+    0.9, seed 3 of n_tokens is a launch window (K2 once per decoder layer,
+    and the decode pack's entry `key` once per step, or the per-layer
+    step's K4-K7 as slice_launches counts them), its head's rows recorded;
+    the same seed again gives the same tokens, seed 4 others; its first
+    SAMPLE_CHECK rows equal the kernels' eager steps fed its tokens bit for
+    bit (check_rows_replay), and its tokens and rows hold against the twins
+    (check_sampled). Then sampled and greedy decode ms/step (generate_sample
+    / generate_greedy on the same prompt, decode_step_ms over timed_steps).
+    -> the readings."""
+    from qwen3_asr_tpu_torch.models import generate as gen
+
+    t_phase = time.perf_counter()
+    samples = pcm(SAMPLE_SECONDS)
+    L = asr.cfg.decoder.n_layers
+    greedy = asr.transcribe(samples, tparams(SAMPLE_CHECK)).tokens
+    if asr.transcribe(samples, tparams(SAMPLE_CHECK, temperature=0.0)).tokens != greedy:
+        raise AssertionError(f"sampled {label}: temperature 0 differs from greedy")
+    limit = asr.transcribe(samples, tparams(SAMPLE_CHECK, temperature=0.8, top_k=1)).tokens
+    j = check_greedy_limit(f"sampled {label}", asr, samples, greedy, limit)
+    rows = []
+    head = gen.lm_logits
+
+    def recording(d, c, h):
+        rows.append(h.detach().clone())
+        return head(d, c, h)
+
+    gen.lm_logits = recording
+    try:
+        r, ms, got = timed_request(asr, SAMPLE_SECONDS, n_tokens, seed=3, **SAMPLED)
+    finally:
+        gen.lm_logits = head
+    what = f"sampled {label}, 92 s / {n_tokens}"
+    log(f"request {what} (t 1.0, top_k 50, top_p 0.9, seed 3): {ms:.1f} ms, "
+        f"{len(r.tokens)} tokens; launches {got}")
+    if key is None:
+        window(what, wbits, got)
+        want = slice_launches("q8_0", prompt_rows(SAMPLE_SECONDS), n_tokens, L)
+        if got != want or len(r.tokens) != n_tokens:
+            raise AssertionError(f"{what}: launch counts {got} != {want} or "
+                                 f"{len(r.tokens)} tokens")
+    else:
+        check_window(what, wbits, got, r, n_tokens, **{key: n_tokens - 1})
+    if len(rows) != n_tokens:
+        raise AssertionError(f"{what}: the head ran {len(rows)} times")
+    again = timed_request(asr, SAMPLE_SECONDS, n_tokens, seed=3, **SAMPLED)[0].tokens
+    other = timed_request(asr, SAMPLE_SECONDS, SAMPLE_CHECK, seed=4, **SAMPLED)[0].tokens
+    if again != r.tokens or other == r.tokens[:SAMPLE_CHECK]:
+        raise AssertionError(f"{what}: seed 3 twice equal {again == r.tokens}, "
+                             f"seed 4 equal {other == r.tokens[:SAMPLE_CHECK]}")
+    n_same = sum(a == b for a, b in zip(r.tokens, greedy))
+    check_rows_replay(what, asr, r.tokens[:SAMPLE_CHECK], rows, n_tokens)
+    edge, rel, size = check_sampled(what, asr, samples, r.tokens[:SAMPLE_CHECK],
+                                    rows[:SAMPLE_CHECK], **SAMPLED)
+    args = decode_args(asr, SAMPLE_SECONDS, 1)[:-1]
+    kv = asr.cache_dtype
+    ms_s = decode_step_ms(lambda n: gen.generate_sample(*args, n, seed=3, cache_dtype=kv,
+                                                        **SAMPLED), timed_steps)
+    ms_g = decode_step_ms(lambda n: gen.generate_greedy(*args, n, kv), timed_steps)
+    seconds = time.perf_counter() - t_phase
+    log(f"phase sampling {label}: sampled {ms_s:.4f} ms/step, greedy {ms_g:.4f} ms/step "
+        f"(92 s prompt, medians of 5, {timed_steps} steps); top_k 1 equal to greedy "
+        f"for the first {j} of {SAMPLE_CHECK} tokens; the sampled request shares {n_same} of "
+        f"{SAMPLE_CHECK} positions with greedy's; {seconds:.1f} s")
+    return {"launches": got, "sampled_ms_step": ms_s, "greedy_ms_step": ms_g,
+            "edge": edge, "h_rel": rel, "kept": size, "seconds": seconds}
+
+
+def int8pc_greedy(vparams: dict, args: tuple):
+    """The per-layer int8pc greedy loop over an int8 cache (the block decode
+    at T = 1, decode_token per step), on decode_args' prompt: -> (tokens,
+    the logits of each step)."""
+    import torch
+
+    from qwen3_asr_tpu_torch.models import decoder as dmod
+    from qwen3_asr_tpu_torch.models import generate as gen
+
+    _, dcfg, toks, n_prompt, feats, n_audio, off, max_tokens = args
+    S = gen.cache_rows(toks.shape[0], max_tokens)
+    h, cache = gen.prefill_hidden(vparams, dcfg, toks, n_prompt, feats, n_audio, off, S,
+                                  torch.int8)
+    out = torch.zeros(max_tokens, dtype=torch.int32, device="cuda")
+    logits = [dmod.lm_logits(vparams, dcfg, h)]
+    out[0] = torch.argmax(logits[0])
+    logits += [gen.decode_token(vparams, dcfg, cache, out, i, n_prompt + i - 1)
+               for i in range(1, max_tokens)]
+    return out.cpu().tolist(), logits
+
+
+def check_spec_tokens(what: str, got, ref, ref_logits) -> int:
+    """Spec tokens against the int8pc greedy sequence (its first len(ref)):
+    equal up to the first difference, which must be a near tie in the
+    reference's logits at that step. -> the index (len(ref) when none)."""
+    diff = [i for i, (a, b) in enumerate(zip(got, ref)) if a != b]
+    if len(got) < len(ref):
+        raise AssertionError(f"{what}: {len(got)} tokens")
+    if not diff:
+        return len(ref)
+    j = diff[0]
+    gap = abs(float(ref_logits[j][ref[j]] - ref_logits[j][got[j]]))
+    log(f"  {what}: leaves the int8pc greedy sequence at step {j}, a gap of {gap:.4f}")
+    if gap > NEAR_TIE_TOL:
+        raise AssertionError(f"{what}: differs from int8pc greedy at step {j} by {gap:.4f}")
+    return j
+
+
+def check_spec_teacher_forced(what: str, vparams: dict, args: tuple, tokens) -> float:
+    """Every token of a spec request against one block decode teacher-forced
+    on them (the prefill, then rows tokens[:-1] at the positions after the
+    prompt, the int8pc leaves over an int8 cache): each the block's argmax
+    or within NEAR_TIE_TOL of it. -> the worst gap."""
+    import torch
+
+    from qwen3_asr_tpu_torch.models import decoder as dmod
+    from qwen3_asr_tpu_torch.models import generate as gen
+
+    _, dcfg, toks, n_prompt, feats, n_audio, off, _ = args
+    n = len(tokens)
+    h, cache = gen.prefill_hidden(vparams, dcfg, toks, n_prompt, feats, n_audio, off,
+                                  gen.cache_rows(toks.shape[0], n), torch.int8)
+    x = vparams["token_embd"][torch.tensor(tokens[:-1], device="cuda").long()]
+    hb = dmod.decoder_forward(vparams, dcfg, x, cache, n_prompt + n - 1, prefill=False,
+                              cache_offset=n_prompt)
+    lg = dmod.lm_logits_block(vparams, dcfg, torch.cat([h[None].to(hb.dtype), hb]))
+    t = torch.tensor(tokens, device="cuda")
+    gaps = (lg.max(dim=-1).values - lg[torch.arange(n, device="cuda"), t]).cpu()
+    log(f"  {what}: {n} tokens vs one teacher-forced block of {n - 1} rows: "
+        f"{int((gaps == 0).sum())} argmax-equal, worst gap {float(gaps.max()):.4f}")
+    if float(gaps.max()) > NEAR_TIE_TOL:
+        raise AssertionError(f"{what}: a token is off the teacher-forced block's argmax "
+                             f"by {float(gaps.max()):.4f}")
+    return float(gaps.max())
+
+
+def phase_spec(auto, asr4) -> dict:
+    """Greedy self-speculation (`generate_greedy_spec`) on the bench's 92 s
+    audio (EOS off) with the auto model's int8 pack and the int4 pack (both
+    load seed 0, so their int8pc leaves, the verify's, are the same), k in
+    SPEC_KS: 323 tokens at k 4 and 8 on the int8 pack, SPEC_SHORT tokens at
+    k 1 and on the int4 pack (its drafts are seldom accepted on random
+    weights: about one token a round). Each run is a launch window (K2 once
+    per decoder layer, K1's int8-cache entry once per drafted token, nothing
+    else: the verify pass is plain torch). Its first SPEC_SHORT tokens hold
+    against the per-layer int8pc greedy loop over an int8 cache
+    (int8pc_greedy): at k = 1 equal, and every verify pass's logits equal
+    that loop's step logits bit for bit (the same computation on the same
+    cache rows; a verify that read the drafts' rows would differ); else
+    equal up to a near tie. The 323-token runs hold against one
+    teacher-forced block (check_spec_teacher_forced). ms per emitted token
+    beside K1 greedy's ms/step on the same pack and cache.
+    `Qwen3ASR.transcribe(spec_k=4)` gives the direct call's tokens; one
+    request of SPEC_LONG (a cache past LONG_S) runs with k = 8 and holds
+    against its int8pc greedy tokens. -> readings by (pack, k)."""
+    import torch
+
+    from qwen3_asr_tpu_torch.models import generate as gen
+
+    t_phase = time.perf_counter()
+    da, d4 = auto.params["decoder"], asr4.params["decoder"]
+    if not torch.equal(da["lm_head_pc"]["i8pc:q"], d4["lm_head_pc"]["i8pc:q"]):
+        raise AssertionError("spec: the two models' int8pc leaves differ")
+    args = decode_args(auto, SAMPLE_SECONDS, SPEC_TOKENS)
+    vparams = {k: v for k, v in da.items() if k != "mega"}
+    t0 = time.perf_counter()
+    ref, ref_logits = int8pc_greedy(vparams, args[:-1] + (SPEC_SHORT,))
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    log(f"phase spec: int8pc greedy reference, 92 s / {SPEC_SHORT}: {ref_ms:.1f} ms "
+        f"({ref_ms / SPEC_SHORT:.2f} ms a token, the prefill included)")
+    L = auto.cfg.decoder.n_layers
+    out = {}
+    for label, model, wbits in (("auto", auto, 8), ("int4", asr4, 4)):
+        margs = (model.params["decoder"],) + args[1:-1]
+        one = event_ms(lambda: gen.generate_greedy_spec(*margs, 1, k=4))
+        g_ms = (event_ms(lambda: gen.generate_greedy(*margs, SPEC_TOKENS, torch.int8))
+                - event_ms(lambda: gen.generate_greedy(*margs, 1, torch.int8))
+                ) / (SPEC_TOKENS - 1)
+        for k in SPEC_KS:
+            n_tok = SPEC_TOKENS if label == "auto" and k > 1 else SPEC_SHORT
+            verify_logits = []
+            head = gen.lm_logits_block
+
+            def recording(d, c, h):
+                lg = head(d, c, h)
+                verify_logits.append(lg)
+                return lg
+
+            torch.cuda.synchronize()
+            reset_counts()
+            res = []
+            gen.lm_logits_block = recording
+            try:
+                ms = event_ms(lambda: res.append(gen.generate_greedy_spec(*margs, n_tok,
+                                                                          k=k)))
+            finally:
+                gen.lm_logits_block = head
+            toks, n, st = res[0]
+            what = f"spec {label} k={k}"
+            got = window(what, wbits, counts())
+            want = dict(no_launches(), flash=L, mega=st["drafted"])
+            per_tok = (ms - one) / (n_tok - 1)
+            log(f"request {what}, 92 s / {n_tok}: {ms:.1f} ms; rounds {st['rounds']} "
+                f"(verify passes), accepted {st['accepted']}/{st['drafted']} "
+                f"({st['accepted'] / st['drafted']:.1%}); {per_tok:.4f} ms per emitted token "
+                f"(K1 greedy, int8 KV: {g_ms:.4f} ms/step); launches {got}")
+            if got != want or n != n_tok or len(verify_logits) != st["rounds"]:
+                raise AssertionError(f"{what}: launch counts {got} != {want}, {n} tokens "
+                                     f"or {len(verify_logits)} verify passes")
+            toks = [int(t) for t in toks[:n]]
+            j = check_spec_tokens(what, toks, ref, ref_logits)
+            if k == 1:
+                same = [torch.equal(a[0], b) for a, b in zip(verify_logits, ref_logits[1:])]
+                log(f"  {what}: verify logits equal to the int8pc loop's on "
+                    f"{sum(same)} of {len(same)} steps")
+                if j != SPEC_SHORT or not all(same):
+                    raise AssertionError(f"{what}: differs from the int8pc greedy loop")
+            if n_tok == SPEC_TOKENS:
+                check_spec_teacher_forced(what, vparams, args, toks)
+            out[(label, k)] = {"ms_per_token": per_tok, "greedy_ms_step": g_ms,
+                               "tokens": n_tok, "rounds": st["rounds"],
+                               "drafted": st["drafted"], "accepted": st["accepted"],
+                               "equal_to": j, "launches": got, "out": toks}
+    via = auto.transcribe(pcm(SAMPLE_SECONDS), tparams(SPEC_SHORT, spec_k=4)).tokens
+    if via != out[("auto", 4)]["out"][:SPEC_SHORT]:
+        raise AssertionError("spec: transcribe(spec_k=4) differs from the direct call")
+    seconds, n_tok = SPEC_LONG
+    rows = []
+    init = gen.init_kv_cache
+
+    def recording_cache(cfg, n_ctx, *a, **kw):
+        rows.append(n_ctx)
+        return init(cfg, n_ctx, *a, **kw)
+
+    gen.init_kv_cache = recording_cache
+    try:
+        r = auto.transcribe(pcm(seconds), tparams(n_tok, spec_k=8))
+    finally:
+        gen.init_kv_cache = init
+    largs = decode_args(auto, seconds, n_tok)
+    lref, llogits = int8pc_greedy(vparams, largs)
+    log(f"  spec auto k=8 on {seconds} s / {n_tok}: prompt {largs[3]} rows, cache "
+        f"S {rows}")
+    if not r.success or rows != [rows[0]] or rows[0] <= LONG_S:
+        raise AssertionError(f"spec long: success {r.success}, cache rows {rows}")
+    check_spec_tokens(f"spec auto k=8, {seconds} s", r.tokens, lref, llogits)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase spec: {out['seconds']:.1f} s")
+    return out
+
+
+def phase_server_sampling(auto) -> None:
+    """`qwen3-asr-cuda-serve`'s default (auto with the int8 cache, closed
+    batches) behind serve_http, with a word vocabulary so texts differ: two
+    greedy POST /v1/transcribe and one OpenAI request at temperature 0.7,
+    seed 3, sent together: the greedy pair gets transcribe_batch's text, the
+    sampled one (run alone) transcribe's with its parameters; the sampled
+    request again gives the same text; temperature 3 and a sampled stream
+    answer 400 with the JAX package's messages."""
+    import dataclasses as dc
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from qwen3_asr_tpu_torch.pipeline.asr import TranscribeParams
+    from qwen3_asr_tpu_torch.serve import ASRServer, serve_http
+    from qwen3_asr_tpu_torch.text.bpe import BPETokenizer
+    from qwen3_asr_tpu_torch.text.prompt import extract_transcript
+
+    t_phase = time.perf_counter()
+    asr = like(auto, "int8")
+    asr.tokenizer = BPETokenizer(byte_vocab(asr.cfg.decoder.vocab_size, True), [])
+    params = TranscribeParams(max_tokens=ENGINE_TOKENS, mel_bucket=ENGINE_KW["mel_bucket"],
+                              print_timing=False)
+    server = ASRServer(asr, params, max_batch=4, max_wait_ms=1000)
+    httpd = serve_http(server, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    boundary = "chipsmokesampling"
+
+    def openai(samples, **fields):
+        body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+                f"filename=\"a.wav\"\r\n\r\n").encode() + wav_bytes(samples) + b"\r\n"
+        for name, value in fields.items():
+            body += (f"--{boundary}\r\nContent-Disposition: form-data; name=\"{name}\""
+                     f"\r\n\r\n{value}\r\n").encode()
+        return post("/v1/audio/transcriptions", body + f"--{boundary}--\r\n".encode(),
+                    f"multipart/form-data; boundary={boundary}")
+
+    def post(path, body, ctype):
+        req = urllib.request.Request(base + path, data=body, headers={"Content-Type": ctype})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as rsp:
+                return rsp.status, json.loads(rsp.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    g1, g2, s = pcm(15, 60), pcm(30, 61), pcm(30, 62)
+    replies = {}
+    try:
+        jobs = [("g1", lambda: post("/v1/transcribe", wav_bytes(g1), "audio/wav")),
+                ("sampled", lambda: openai(s, temperature="0.7", seed="3")),
+                ("g2", lambda: post("/v1/transcribe", wav_bytes(g2), "audio/wav"))]
+        threads = [threading.Thread(target=lambda n=n, f=f: replies.__setitem__(n, f()))
+                   for n, f in jobs]
+        for th in threads:
+            th.start()
+            time.sleep(0.05)
+        for th in threads:
+            th.join(600)
+        replies["again"] = openai(s, temperature="0.7", seed="3")
+        replies["t3"] = openai(s, temperature="3")
+        replies["stream"] = openai(s, temperature="0.5", stream="true")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+    log("phase server sampling: " + ", ".join(f"{k} {v[0]}" for k, v in replies.items())
+        + f"; {server.n_batches} rounds")
+    batch = asr.transcribe_batch([g1, g2], params)
+    sampled = asr.transcribe(s, dc.replace(params, temperature=0.7, seed=3))
+    if [(c, p.get("text")) for c, p in (replies["g1"], replies["g2"])] != \
+            [(200, b.text) for b in batch]:
+        raise AssertionError("server sampling: the greedy pair differs from "
+                             "transcribe_batch's")
+    want = extract_transcript(sampled.text)
+    if replies["sampled"] != (200, {"text": want}) or replies["again"] != replies["sampled"]:
+        texts = [replies["sampled"][1].get("text", ""), replies["again"][1].get("text", ""),
+                 want, extract_transcript(asr.transcribe(
+                     s, dc.replace(params, temperature=0.7, seed=3)).text)]
+        log(f"  server sampling: server twice equal {texts[0] == texts[1]}, to transcribe "
+            f"{texts[0] == texts[2]}, transcribe twice equal {texts[2] == texts[3]}; "
+            + " | ".join(t[:60] for t in texts))
+        raise AssertionError(f"server sampling: sampled replies {replies['sampled'][0]}, "
+                             f"{replies['again'][0]} differ from transcribe's")
+    for k, msg in (("t3", "temperature must be in [0, 2]"),
+                   ("stream", "stream=true is greedy-only (sampled decoding runs as "
+                              "one whole-loop program)")):
+        if replies[k][0] != 400 or replies[k][1]["error"]["message"] != msg:
+            raise AssertionError(f"server sampling: {k} answered {replies[k]}")
+    if server.n_batches != 3:   # the greedy pair, then two lone sampled requests
+        raise AssertionError(f"server sampling: {server.n_batches} rounds")
+    log(f"  greedy pair equal to transcribe_batch's text, sampled text "
+        f"({len(want.split())} words) equal twice and to transcribe's; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_cli_sampling(auto) -> None:
+    """The CLI in this process, `qwen3-asr-cuda-cli -f x.wav --max-tokens
+    32 --tokens` with `--temperature 0.7 --seed 3` and with `--spec-k 4`
+    (default `--quantize auto`), Qwen3ASR.load_model giving the auto
+    model's random weights (no GGUF of that size in the checkout): exit 0,
+    the tokens on stderr equal transcribe's in that mode, the transcript
+    alone on stdout."""
+    import contextlib
+    import io
+    import os
+    import re
+
+    from qwen3_asr_tpu_torch import cli
+    from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams
+    from qwen3_asr_tpu_torch.text.bpe import BPETokenizer
+
+    t_phase = time.perf_counter()
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(d, exist_ok=True)
+    wav = os.path.join(d, "chip_smoke_cli.wav")
+    with open(wav, "wb") as f:
+        f.write(wav_bytes(pcm(5)))
+    tok = BPETokenizer(byte_vocab(auto.cfg.decoder.vocab_size, True), [])
+
+    def load(self, path):
+        self.cfg, self.params, self.filters_t = auto.cfg, auto.params, auto.filters_t
+        self.tokenizer = tok
+        return True
+
+    real = Qwen3ASR.load_model
+    Qwen3ASR.load_model = load
+    try:
+        for flags, kw in ((["--temperature", "0.7", "--seed", "3"],
+                           dict(temperature=0.7, seed=3)), (["--spec-k", "4"], dict(spec_k=4))):
+            out, err = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc = cli.main(["-m", "random-seed-0", "-f", wav, "--max-tokens", "32",
+                               "--no-timing", "--tokens", *flags])
+            got = [int(x) for x in re.findall(r"^  \[\d+\] (\d+)$", err.getvalue(), re.M)]
+            model = like(auto, "bf16")
+            model.tokenizer = tok
+            want = model.transcribe(pcm(5), TranscribeParams(max_tokens=32,
+                                                             print_timing=False, **kw))
+            log(f"phase CLI {' '.join(flags)}: exit {rc}, {len(got)} tokens")
+            if rc != 0 or got != want.tokens or out.getvalue() != want.text + "\n":
+                raise AssertionError(f"CLI {flags}: exit {rc}, tokens equal "
+                                     f"{got == want.tokens}")
+    finally:
+        Qwen3ASR.load_model = real
+    log(f"  CLI tokens equal transcribe's in both modes; {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2341,8 +2985,11 @@ def main() -> int:
     log(f"kernel build: {build.build_seconds or 0.0:.1f} s (library load "
         f"{time.perf_counter() - t0:.1f} s), "
         f"source hash {build.source_hash()}")
+    has_cuda_kernels.cache_clear()
+    has_cuda_kernels.launches = 0
     if not has_cuda_kernels():
         raise RuntimeError("the kernel library's probe failed on this device")
+    k8_launches = has_cuda_kernels.launches   # the start-up path: one a process
 
     f_c = phase_flash(True, 1280, 16, 8, 128, [1216])
     f_b = phase_flash(False, 1196, 14, 14, 64, [1196])
@@ -2428,6 +3075,7 @@ def main() -> int:
         assert_on_device(c, "cuda")
     p5 = prompt_rows(5)
     q8k = phase_q8(q8_asr.params["decoder"], q8_asr.cfg.decoder, (1, p5))
+    sampling = {"q8_0": phase_sampling(q8_asr, "q8_0", None, None, 64, 16)}
     del q8_asr
 
     # the JAX package's default weight mode: the int8 pack
@@ -2445,6 +3093,13 @@ def main() -> int:
     i4_step = phase_kv_int4(asr, auto)
     stream_ms = phase_streaming(asr, auto)
     phase_server_int4(auto)
+    for label, model, wbits, key in (("auto", auto, 8, "mega_bf16"),
+                                     ("int4", asr, 4, "mega"),
+                                     ("int4 + int4 KV", like(asr, "int4"), 4, "mega_i4")):
+        sampling[label] = phase_sampling(model, label, wbits, key, SPEC_TOKENS, 64)
+    spec = phase_spec(auto, asr)
+    phase_server_sampling(auto)
+    phase_cli_sampling(auto)
     del auto
 
     engine_tps, engine_launches = phase_engine(asr)
@@ -2459,8 +3114,21 @@ def main() -> int:
         f"{auto_step[False]:.4f}); int4 + int4 KV decode {i4_step:.4f} ms/step; "
         f"streaming decode (vs generate_greedy, staged) " + ", ".join(
             f"{k} {a:.4f} ({b:.4f})" for k, (a, b) in stream_ms.items())
-        + f"; launches over every checked window {total}; K8 probe {k8[0]:.4f} ms "
-        f"(bound {k8[1]:.6f} ms, bytes)")
+        + f"; launches over every checked window {total}; K8 probe {k8[1]:.4f} ms "
+        f"(bound {k8[3]:.6f} ms, bytes)")
+    log("sampled vs greedy decode ms/step: " + ", ".join(
+        f"{k} {v['sampled_ms_step']:.4f} / {v['greedy_ms_step']:.4f} ({v['seconds']:.1f} s)"
+        for k, v in sampling.items()) + "; spec ms per emitted token (acceptance): " + ", ".join(
+        f"{lab} k={k} {v['ms_per_token']:.4f} ({v['accepted'] / v['drafted']:.1%})"
+        for (lab, k), v in ((key, v) for key, v in spec.items() if key != "seconds"))
+        + f"; phase spec {spec['seconds']:.1f} s")
+
+    def per_request(mode, key):
+        """The sampled request's launches of `key` (92 s / 323 tokens; q8_0:
+        92 s / 64) and the mode's sampled and greedy ms/step."""
+        return {"launches_per_sampled_request": sampling[mode]["launches"][key],
+                "sampled_ms_step": sampling[mode]["sampled_ms_step"],
+                "greedy_ms_step": sampling[mode]["greedy_ms_step"]}
 
     def row(name, src, replaces, launches, err, ms, plain, b_ms, b_by, lib=None, **extra):
         return {"name": name, "route": "cuda",
@@ -2474,21 +3142,29 @@ def main() -> int:
     k3_src = "qwen3_asr_tpu/ops/megakernel_batch.py:110"
     gb = {mode: round(r["gb_s"], 1) for mode, r in mb_res.items()}
     kernels = [
-        row("mega_decode_step_i8", "megakernel.cu", k1, launches_of("mega", 4), *m),
+        row("mega_decode_step_i8", "megakernel.cu", k1, launches_of("mega", 4), *m,
+            **per_request("int4", "mega"),
+            spec_ms_per_token={k: spec[("int4", k)]["ms_per_token"] for k in SPEC_KS},
+            spec_tokens=SPEC_SHORT),
         row("mega_decode_step (int4 weights, bf16 KV)", "megakernel.cu", k1,
             launches_of("mega_bf16", 4), *m4b),
         row("mega_decode_step_i8 (int8 weights)", "megakernel.cu", k1,
             launches_of("mega", 8), *m8,
+            launches_per_spec_request=spec[("auto", 4)]["launches"]["mega"],
+            spec_ms_per_token={k: spec[("auto", k)]["ms_per_token"] for k in SPEC_KS},
+            spec_acceptance={k: spec[("auto", k)]["accepted"] / spec[("auto", k)]["drafted"]
+                             for k in SPEC_KS},
             s8192_ms=long_ctx["int8"][1], s8192_bound_ms=long_ctx["int8"][3]),
         row("mega_decode_step (int8 weights, bf16 KV)", "megakernel.cu", k1,
-            launches_of("mega_bf16", 8), *m8b,
+            launches_of("mega_bf16", 8), *m8b, **per_request("auto", "mega_bf16"),
             s8192_ms=long_ctx["bf16"][1], s8192_bound_ms=long_ctx["bf16"][3],
             step_ms={f"{'graphed' if g else 'eager'}_pdl_{'on' if p else 'off'}": t[0]
                      for (g, p), t in k1_graph.items()},
             enqueue_ms={f"{'graphed' if g else 'eager'}_pdl_{'on' if p else 'off'}": t[1]
                         for (g, p), t in k1_graph.items()}),
         row("mega_decode_step_i4 (int4 weights, int4 KV)", "megakernel.cu",
-            "qwen3_asr_tpu/ops/megakernel.py:1520", launches_of("mega_i4", 4), *m4i4),
+            "qwen3_asr_tpu/ops/megakernel.py:1520", launches_of("mega_i4", 4), *m4i4,
+            **per_request("int4 + int4 KV", "mega_i4")),
         row("mega_decode_step_i4 (int8 weights, int4 KV)", "megakernel.cu",
             "qwen3_asr_tpu/ops/megakernel.py:1520", launches_of("mega_i4", 8), *m8i4,
             s8192_ms=long_ctx["int4"][1], s8192_bound_ms=long_ctx["int4"][3]),
@@ -2500,23 +3176,31 @@ def main() -> int:
                            "bound_ms": f_ac[4], "bound_by": f_ac[5]},
             aligner_t2944_b4={"ms": f_acb[1], "plain_ms": f_acb[2], "library_ms": f_acb[3],
                               "bound_ms": f_acb[4], "bound_by": f_acb[5]},
-            launches_per_alignment=launches_of_label("aligner staged", "flash")),
+            launches_per_alignment=launches_of_label("aligner staged", "flash"),
+            launches_per_sampled_request=sampling["auto"]["launches"]["flash"],
+            launches_per_spec_request=spec[("auto", 4)]["launches"]["flash"]),
         row("mega_decode_step_batch", "megakernel_batch.cu", k3_src,
             launches_of("mega_batch", 4), *k3),
         row("mega_decode_step_batch (int8 weights)", "megakernel_batch.cu", k3_src,
             launches_of("mega_batch", 8), *k3_8),
         row("decode_attention", "decode_attention.cu",
             "qwen3_asr_tpu/ops/decode_attention.py:65", total["decode_attention"],
-            max(v[0] for v in da_ms.values()), *da_ms[("bf16", 1248)][1:]),
+            max(v[0] for v in da_ms.values()), *da_ms[("bf16", 1248)][1:],
+            launches_per_sampled_request=sampling["q8_0"]["launches"]["decode_attention"]),
         row("q8_matmul", "q8_matmul.cu", "qwen3_asr_tpu/ops/q8_matmul.py:69",
             total["q8_matmul"], max(v[0] for k, v in q8k.items() if k[0].startswith("K5")),
-            *q8k[("K5 q8_matmul (Wo)", 1)][1:]),
+            *q8k[("K5 q8_matmul (Wo)", 1)][1:],
+            launches_per_sampled_request=sampling["q8_0"]["launches"]["q8_matmul"]),
         row("q8_norm_matmul", "q8_matmul.cu", "qwen3_asr_tpu/ops/q8_matmul.py:173",
             total["q8_norm_matmul"],
-            max(v[0] for k, v in q8k.items() if k[0].startswith("K6")), *q8k[head][1:]),
+            max(v[0] for k, v in q8k.items() if k[0].startswith("K6")), *q8k[head][1:],
+            launches_per_sampled_request=sampling["q8_0"]["launches"]["q8_norm_matmul"]),
         row("q8_mlp", "q8_matmul.cu", "qwen3_asr_tpu/ops/q8_matmul.py:224",
             total["q8_mlp"], max(v[0] for k, v in q8k.items() if k[0].startswith("K7")),
-            *q8k[("K7 q8_mlp", 1)][1:]),
+            *q8k[("K7 q8_mlp", 1)][1:],
+            launches_per_sampled_request=sampling["q8_0"]["launches"]["q8_mlp"]),
+        row("probe (K8, y = 2 x)", "probe.cu", "qwen3_asr_tpu/ops/support.py:35",
+            k8_launches, *k8, "bytes", lib=k8[2]),
         row("stream_read (K9 read)", "microbench_stream.cu",
             "scripts/microbench_stream.py:39", total["mb_read"], *mb["read"],
             lib=mb_lib, gb_s=gb["read"]),

@@ -14,9 +14,10 @@ the CPU instead, and no other value falls back to the CPU. `--progress`
 takes the streaming decode path and prints "Generated N tokens..." on
 stderr every 10 tokens; `--kv-int4` decodes over the int4 KV cache;
 `--language korean` splits an alignment's words with the repo's Korean
-dictionary. What the port does not carry yet (speculative and sampled
-decoding) is refused with `Error: ... not ported` before anything runs.
-`--threads` is accepted and printed, and has no effect.
+dictionary. `--temperature` (with `--top-k`, `--top-p`, `--seed`) decodes
+by sampling and `--spec-k` by greedy self-speculation (the int8pc greedy
+transcript, drafted through the decode pack). `--threads` is accepted and
+printed, and has no effect.
 """
 
 from __future__ import annotations
@@ -80,12 +81,28 @@ def build_parser() -> argparse.ArgumentParser:
                         "int8's KV quantization error; overrides --kv-int8; "
                         "runs as int8 without the decode pack (q8_0, none)")
     p.add_argument("--spec-k", type=int, default=0,
-                   help="Greedy self-speculation (not ported; 0 = off)")
+                   help="Greedy self-speculation: draft K tokens per round "
+                        "through the decode megakernel's weight stream, verify "
+                        "the block in one int8pc pass. Output is exactly the "
+                        "int8pc greedy sequence; speed follows the acceptance "
+                        "rate. Needs a decode pack (--quantize auto / int8pc / "
+                        "int4) and runs over an int8 KV cache; use only when "
+                        "int8pc-exact output is required. 0 = off (default)")
     p.add_argument("--temperature", type=float, default=0.0,
-                   help="Sampled decoding temperature (not ported; 0 = greedy)")
-    p.add_argument("--top-k", type=int, default=0)
-    p.add_argument("--top-p", type=float, default=1.0)
-    p.add_argument("--seed", type=int, default=0)
+                   help="Sampled decoding temperature (0 = greedy, the "
+                        "reference's only mode). >0 draws tokens from the "
+                        "softmax, as the OpenAI transcription API's "
+                        "temperature does")
+    p.add_argument("--top-k", type=int, default=0,
+                   help="With --temperature: keep only the K most likely "
+                        "tokens before sampling (0 = no filter)")
+    p.add_argument("--top-p", type=float, default=1.0,
+                   help="With --temperature: nucleus sampling, keep the "
+                        "smallest set of tokens whose probability mass "
+                        "reaches P (1.0 = no filter)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="Seed for --temperature sampling (same seed and device "
+                        "=> same transcript)")
     p.add_argument("--fused", action="store_true", default=True,
                    help="Mel, encoder and decode in one call (default)")
     p.add_argument("--no-fused", action="store_false", dest="fused",
@@ -278,7 +295,7 @@ def main(argv: list[str] | None = None) -> int:
     import torch
 
     from qwen3_asr_tpu_torch.pipeline.aligner import ForcedAligner
-    from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams, unported
+    from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams
 
     tp = TranscribeParams(
         max_tokens=args.max_tokens, language=args.language,
@@ -286,10 +303,6 @@ def main(argv: list[str] | None = None) -> int:
         fused=args.fused, mel_bucket=args.mel_bucket, spec_k=args.spec_k,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         seed=args.seed)
-    err = "" if args.align_mode else unported(tp)
-    if err:
-        _eprint(f"Error: {err}")
-        return 1
 
     device = "cpu" if args.platform == "cpu" else "cuda"
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32

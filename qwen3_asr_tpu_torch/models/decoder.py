@@ -2,9 +2,10 @@
 
 Port of qwen3_asr_tpu/models/decoder.py: `rms_norm`, `rope_neox`,
 `init_kv_cache` (bf16 rows, or int8 rows + per-(row, head) f32 scales),
-`_quantize_kv_rows`, `embed_with_audio`, `decoder_forward` (the prefill, and
-the decode step at T = 1 through the decode-attention kernel),
-`decoder_prefill_batch`, `lm_logits` / `lm_logits_block`, and the
+`_quantize_kv_rows`, `embed_with_audio`, `_cached_attention`,
+`decoder_forward` (the prefill; the decode step at T = 1 through the
+decode-attention kernel; and the block decode of T >= 1 rows at any cache
+offset), `decoder_prefill_batch`, `lm_logits` / `lm_logits_block`, and the
 aligner's `classify_logits`.
 
 The layers take the fused weight layout (`wqkv`, `w_gate_up`) with dense
@@ -14,11 +15,13 @@ bf16 matrices, Q8_0 leaves or int8pc leaves:
   above 256 rows those wrappers run the reference's dequantize-and-dot;
 - dense: RMSNorm then plain matrix products, as the reference leaves them
   to XLA;
-- int8pc: the W8A8 products of `pc_matmul` (prefill only: the decode
-  pack's steps run through `ops/megakernel.py`).
+- int8pc: the W8A8 products of `pc_matmul` (the prefill and the block
+  decode: the decode pack's steps run through `ops/megakernel.py`).
 Attention in the prefill is the flash kernel (`ops/flash_attention.py`),
 causal with the prompt's valid length; in the decode step it is
-`ops/decode_attention.py` (K4).
+`ops/decode_attention.py` (K4); in the block decode (the speculative verify
+pass, int8pc decode steps) it is plain torch, `_cached_attention`, as the
+reference computes it in XLA.
 
 Cache layout at the public functions is the JAX package's: k/v [L, S, n_kv,
 head_dim] bf16 or int8, and for int8 k_s/v_s [L, S, n_kv] f32.
@@ -48,19 +51,28 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor | None, eps: float) -> torch.Tenso
     return y if w is None else y * w
 
 
-def rope_neox(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """NEOX rotary embedding on [T, n_heads, head_dim]: pairs (x[i], x[i+d/2])."""
-    d = x.shape[-1]
-    half = d // 2
+def rope_tables(positions: torch.Tensor, d: int, theta: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The NEOX rotary embedding's cos and sin [T, 1, d/2] f32 at positions."""
     inv_freq = torch.from_numpy(
-        (1.0 / (theta ** (np.arange(0, half, dtype=np.float64) * 2.0 / d)))
-        .astype(np.float32)).to(x.device)
+        (1.0 / (theta ** (np.arange(0, d // 2, dtype=np.float64) * 2.0 / d)))
+        .astype(np.float32)).to(positions.device)
     ang = positions.float()[:, None] * inv_freq[None, :]
-    cos = torch.cos(ang)[:, None, :]
-    sin = torch.sin(ang)[:, None, :]
+    return torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [T, n_heads, head_dim] rotated by rope_tables' cos and sin: pairs
+    (x[i], x[i+d/2])."""
+    half = x.shape[-1] // 2
     x1 = x[..., :half].float()
     x2 = x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def rope_neox(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """NEOX rotary embedding on [T, n_heads, head_dim]: pairs (x[i], x[i+d/2])."""
+    return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -182,10 +194,6 @@ def _decode_step(dec_params: dict, cfg: DecoderConfig, x: torch.Tensor,
     if not cfg.use_decode_attn_kernel:
         raise NotImplementedError("use_decode_attn_kernel=False (the XLA "
                                   "decode attention) is not ported")
-    if "wqkv" not in layers or is_pc_leaf(layers["wqkv"]):
-        raise NotImplementedError("the decode step takes the fused dense or "
-                                  "Q8_0 layout; int8pc decode steps run through "
-                                  "ops/megakernel.py on the decode pack")
     eps = cfg.rms_norm_eps
     scale = 1.0 / float(np.sqrt(cfg.head_dim))
     quant = "k_s" in cache
@@ -204,6 +212,81 @@ def _decode_step(dec_params: dict, cfg: DecoderConfig, x: torch.Tensor,
     return x
 
 
+def _cached_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      k_new: torch.Tensor, v_new: torch.Tensor,
+                      block_mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """Port of the reference's `_cached_attention`: one softmax over the
+    cache rows and this block's fresh K/V. q [T, n_heads, d]; k_cache /
+    v_cache [n, n_kv, d], the n cache rows the block may read (the reference
+    masks the others, whose probabilities are exact zeros); k_new / v_new [T,
+    n_kv, d]; block_mask [T, T] bool. Scores and sums in f32, the
+    probabilities rounded to the values' dtype, as the reference does. ->
+    [T, n_heads, d] in q's dtype."""
+    T, NH, D = q.shape
+    NKV = k_new.shape[1]
+    n = k_cache.shape[0]
+    qg = q.reshape(T, NKV, NH // NKV, D).permute(1, 2, 0, 3).float()   # [kv, g, T, d]
+    sc = qg @ k_cache.float().permute(1, 2, 0)[:, None] * scale       # [kv, g, T, n]
+    sb = qg @ k_new.float().permute(1, 2, 0)[:, None] * scale         # [kv, g, T, T]
+    sb = torch.where(block_mask, sb, float("-inf"))
+    p = torch.softmax(torch.cat([sc, sb], dim=-1), dim=-1)
+    pc = p[..., :n].to(v_cache.dtype).float()
+    pb = p[..., n:].to(v_new.dtype).float()
+    out = pc @ v_cache.float().permute(1, 0, 2)[:, None] + pb @ v_new.float().permute(1, 0, 2)[:, None]
+    return out.permute(2, 0, 1, 3).reshape(T, NH, D).to(q.dtype)
+
+
+def _cache_rows_read(offset: int, valid: int) -> int:
+    """The cache rows a block at `offset` reads: the reference's cache_mask,
+    cols < min(offset, valid). Rows from offset on may hold a draft's
+    values."""
+    return min(offset, valid)
+
+
+def _block_decode(dec_params: dict, cfg: DecoderConfig, h: torch.Tensor,
+                  cache: dict, offset: int, valid: int) -> torch.Tensor:
+    """The reference's non-prefill decoder_forward on a block h [T, hidden]
+    at positions offset .. offset + T - 1, plain torch on any leaves (dense,
+    Q8_0 through K5-K7, int8pc) and a bf16 or int8 cache: row t attends to
+    the cache rows before `_cache_rows_read` (never a draft's), dequantized
+    to the activations' dtype,
+    and to block rows j <= t with offset + j < valid (a padding row keeps
+    its own diagonal). The fresh rows go to cache rows offset .. offset + T
+    - 1 after each layer has read its cache, quantized as the prefill's
+    are. -> [T, hidden]."""
+    T = h.shape[0]
+    NH, NKV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dq, dkv = NH * D, NKV * D
+    scale = 1.0 / float(np.sqrt(D))
+    eps = cfg.rms_norm_eps
+    layers = dec_params["layers"]
+    dev = h.device
+    positions = torch.arange(offset, offset + T, device=dev, dtype=torch.int32)
+    rows = torch.arange(T, device=dev)[:, None]
+    cols = torch.arange(T, device=dev)[None, :]
+    block_mask = (cols <= rows) & ((offset + cols < valid) | (cols == rows))
+    cos, sin = rope_tables(positions, D, cfg.rope_theta)
+    n = _cache_rows_read(offset, valid)
+    # the rows every layer reads, dequantized once (the block writes rows >= n)
+    kc, vc = cache["k"][:, :n], cache["v"][:, :n]
+    if "k_s" in cache:
+        kc = (kc.float() * cache["k_s"][:, :n, :, None]).to(h.dtype)
+        vc = (vc.float() * cache["v_s"][:, :n, :, None]).to(h.dtype)
+    x = h
+    for l in range(cfg.n_layers):
+        qkv = _qkv(layers, l, x, eps)
+        q = qkv[:, :dq].reshape(T, NH, D)
+        k = qkv[:, dq:dq + dkv].reshape(T, NKV, D)
+        v = qkv[:, dq + dkv:].reshape(T, NKV, D)
+        q = apply_rope(rms_norm(q, layers["q_norm"][l], eps), cos, sin)
+        k = apply_rope(rms_norm(k, layers["k_norm"][l], eps), cos, sin)
+        attn = _cached_attention(q, kc[l], vc[l], k, v, block_mask, scale)
+        h1 = x + matmul_any(attn.reshape(T, dq), _leaf(layers, "wo", l))
+        x = _mlp(layers, l, h1, cfg)
+        _store(cache, l, slice(offset, offset + T), k, v)
+    return x
+
+
 def decoder_forward(dec_params: dict, cfg: DecoderConfig, h: torch.Tensor,
                     cache: dict, n_valid: int, prefill: bool = True,
                     cache_offset: int = 0) -> torch.Tensor:
@@ -212,15 +295,24 @@ def decoder_forward(dec_params: dict, cfg: DecoderConfig, h: torch.Tensor,
 
     prefill=True: h [T, hidden] is the prompt block (rows >= n_valid are
     padding) at positions 0 .. T-1; its rows go to cache rows [0, T).
-    prefill=False: one decode step, h [1, hidden] at position cache_offset,
-    attending to cache rows < cache_offset plus itself, its row written at
-    cache_offset; n_valid is the reference's kv_valid_len = cache_offset + 1.
+    prefill=False: the block h [T, hidden] at positions cache_offset ..
+    cache_offset + T - 1, attending to cache rows < cache_offset and to
+    itself causally, its rows written at cache_offset; n_valid is the
+    reference's kv_valid_len (cache_offset < n_valid <= cache_offset + T;
+    block rows at and past it are padding). One row with n_valid =
+    cache_offset + 1 on the fused dense or Q8_0 layout is the decode step
+    of the decode-attention kernel (K4); any other block (int8pc leaves, T >
+    1: the speculative verify pass) runs `_block_decode`.
     """
     if not prefill:
-        if h.shape[0] != 1 or n_valid != cache_offset + 1:
-            raise ValueError("a decode step takes one row with kv_valid_len "
-                             "= cache_offset + 1")
-        return _decode_step(dec_params, cfg, h, cache, int(cache_offset))
+        T, offset = h.shape[0], int(cache_offset)
+        if not offset < n_valid <= offset + T:
+            raise ValueError(f"kv_valid_len {n_valid} outside (cache_offset, "
+                             f"cache_offset + T] = ({offset}, {offset + T}]")
+        wqkv = dec_params["layers"]["wqkv"]
+        if T == 1 and n_valid == offset + 1 and not is_pc_leaf(wqkv):
+            return _decode_step(dec_params, cfg, h, cache, offset)
+        return _block_decode(dec_params, cfg, h, cache, offset, int(n_valid))
     T = h.shape[0]
     valid = torch.full((1,), n_valid, dtype=torch.int32, device=h.device)
     out = _prefill_layers(dec_params, cfg, h[None], valid,

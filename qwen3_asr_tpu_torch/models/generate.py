@@ -1,11 +1,14 @@
-"""Greedy generation: the prefill, then the decode loop, for one sequence
-or (decode pack, int8 cache) a batch in lockstep; and the aligner's one
-non-autoregressive pass (`nar_forward`, `nar_forward_batch`).
+"""Generation: the prefill, then the decode loop, for one sequence or
+(decode pack, int8 cache) a batch in lockstep, greedy, sampled or
+self-speculative; and the aligner's one non-autoregressive pass
+(`nar_forward`, `nar_forward_batch`).
 
 Port of qwen3_asr_tpu/models/generate.py:36-462 (`generate_greedy`,
 `prefill_only`, the streaming path `generate_greedy_streaming` with its
-`decode_chunk*` functions) and of `prefill_batch_mega_cache` /
-`generate_greedy_batch_mega` (:465-578), the batched path. The branch
+`decode_chunk*` functions), of `prefill_batch_mega_cache` /
+`generate_greedy_batch_mega` (:465-578), the batched path, of
+`generate_greedy_spec` (:606-737), greedy self-speculation, and of
+`sample_from_logits` / `generate_sample` (:755-967), sampled decoding. The branch
 follows what the tree holds, as in the reference: a decode pack (`"mega"`,
 int4 or int8 weights) runs each step through the decode megakernel, its
 entry picked by the cache dtype (`mega_decode_step_i8` for int8,
@@ -27,7 +30,9 @@ every EOS_CHECK_EVERY steps to test for EOS, so up to EOS_CHECK_EVERY - 1
 steps may run past an EOS. Their tokens are filler, as in the JAX package,
 and n_kept ignores them. The streaming path decodes `chunk` tokens per host
 read and calls its callbacks per token; its chunks also run to their end
-and keep the tokens up to the first EOS.
+and keep the tokens up to the first EOS. `generate_sample` keeps the same
+loop and host reads with a drawn token in place of the argmax;
+`generate_greedy_spec` reads the host once per round.
 """
 
 from __future__ import annotations
@@ -65,16 +70,24 @@ STREAM_CHUNK = 8       # decode steps per host read on the streaming path
 INT4_KV = torch.uint8
 
 
+def decode_hidden(dec_params: dict, cfg: DecoderConfig, cache: dict,
+                  token: torch.Tensor, pos: int) -> torch.Tensor:
+    """One step of the per-layer decode loop without its head: embed token
+    (int32 [1] on the device), run decoder_forward at T = 1 at position pos
+    over the cache rows < pos (writing row pos). -> the hidden state
+    [hidden], before the final norm."""
+    x = dec_params["token_embd"][token.long()]
+    return decoder_forward(dec_params, cfg, x, cache, pos + 1, prefill=False,
+                           cache_offset=pos)[0]
+
+
 def decode_token(dec_params: dict, cfg: DecoderConfig, cache: dict,
                  out: torch.Tensor, i: int, pos: int) -> torch.Tensor:
-    """One step of the per-layer decode loop: embed out[i - 1], run
-    decoder_forward at T = 1 at position pos over the cache rows < pos
-    (writing row pos), and write the argmax of the logits into out[i] on the
-    device. -> the logits [vocab_size] f32."""
-    x = dec_params["token_embd"][out[i - 1:i].long()]
-    h = decoder_forward(dec_params, cfg, x, cache, pos + 1, prefill=False,
-                        cache_offset=pos)
-    logits = lm_logits(dec_params, cfg, h[0])
+    """One greedy step of the per-layer decode loop: decode_hidden on
+    out[i - 1], and the argmax of the logits into out[i] on the device. ->
+    the logits [vocab_size] f32."""
+    logits = lm_logits(dec_params, cfg,
+                       decode_hidden(dec_params, cfg, cache, out[i - 1:i], pos))
     out[i:i + 1] = torch.argmax(logits)
     return logits
 
@@ -93,18 +106,27 @@ def kv_dtype(dec_params: dict, cache_dtype: torch.dtype) -> torch.dtype:
     return cache_dtype
 
 
-def prefill(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
-            n_prompt: int, audio: torch.Tensor | None, n_audio: int,
-            audio_offset: int, S: int, cache_dtype: torch.dtype):
-    """Port of `prefill_only`: the prompt block (tokens [P] int32 on the
-    device, rows >= n_prompt padding) into a fresh cache of S rows. ->
-    (the first greedy token int32 [1] on the device, the cache), an int8
-    cache for the int4 one."""
+def prefill_hidden(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
+                   n_prompt: int, audio: torch.Tensor | None, n_audio: int,
+                   audio_offset: int, S: int, cache_dtype: torch.dtype):
+    """The prompt block (tokens [P] int32 on the device, rows >= n_prompt
+    padding) into a fresh cache of S rows. -> (the last prompt row's hidden
+    state [hidden], the cache), an int8 cache for the int4 one."""
     cache = init_kv_cache(cfg, S, tokens.device,
                           torch.int8 if cache_dtype == INT4_KV else cache_dtype)
     h0 = embed_with_audio(dec_params, tokens, audio, n_audio, audio_offset)
     h = decoder_forward(dec_params, cfg, h0, cache, n_prompt)
-    first = torch.argmax(lm_logits(dec_params, cfg, h[n_prompt - 1]))
+    return h[n_prompt - 1], cache
+
+
+def prefill(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
+            n_prompt: int, audio: torch.Tensor | None, n_audio: int,
+            audio_offset: int, S: int, cache_dtype: torch.dtype):
+    """Port of `prefill_only`: prefill_hidden, then the first greedy token.
+    -> (that token int32 [1] on the device, the cache)."""
+    h_last, cache = prefill_hidden(dec_params, cfg, tokens, n_prompt, audio,
+                                   n_audio, audio_offset, S, cache_dtype)
+    first = torch.argmax(lm_logits(dec_params, cfg, h_last))
     return first.to(torch.int32).reshape(1), cache
 
 
@@ -135,6 +157,26 @@ def mega_runner(pack: dict, cfg: DecoderConfig, kvs):
     return run
 
 
+def mega_sample_runner(pack: dict, cfg: DecoderConfig, kvs):
+    """run(out, i, pos) -> h: one decode-pack step consuming out[i - 1] at
+    position pos over the flat caches kvs, returning its hidden state before
+    the final norm (f32 [1, H], the kernels' h_out, the reference's h_dbg).
+    out[i] is left to the caller (the kernels' own argmax is unused). On
+    CUDA tensors a GraphStep that copies out[i - 1] in before every replay,
+    for CPU ones the twin."""
+    if kvs[0].device.type == "cuda":
+        graph = GraphStep(DecodeStep(pack, cfg, *kvs), own_tokens=False)
+
+        def run(out, i, pos):
+            graph(out, i, pos)
+            return graph.h
+        return run
+
+    def run(out, i, pos):
+        return mega_decode_step_ref(pack, cfg, out[i - 1:i], pos, *kvs)[1]
+    return run
+
+
 def _step_runner(dec_params: dict, cfg: DecoderConfig, cache: dict,
                  cache_dtype: torch.dtype):
     """run(out, i, pos) over the prefill's cache: the decode pack's step, or
@@ -144,6 +186,35 @@ def _step_runner(dec_params: dict, cfg: DecoderConfig, cache: dict,
             decode_token(dec_params, cfg, cache, out, i, pos)
         return run
     return mega_runner(dec_params["mega"], cfg, mega_caches(cfg, cache, cache_dtype))
+
+
+def _hidden_runner(dec_params: dict, cfg: DecoderConfig, cache: dict,
+                   cache_dtype: torch.dtype):
+    """run(out, i, pos) -> h over the prefill's cache: the step on out[i -
+    1] without its head, through the decode pack's kernels or the per-layer
+    step."""
+    if "mega" not in dec_params:
+        def run(out, i, pos):
+            return decode_hidden(dec_params, cfg, cache, out[i - 1:i], pos)
+        return run
+    return mega_sample_runner(dec_params["mega"], cfg,
+                              mega_caches(cfg, cache, cache_dtype))
+
+
+def _decode_loop(step, out: torch.Tensor, n_prompt: int, eos: int
+                 ) -> tuple[np.ndarray, int]:
+    """step(i, pos) writes out[i] on the device for i = 1, 2, ...; the token
+    of step i sits at position n_prompt + i - 1. The host reads out for EOS
+    every EOS_CHECK_EVERY steps. -> (out on the host, n_kept)."""
+    i = 1
+    while i < out.shape[0]:
+        if (i - 1) % EOS_CHECK_EVERY == 0 and bool((out[:i] == eos).any()):
+            break
+        step(i, n_prompt + i - 1)
+        i += 1
+    host = out.cpu().numpy()
+    hits = np.flatnonzero(host[:i] == eos)
+    return host, int(hits[0]) if hits.size else i
 
 
 def generate_greedy(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
@@ -162,16 +233,174 @@ def generate_greedy(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
     out = torch.zeros(max_tokens, dtype=torch.int32, device=tokens.device)
     out[:1] = first
     run = _step_runner(dec_params, cfg, cache, cache_dtype)
+    return _decode_loop(lambda i, pos: run(out, i, pos), out, n_prompt,
+                        cfg.eos_token_id)
+
+
+# ---------------------------------------------------------------------------
+# sampled decoding (temperature / top-k / top-p)
+# ---------------------------------------------------------------------------
+
+NEG = float(np.finfo(np.float32).min)   # a dropped logit, as the reference sets it
+TINY = float(np.finfo(np.float32).tiny)  # the uniforms' floor, as jax.random.gumbel's
+
+
+def filter_logits(logits: torch.Tensor, temperature: float, top_k: int = 0,
+                  top_p: float = 1.0) -> torch.Tensor:
+    """The filters of the reference's `sample_from_logits`, in its order, on
+    [V] logits -> f32 [V] with every dropped logit set to finfo(f32).min:
+    the temperature (clamped at 1e-4) divides; top-k drops the logits below
+    the k-th largest (ties with it are kept; 0 or >= V disables it); top-p
+    keeps the smallest descending prefix whose probability reaches top_p,
+    the cutoff element with it ("exclusive cumsum < top_p", so top_p >= 1.0
+    keeps everything), and every logit tied with the cutoff. The cumsum runs
+    in float64: on the card a float scan may add in another order from run
+    to run, and at f64 that moves no f32 boundary."""
+    logits = logits.float()
+    t = max(np.float32(temperature), np.float32(1e-4))
+    logits = logits / torch.tensor(t, dtype=torch.float32, device=logits.device)
+    if 0 < top_k < logits.shape[-1]:
+        kth = torch.topk(logits, top_k).values[-1]
+        logits = torch.where(logits < kth, NEG, logits)
+    if top_p < 1.0:
+        srt = torch.sort(logits, descending=True).values
+        probs = torch.softmax(srt, dim=-1).double()
+        keep = (torch.cumsum(probs, dim=-1) - probs) < float(np.float32(top_p))
+        cut = torch.where(keep, srt, float("inf")).min()
+        logits = torch.where(logits < cut, NEG, logits)
+    return logits
+
+
+def sample_from_logits(logits: torch.Tensor, u: torch.Tensor, temperature: float,
+                       top_k: int = 0, top_p: float = 1.0) -> torch.Tensor:
+    """One token id (int32 [1] on the logits' device) from [V] logits: the
+    argmax at temperature <= 0; else the argmax of filter_logits plus the
+    Gumbel noise -log(-log(u)) of u, f32 [V] uniforms in [0, 1) (floored
+    at TINY): a draw from the kept softmax, the Gumbel-max draw of
+    jax.random.categorical. A dropped logit never wins; for given u the
+    draw has no scan in it and repeats bit for bit. No host read."""
+    if temperature <= 0:
+        return torch.argmax(logits).to(torch.int32).reshape(1)
+    gumbel = -torch.log(-torch.log(torch.clamp(u, min=TINY)))
+    x = filter_logits(logits, temperature, top_k, top_p) + gumbel
+    return torch.argmax(x).to(torch.int32).reshape(1)
+
+
+def generate_sample(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
+                    n_prompt: int, audio: torch.Tensor | None, n_audio: int,
+                    audio_offset: int, max_tokens: int, seed: int = 0,
+                    temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
+                    cache_dtype: torch.dtype = torch.bfloat16
+                    ) -> tuple[np.ndarray, int]:
+    """Sampled generation, generate_greedy's contract: (out_tokens
+    [max_tokens] int32 on the host, n_kept). Token i (the first too) is
+    sample_from_logits on the lm head of step i's hidden state: with a
+    decode pack the kernels' h_out (their own head and argmax unused)
+    through the tree's head `lm_logits` (the int8pc copy on the auto path),
+    as the reference samples from its kernel's h_dbg; without one the
+    per-layer step's (K4-K7).
+
+    Each step draws its [V] uniforms, in step order, from one
+    torch.Generator on the tokens' device seeded with `seed`: step i's draw
+    depends on i alone, not on the loop's chunking or graphs. The same seed
+    gives the same tokens on one device; the CPU's and the card's generators
+    give different ones, and neither matches jax.random's stream."""
+    cache_dtype = kv_dtype(dec_params, cache_dtype)
+    dev = tokens.device
+    S = cache_rows(tokens.shape[0], max_tokens)
+    h_last, cache = prefill_hidden(dec_params, cfg, tokens, n_prompt, audio,
+                                   n_audio, audio_offset, S, cache_dtype)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+
+    def pick(h):
+        logits = lm_logits(dec_params, cfg, h.reshape(-1))
+        u = torch.rand(logits.shape, device=dev, generator=gen)
+        return sample_from_logits(logits, u, temperature, top_k, top_p)
+
+    out = torch.zeros(max_tokens, dtype=torch.int32, device=dev)
+    out[:1] = pick(h_last)
+    run = _hidden_runner(dec_params, cfg, cache, cache_dtype)
+
+    def step(i, pos):
+        out[i:i + 1] = pick(run(out, i, pos))
+    return _decode_loop(step, out, n_prompt, cfg.eos_token_id)
+
+
+# ---------------------------------------------------------------------------
+# greedy self-speculation
+# ---------------------------------------------------------------------------
+
+def accept(drafts: np.ndarray, verified: np.ndarray, room: int, eos: int
+           ) -> tuple[np.ndarray, int, int, bool]:
+    """One speculative round's acceptance on the host. The verify's token i
+    is right while the draft fed it the true sequence: up to and with the
+    first draft that differs from the verify's token (all k when none
+    does), clipped at `room` (max_tokens - n), kept up to the first EOS
+    among them. -> (the round's tokens, always the verify's; n_acc, kept,
+    whether an EOS ended the sequence)."""
+    mism = np.flatnonzero(drafts != verified)
+    n_acc = min(int(mism[0]) + 1 if mism.size else len(drafts), room)
+    hits = np.flatnonzero(verified[:n_acc] == eos)
+    return verified, n_acc, int(hits[0]) if hits.size else n_acc, bool(hits.size)
+
+
+def generate_greedy_spec(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
+                         n_prompt: int, audio: torch.Tensor | None, n_audio: int,
+                         audio_offset: int, max_tokens: int, k: int = 8
+                         ) -> tuple[np.ndarray, int, dict]:
+    """Greedy self-speculation over an int8 cache: each round drafts k
+    tokens through the decode pack's int8-cache step (K1, either pack; a
+    GraphStep on the card), then verifies them in one block pass of k rows,
+    [cur, d0 .. d_{k-2}] at positions pos0 .. pos0 + k - 1, through
+    decoder_forward over the tree without its pack (the int8pc leaves),
+    which overwrites the drafts' cache rows. The emitted tokens are always
+    the verify's argmaxes: the per-layer int8pc greedy sequence over an
+    int8 cache, whatever the drafts, which only set how many verified tokens
+    a round keeps (up to and with the first mismatch, clipped at
+    max_tokens - n, stopped at EOS). One host read per round.
+
+    Unlike the reference there is no guard on the megakernel's VMEM budget
+    (long audio): the kernels read any S. -> (out [max_tokens] int32 on the
+    host, n_kept, {"rounds", "drafted", "accepted"})."""
+    if k < 1:
+        raise ValueError(f"spec k must be >= 1, got {k}")
+    if "mega" not in dec_params:
+        raise ValueError("generate_greedy_spec drafts through the decode pack "
+                         "(quantize int8pc / auto / int4)")
+    dev = tokens.device
+    # room for one draft block past the budget (the last round's verify may
+    # write rows up to n_prompt + max_tokens + k - 2)
+    S = cache_rows(tokens.shape[0], max_tokens + k)
+    first, cache = prefill(dec_params, cfg, tokens, n_prompt, audio, n_audio,
+                           audio_offset, S, torch.int8)
+    vparams = {key: val for key, val in dec_params.items() if key != "mega"}
+    draft = mega_runner(dec_params["mega"], cfg, mega_caches(cfg, cache, torch.int8))
     eos = cfg.eos_token_id
-    i = 1
-    while i < max_tokens:
-        if (i - 1) % EOS_CHECK_EVERY == 0 and bool((out[:i] == eos).any()):
-            break
-        run(out, i, n_prompt + i - 1)   # the token of step i sits at n_prompt + i - 1
-        i += 1
-    host = out.cpu().numpy()
-    hits = np.flatnonzero(host[:i] == eos)
-    return host, int(hits[0]) if hits.size else i
+    d = torch.zeros(k + 1, dtype=torch.int32, device=dev)   # [cur, d0 .. d_{k-1}]
+    d[:1] = first
+    out = np.zeros(max_tokens + k, np.int32)
+    out[0] = int(first[0])
+    done = bool(out[0] == eos)
+    n = 0 if done else 1
+    stats = {"rounds": 0, "drafted": 0, "accepted": 0}
+    while not done and n < max_tokens:
+        pos0 = n_prompt + n - 1
+        for j in range(1, k + 1):
+            draft(d, j, pos0 + j - 1)
+        hb = vparams["token_embd"][d[:k].long()]
+        hv = decoder_forward(vparams, cfg, hb, cache, pos0 + k, prefill=False,
+                             cache_offset=pos0)
+        v = torch.argmax(lm_logits_block(vparams, cfg, hv), dim=-1).to(torch.int32)
+        host = torch.cat([d[1:], v]).cpu().numpy()
+        emitted, n_acc, kept, done = accept(host[:k], host[k:], max_tokens - n, eos)
+        out[n:n + k] = emitted
+        if kept:
+            d[:1] = int(emitted[kept - 1])
+        stats["rounds"] += 1
+        stats["drafted"] += k
+        stats["accepted"] += n_acc
+        n += kept
+    return out[:max_tokens], n, stats
 
 
 # ---------------------------------------------------------------------------

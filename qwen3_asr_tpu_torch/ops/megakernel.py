@@ -479,13 +479,19 @@ class GraphStep:
     consecutive tokens with no host work but the replay. `run(out, i, pos)`
     decodes the token of out[i - 1] at position pos into out[i]: the first
     call runs the step eagerly (which also loads every kernel) and then
-    captures it; later calls copy out[i - 1] in and write the position only
-    when the previous replay did not leave them there. The host's checks
-    ran at capture. A capture that fails raises; there is no eager
-    fallback. Counts one launch of the step's entry per replay."""
+    captures it; later calls write the position only when the previous
+    replay did not leave it there, and copy out[i - 1] in only when it is
+    not the previous replay's own argmax, out[i - 1] as that replay left it
+    (the greedy loops). `own_tokens=False` (a sampled loop, whose caller
+    overwrites out[i] with another token after each call) copies out[i - 1]
+    in before every replay. `h` is the step's hidden state before the final
+    norm, f32 [1, H], as the last call left it. The host's checks ran at
+    capture. A capture that fails raises; there is no eager fallback.
+    Counts one launch of the step's entry per replay."""
 
-    def __init__(self, step: DecodeStep):
+    def __init__(self, step: DecodeStep, own_tokens: bool = True):
         self.step = step
+        self.own_tokens = own_tokens
         self.tok = torch.zeros(1, dtype=torch.int32, device=step.dev)
         self.pos = torch.ones(1, dtype=torch.int32, device=step.dev)
         self.graph = None
@@ -524,8 +530,13 @@ class GraphStep:
             self.tok.copy_(out[i - 1:i])
         self.graph.replay()
         out[i:i + 1].copy_(self.tok)
-        self._last, self._next_pos = (out.data_ptr(), i), pos + 1
+        self._last = (out.data_ptr(), i) if self.own_tokens else None
+        self._next_pos = pos + 1
         self.step.counter.launches += 1
+
+    @property
+    def h(self) -> torch.Tensor:
+        return self.step.h
 
 
 def _single_step(pack, cfg, token_or_x, pos, k, v, k_s, v_s):

@@ -88,7 +88,8 @@ def has_sm90() -> bool:
 def has_cuda_kernels() -> bool:
     """True iff a CUDA device of compute capability 9.0 is present and the
     kernel library's probe kernel runs right on it. On such a device a
-    library that does not build or load raises."""
+    library that does not build or load raises. The probe's launches are
+    counted in `has_cuda_kernels.launches`."""
     if not has_sm90():
         return False
     from qwen3_asr_tpu_torch.ops.build import kernel
@@ -99,6 +100,10 @@ def has_cuda_kernels() -> bool:
     x = torch.arange(8 * 128, dtype=torch.float32, device=dev)
     y = torch.empty_like(x)
     rc = fn(x.data_ptr(), y.data_ptr(), x.numel(), stream_ptr(dev))
+    has_cuda_kernels.launches += 1
     if rc != 0:
         return False
     return bool(torch.equal(y, 2 * x))
+
+
+has_cuda_kernels.launches = 0

@@ -17,12 +17,17 @@ decode, each timed; the bucketed frontend at `mel_bucket > 0`), as the
 reference picks them; a progress or token callback (`set_progress_callback`,
 `set_token_callback`) or `print_progress` takes the staged path with the
 streaming decode (`generate_greedy_streaming`: callbacks per token, one host
-read per 8 tokens). `transcribe_batch` (the bucketed batched frontend, the
+read per 8 tokens). Sampled decoding (`temperature` > 0, with `top_k`,
+`top_p` and `seed`: `generate_sample`) and greedy self-speculation (`spec_k`
+> 0: `generate_greedy_spec`, which needs a decode pack and runs over an int8
+cache) take the staged path too, as in the reference; spec_k is ignored
+under sampling, and a sampled request reports no per-token progress. Unlike
+the reference, spec runs wherever the pack does (the twins on the CPU) and
+at any audio length. `transcribe_batch` (the bucketed batched frontend, the
 batched prefill and the lockstep batched decode step in chunks of at most
 16 sequences, as the `mesh=None` branch of
 qwen3_asr_tpu/parallel/mesh.py::batched_transcribe_step runs them) takes a
-decode pack and the int8 cache. Sampled decoding and speculative decoding
-are not ported and say so.
+decode pack and the int8 cache.
 """
 
 from __future__ import annotations
@@ -53,13 +58,8 @@ from qwen3_asr_tpu_torch.runtime.params import (
 )
 from qwen3_asr_tpu_torch.runtime.profiler import timer
 
-# What the port does not carry yet, by ROADMAP item.
-NOT_PORTED = {
-    "sampling": "sampled decoding (temperature > 0) is not ported "
-                "(ROADMAP Queue 1 item 12)",
-    "spec": "speculative decoding (spec_k > 0) is not ported "
-            "(ROADMAP Queue 1 item 14)",
-}
+SPEC_NEEDS_PACK = ("spec_k needs a quantized model with the decode megakernel "
+                   "(quantize='int8pc'/'auto'/'int4')")
 
 
 @dataclasses.dataclass
@@ -77,8 +77,12 @@ class TranscribeParams:
     # fused=True (and mel_bucket 0): models/e2e.py::transcribe_fused;
     # otherwise the staged path with per-stage timings
     fused: bool = False
-    spec_k: int = 0               # > 0 not ported: NOT_PORTED["spec"]
-    temperature: float = 0.0      # > 0 not ported: NOT_PORTED["sampling"]
+    # greedy self-speculation: draft spec_k tokens a round through the decode
+    # pack, verify them in one int8pc pass (0 = off; ignored under sampling)
+    spec_k: int = 0
+    # sampled decoding: temperature > 0 draws from the softmax after top-k
+    # (0 = off) and top-p (1.0 = off); seed seeds the request's generator
+    temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
     seed: int = 0
@@ -94,16 +98,6 @@ class TranscribeResult:
     t_encode_ms: float = 0.0
     t_decode_ms: float = 0.0
     t_total_ms: float = 0.0
-
-
-def unported(params: TranscribeParams) -> str:
-    """The NOT_PORTED message of the first mode `params` asks for that the
-    port does not carry, or ""."""
-    if params.temperature > 0:
-        return NOT_PORTED["sampling"]
-    if params.spec_k > 0:
-        return NOT_PORTED["spec"]
-    return ""
 
 
 class Qwen3ASR:
@@ -222,10 +216,8 @@ class Qwen3ASR:
         if self.params is None:
             result.error_msg = "Model not loaded"
             return result
-        result.error_msg = unported(params)
-        if result.error_msg:
-            return result
-        if params.fused and params.mel_bucket == 0 and not self._streaming(params):
+        if (params.fused and params.mel_bucket == 0 and not self._streaming(params)
+                and params.spec_k == 0 and params.temperature <= 0):
             samples = audio if isinstance(audio, PreparedPCM) else \
                 self._load_samples(audio, result)
             if samples is None:
@@ -267,14 +259,17 @@ class Qwen3ASR:
 
     def _transcribe_staged(self, samples, params, result) -> TranscribeResult:
         """Mel, the encoder (bucketed at mel_bucket > 0), then the prompt
-        padded to its bucket and generate_greedy, or with callbacks or
-        print_progress generate_greedy_streaming: each stage ends in a
-        synchronize, so the stage times are the device's."""
+        padded to its bucket and the decode: generate_greedy_spec (spec_k >
+        0, greedy), generate_sample (temperature > 0), generate_greedy_streaming
+        (callbacks or print_progress) or generate_greedy. Each stage ends in
+        a synchronize, so the stage times are the device's."""
         from qwen3_asr_tpu_torch.models.e2e import _pad_pcm
         from qwen3_asr_tpu_torch.models.encoder import encode, encode_audio_padded
         from qwen3_asr_tpu_torch.models.generate import (
             generate_greedy,
+            generate_greedy_spec,
             generate_greedy_streaming,
+            generate_sample,
         )
         from qwen3_asr_tpu_torch.audio.mel import log_mel_spectrogram_padded, mel_device
 
@@ -315,9 +310,38 @@ class Qwen3ASR:
         toks[:n_prompt] = prompt
         args = (self.params["decoder"], dcfg, torch.from_numpy(toks).to(dev), n_prompt,
                 feats, n_audio, audio_start_pos(prompt, dcfg), params.max_tokens)
+        sampled = params.temperature > 0
+        use_spec = params.spec_k > 0 and not sampled
+        if sampled and params.spec_k > 0:
+            print("Note: temperature>0 — spec_k (greedy-exact speculation) does "
+                  "not apply to sampled decoding; using the sampled path.",
+                  file=sys.stderr, flush=True)
+        if use_spec and "mega" not in self.params["decoder"]:
+            result.error_msg = SPEC_NEEDS_PACK
+            return result
         t0 = time.perf_counter()
         with timer("decode.generate"):
-            if self._streaming(params):
+            if use_spec:
+                if self.cache_dtype != torch.int8:
+                    print("Note: spec_k uses an int8 KV cache; the configured "
+                          "kv_cache setting is ignored.", file=sys.stderr, flush=True)
+                out, n_kept, stats = generate_greedy_spec(*args, k=params.spec_k)
+                if params.print_timing:
+                    drafted = max(stats["drafted"], 1)
+                    print(f"spec: rounds={stats['rounds']} "
+                          f"accepted={stats['accepted']}/{drafted} "
+                          f"({stats['accepted'] / drafted:.0%})",
+                          file=sys.stderr, flush=True)
+            elif sampled:
+                if self._streaming(params):
+                    print("Note: temperature>0 decodes without per-token "
+                          "callbacks; per-token progress is not reported.",
+                          file=sys.stderr, flush=True)
+                out, n_kept = generate_sample(
+                    *args, seed=params.seed, temperature=float(params.temperature),
+                    top_k=int(params.top_k), top_p=float(params.top_p),
+                    cache_dtype=self.cache_dtype)
+            elif self._streaming(params):
                 def on_token(i, total):
                     if self._progress_cb:
                         self._progress_cb(i, total)

@@ -16,12 +16,16 @@ a single worker thread does all device work, in one of two modes:
   (`_run_stream`: the streaming decode path, 8 tokens per host read);
   alignments arriving together run as one `align_batch` per language, and
   a request of another kind arriving in the window is stashed for the
-  next round (mixed traffic does not split batches);
+  next round (mixed traffic does not split batches); a request with
+  parameters of its own (`submit(samples, params)`: the OpenAI route's
+  sampled requests) runs alone through `transcribe`, outside the greedy
+  batch;
 - continuous (`continuous=True`): greedy requests join a slot pool
   (`pipeline/engine.py::ContinuousEngine`) between decode rounds, and
   streaming requests get their text deltas from the pool's per-round
-  progress hook; what the pool cannot take (alignments, requests too long
-  for its context) takes the closed-batch path between rounds, streams
+  progress hook; what the pool cannot take (alignments, requests with
+  their own parameters, requests too long for its context) takes the
+  closed-batch path between rounds, streams and own-parameter requests
   alone.
 
 `serve_http()` is a stdlib `ThreadingHTTPServer` front end:
@@ -37,17 +41,19 @@ a single worker thread does all device work, in one of two modes:
                                    verbose_json | srt | vtt,
                                    `timestamp_granularities[]=word`, both
                                    through the aligner; `stream=true` as
-                                   SSE)
+                                   SSE; `temperature` in [0, 2] with
+                                   `seed`: sampled decoding, greedy-only
+                                   under `stream=true`)
 
 Without an aligner, alignment, word timestamps and srt / vtt answer 400
-with the JAX package's messages. Sampled decoding (`temperature` > 0) is
-not ported and answers 400 in the JAX package's error envelope.
+with the JAX package's messages.
 """
 
 from __future__ import annotations
 
 import argparse
 import base64
+import dataclasses
 import json
 import queue
 import sys
@@ -73,10 +79,6 @@ from qwen3_asr_tpu_torch.text.subtitles import (
     words_to_vtt,
 )
 
-NOT_PORTED = {
-    "sampling": "sampled decoding (temperature > 0) is not ported to the CUDA "
-                "server yet",
-}
 NO_ALIGNER_WORDS = ("word timestamps need an aligner model "
                     "(start the server with --aligner-model)")
 NO_ALIGNER = "no aligner model loaded"
@@ -137,12 +139,15 @@ class _Request:
     delta: object = None                    # worker-side _StreamDelta (pool streams)
     align_text: str | None = None           # set: forced-alignment request
     language: str = ""
+    params: TranscribeParams | None = None  # set: runs alone with these params
 
 
 def _request_kind(req: _Request) -> str:
     if req.align_text is not None:
         return "align"
-    return "asr" if req.stream_q is None else "stream"
+    if req.stream_q is not None:
+        return "stream"
+    return "asr" if req.params is None else "solo"
 
 
 class ASRServer:
@@ -182,11 +187,15 @@ class ASRServer:
 
     # -- client side ---------------------------------------------------------
 
-    def submit(self, samples: np.ndarray) -> Future:
+    def submit(self, samples: np.ndarray,
+               params: TranscribeParams | None = None) -> Future:
         """Enqueue one utterance (float32/int16 16 kHz samples) -> Future
-        of a TranscribeResult."""
+        of a TranscribeResult. `params` overrides the server's
+        TranscribeParams for this request (sampling): such a request runs
+        alone through `transcribe`, never in the greedy batch or the
+        pool."""
         fut: Future = Future()
-        self._queue.put(_Request(np.asarray(samples), fut))
+        self._queue.put(_Request(np.asarray(samples), fut, params=params))
         return fut
 
     def submit_align(self, samples: np.ndarray, text: str,
@@ -242,9 +251,9 @@ class ASRServer:
     def _collect(self) -> list[_Request]:
         """Block for the first request (a stashed one first), then batch
         same-kind requests, stashed ones first, then those arriving within
-        the window (up to max_batch); a stream runs alone, at once. A
-        request of another kind arriving in the window is stashed for the
-        next round."""
+        the window (up to max_batch); a stream or a request with its own
+        params runs alone, at once. A request of another kind arriving in
+        the window is stashed for the next round."""
         if self._pending:
             first = self._pending.popleft()
         else:
@@ -253,7 +262,7 @@ class ASRServer:
                 return []
         batch = [first]
         kind = _request_kind(first)
-        if kind == "stream":
+        if kind in ("stream", "solo"):
             return batch
         self._take_pending(batch)
         deadline = time.perf_counter() + self.max_wait_ms / 1e3
@@ -280,14 +289,16 @@ class ASRServer:
                 self._process_batch(batch)
 
     def _process_batch(self, batch: list[_Request]) -> None:
-        """Run one closed batch, or one stream alone, and deliver its
-        results."""
+        """Run one closed batch, or one stream or own-params request alone,
+        and deliver its results."""
         try:
             if batch[0].stream_q is not None:
                 self._run_stream(batch[0])
                 results = []
             elif batch[0].align_text is not None:
                 results = self._run_align(batch)
+            elif batch[0].params is not None:
+                results = [self.asr.transcribe(batch[0].samples, batch[0].params)]
             elif len(batch) == 1:
                 results = [self.asr.transcribe(batch[0].samples, self.params)]
             else:
@@ -379,10 +390,11 @@ class ASRServer:
 
     def _collect_pending_batch(self) -> list[_Request]:
         """One closed batch from `_pending` (the continuous worker's path
-        for what the pool cannot take): a stream alone, or the first
-        request and the pending ones of its kind, up to max_batch."""
+        for what the pool cannot take): a stream or an own-params request
+        alone, or the first request and the pending ones of its kind, up to
+        max_batch."""
         batch = [self._pending.popleft()]
-        if batch[0].stream_q is None:
+        if _request_kind(batch[0]) not in ("stream", "solo"):
             self._take_pending(batch)
         return batch
 
@@ -397,9 +409,9 @@ class ASRServer:
 
     def _run_continuous(self):
         """Continuous worker: requests (plain or streaming) prefill into
-        the slot pool between decode rounds; alignments and too-long
-        requests take the closed-batch path between rounds. One thread,
-        one device owner."""
+        the slot pool between decode rounds; alignments, own-params and
+        too-long requests take the closed-batch path between rounds. One
+        thread, one device owner."""
         eng = self._engine
         eng.on_progress = self._engine_progress
         backlog: deque = deque()  # pool-eligible requests awaiting a slot
@@ -410,7 +422,8 @@ class ASRServer:
                 break
             rest: deque = deque()
             for req in self._pending:
-                if req.align_text is None and eng.eligible(len(req.samples)):
+                if (_request_kind(req) in ("asr", "stream")
+                        and eng.eligible(len(req.samples))):
                     if req.stream_q is not None:
                         req.delta = _StreamDelta(self.asr.tokenizer)
                     backlog.append(req)
@@ -555,7 +568,9 @@ def _make_handler(server: ASRServer):
             srt | vtt; `timestamp_granularities[]=word` (with verbose_json);
             `stream=true` (json or text) as SSE; `language` names the
             language (ISO codes map to the pipeline's names, so `ko` gets
-            the Korean word split); `model` / `prompt` are accepted and
+            the Korean word split); `temperature` in [0, 2] (> 0: sampled
+            decoding with the integer `seed`, a request of its own; not
+            with `stream=true`); `model` / `prompt` are accepted and
             ignored. Word timestamps and the srt / vtt cues come from the
             aligner run on the transcript."""
             ctype = self.headers.get("Content-Type", "")
@@ -593,22 +608,35 @@ def _make_handler(server: ASRServer):
             if (want_words or fmt in ("srt", "vtt")) and server.aligner is None:
                 self._openai_error(400, NO_ALIGNER_WORDS)
                 return
+            samples, sr = load_wav_bytes(fields["file"][-1], raw_int16=True)
+            if sr != SAMPLE_RATE:
+                self._openai_error(400, f"Audio must be 16kHz, got {sr} Hz")
+                return
             try:
                 temp = float(field("temperature", "0") or "0")
             except ValueError:
                 self._openai_error(400, "temperature must be a number")
                 return
-            if temp > 0:
-                self._openai_error(400, NOT_PORTED["sampling"])
-                return
-            samples, sr = load_wav_bytes(fields["file"][-1], raw_int16=True)
-            if sr != SAMPLE_RATE:
-                self._openai_error(400, f"Audio must be 16kHz, got {sr} Hz")
+            if not 0.0 <= temp <= 2.0:
+                self._openai_error(400, "temperature must be in [0, 2]")
                 return
             if stream:
+                if temp > 0:
+                    self._openai_error(400, "stream=true is greedy-only (sampled "
+                                            "decoding runs as one whole-loop program)")
+                    return
                 self._sse_transcription(samples)
                 return
-            result = server.submit(samples).result()
+            req_params = None
+            if temp > 0:
+                try:
+                    seed = int(field("seed", "0") or "0")
+                except ValueError:
+                    self._openai_error(400, "seed must be an integer")
+                    return
+                req_params = dataclasses.replace(server.params, temperature=temp,
+                                                 seed=seed)
+            result = server.submit(samples, params=req_params).result()
             if not result.success:
                 self._openai_error(500, result.error_msg, "server_error")
                 return

@@ -1,7 +1,8 @@
 """Planted faults against `chip_smoke.py`'s checks, on the card, at
 Qwen3-ASR-0.6B's and Qwen3-ForcedAligner-0.6B's full width (random weights,
 seed 0): the per-layer decode path (Q8_0 weights), K1 / K3 on the int8 pack
-(`quantize="auto"`), the weight-stream microbenchmarks and the aligner.
+(`quantize="auto"`), sampled decoding and greedy self-speculation, the
+weight-stream microbenchmarks and the aligner.
 
 Each case plants one fault at run time (a slice of a weight dropped, the
 dequant dtype flipped, a cache row dropped, RoPE one position off, the fresh
@@ -13,7 +14,11 @@ swapped, flash attention's causal mask one key late or its last partial key
 tile skipped, K1's graph replayed without advancing the position, K1's
 GEMV prologue reading no attn_norm weight, the aligner's NAR pass or K2 at
 its shape ignoring the prompt's valid length, the aligner's encoder window
-one row off or its bucketed attention ignoring n_audio) and asserts that the phase of
+one row off or its bucketed attention ignoring n_audio, the sampled loop
+fed K1's argmax through the greedy GraphStep's shortcut, the sampled head
+given the post-norm h, top-p dropping its cutoff element, the speculative
+verify reading the drafts' cache rows, a spec round emitting the draft at
+its first mismatch) and asserts that the phase of
 `chip_smoke.py` that guards against it raises. The phases print their readings before they raise; run
 with `-s` to see them beside the bounds:
 
@@ -490,3 +495,105 @@ def test_windowed_attention_ignoring_n_audio_caught(aligner):
         caught("windowed attention ignoring n_audio",
                lambda: cs.check_window_attention(fa, cs.random_mel(fa, nf, bucket), nf,
                                                  cs.ALIGN_BUCKET))
+
+
+# -- sampled decoding and greedy self-speculation -----------------------------
+
+def sampling_phase(cs, asr):
+    """phase_sampling on the auto model (K1, int8 pack, bf16 cache) with a
+    64-token window."""
+    return cs.phase_sampling(asr, "auto", 8, "mega_bf16", cs.SAMPLE_CHECK, 4)
+
+
+def test_sampled_loop_with_the_greedy_shortcut_caught(auto_asr):
+    """The sampled loop's GraphStep left in the greedy mode (own_tokens), so
+    each replay consumes K1's own argmax instead of the drawn token: the
+    sampling phase raises."""
+    from qwen3_asr_tpu_torch.models import generate as gen
+    from qwen3_asr_tpu_torch.ops import megakernel as mk
+
+    cs, asr = auto_asr
+    with patched(gen, "GraphStep", lambda step, own_tokens=True: mk.GraphStep(step)):
+        caught("sampled loop fed K1's argmax", lambda: sampling_phase(cs, asr))
+
+
+def test_sampling_from_the_post_norm_h_caught(auto_asr):
+    """The sampled head given the hidden state after the final norm (the
+    head then normalizes it again) instead of K1's pre-norm h_out: the
+    sampling phase raises."""
+    from qwen3_asr_tpu_torch.models import generate as gen
+    from qwen3_asr_tpu_torch.models.decoder import rms_norm
+
+    cs, asr = auto_asr
+    real = gen.mega_sample_runner
+
+    def post_norm(pack, cfg, kvs):
+        run = real(pack, cfg, kvs)
+        return lambda out, i, pos: rms_norm(run(out, i, pos), pack["out_norm"],
+                                            cfg.rms_norm_eps)
+
+    with patched(gen, "mega_sample_runner", post_norm):
+        caught("sampling from the post-norm h", lambda: sampling_phase(cs, asr))
+
+
+def test_top_p_dropping_the_cutoff_caught(auto_asr):
+    """filter_logits' nucleus with an inclusive cumsum (the element that
+    reaches top_p dropped): the sampling phase raises."""
+    from qwen3_asr_tpu_torch.models import generate as gen
+
+    cs, asr = auto_asr
+    real = gen.filter_logits
+
+    def inclusive(logits, temperature, top_k=0, top_p=1.0):
+        x = real(logits, temperature, top_k, 1.0)
+        if top_p >= 1.0:
+            return x
+        srt = torch.sort(x, descending=True).values
+        keep = torch.cumsum(torch.softmax(srt, -1), -1) < top_p
+        cut = torch.where(keep, srt, float("inf")).min()
+        return torch.where(x < cut, gen.NEG, x)
+
+    with patched(gen, "filter_logits", inclusive):
+        caught("top-p without its cutoff element", lambda: sampling_phase(cs, asr))
+
+
+@pytest.fixture(scope="module")
+def int4_asr(q8_asr):
+    """The int4 pack over an int8 cache (random weights seed 0, EOS off):
+    its drafts differ from the int8pc verify more often than the int8
+    pack's."""
+    from qwen3_asr_tpu_torch.config import ASRModelConfig
+    from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR
+
+    cs, _ = q8_asr
+    asr = Qwen3ASR(quantize="int4", kv_cache="int8", device="cuda")
+    asr.load_random(ASRModelConfig(), seed=0)
+    return cs.eos_off(asr)
+
+
+def test_verify_reading_the_drafts_rows_caught(auto_asr, int4_asr):
+    """The verify pass reading the cache rows from cache_offset on (the
+    drafts' stale rows) as cache columns: the spec phase raises."""
+    from qwen3_asr_tpu_torch.models import decoder as dmod
+
+    cs, asr = auto_asr
+    with patched(dmod, "_cache_rows_read", lambda offset, valid: valid):
+        caught("verify reading the drafts' rows", lambda: cs.phase_spec(asr, int4_asr))
+
+
+def test_acceptance_taking_the_draft_caught(auto_asr, int4_asr):
+    """A spec round emitting the draft, not the verify's token, at the first
+    mismatch: the spec phase raises."""
+    from qwen3_asr_tpu_torch.models import generate as gen
+
+    cs, asr = auto_asr
+    real = gen.accept
+
+    def drafts_win(drafts, verified, room, eos):
+        emitted, n_acc, kept, done = real(drafts, verified, room, eos)
+        emitted = emitted.copy()
+        emitted[n_acc - 1] = drafts[n_acc - 1]
+        return emitted, n_acc, kept, done
+
+    with patched(gen, "accept", drafts_win):
+        caught("acceptance taking the draft", lambda: cs.phase_spec(asr, int4_asr))

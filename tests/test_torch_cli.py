@@ -2,8 +2,9 @@
 CPU against the JAX package's (qwen3_asr_tpu/cli.py), mirroring the
 transcription cases of tests/test_cli.py on a tiny GGUF: the same flags and
 defaults, the transcript (or the -o notice) on stdout and diagnostics on
-stderr, exit 1 on errors, and every mode the port does not carry refused
-before anything runs. The alignment modes (`--align`, `-a`) print the JAX
+stderr, exit 1 on errors. `--spec-k` prints the JAX CLI's `--kv-int8`
+transcript (the int8pc greedy sequence), and `--temperature` with `--seed`
+is reproducible. The alignment modes (`--align`, `-a`) print the JAX
 CLI's stdout byte for byte in json, srt and vtt, on a tiny aligner GGUF. The tokens (`--tokens`, printed on stderr) of the
 default configuration (`--quantize auto`: int8pc weights, the int8 decode
 pack, a bf16 cache) and of `--kv-int8` equal the JAX CLI's; with `--kv-int4`
@@ -153,13 +154,17 @@ def fa_files(tmp_path_factory):
     ["--spec-k", "2"], ["--temperature", "0.7"], ["--progress"]],
     ids=["align", "transcribe-align", "kv-int4", "spec-k", "temperature", "progress"])
 def test_unported_flags_exit_1(files, fa_files, capsys, flags):
-    """What the port does not carry exits 1 with "not ported" and nothing on
-    stdout. --kv-int4 and --progress, which it carries, run instead: exit 0,
-    the transcript alone on stdout and the tokens of the port's own
-    Qwen3ASR in that mode (the int4 cache; the streaming path, which gives
-    the fused path's tokens). --align and --transcribe-align, which it
-    carries since the aligner was ported, run too: exit 0 and stdout equal
-    to the JAX CLI's (f32 weights, on a tiny aligner GGUF)."""
+    """Every flag here once exited 1 with "not ported"; each now runs.
+    --kv-int4 and --progress: exit 0, the transcript alone on stdout and the
+    tokens of the port's own Qwen3ASR in that mode (the int4 cache; the
+    streaming path, which gives the fused path's tokens). --align and
+    --transcribe-align, since the aligner was ported: exit 0 and stdout
+    equal to the JAX CLI's (f32 weights, on a tiny aligner GGUF). --spec-k,
+    since speculation was ported: exit 0, stdout and tokens equal to the JAX
+    CLI's int8pc greedy transcript over an int8 cache (`--kv-int8`, its XLA
+    path on the CPU). --temperature (with --seed), since sampling was
+    ported: exit 0, and a second run with the same seed prints the same
+    transcript and tokens."""
     from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams
 
     model, wav, _ = files
@@ -174,12 +179,24 @@ def test_unported_flags_exit_1(files, fa_files, capsys, flags):
         assert got.out == want.out and '"words"' in got.out
         return
     argv = ["-m", model, "-f", wav, "--platform", "cpu"] + flags
-    if flags[0] not in ("--kv-int4", "--progress"):
-        assert main(argv) == 1
-        cap = capsys.readouterr()
-        assert cap.out == "" and "not ported" in cap.err
+    run = ["--max-tokens", "6", "--no-timing", "--tokens"]
+    if flags[0] == "--spec-k":
+        assert jax_main(["-m", model, "-f", wav, "--platform", "cpu", "--kv-int8"] + run) == 0
+        want = capsys.readouterr()
+        assert main(argv + run) == 0
+        got = capsys.readouterr()
+        assert got.out == want.out and tokens(got.err) == tokens(want.err)
+        assert len(tokens(got.err)) == 6
         return
-    assert main(argv + ["--max-tokens", "6", "--no-timing", "--tokens"]) == 0
+    if flags[0] == "--temperature":
+        outs = []
+        for _ in range(2):
+            assert main(argv + ["--seed", "3"] + run) == 0
+            outs.append(capsys.readouterr())
+        assert outs[0].out == outs[1].out and len(tokens(outs[0].err)) >= 1
+        assert tokens(outs[0].err) == tokens(outs[1].err)
+        return
+    assert main(argv + run) == 0
     cap = capsys.readouterr()
     asr = Qwen3ASR(quantize="auto", kv_cache="int4" if flags[0] == "--kv-int4" else None,
                    device="cpu")

@@ -526,3 +526,135 @@ def test_microbench_kernels_match_twins(cuda_kernels):
         if mode != "bf16_m8":   # the cross-block scratch is left zero for the next call
             assert torch.equal(fn(), got), mode
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int4,kv", MODES, ids=[f"{'int4' if a else 'int8'}-{b}"
+                                                for a, b in MODES])
+def test_graphed_sampled_steps_take_the_callers_token(cuda_kernels, int4, kv):
+    """GraphStep(own_tokens=False), the sampled loop's runner, in each of
+    the six modes: the caller overwrites out[i] after every step with a
+    token of its own (not K1's argmax); 32 replays equal eager steps fed the
+    same tokens, h and the caches torch.equal. The greedy runner's shortcut
+    (own_tokens=True) in the same loop would feed K1's argmax instead: its
+    h differs from the third step on, where its replays stop copying their
+    input in (the planted fault this mode exists for)."""
+    dcfg, pack = _tiny_pack(int4)
+    S, pos0, n = 256, 150, 32
+    k, ks = _cache(dcfg, S, pos0, 1, kv)
+    v, vs = _cache(dcfg, S, pos0, 2, kv)
+    a = [k, v, ks, vs]
+    b = [None if t is None else t.clone() for t in a]
+    c = [None if t is None else t.clone() for t in a]
+    eager = tmk.DecodeStep(pack, dcfg, *a)
+    run = tmk.GraphStep(tmk.DecodeStep(pack, dcfg, *b), own_tokens=False)
+    shortcut = tmk.GraphStep(tmk.DecodeStep(pack, dcfg, *c))
+    toks = torch.zeros(n + 1, dtype=torch.int32, device="cuda")
+    buf, buf2 = toks.clone(), toks.clone()
+    toks[0] = buf[0] = buf2[0] = 7
+    differs = 0
+    for i in range(1, n + 1):
+        eager(toks[i - 1:i], pos0 + i - 1, toks[i:i + 1])
+        run(buf, i, pos0 + i - 1)
+        shortcut(buf2, i, pos0 + i - 1)
+        assert torch.equal(eager.h, run.h), i
+        differs += not torch.equal(eager.h, shortcut.h)
+        mine = (toks[i:i + 1] + 1 + i) % dcfg.vocab_size   # the caller's token
+        toks[i:i + 1] = buf[i:i + 1] = buf2[i:i + 1] = mine
+    for x, y in zip(a, b):
+        assert x is None or torch.equal(x, y)
+    assert differs == n - 2
+
+
+def _mid_models():
+    """A decoder between the tiny and the full config (4 layers at hidden
+    512, head_dim 128, vocab 2,048: the int8pc products' cuBLAS int8 GEMMs
+    take no narrower widths) with its int8 decode pack, on the card, and a
+    48-token prompt."""
+    import dataclasses
+
+    from qwen3_asr_tpu_torch.config import DecoderConfig
+
+    V = 2048
+    cfg = dataclasses.replace(tiny_asr_config(), decoder=DecoderConfig(
+        vocab_size=V, hidden_size=512, n_layers=4, n_heads=8, n_kv_heads=4, head_dim=128,
+        intermediate_size=1024, pad_token_id=0, eos_token_id=V - 1,
+        audio_start_token_id=V - 4, audio_end_token_id=V - 3, audio_pad_token_id=V - 2))
+    dec = tparams.init_asr_params(cfg, seed=3, device="cuda")["decoder"]
+    dec = tparams.fuse_decoder_params(tparams.quantize_decoder_params(dec))
+    dec["mega"] = tmk.pack_megakernel_params(dec, cfg.decoder, int4=False)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    toks = torch.randint(0, V - 10, (48,), generator=g, device="cuda", dtype=torch.int32)
+    return cfg.decoder, dec, toks
+
+
+@pytest.mark.cuda
+def test_generate_sample_graphed_equals_eager(cuda_kernels):
+    """generate_sample on the card (K1 replayed from its graph, its h_out
+    through the int8pc head, the drawn token fed back) equals the same loop
+    run eagerly: DecodeStep per step, lm_logits(h), sample_from_logits on
+    uniforms drawn per step from the seeded generator; a seed gives the
+    same tokens twice."""
+    from qwen3_asr_tpu_torch.models import generate as gen
+    from qwen3_asr_tpu_torch.models.decoder import lm_logits
+
+    dcfg, dec, toks = _mid_models()
+    n_prompt, max_tokens = 40, 24
+    kw = dict(temperature=1.0, top_k=40, top_p=0.9)
+    got, n = gen.generate_sample(dec, dcfg, toks, n_prompt, None, 0, 0, max_tokens, seed=3,
+                                 **kw)
+    again, _ = gen.generate_sample(dec, dcfg, toks, n_prompt, None, 0, 0, max_tokens, seed=3,
+                                   **kw)
+    assert n == max_tokens and (got == again).all()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    S = gen.cache_rows(toks.shape[0], max_tokens)
+    h, cache = gen.prefill_hidden(dec, dcfg, toks, n_prompt, None, 0, 0, S, torch.bfloat16)
+    step = tmk.DecodeStep(dec["mega"], dcfg, *gen.mega_caches(dcfg, cache, torch.bfloat16))
+    out = torch.zeros(max_tokens, dtype=torch.int32, device="cuda")
+    def pick(h):
+        logits = lm_logits(dec, dcfg, h)
+        return gen.sample_from_logits(
+            logits, torch.rand(logits.shape, device="cuda", generator=g), **kw)
+
+    out[:1] = pick(h)
+    for i in range(1, max_tokens):
+        step(out[i - 1:i], n_prompt + i - 1, out[i:i + 1])
+        out[i:i + 1] = pick(step.h[0])
+    assert out.cpu().tolist() == got.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_spec_on_card_equals_int8pc_greedy(cuda_kernels, k):
+    """generate_greedy_spec on the card (drafts from K1's graph, the verify
+    pass on the int8pc leaves) against the per-layer int8pc greedy loop over
+    an int8 cache on the card: equal at k = 1; at k 3 and 8 equal up to the
+    first difference, a near tie in the reference's logits; the stats add
+    up."""
+    from qwen3_asr_tpu_torch.models import generate as gen
+
+    dcfg, dec, toks = _mid_models()
+    n_prompt, max_tokens = 40, 20
+    vparams = {key: val for key, val in dec.items() if key != "mega"}
+    S = gen.cache_rows(toks.shape[0], max_tokens)
+    h, cache = gen.prefill_hidden(vparams, dcfg, toks, n_prompt, None, 0, 0, S, torch.int8)
+    ref = torch.zeros(max_tokens, dtype=torch.int32, device="cuda")
+    from qwen3_asr_tpu_torch.models.decoder import lm_logits
+
+    logits = [lm_logits(vparams, dcfg, h)]
+    ref[0] = torch.argmax(logits[0])
+    logits += [gen.decode_token(vparams, dcfg, cache, ref, i, n_prompt + i - 1)
+               for i in range(1, max_tokens)]
+    ref = ref.cpu().tolist()
+    before = tmk.mega_decode_step_i8.launches
+    out, n, st = gen.generate_greedy_spec(dec, dcfg, toks, n_prompt, None, 0, 0,
+                                          max_tokens, k=k)
+    assert n == max_tokens and st["drafted"] == k * st["rounds"]
+    assert tmk.mega_decode_step_i8.launches == before + st["drafted"]
+    got = out[:n].tolist()
+    diff = [i for i, (a, b) in enumerate(zip(got, ref)) if a != b]
+    if k == 1:
+        assert not diff
+    elif diff:
+        j = diff[0]
+        assert abs(float(logits[j][ref[j]] - logits[j][got[j]])) <= NEAR_TIE_TOL

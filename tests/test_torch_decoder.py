@@ -138,21 +138,29 @@ def test_quantize_kv_rows_matches():
 
 
 def test_decode_branch_not_ported(setup):
-    """The decode branch runs the fused dense and Q8_0 layouts
-    (tests/test_torch_q8_e2e.py); on int8pc leaves, whose decode steps run
-    through the int4 megakernel, it raises, and so does a decode step
-    without the decode-attention kernel."""
+    """The decode branch runs the fused dense and Q8_0 layouts through K4
+    (tests/test_torch_q8_e2e.py). On int8pc leaves, where it raised before
+    the block decode was ported, a step now runs (held against the JAX
+    package in tests/test_torch_spec.py): it returns a finite row and writes
+    cache row cache_offset alone; use_decode_attn_kernel=False, which
+    raised first on these leaves, takes the same block decode (the
+    reference's XLA attention) and gives the same row (without the
+    decode-attention kernel the fused dense and Q8_0 layouts still raise,
+    tests/test_torch_q8_e2e.py). A kv_valid_len outside (cache_offset,
+    cache_offset + T] raises."""
     cfg, _, tp = setup
     dcfg = port_config(cfg.decoder)
     cache = tdec.init_kv_cache(dcfg, 8, "cpu")
     x = torch.zeros(1, dcfg.hidden_size, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="int8pc"):
-        tdec.decoder_forward(tp["decoder"], dcfg, x, cache, 2, prefill=False,
+    h = tdec.decoder_forward(tp["decoder"], dcfg, x, cache, 2, prefill=False,
                              cache_offset=1)
-    with pytest.raises(NotImplementedError, match="use_decode_attn_kernel"):
-        tdec.decoder_forward(tp["decoder"], dataclasses.replace(
-            dcfg, use_decode_attn_kernel=False), x, cache, 2, prefill=False,
-            cache_offset=1)
+    assert h.shape == (1, dcfg.hidden_size) and torch.isfinite(h.float()).all()
+    written = cache["k_s"].abs().sum(dim=(0, 2)) > 0
+    assert written.tolist() == [False, True] + [False] * 6
+    no_dak = tdec.decoder_forward(tp["decoder"], dataclasses.replace(
+        dcfg, use_decode_attn_kernel=False), x, cache, 2, prefill=False,
+        cache_offset=1)
+    assert torch.equal(no_dak, h)
     with pytest.raises(ValueError):
         tdec.decoder_forward(tp["decoder"], dcfg, x, cache, 5, prefill=False,
                              cache_offset=1)

@@ -205,23 +205,45 @@ def test_staged_under_one_mel_frame_matches_jax(wide_pair, n_samples):
     assert got.tokens == want.tokens and len(got.tokens) == 6
 
 
-def test_pipeline_rejects_unported_modes():
-    """Sampled and speculative decoding answer "not ported"; the int4 cache
-    and print_progress, which the port carries, are accepted (their runs:
-    tests/test_torch_kv4.py, tests/test_torch_streaming.py); an unknown
-    quantize mode raises."""
+def test_pipeline_rejects_unported_modes(wide_pair, capsys):
+    """Sampled and speculative decoding, which answered "not ported" before
+    they were ported, now run on the CPU: spec_k gives the JAX package's
+    int8pc greedy tokens over an int8 cache (its XLA path on the CPU), with
+    the `spec:` line under print_timing; temperature > 0 with top_k = 1 gives
+    the greedy tokens on an int8 decode pack (whose head is the int8pc head
+    the sampled path applies to the step's hidden state); spec_k under
+    sampling is ignored with a note; spec_k without a decode pack answers
+    the message naming the quantized modes. The int4 cache and
+    print_progress are accepted (their runs: tests/test_torch_kv4.py,
+    tests/test_torch_streaming.py); an unknown quantize mode raises."""
+    import copy
+
+    from qwen3_asr_tpu.pipeline.asr import TranscribeParams as JaxParams
     from qwen3_asr_tpu_torch.models.generate import INT4_KV
-    from qwen3_asr_tpu_torch.pipeline.asr import unported
+    from qwen3_asr_tpu_torch.pipeline.asr import SPEC_NEEDS_PACK
 
     assert Qwen3ASR(kv_cache="int4", device="cpu").cache_dtype == INT4_KV
     with pytest.raises(ValueError, match="unknown quantize"):
         Qwen3ASR(quantize="q4", device="cpu")
-    asr = Qwen3ASR(device="cpu")
-    asr.params = {"decoder": {}}
-    for kw, what in ((dict(temperature=0.5), "item 12"), (dict(spec_k=2), "item 14")):
-        res = asr.transcribe(_pcm(0.5), TranscribeParams(**kw))
-        assert not res.success and "not ported" in res.error_msg and what in res.error_msg
-    assert unported(TranscribeParams(print_progress=True)) == ""
+    j, t = wide_pair
+    pcm = _pcm(1.0)   # on 0.5 s step 3's top two logits tie within 0.005
+    want = j.transcribe(pcm, JaxParams(max_tokens=6, print_timing=False)).tokens
+    spec = t.transcribe(pcm, TranscribeParams(max_tokens=6, spec_k=3))
+    assert spec.success and spec.tokens == want and len(want) == 6
+    assert "spec: rounds=" in capsys.readouterr().err
+    t8 = copy.copy(t)
+    dec = dict(t.params["decoder"])
+    dec["mega"] = tmk.pack_megakernel_params(dec, t.cfg.decoder, int4=False)
+    t8.params = dict(t.params, decoder=dec)
+    greedy = t8.transcribe(pcm, TranscribeParams(max_tokens=6, print_timing=False))
+    for kw in (dict(temperature=0.8, top_k=1), dict(temperature=0.8, top_k=1, spec_k=2)):
+        limit = t8.transcribe(pcm, TranscribeParams(max_tokens=6, print_timing=False, **kw))
+        assert limit.success and limit.tokens == greedy.tokens
+    assert "spec_k (greedy-exact speculation) does not apply" in capsys.readouterr().err
+    nopack = copy.copy(t)
+    nopack.params = dict(t.params, decoder={k: v for k, v in dec.items() if k != "mega"})
+    res = nopack.transcribe(pcm, TranscribeParams(max_tokens=6, spec_k=2))
+    assert not res.success and res.error_msg == SPEC_NEEDS_PACK
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Qwen3ASR(device="cuda")

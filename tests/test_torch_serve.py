@@ -3,8 +3,11 @@ both worker modes against the functions it drives, and the HTTP front end
 on 127.0.0.1, port 0: /v1/transcribe, /healthz, /v1/audio/transcriptions
 (json, text, verbose_json, SSE on the continuous pool and, alone through
 the streaming decode path, outside it), `--kv-cache int4` (lone requests
-over the int4 cache, batches over int8), the 400s for what is not ported
-and, without an aligner, the JAX package's no-aligner 400s. With an aligner
+over the int4 cache, batches over int8), sampled requests (`temperature`,
+`seed`: alone, outside the greedy batch and the pool, with the JAX
+package's 400s for a temperature outside [0, 2], a seed that is no integer
+and a sampled stream) and, without an aligner, the JAX package's
+no-aligner 400s. With an aligner
 (`--aligner-model`): /v1/align in its three encodings, concurrent aligns in
 one `align_batch`, mixed ASR + align traffic in same-kind batches, and the
 OpenAI route's word timestamps, srt and vtt. The models are the wide-init
@@ -27,7 +30,6 @@ from qwen3_asr_tpu_torch.pipeline.engine import ContinuousEngine
 from qwen3_asr_tpu_torch.serve import (
     NO_ALIGNER,
     NO_ALIGNER_WORDS,
-    NOT_PORTED,
     ASRServer,
     serve_http,
 )
@@ -201,12 +203,18 @@ def test_http_sse_stream(http):
     ({"timestamp_granularities[]": "word", "response_format": "verbose_json"},
      "/v1/audio/transcriptions", NO_ALIGNER_WORDS),
     ({"response_format": "srt"}, "/v1/audio/transcriptions", NO_ALIGNER_WORDS),
-    ({"temperature": "0.5"}, "/v1/audio/transcriptions", NOT_PORTED["sampling"]),
+    ({"temperature": "3"}, "/v1/audio/transcriptions", "temperature must be in [0, 2]"),
+    ({"temperature": "0.5", "seed": "x"}, "/v1/audio/transcriptions",
+     "seed must be an integer"),
+    ({"temperature": "0.5", "stream": "true"}, "/v1/audio/transcriptions",
+     "stream=true is greedy-only (sampled decoding runs as one whole-loop program)"),
     ({"text": "hello"}, "/v1/align", NO_ALIGNER),
 ])
 def test_http_unported_answer_400(http, fields, path, msg):
-    """Sampled decoding is not ported; word timestamps, srt and /v1/align
-    on a server started without --aligner-model answer the JAX package's
+    """The JAX package's 400s: a temperature outside [0, 2] (sampled
+    decoding itself answered 400 before it was ported), a sampled request
+    whose seed is no integer, a sampled stream; word timestamps, srt and
+    /v1/align on a server started without --aligner-model answer the
     no-aligner messages."""
     _, base = http
     body, ctype = multipart({"file": wav_bytes(AUDIO[0]), **fields})
@@ -214,6 +222,46 @@ def test_http_unported_answer_400(http, fields, path, msg):
     assert code == 400
     err = json.loads(out)["error"]
     assert (err["message"] if isinstance(err, dict) else err) == msg
+
+
+def test_http_sampled_requests(http, model):
+    """temperature=0.7, seed=3 on the OpenAI route, twice, on the continuous
+    server: 200 both times, the same text, that of transcribe with those
+    parameters (the request ran alone, outside the pool)."""
+    import dataclasses
+
+    from qwen3_asr_tpu_torch.text.prompt import extract_transcript
+
+    srv, base = http
+    body, ctype = multipart({"file": wav_bytes(AUDIO[1]), "temperature": "0.7",
+                             "seed": "3"})
+    replies = [post(base + "/v1/audio/transcriptions", body, ctype) for _ in range(2)]
+    assert [r[0] for r in replies] == [200, 200]
+    texts = [json.loads(r[2])["text"] for r in replies]
+    want = model.transcribe(AUDIO[1], dataclasses.replace(srv.params, temperature=0.7,
+                                                          seed=3))
+    assert texts[0] == texts[1] == extract_transcript(want.text)
+
+
+def test_solo_sampled_request_beside_a_greedy_batch(model):
+    """A request with its own params arriving inside a greedy batch's
+    window runs alone, with them: the two greedy requests still get
+    transcribe_batch's tokens, the sampled one transcribe's with its
+    params (two rounds)."""
+    import dataclasses
+
+    sampled = dataclasses.replace(PARAMS, temperature=0.9, top_k=20, seed=5)
+    srv = ASRServer(model, PARAMS, max_batch=4, max_wait_ms=2000)
+    try:
+        futs = [srv.submit(AUDIO[0]), srv.submit(AUDIO[1], params=sampled),
+                srv.submit(AUDIO[2])]
+        got = [f.result(timeout=300).tokens for f in futs]
+    finally:
+        srv.close()
+    assert [got[0], got[2]] == [r.tokens for r in
+                                model.transcribe_batch([AUDIO[0], AUDIO[2]], PARAMS)]
+    assert got[1] == model.transcribe(AUDIO[1], sampled).tokens
+    assert srv.n_batches == 2
 
 
 def test_http_stream_needs_the_pool(model):
