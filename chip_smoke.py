@@ -79,7 +79,15 @@ the launch counts set to 0 just before it and read just after:
    a cache past S 8,192;
 13. the server (auto, int8 KV) behind HTTP with sampled OpenAI requests
    beside a greedy batch and the JAX package's 400s, and the CLI's
-   `--temperature 0.7 --seed 3` and `--spec-k 4` in this process.
+   `--temperature 0.7 --seed 3` and `--spec-k 4` in this process;
+14. batches in every mode (`phase_batch_modes`): K4's batched mode (rows
+   torch.equal to one-row launches) and K3 over a bf16 cache (rows equal to
+   K1 bf16) at B 8, the per-layer step at B 8 against single rows,
+   `transcribe_batch` of four requests in q8_0 + bf16 / int8 KV, dense +
+   bf16 and auto + bf16 (each a window; auto rows equal to `transcribe`'s)
+   against the same requests one at a time, and the server's closed batch
+   of four over HTTP with `--kv-cache bf16` and `--quantize q8_0`, one
+   `transcribe_batch` each.
 
 It checks that every parameter and cache tensor of paths 1 and 2 is on the
 GPU, that each kernel of a path ran there (launch counts against a formula
@@ -634,15 +642,21 @@ def phase_mega_layers(dcfg, pack, got, ref, pos: int, tok) -> list[float]:
     return rels
 
 
-def _filled_pool(dcfg, S: int, pos, seed: int):
+def _filled_pool(dcfg, S: int, pos, seed: int, kv: str = "int8"):
     """(k, v, k_s, v_s) [B, L, S, ...]: slab b's rows < pos[b] filled as
-    _filled_cache fills them."""
+    _filled_cache fills them (bf16: k_s = v_s = None)."""
     import torch
 
     slabs = [_filled_cache(dcfg, S, int(p),
-                           torch.Generator(device="cuda").manual_seed(seed + b))
+                           torch.Generator(device="cuda").manual_seed(seed + b), kv)
              for b, p in enumerate(pos)]
-    return [torch.stack([s[i] for s in slabs]) for i in range(4)]
+    return [None if slabs[0][i] is None else torch.stack([s[i] for s in slabs])
+            for i in range(4)]
+
+
+def _slab(ts, b: int):
+    """Slab b of a pool (k, v, k_s, v_s), None kept."""
+    return [None if t is None else t[b] for t in ts]
 
 
 def _spread(B: int):
@@ -652,15 +666,16 @@ def _spread(B: int):
     return [int(p) for p in np.linspace(64, 1600, B).round()]
 
 
-def phase_mega_batch(dcfg, pack):
-    """K3 at full width, S = MEGA_BATCH_S, B = 8 rows at spread positions.
-    (a) 16 teacher-forced steps against K1 run on each row's slab copy:
-    tokens, h and every layer's fresh K/V rows and scales torch.equal on
-    every step and row. (b) 4 steps against the plain version under the
-    megakernel phase's rules (near-tie tokens, h rel L2 <= MEGA_H_REL on
-    every row-step and bit-exact on at least half, the cache rule).
-    (c) ms/step at B = 1, 4, 8, 16 beside K1's, and the plain version's at
-    B = 8."""
+def phase_mega_batch(dcfg, pack, kv: str = "int8"):
+    """K3 at full width over an int8 or (kv="bf16") a bf16 cache, S =
+    MEGA_BATCH_S, B = 8 rows at spread positions. (a) 16 teacher-forced
+    steps against K1 (its step over the same cache type) run on each row's
+    slab copy: tokens, h and every layer's fresh K/V rows (and scales)
+    torch.equal on every step and row, and the whole pool equal after the
+    last. (b) 4 steps against the plain version under the megakernel
+    phase's rules (near-tie tokens, h rel L2 <= MEGA_H_REL on every
+    row-step and bit-exact on at least half, the cache rule). (c) ms/step at
+    B = 1, 4, 8, 16 beside K1's, and the plain version's at B = 8."""
     import torch
 
     from qwen3_asr_tpu_torch.ops import megakernel as mk
@@ -668,13 +683,14 @@ def phase_mega_batch(dcfg, pack):
 
     S, B = MEGA_BATCH_S, 8
     pos0 = _spread(B)
-    pool = _filled_pool(dcfg, S, pos0, 100)
-    singles = [[t[b].clone() for t in pool] for b in range(B)]
+    pool = _filled_pool(dcfg, S, pos0, 100, kv)
+    singles = [_clone(_slab(pool, b)) for b in range(B)]
     step = mb.BatchDecodeStep(pack, dcfg, *pool)
     k1 = [mk.DecodeStep(pack, dcfg, *singles[b]) for b in range(B)]
     out = torch.empty(B, dtype=torch.int32, device="cuda")
     one = torch.empty(1, dtype=torch.int32, device="cuda")
     toks = torch.arange(1000, 1000 + B, dtype=torch.int32, device="cuda")
+    live = [i for i, t in enumerate(pool) if t is not None]
     n_equal = 0
     for i in range(MEGA_BATCH_STEPS):
         pos = [p + i for p in pos0]
@@ -683,8 +699,8 @@ def phase_mega_batch(dcfg, pack):
         for b in range(B):
             k1[b](toks[b:b + 1], pos[b], one)
             same = (torch.equal(out[b:b + 1], one) and torch.equal(step.h[b:b + 1], k1[b].h)
-                    and all(torch.equal(t[b, :, pos[b]], s[:, pos[b]])
-                            for t, s in zip(pool, singles[b])))
+                    and all(torch.equal(pool[j][b, :, pos[b]], singles[b][j][:, pos[b]])
+                            for j in live))
             if not same:
                 raise AssertionError(f"K3 row {b} differs from K1 on its slab at "
                                      f"step {i} (pos {pos[b]})")
@@ -692,17 +708,18 @@ def phase_mega_batch(dcfg, pack):
         toks = out.clone()
     # no stray writes: every row of every slab, not only the fresh ones
     for b in range(B):
-        for i, (t, s) in enumerate(zip(pool, singles[b])):
-            if not torch.equal(t[b], s):
-                raise AssertionError(f"K3 cache pool tensor {i}, slab {b} differs "
+        for j in live:
+            if not torch.equal(pool[j][b], singles[b][j]):
+                raise AssertionError(f"K3 cache pool tensor {j}, slab {b} differs "
                                      f"from K1's slab after {MEGA_BATCH_STEPS} steps")
-    log(f"phase K3 ({mode_name(pack, 'int8')}) vs K1 S={S} B={B} pos={pos0[0]}..{pos0[-1]}: "
+    log(f"phase K3 ({mode_name(pack, kv)}) vs K1 S={S} B={B} pos={pos0[0]}..{pos0[-1]}: "
         f"{n_equal}/{MEGA_BATCH_STEPS * B} row-steps torch.equal (token, h, "
-        f"fresh K/V rows and scales of all {dcfg.n_layers} layers); whole "
-        f"cache pool torch.equal to the K1 slabs after the last step")
+        f"fresh K/V rows{' and scales' if kv == 'int8' else ''} of all "
+        f"{dcfg.n_layers} layers); whole cache pool torch.equal to the K1 slabs "
+        f"after the last step")
 
     # (b) against the plain version, teacher-forced on its tokens
-    ref = [t.clone() for t in pool]
+    ref = _clone(pool)
     base = MEGA_BATCH_STEPS
     rels, mism, worst_gap, max_err = [], 0, 0.0, 0.0
     for i in range(4):
@@ -711,7 +728,7 @@ def phase_mega_batch(dcfg, pack):
              (min(pos), max(pos)))
         nxt = []
         for b in range(B):
-            rb = [t[b] for t in ref]
+            rb = _slab(ref, b)
             rt, rh, logits = mk.mega_decode_step_ref(
                 pack, dcfg, toks[b:b + 1], pos[b], *rb, return_logits=True)
             torch.cuda.synchronize()
@@ -721,16 +738,16 @@ def phase_mega_batch(dcfg, pack):
             if got_t != want_t:
                 mism += 1
                 worst_gap = max(worst_gap, float(logits[want_t] - logits[got_t]))
-            bad = _bad_cache_layers([t[b] for t in pool], rb, pos[b])
+            bad = _bad_cache_layers(_slab(pool, b), rb, pos[b])
             if bad and (rels[-1] == 0.0 or bad[0] == 0):
                 raise AssertionError(f"K3 vs plain, step {i} row {b}: fresh cache "
                                      f"rows of layers {bad} differ")
-            for a, r in zip(pool, ref):
-                r[b, :, pos[b]] = a[b, :, pos[b]]
+            for j in live:
+                ref[j][b, :, pos[b]] = pool[j][b, :, pos[b]]
             nxt.append(rt)
         toks = torch.cat(nxt)
     n_exact = sum(r == 0.0 for r in rels)
-    log(f"phase K3 vs plain, 4 steps x {B} rows: max_abs_err(h)={max_err:.3e} "
+    log(f"phase K3 ({kv} KV) vs plain, 4 steps x {B} rows: max_abs_err(h)={max_err:.3e} "
         f"rel_l2(h) max {max(rels):.4f}, bit-exact on {n_exact}/{len(rels)}; "
         f"token mismatches {mism} (worst plain logit gap {worst_gap:.4f})")
     if worst_gap > NEAR_TIE_TOL:
@@ -744,7 +761,7 @@ def phase_mega_batch(dcfg, pack):
     pos_end = max(pos) + 1
     for nb in (1, 4, 8, 16):
         p_b = _spread(nb) if nb > 1 else [pos0[B // 2]]
-        pl = _filled_pool(dcfg, S, p_b, 200) if nb != B else pool
+        pl = _filled_pool(dcfg, S, p_b, 200, kv) if nb != B else pool
         st = mb.BatchDecodeStep(pack, dcfg, *pl)
         o = torch.empty(nb, dtype=torch.int32, device="cuda")
         tk = torch.full((nb,), 1000, dtype=torch.int32, device="cuda")
@@ -756,8 +773,8 @@ def phase_mega_batch(dcfg, pack):
     single = cuda_ms(lambda: k1[B // 2](toks[:1], pos0[B // 2] + base + 4, one), 20)
     plain = cuda_ms(lambda: mb.mega_decode_step_batch_ref(
         pack, dcfg, toks, [p + base + 4 for p in pos0], *ref), 1, warmup=1)
-    b_ms, b_by = mega_step_bound(pack, dcfg, [min(p, pos_end) for p in _spread(B)])
-    log(f"phase K3 times (ms/step): " + ", ".join(
+    b_ms, b_by = mega_step_bound(pack, dcfg, [min(p, pos_end) for p in _spread(B)], kv)
+    log(f"phase K3 ({kv} KV) times (ms/step): " + ", ".join(
         f"B={nb} {t:.4f}" for nb, t in times.items())
         + f"; K1 {single:.4f} (B x K1 at B=8: {8 * single:.4f}); "
         f"plain at B=8 {plain:.4f}; bound at B=8 {b_ms:.4f} ms ({b_by})")
@@ -1122,7 +1139,9 @@ def _wrappers() -> dict:
     return {"flash": fa.flash_attention_batch, "mega": mk.mega_decode_step_i8,
             "mega_bf16": mk.mega_decode_step, "mega_i4": mk.mega_decode_step_i4,
             "mega_batch": mb.mega_decode_step_batch,
-            "decode_attention": da.decode_attention, "q8_matmul": q8.q8_matmul,
+            "mega_batch_bf16": mb.mega_decode_step_batch_bf16,
+            "decode_attention": da.decode_attention,
+            "decode_attention_batch": da.decode_attention_batch, "q8_matmul": q8.q8_matmul,
             "q8_norm_matmul": q8.q8_norm_matmul, "q8_mlp": q8.q8_mlp,
             "mb_read": ms.stream_read, "mb_read_ring": ms.stream_read_ring,
             "mb_gemv": ms.stream_gemv, "mb_gemv_i4": ms.stream_gemv_i4,
@@ -1205,10 +1224,14 @@ class twins:
         self._saved = [(dmod, "flash_attention_batch", dmod.flash_attention_batch),
                        (emod, "flash_attention_batch", emod.flash_attention_batch),
                        (dmod, "decode_attention", dmod.decode_attention),
+                       (dmod, "decode_attention_batch", dmod.decode_attention_batch),
                        (dmod, "q8_norm_matmul", k6), (dmod, "q8_mlp", k7),
                        (q8, "q8_matmul", k5)]
         dmod.flash_attention_batch = emod.flash_attention_batch = fa.flash_attention_ref
         dmod.decode_attention = da.decode_attention_ref
+        dmod.decode_attention_batch = (
+            lambda qkv, kc, vc, qn, kn, offs, pos, bound, **kw:
+            da.decode_attention_batch_ref(qkv, kc, vc, qn, kn, offs, pos, **kw))
         dmod.q8_norm_matmul, dmod.q8_mlp, q8.q8_matmul = t6, t7, t5
         return self
 
@@ -2070,17 +2093,17 @@ def align_stage_ms(fa, audio, text: str) -> dict:
     return {k: float(np.median(v)) for k, v in rows.items()}
 
 
-def profile_align(fa, audio, text: str, label: str, top: int = 8) -> None:
-    """One staged alignment under torch.profiler (after the warm-ups): the
-    wall time, the device's busy time (the kernels' self device time) and
-    the kernels with the most device time."""
+def profiled(fn) -> tuple[float, list]:
+    """fn() once under torch.profiler: -> (wall ms, the kernels as (self
+    device ms, count, name), most device time first; empty when the
+    profiler recorded no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fa.align(audio, text)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = []
@@ -2090,10 +2113,17 @@ def profile_align(fa, audio, text: str, label: str, top: int = 8) -> None:
             dev_us = getattr(evt, "self_cuda_time_total", 0.0)
         if dev_us > 0 and "CUDA" in str(getattr(evt, "device_type", "")):
             kernels.append((dev_us / 1e3, evt.count, evt.key))
+    return wall, sorted(kernels, reverse=True)
+
+
+def profile_align(fa, audio, text: str, label: str, top: int = 8) -> None:
+    """One staged alignment under torch.profiler (after the warm-ups): the
+    wall time, the device's busy time (the kernels' self device time) and
+    the kernels with the most device time."""
+    wall, kernels = profiled(lambda: fa.align(audio, text))
     if not kernels:
         log(f"  profile ({label}): the profiler recorded no device time")
         return
-    kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
     log(f"  profile ({label}, one staged align): wall {wall:.3f} ms, device busy "
         f"{busy:.3f} ms ({busy / wall:.2f}), {sum(k[1] for k in kernels)} kernels; top: "
@@ -2960,6 +2990,432 @@ def phase_cli_sampling(auto) -> None:
     log(f"  CLI tokens equal transcribe's in both modes; {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# batches in every mode: K4 batched, K3 over a bf16 cache, the per-layer step
+# at B rows, transcribe_batch and the server's closed batches
+# ---------------------------------------------------------------------------
+
+BATCH_REQUESTS = (92, 30, 15, 5)   # seconds: one closed batch, four mel buckets
+BATCH_TOKENS = 64
+BATCH_TWIN_TOKENS = 16   # of each row, held against the twins teacher-forced
+BATCH_MODES = (("q8_0", "bf16"), ("q8_0", "int8"), (False, "bf16"), ("auto", "bf16"))
+STEP_BATCH_STEPS = 4
+# The per-layer step at B rows vs the single-row step on each row's cache
+# copy, teacher-forced: K5-K7 at T = B (the tiled kernel) and at T = 1 (the
+# GEMV) may sum in another f32 order, a bf16 output then rounds the other
+# way and 28 quantized layers spread it. Held: h rel L2 <= STEP_BATCH_H_REL
+# on every row and step, tokens under the near-tie rule, every slab's other
+# rows untouched, the fresh rows under the cache rule. The bound is this
+# step's own: its readings on an H100 80GB HBM3 (700 W) are rel L2 <= 0.035
+# on either cache (0 of 32 rows bit-equal); a fault in the attention output
+# alone, which the cache rule cannot see, reads 0.55 (q roped one position
+# late) and 2.6 (a row's newest 64 cache rows skipped)
+# (tests/test_torch_chip_faults.py::test_batched_step_q_side_fault_caught).
+STEP_BATCH_H_REL = 0.08
+
+
+def phase_decode_attention_batch(dcfg, S: int = 1664) -> dict:
+    """K4's batched mode at full width, B = 8 rows at spread offsets (64 ..
+    1,600, one row roped 5 past its offset), bf16 and int8 caches of S rows:
+    each row torch.equal to the one-row launch on its slab, every row
+    against the twin under K4's tolerance; the batch's ms beside 8 one-row
+    launches and the bytes bound. -> {cache: (max_abs_err, ms, twin ms,
+    bound ms, bound_by, 8 one-row ms)}."""
+    import numpy as np
+    import torch
+
+    from qwen3_asr_tpu_torch.models.decoder import _quantize_kv_rows
+    from qwen3_asr_tpu_torch.ops import decode_attention as da
+
+    NH, NKV, D = dcfg.n_heads, dcfg.n_kv_heads, dcfg.head_dim
+    B = 8
+    offs = _spread(B)
+    pos = [o + (5 if b == 3 else 0) for b, o in enumerate(offs)]
+    od = torch.tensor(offs, dtype=torch.int32, device="cuda")
+    pd = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(16)
+    out = {}
+    for cache in ("bf16", "int8"):
+        qkv = torch.randn(B, (NH + 2 * NKV) * D, generator=g, device="cuda").to(torch.bfloat16)
+        k = torch.randn(B, S, NKV, D, generator=g, device="cuda")
+        v = torch.randn(B, S, NKV, D, generator=g, device="cuda")
+        qn, kn = ((1 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(torch.bfloat16)
+                  for _ in range(2))
+        kw = dict(n_heads=NH, n_kv=NKV, head_dim=D, eps=dcfg.rms_norm_eps,
+                  theta=dcfg.rope_theta, scale=1.0 / float(np.sqrt(D)))
+        if cache == "int8":
+            (k, ks), (v, vs) = _quantize_kv_rows(k), _quantize_kv_rows(v)
+            kw.update(k_scale=ks, v_scale=vs)
+            row_bytes = 2 * NKV * D + 2 * NKV * 4
+        else:
+            k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+            row_bytes = 4 * NKV * D
+        args = (qkv, k, v, qn, kn, od, pd, max(offs))
+        got = da.decode_attention_batch(*args, **kw)
+        want = da.decode_attention_batch_ref(qkv, k, v, qn, kn, offs, pos, **kw)
+        torch.cuda.synchronize()
+
+        def one_row(b):
+            rkw = dict(kw, k_scale=kw["k_scale"][b], v_scale=kw["v_scale"][b]) \
+                if cache == "int8" else kw
+            return da.decode_attention(qkv[b:b + 1], k[b], v[b], qn, kn, offs[b], pos[b],
+                                       **rkw)
+
+        for b in range(B):
+            if not all(torch.equal(a[b:b + 1], r) for a, r in zip(got, one_row(b))):
+                raise AssertionError(f"K4 batched row {b} ({cache} cache, offset "
+                                     f"{offs[b]}) differs from the one-row launch")
+        err = max(float((a - r).abs().max()) for a, r in zip(got, want))
+        ratio = max(float(((a - r).abs() / (DA_ATOL * r.abs().max() + DA_RTOL * r.abs()))
+                          .max()) for a, r in zip(got, want))
+        ms = graph_ms(lambda: da.decode_attention_batch(*args, **kw))
+        rows_ms = graph_ms(lambda: [one_row(b) for b in range(B)])
+        plain = cuda_ms(lambda: da.decode_attention_batch_ref(qkv, k, v, qn, kn, offs, pos,
+                                                              **kw), 3)
+        nbytes = sum(offs) * row_bytes + B * (2 * qkv.shape[1] + 4 * (NH + 2 * NKV) * D)
+        b_ms, b_by = bound(nbytes, 4.0 * NH * D * sum(o + 1 for o in offs), F32_FLOPS)
+        log(f"phase K4 batched, {cache} cache, B={B} offsets {offs[0]}..{offs[-1]} S={S}: "
+            f"rows torch.equal to one-row launches; max_abs_err={err:.3e} worst |err| / "
+            f"(atol + rtol |ref|) {ratio:.4f}; batch {ms:.4f} ms (graph), 8 one-row "
+            f"launches {rows_ms:.4f} ms; twin {plain:.4f} ms; bound {b_ms:.5f} ms "
+            f"({b_by}, {nbytes / 1e6:.3f} MB)")
+        if not ratio <= 1.0:
+            raise AssertionError(f"K4 batched ({cache}) disagrees with its twin")
+        out[cache] = (err, ms, plain, b_ms, b_by, rows_ms)
+    return out
+
+
+def _cache_slab(cache: dict):
+    """A cache dict of [L, S, ...] tensors as (k, v, k_s, v_s) with rows
+    flattened to n_kv * head_dim, the layout _bad_cache_layers reads."""
+    return [cache[n].flatten(2) for n in ("k", "v")] + [cache.get(n) for n in ("k_s", "v_s")]
+
+
+def step_batch_cache(dcfg, pos0, S: int, kv: str, g):
+    """The batched step's cache (k / v [B, L, S, n_kv * head_dim], int8 with
+    scales [B, L, S, n_kv]) with slab b's rows < pos0[b] drawn from N(0,
+    0.25), and a copy of each slab in the single step's layout [L, S, n_kv,
+    head_dim]. -> (cache, [copy of slab b])."""
+    import torch
+
+    from qwen3_asr_tpu_torch.models.decoder import _quantize_kv_rows
+
+    B, L, NKV, D = len(pos0), dcfg.n_layers, dcfg.n_kv_heads, dcfg.head_dim
+    cdt = torch.int8 if kv == "int8" else torch.bfloat16
+    cache = {n: torch.zeros(B, L, S, NKV * D, dtype=cdt, device="cuda") for n in ("k", "v")}
+    if kv == "int8":
+        cache.update({n: torch.zeros(B, L, S, NKV, device="cuda") for n in ("k_s", "v_s")})
+    for b, p in enumerate(pos0):
+        for n in ("k", "v"):
+            rows = torch.randn(L, p, NKV, D, generator=g, device="cuda") * 0.5
+            if kv == "int8":
+                q, sc = _quantize_kv_rows(rows)
+                cache[n][b, :, :p], cache[n + "_s"][b, :, :p] = q.flatten(2), sc
+            else:
+                cache[n][b, :, :p] = rows.flatten(2).to(torch.bfloat16)
+    singles = [{n: (t[b].unflatten(-1, (NKV, D)) if n in ("k", "v") else t[b]).clone()
+                for n, t in cache.items()} for b in range(B)]
+    return cache, singles
+
+
+def phase_step_batch(asr, kv: str) -> dict:
+    """The per-layer decode step at B = 8 rows (Q8_0 leaves: K6 / K5 / K7 at
+    T = 8 and K4 batched) against the single-row step (K6 / K5 / K7 at T =
+    1, K4 one row) on each row's cache copy, STEP_BATCH_STEPS steps at
+    spread positions (S = MEGA_BATCH_S), teacher-forced on the single rows'
+    tokens and cache rows: tokens under the near-tie rule, h rel L2 <=
+    STEP_BATCH_H_REL (how many rows are bit-equal is reported), every slab's
+    rows other than the fresh one torch.equal to its copy's, the fresh rows
+    under the cache rule (all layers on a bit-exact row, layer 0 on the
+    others). Then the batched step's wall, enqueue and device-busy ms beside
+    8 single steps'. -> the readings."""
+    import torch
+
+    from qwen3_asr_tpu_torch.models import decoder as dmod
+
+    dcfg, dec = asr.cfg.decoder, asr.params["decoder"]
+    S, B = MEGA_BATCH_S, 8
+    pos0 = _spread(B)
+    g = torch.Generator(device="cuda").manual_seed(300)
+    cache, singles = step_batch_cache(dcfg, pos0, S, kv, g)
+    toks = torch.arange(1000, 1000 + B, device="cuda") % dcfg.vocab_size
+    rels, mism, worst_gap = [], 0, 0.0
+    for i in range(STEP_BATCH_STEPS):
+        pos = [p + i for p in pos0]
+        x = dec["token_embd"][toks]
+        h = dmod.decode_step_batch(dec, dcfg, x, cache,
+                                   torch.tensor(pos, dtype=torch.int32, device="cuda"), pos)
+        tok_b = torch.argmax(dmod.lm_logits_block(dec, dcfg, h), dim=-1)
+        nxt = []
+        for b, p in enumerate(pos):
+            hs = dmod.decoder_forward(dec, dcfg, x[b:b + 1], singles[b], p + 1,
+                                      prefill=False, cache_offset=p)
+            lg = dmod.lm_logits(dec, dcfg, hs[0])
+            ts = int(torch.argmax(lg))
+            rels.append(_rel(h[b:b + 1], hs))
+            if int(tok_b[b]) != ts:
+                mism += 1
+                worst_gap = max(worst_gap, float(lg[ts] - lg[int(tok_b[b])]))
+            one = _cache_slab(singles[b])
+            for n, t, c in zip(("k", "v", "k_s", "v_s"), _cache_slab(
+                    {n: t[b] for n, t in cache.items()}), one):
+                if t is not None and not (torch.equal(t[:, :p], c[:, :p])
+                                          and torch.equal(t[:, p + 1:], c[:, p + 1:])):
+                    raise AssertionError(f"batched step, step {i} row {b}: cache {n} "
+                                         f"changed outside row {p}")
+            bad = _bad_cache_layers(_cache_slab({n: t[b] for n, t in cache.items()}), one, p)
+            if bad and (rels[-1] == 0.0 or bad[0] == 0):
+                raise AssertionError(f"batched step, step {i} row {b}: fresh cache rows "
+                                     f"of layers {bad} differ from the single step's")
+            for n, c in zip(("k", "v", "k_s", "v_s"), one):   # teacher-force the
+                if c is not None:                              # single rows' cache row
+                    cache[n][b, :, p] = c[:, p]
+            nxt.append(ts)
+        toks = torch.tensor(nxt, device="cuda")
+    n_exact = sum(r == 0.0 for r in rels)
+    log(f"phase batched per-layer step (q8_0, {kv} KV) vs single rows, "
+        f"{STEP_BATCH_STEPS} steps x {B} rows at pos {pos0[0]}..{pos0[-1]}: rel_l2(h) max "
+        f"{max(rels):.4f}, bit-equal on {n_exact}/{len(rels)}; token mismatches {mism} "
+        f"(worst single-step logit gap {worst_gap:.4f})")
+    if worst_gap > NEAR_TIE_TOL or not max(rels) <= STEP_BATCH_H_REL:
+        raise AssertionError(f"the batched step disagrees with the single-row step: "
+                             f"rel_l2 {max(rels)}, gap {worst_gap}")
+
+    # where a step's time goes: the host's enqueue against the device
+    pos = [p + STEP_BATCH_STEPS for p in pos0]
+    pd = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    x = dec["token_embd"][toks]
+
+    def batched():
+        return dmod.decode_step_batch(dec, dcfg, x, cache, pd, pos)
+
+    def serial():
+        for b, p in enumerate(pos):
+            dmod.decoder_forward(dec, dcfg, x[b:b + 1], singles[b], p + 1, prefill=False,
+                                 cache_offset=p)
+
+    out = {"rel_max": max(rels), "bit_equal": n_exact, "rows": len(rels)}
+    for label, fn in (("batched", batched), ("8 single", serial)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        enq = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        pwall, kernels = profiled(fn)
+        busy = sum(k[0] for k in kernels)
+        out[label] = {"wall_ms": wall, "enqueue_ms": enq, "busy_ms": busy,
+                      "kernels": sum(k[1] for k in kernels)}
+        log(f"  {label} step ({kv} KV): wall {wall:.4f} ms, enqueue {enq:.4f} ms, device "
+            f"busy {busy:.4f} ms (profiled wall {pwall:.4f} ms, "
+            f"{out[label]['kernels']} kernels); top: "
+            + "; ".join(f"{name[:48]} {ms:.3f} ms x{n}" for ms, n, name in kernels[:5]))
+    return out
+
+
+def batch_launches(quantize, L: int, B: int, P: int, steps: int, groups) -> dict:
+    """Launch counts of one transcribe_batch, from the code: the batched
+    prefill's 28 K2 and 18 per batched encoder call; per decode step K3
+    bf16 once (a decode pack over bf16) or K4 batched 28 times, with Q8_0
+    weights 29 K6 (28 QKV + the head over B rows), 28 K5 and 28 K7; the
+    first tokens' head (K6) once; the prefill's products at B * P > 256
+    rows are no kernel (Q8_0 wrappers' own path)."""
+    from qwen3_asr_tpu_torch.config import ASRModelConfig
+
+    want = dict(no_launches(), flash=L * len(groups)
+                + ASRModelConfig().encoder.n_layers * encoder_calls(groups))
+    if quantize == "auto":
+        want.update(mega_batch_bf16=steps)
+        return want
+    want.update(decode_attention_batch=L * steps)
+    if quantize:
+        small = L if B * P <= 256 else 0
+        want.update(q8_norm_matmul=(L + 1) * steps + 1 + small,
+                    q8_matmul=L * steps + small, q8_mlp=L * steps + small)
+    return want
+
+
+def phase_batch_requests(models: dict) -> dict:
+    """transcribe_batch of BATCH_REQUESTS (mixed lengths, one batch, each in
+    its own mel bucket; BATCH_TOKENS tokens, EOS off) in each mode of
+    BATCH_MODES, each batch a window checked against batch_launches; every
+    row's first BATCH_TWIN_TOKENS tokens against the twins teacher-forced on
+    that row's request (near-tie rule); the same requests one at a time through transcribe (same params): auto +
+    bf16 rows must equal them outright (K3 rows are K1 rows, the batched
+    prefill's rows the single one's), the per-layer modes' equal rows are
+    counted. Decode ms/step: (a 64-token run - a 1-token run) / 63, batched
+    against the serial sum. -> {mode: readings}."""
+    import torch
+
+    from qwen3_asr_tpu_torch.pipeline.asr import TranscribeParams
+
+    audio = [pcm(sec, 40 + i) for i, sec in enumerate(BATCH_REQUESTS)]
+    groups = [audio]
+    out = {}
+    for quantize, kv in BATCH_MODES:
+        asr = models[(quantize, kv)]
+        L, V = asr.cfg.decoder.n_layers, asr.cfg.decoder.vocab_size
+
+        def params(n):
+            return TranscribeParams(max_tokens=n, mel_bucket=ENGINE_KW["mel_bucket"],
+                                    print_timing=False)
+
+        asr.transcribe_batch(audio[-1:], params(2))   # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = asr.transcribe_batch(audio, params(BATCH_TOKENS))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        label = f"transcribe_batch {quantize or 'none'} + {kv} KV"
+        got = window(label, 8 if quantize == "auto" else None, counts())
+        P = -(-max(prompt_rows(sec) for sec in BATCH_REQUESTS) // 128) * 128
+        want = batch_launches(quantize, L, len(audio), P, BATCH_TOKENS - 1, groups)
+        if got != want:
+            raise AssertionError(f"{label}: launch counts {got} != {want}")
+        for k, r in enumerate(res):
+            if not r.success or len(r.tokens) != BATCH_TOKENS or not all(
+                    0 <= t < V for t in r.tokens):
+                raise AssertionError(f"{label}: request {k}: {len(r.tokens)} tokens or "
+                                     f"one out of range")
+        t0 = time.perf_counter()
+        asr.transcribe_batch(audio, params(1))
+        torch.cuda.synchronize()
+        ms1 = (time.perf_counter() - t0) * 1e3
+        singles, serial, serial1 = [], 0.0, 0.0
+        for a in audio:
+            t0 = time.perf_counter()
+            singles.append(asr.transcribe(a, params(BATCH_TOKENS)).tokens)
+            torch.cuda.synchronize()
+            serial += (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            asr.transcribe(a, params(1))
+            torch.cuda.synchronize()
+            serial1 += (time.perf_counter() - t0) * 1e3
+        n_same = sum(r.tokens == s for r, s in zip(res, singles))
+        step_ms = (ms - ms1) / (BATCH_TOKENS - 1)
+        serial_step = (serial - serial1) / (BATCH_TOKENS - 1)
+        log(f"{label}: {ms:.1f} ms for {len(audio)} x {BATCH_TOKENS} tokens (1 token "
+            f"{ms1:.1f}); decode {step_ms:.4f} ms/step against {serial_step:.4f} ms for the "
+            f"same {len(audio)} requests one at a time ({serial_step / step_ms:.2f}x the "
+            f"tokens/s); rows equal to transcribe's: {n_same}/{len(audio)}; launches {got}")
+        if quantize == "auto" and n_same != len(audio):
+            raise AssertionError(f"{label}: rows differ from each request's transcribe")
+        for a, r in zip(audio, res):
+            check_tokens_vs_twins(asr, a, r.tokens[:BATCH_TWIN_TOKENS],
+                                  mel_bucket=ENGINE_KW["mel_bucket"])
+        out[label] = {"ms": ms, "ms_1_token": ms1, "decode_ms_step": step_ms,
+                      "serial_decode_ms_step": serial_step, "rows_equal_single": n_same}
+    return out
+
+
+def phase_server_batches(models: dict) -> dict:
+    """ASRServer with closed batches behind serve_http, --kv-cache bf16 (auto
+    weights: K3 bf16) and --quantize q8_0 (its int8 cache: the per-layer
+    step at B rows): 4 WAVs posted at once answer 200 with text, in one
+    transcribe_batch of 4, a window whose K3 bf16 launches are the steps
+    and K4 batched launches 28 x the steps (not 4x: no request runs
+    alone). -> {label: launch counts}."""
+    import json
+    import threading
+    import urllib.request
+
+    import torch
+
+    from qwen3_asr_tpu_torch.pipeline.asr import TranscribeParams
+    from qwen3_asr_tpu_torch.serve import ASRServer, serve_http
+
+    out = {}
+    for label, asr, wbits in (("--kv-cache bf16", like(models[("auto", "bf16")], "bf16"), 8),
+                              ("--quantize q8_0", like(models[("q8_0", "bf16")], "int8"),
+                               None)):
+        params = TranscribeParams(max_tokens=BATCH_TOKENS, mel_bucket=ENGINE_KW["mel_bucket"],
+                                  print_timing=False)
+        calls = []
+        run = asr.transcribe_batch
+
+        def recording(audios, p, run=run, calls=calls):
+            calls.append(len(audios))
+            return run(audios, p)
+
+        asr.transcribe_batch = recording
+        server = ASRServer(asr, params, max_batch=4, max_wait_ms=5000)
+        httpd = serve_http(server, "127.0.0.1", 0)
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        replies = [None] * len(BATCH_REQUESTS)
+
+        def one(i, sec, base=base, replies=replies):
+            req = urllib.request.Request(base + "/v1/transcribe",
+                                         data=wav_bytes(pcm(sec, 50 + i)),
+                                         headers={"Content-Type": "audio/wav"})
+            with urllib.request.urlopen(req, timeout=600) as r:
+                replies[i] = (r.status, json.loads(r.read()))
+
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=one, args=(i, sec))
+                       for i, sec in enumerate(BATCH_REQUESTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            got = window(f"server {label}", wbits, counts())
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            server.close()
+        L, steps = asr.cfg.decoder.n_layers, BATCH_TOKENS - 1
+        key, want = (("mega_batch_bf16", steps) if wbits else ("decode_attention_batch",
+                                                                L * steps))
+        log(f"phase server {label}: codes {[r and r[0] for r in replies]}, "
+            f"transcribe_batch calls {calls}, wall {wall:.1f} ms; launches {got}")
+        if any(r is None or r[0] != 200 or "text" not in r[1] for r in replies):
+            raise AssertionError(f"server {label}: a request was not answered 200 with text")
+        if calls != [len(BATCH_REQUESTS)] or got[key] != want or got["decode_attention"] \
+                or got["mega"] or got["mega_bf16"]:
+            raise AssertionError(f"server {label}: transcribe_batch calls {calls}, "
+                                 f"{key} {got[key]} (want {want}), launches {got}")
+        out[label] = got
+    return out
+
+
+def phase_batch_modes(q8, auto) -> dict:
+    """Batches in every mode (on the q8_0 model and the auto model of the
+    earlier phases, and a dense one loaded here): K4 batched, K3 over a
+    bf16 cache (the int8 pack), the per-layer step at B rows on both caches,
+    transcribe_batch in BATCH_MODES and the server's closed batches. ->
+    the readings."""
+    import torch
+
+    from qwen3_asr_tpu_torch.config import ASRModelConfig
+    from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR
+
+    t_phase = time.perf_counter()
+    dcfg = auto.cfg.decoder
+    out = {"k4": phase_decode_attention_batch(dcfg),
+           "k3_bf16": phase_mega_batch(dcfg, auto.params["decoder"]["mega"], "bf16"),
+           "step": {kv: phase_step_batch(q8, kv) for kv in ("bf16", "int8")}}
+    dense = Qwen3ASR(quantize=False, kv_cache="bf16", device="cuda")
+    dense.load_random(ASRModelConfig(), seed=0)
+    eos_off(dense)
+    models = {("q8_0", "bf16"): like(q8, "bf16"), ("q8_0", "int8"): like(q8, "int8"),
+              (False, "bf16"): dense, ("auto", "bf16"): like(auto, "bf16")}
+    out["requests"] = phase_batch_requests(models)
+    out["server"] = phase_server_batches(models)
+    del dense, models
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase batch modes: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3074,12 +3530,15 @@ def main() -> int:
     for c in caches:
         assert_on_device(c, "cuda")
     p5 = prompt_rows(5)
-    q8k = phase_q8(q8_asr.params["decoder"], q8_asr.cfg.decoder, (1, p5))
+    # T 4 and 8: the per-layer step at B rows (a closed batch of 4, the
+    # batched-step phase's 8)
+    q8k = phase_q8(q8_asr.params["decoder"], q8_asr.cfg.decoder, (1, 4, 8, p5))
     sampling = {"q8_0": phase_sampling(q8_asr, "q8_0", None, None, 64, 16)}
-    del q8_asr
 
     # the JAX package's default weight mode: the int8 pack
     auto, auto_step, auto_stages = phase_auto()
+    batch_modes = phase_batch_modes(q8_asr, auto)
+    del q8_asr
     m8 = phase_mega(auto.cfg, auto.params["decoder"], "int8", steps=16, floor_steps=0)
     m8b = phase_mega(auto.cfg, auto.params["decoder"], "bf16", steps=16, floor_steps=0)
     k1_graph = phase_mega_graph(auto.cfg, auto.params["decoder"])
@@ -3138,7 +3597,15 @@ def main() -> int:
                 "bound_by": b_by, "library_ms": lib, **extra}
 
     head = ("K6 q8_norm_matmul (lm head)", 1)
+
+    def at_batch(*names):
+        """K5-K7 at the per-layer step's B rows (T 4 and 8)."""
+        return {f"{n} T={T}": dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by"), q8k[(n, T)]))
+                for n in names for T in (4, 8)}
+
     k1 = "qwen3_asr_tpu/ops/megakernel.py:460"
+    k4b = batch_modes["k4"]
     k3_src = "qwen3_asr_tpu/ops/megakernel_batch.py:110"
     gb = {mode: round(r["gb_s"], 1) for mode, r in mb_res.items()}
     kernels = [
@@ -3183,21 +3650,34 @@ def main() -> int:
             launches_of("mega_batch", 4), *k3),
         row("mega_decode_step_batch (int8 weights)", "megakernel_batch.cu", k3_src,
             launches_of("mega_batch", 8), *k3_8),
+        row("mega_decode_step_batch (int8 weights, bf16 KV)", "megakernel_batch.cu", k3_src,
+            launches_of("mega_batch_bf16", 8), *batch_modes["k3_bf16"],
+            launches_per_batch_of_4=launches_of_label("server --kv-cache bf16",
+                                                      "mega_batch_bf16")),
         row("decode_attention", "decode_attention.cu",
             "qwen3_asr_tpu/ops/decode_attention.py:65", total["decode_attention"],
             max(v[0] for v in da_ms.values()), *da_ms[("bf16", 1248)][1:],
             launches_per_sampled_request=sampling["q8_0"]["launches"]["decode_attention"]),
+        row("decode_attention_batch (K4, B rows)", "decode_attention.cu",
+            "qwen3_asr_tpu/ops/decode_attention.py:65", total["decode_attention_batch"],
+            max(v[0] for v in k4b.values()), *k4b["bf16"][1:5],
+            one_row_x8_ms=k4b["bf16"][5],
+            int8={"ms": k4b["int8"][1], "plain_ms": k4b["int8"][2],
+                  "bound_ms": k4b["int8"][3], "one_row_x8_ms": k4b["int8"][5]},
+            launches_per_batch_of_4=launches_of_label("server --quantize q8_0",
+                                                      "decode_attention_batch")),
         row("q8_matmul", "q8_matmul.cu", "qwen3_asr_tpu/ops/q8_matmul.py:69",
             total["q8_matmul"], max(v[0] for k, v in q8k.items() if k[0].startswith("K5")),
-            *q8k[("K5 q8_matmul (Wo)", 1)][1:],
+            *q8k[("K5 q8_matmul (Wo)", 1)][1:], batch_rows=at_batch("K5 q8_matmul (Wo)"),
             launches_per_sampled_request=sampling["q8_0"]["launches"]["q8_matmul"]),
         row("q8_norm_matmul", "q8_matmul.cu", "qwen3_asr_tpu/ops/q8_matmul.py:173",
             total["q8_norm_matmul"],
             max(v[0] for k, v in q8k.items() if k[0].startswith("K6")), *q8k[head][1:],
+            batch_rows=at_batch("K6 q8_norm_matmul (QKV)", "K6 q8_norm_matmul (lm head)"),
             launches_per_sampled_request=sampling["q8_0"]["launches"]["q8_norm_matmul"]),
         row("q8_mlp", "q8_matmul.cu", "qwen3_asr_tpu/ops/q8_matmul.py:224",
             total["q8_mlp"], max(v[0] for k, v in q8k.items() if k[0].startswith("K7")),
-            *q8k[("K7 q8_mlp", 1)][1:],
+            *q8k[("K7 q8_mlp", 1)][1:], batch_rows=at_batch("K7 q8_mlp"),
             launches_per_sampled_request=sampling["q8_0"]["launches"]["q8_mlp"]),
         row("probe (K8, y = 2 x)", "probe.cu", "qwen3_asr_tpu/ops/support.py:35",
             k8_launches, *k8, "bytes", lib=k8[2]),
@@ -3220,6 +3700,10 @@ def main() -> int:
             "scripts/probe_int4b.py:58", total["mb_unpack"], *mb["unpack_nibbles"],
             gb_s=gb["unpack_nibbles"]),
     ]
+    log("batched decode ms/step against the same requests one at a time: " + ", ".join(
+        f"{k} {v['decode_ms_step']:.4f} / {v['serial_decode_ms_step']:.4f}"
+        for k, v in batch_modes["requests"].items())
+        + f"; phase batch modes {batch_modes['seconds']:.1f} s")
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:
         raise AssertionError(f"kernels launched no time on their paths: {missing}")

@@ -22,6 +22,19 @@
 // launches no partial block. Numerics: the cache dequantizes as q * scale in
 // f32 before the dot, as the Pallas body does; only f32 summation orders
 // differ.
+//
+// Batched mode (the reference runs the Pallas kernel under jax.vmap in its
+// per-layer batched decode): a third grid dimension takes B rows, each with
+// its own qkv row, cache slab [S, NKV, D] and offset / pos, read from the
+// device as int32 [B]. Slab b starts `slab` (row, head) pairs after slab b -
+// 1 (S * NKV for slabs side by side; L * S * NKV for layer l of a cache
+// [B, L, S, NKV * D], the batched decode's layout). The grid is sized by the
+// host's bound of the offsets (any bound >= max offset: S works, so a graph
+// can replay it at later positions); chunks at or past a row's own offset
+// exit at once, as the decode megakernel's attn_step does, and a row's
+// combine walks only its own chunks. So row b computes exactly what the
+// one-row launch computes on slab b: the one-row entry is the B = 1 case of
+// the same kernels with host scalars.
 #include <cuda_pipeline.h>
 
 #include "common.cuh"
@@ -32,31 +45,44 @@ constexpr int DA_THREADS = 256;
 constexpr int DA_ROWS = 64;  // cache rows per partial block
 
 struct DaArgs {
-  const void* qkv;     // [(NH + 2 NKV) * D] bf16 (qkv_bf16) or f32
-  const void* kc;      // [S, NKV, D] bf16 or int8
+  const void* qkv;     // [B][(NH + 2 NKV) * D] bf16 (qkv_bf16) or f32
+  const void* kc;      // [B][S, NKV, D] bf16 or int8
   const void* vc;
-  const float* ks;     // [S, NKV] f32 (int8 cache), or null (bf16 cache)
+  const float* ks;     // [B][S, NKV] f32 (int8 cache), or null (bf16 cache)
   const float* vs;
   const void* qn;      // [D] q_norm, bf16 (norm_bf16) or f32
   const void* kn;      // [D] k_norm
-  float* part;         // [NKV][nchunks][GROUP][D + 2]
-  float* attn;         // [NH * D]
-  float* k_new;        // [NKV * D]
+  float* part;         // [B][NKV][nchunks][GROUP][D + 2]
+  float* attn;         // [B][NH * D]
+  float* k_new;        // [B][NKV * D]
   float* v_new;
+  const int* offs;     // [B] on the device, or null: `offset` for the one row
+  const int* poss;     // [B] on the device, or null: `pos`
+  size_t slab;         // (row, head) pairs from one row's slab to the next
   int qkv_bf16, norm_bf16;
-  int NH, NKV, D, offset, pos, nchunks;
+  int NH, NKV, D, S, offset, pos, nchunks;  // nchunks: the grid's chunks per row
   float eps, rope_coef, scale;
 };
 
-__device__ __forceinline__ float ld(const void* p, int i, int is_bf16) {
+__device__ __forceinline__ float ld(const void* p, size_t i, int is_bf16) {
   return is_bf16 ? bf2f(reinterpret_cast<const __nv_bfloat16*>(p)[i])
                  : reinterpret_cast<const float*>(p)[i];
 }
 
-// vec[j][D] for j < nvec: the GROUP q heads of KV head kvh (normed, roped,
-// times scale), then (nvec = GROUP + 2) its k (normed, roped) and v.
-__device__ void prep(const DaArgs& a, int kvh, int nvec, float* vec) {
+__device__ __forceinline__ int row_offset(const DaArgs& a, int b) {
+  return a.offs ? a.offs[b] : a.offset;
+}
+
+__device__ __forceinline__ int row_pos(const DaArgs& a, int b) {
+  return a.poss ? a.poss[b] : a.pos;
+}
+
+// vec[j][D] for j < nvec: the GROUP q heads of KV head kvh of row b (normed,
+// roped at pos, times scale), then (nvec = GROUP + 2) its k (normed, roped)
+// and v.
+__device__ void prep(const DaArgs& a, int b, int pos, int kvh, int nvec, float* vec) {
   const int D = a.D, GROUP = a.NH / a.NKV;
+  const size_t qkv0 = (size_t)b * (a.NH + 2 * a.NKV) * D;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
   for (int i = tid; i < nvec * D; i += blockDim.x) {
@@ -65,7 +91,7 @@ __device__ void prep(const DaArgs& a, int kvh, int nvec, float* vec) {
     if (j < GROUP) row = kvh * GROUP + j;
     else if (j == GROUP) row = a.NH + kvh;
     else row = a.NH + a.NKV + kvh;
-    vec[i] = ld(a.qkv, row * D + e, a.qkv_bf16);
+    vec[i] = ld(a.qkv, qkv0 + row * D + e, a.qkv_bf16);
   }
   __syncthreads();
   const int n_norm = min(nvec, GROUP + 1);  // q heads and k; v is not normed
@@ -84,7 +110,7 @@ __device__ void prep(const DaArgs& a, int kvh, int nvec, float* vec) {
   for (int i = tid; i < n_norm * half; i += blockDim.x) {
     const int j = i / half, e = i % half;
     float* x = vec + j * D;
-    const float ang = (float)a.pos * expf((float)e * a.rope_coef);
+    const float ang = (float)pos * expf((float)e * a.rope_coef);
     const float c = cosf(ang), s = sinf(ang);
     const float x1 = x[e], x2 = x[e + half];
     float y1 = x1 * c - x2 * s, y2 = x2 * c + x1 * s;
@@ -98,16 +124,19 @@ __device__ void prep(const DaArgs& a, int kvh, int nvec, float* vec) {
   __syncthreads();
 }
 
-// Block (kvh, chunk c). Dynamic shared memory: K and V rows [2][DA_ROWS][D]
-// of the cache type, then floats q[GROUP][D], p[GROUP][DA_ROWS], ml[2 GROUP],
-// kss[DA_ROWS], vss[DA_ROWS].
+// Block (kvh, chunk c, row b). Dynamic shared memory: K and V rows
+// [2][DA_ROWS][D] of the cache type, then floats q[GROUP][D], p[GROUP][DA_ROWS],
+// ml[2 GROUP], kss[DA_ROWS], vss[DA_ROWS].
 template <typename CT>
 __global__ void __launch_bounds__(DA_THREADS) dattn_partial(DaArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int D = a.D, NKV = a.NKV, GROUP = a.NH / NKV;
-  const int kvh = blockIdx.x, c = blockIdx.y;
+  const int kvh = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int offset = row_offset(a, b);
   const int r0 = c * DA_ROWS;
-  const int nr = min(DA_ROWS, a.offset - r0);
+  if (r0 >= offset) return;   // past this row's live rows (uniform per block)
+  const int nr = min(DA_ROWS, offset - r0);
+  const size_t slab = a.slab;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
   CT* kv = reinterpret_cast<CT*>(smem_raw);
@@ -122,17 +151,17 @@ __global__ void __launch_bounds__(DA_THREADS) dattn_partial(DaArgs a) {
     const int which = i / (nr * pieces), rem = i % (nr * pieces);
     const int r = rem / pieces, piece = rem % pieces;
     const CT* src = reinterpret_cast<const CT*>(which ? a.vc : a.kc) +
-                    ((size_t)(r0 + r) * NKV + kvh) * D;
+                    (b * slab + (size_t)(r0 + r) * NKV + kvh) * D;
     __pipeline_memcpy_async(reinterpret_cast<unsigned char*>(kv + (which * DA_ROWS + r) * D) +
                                 piece * 16,
                             reinterpret_cast<const unsigned char*>(src) + piece * 16, 16);
   }
   __pipeline_commit();
   for (int r = tid; r < nr; r += blockDim.x) {
-    kss[r] = a.ks ? a.ks[(size_t)(r0 + r) * NKV + kvh] : 1.f;
-    vss[r] = a.vs ? a.vs[(size_t)(r0 + r) * NKV + kvh] : 1.f;
+    kss[r] = a.ks ? a.ks[b * slab + (size_t)(r0 + r) * NKV + kvh] : 1.f;
+    vss[r] = a.vs ? a.vs[b * slab + (size_t)(r0 + r) * NKV + kvh] : 1.f;
   }
-  prep(a, kvh, GROUP, q);
+  prep(a, b, row_pos(a, b), kvh, GROUP, q);
   __pipeline_wait_prior(0);
   __syncthreads();
   const CT* krows = kv;
@@ -175,7 +204,7 @@ __global__ void __launch_bounds__(DA_THREADS) dattn_partial(DaArgs a) {
   }
   __syncthreads();
 
-  float* out = a.part + ((size_t)kvh * a.nchunks + c) * GROUP * (D + 2);
+  float* out = a.part + (((size_t)b * NKV + kvh) * a.nchunks + c) * GROUP * (D + 2);
   for (int pr = tid; pr < GROUP * D; pr += blockDim.x) {
     const int j = pr / D, e = pr % D;
     const float* pj = p + j * DA_ROWS;
@@ -192,20 +221,21 @@ __global__ void __launch_bounds__(DA_THREADS) dattn_partial(DaArgs a) {
   }
 }
 
-// Block kvh. Dynamic shared memory: vec[(GROUP + 2) * D], misc[3 * GROUP].
+// Block (kvh, row b). Dynamic shared memory: vec[(GROUP + 2) * D],
+// misc[3 * GROUP].
 __global__ void __launch_bounds__(DA_THREADS) dattn_combine(DaArgs a) {
   extern __shared__ float smem[];
-  const int D = a.D, GROUP = a.NH / a.NKV;
-  const int kvh = blockIdx.x;
+  const int D = a.D, NKV = a.NKV, GROUP = a.NH / NKV;
+  const int kvh = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
   float* vec = smem;
   float* misc = vec + (GROUP + 2) * D;  // p_fresh[GROUP], m[GROUP], den[GROUP]
-  prep(a, kvh, GROUP + 2, vec);
+  prep(a, b, row_pos(a, b), kvh, GROUP + 2, vec);
   const float* kf = vec + GROUP * D;
   const float* vf = kf + D;
-  const float* pk = a.part + (size_t)kvh * a.nchunks * GROUP * (D + 2);
-  const int nch = a.nchunks;
+  const float* pk = a.part + ((size_t)b * NKV + kvh) * a.nchunks * GROUP * (D + 2);
+  const int nch = (row_offset(a, b) + DA_ROWS - 1) / DA_ROWS;   // this row's chunks
 
   for (int j = warp; j < GROUP; j += nwarps) {
     float sf = 0.f;
@@ -237,11 +267,12 @@ __global__ void __launch_bounds__(DA_THREADS) dattn_combine(DaArgs a) {
       const float* pc = pk + ((size_t)c * GROUP + j) * (D + 2);
       o = fmaf(pc[2 + e], expf(pc[0] - mx), o);
     }
-    a.attn[(kvh * GROUP + j) * D + e] = (o + misc[j] * vf[e]) / misc[2 * GROUP + j];
+    a.attn[(size_t)b * a.NH * D + (kvh * GROUP + j) * D + e] =
+        (o + misc[j] * vf[e]) / misc[2 * GROUP + j];
   }
   for (int e = tid; e < D; e += blockDim.x) {
-    a.k_new[kvh * D + e] = kf[e];
-    a.v_new[kvh * D + e] = vf[e];
+    a.k_new[(size_t)b * NKV * D + kvh * D + e] = kf[e];
+    a.v_new[(size_t)b * NKV * D + kvh * D + e] = vf[e];
   }
 }
 
@@ -250,42 +281,76 @@ size_t partial_smem(int D, int GROUP, size_t elt) {
          sizeof(float) * ((size_t)GROUP * (D + DA_ROWS + 2) + 2 * DA_ROWS);
 }
 
-}  // namespace
-
-// Floats of partial-result scratch the entry point needs for `offset` rows.
-extern "C" size_t qw_decode_attention_scratch(int NH, int NKV, int D, int offset) {
-  return (size_t)NKV * ((offset + DA_ROWS - 1) / DA_ROWS) * (NH / NKV) * (D + 2);
+// The launches of one call: B rows, nchunks chunk blocks per row and head.
+int launch(const DaArgs& a, int B, bool quant, cudaStream_t st) {
+  const int GROUP = a.NH / a.NKV;
+  const size_t smem_p = partial_smem(a.D, GROUP, quant ? 1 : 2);
+  const size_t smem_c = sizeof(float) * ((size_t)(GROUP + 2) * a.D + 3 * GROUP);
+  if (smem_p > 48 * 1024 || smem_c > 48 * 1024) return (int)cudaErrorInvalidValue;
+  if (a.nchunks > 0) {
+    const dim3 grid(a.NKV, a.nchunks, B);
+    if (quant)
+      dattn_partial<int8_t><<<grid, DA_THREADS, smem_p, st>>>(a);
+    else
+      dattn_partial<__nv_bfloat16><<<grid, DA_THREADS, smem_p, st>>>(a);
+    const int rc = (int)cudaGetLastError();
+    if (rc) return rc;
+  }
+  dattn_combine<<<dim3(a.NKV, B), DA_THREADS, smem_c, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
-// One layer's single-token attention. ks / vs null: the cache is bf16; else
-// int8 with f32 scales [S, NKV]. Returns a cudaError_t code.
+bool dims_ok(int NH, int NKV, int D) {
+  return NKV > 0 && NH % NKV == 0 && D % 16 == 0 && D <= 256;
+}
+
+}  // namespace
+
+// Floats of partial-result scratch the entry points need for B rows whose
+// offsets are at most `offset`.
+extern "C" size_t qw_decode_attention_scratch(int NH, int NKV, int D, int offset, int B) {
+  return (size_t)B * NKV * ((offset + DA_ROWS - 1) / DA_ROWS) * (NH / NKV) * (D + 2);
+}
+
+// One layer's single-token attention for one row, offset and pos host ints.
+// ks / vs null: the cache is bf16; else int8 with f32 scales [S, NKV].
+// Returns a cudaError_t code.
 extern "C" int qw_decode_attention(const void* qkv, int qkv_bf16, const void* kc,
                                    const void* vc, const void* ks, const void* vs,
                                    const void* qn, const void* kn, int norm_bf16,
                                    void* part, void* attn, void* k_new, void* v_new,
                                    int S, int offset, int pos, int NH, int NKV, int D,
                                    float eps, float rope_coef, float scale, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
   const bool quant = ks != nullptr;
-  if (NKV <= 0 || NH % NKV || D % 16 || D > 256 || offset < 0 || offset > S ||
-      (quant != (vs != nullptr)))
+  if (!dims_ok(NH, NKV, D) || offset < 0 || offset > S || (quant != (vs != nullptr)))
     return (int)cudaErrorInvalidValue;
-  const int GROUP = NH / NKV;
-  const int nchunks = (offset + DA_ROWS - 1) / DA_ROWS;
   DaArgs a{qkv, kc, vc, (const float*)ks, (const float*)vs, qn, kn, (float*)part,
-           (float*)attn, (float*)k_new, (float*)v_new, qkv_bf16, norm_bf16,
-           NH, NKV, D, offset, pos, nchunks, eps, rope_coef, scale};
-  const size_t smem_p = partial_smem(D, GROUP, quant ? 1 : 2);
-  const size_t smem_c = sizeof(float) * ((size_t)(GROUP + 2) * D + 3 * GROUP);
-  if (smem_p > 48 * 1024 || smem_c > 48 * 1024) return (int)cudaErrorInvalidValue;
-  if (nchunks > 0) {
-    if (quant)
-      dattn_partial<int8_t><<<dim3(NKV, nchunks), DA_THREADS, smem_p, st>>>(a);
-    else
-      dattn_partial<__nv_bfloat16><<<dim3(NKV, nchunks), DA_THREADS, smem_p, st>>>(a);
-    const int rc = (int)cudaGetLastError();
-    if (rc) return rc;
-  }
-  dattn_combine<<<NKV, DA_THREADS, smem_c, st>>>(a);
-  return (int)cudaGetLastError();
+           (float*)attn, (float*)k_new, (float*)v_new, nullptr, nullptr,
+           (size_t)S * NKV, qkv_bf16, norm_bf16, NH, NKV, D, S, offset, pos, (offset + DA_ROWS - 1) / DA_ROWS,
+           eps, rope_coef, scale};
+  return launch(a, 1, quant, (cudaStream_t)stream);
+}
+
+// The same attention for B rows: qkv [B][(NH + 2 NKV) D], caches of B slabs
+// [S, NKV, D] `slab` (row, head) pairs apart (scales [S, NKV] at the same
+// stride), outputs [B][...]; offs / poss int32 [B] on the device, every
+// offset in [0, bound] with bound <= S (the host's bound sizes the grid).
+// Nothing is read back to the host. Returns a cudaError_t code.
+extern "C" int qw_decode_attention_batch(const void* qkv, int qkv_bf16, const void* kc,
+                                         const void* vc, const void* ks, const void* vs,
+                                         const void* qn, const void* kn, int norm_bf16,
+                                         void* part, void* attn, void* k_new, void* v_new,
+                                         const int* offs, const int* poss, int B, int S,
+                                         long long slab, int bound, int NH, int NKV, int D,
+                                         float eps, float rope_coef, float scale,
+                                         void* stream) {
+  const bool quant = ks != nullptr;
+  if (!dims_ok(NH, NKV, D) || B < 1 || B > 65535 || !offs || !poss || bound < 0 ||
+      bound > S || slab < (long long)S * NKV || (quant != (vs != nullptr)))
+    return (int)cudaErrorInvalidValue;
+  DaArgs a{qkv, kc, vc, (const float*)ks, (const float*)vs, qn, kn, (float*)part,
+           (float*)attn, (float*)k_new, (float*)v_new, offs, poss, (size_t)slab,
+           qkv_bf16, norm_bf16,
+           NH, NKV, D, S, 0, 0, (bound + DA_ROWS - 1) / DA_ROWS, eps, rope_coef, scale};
+  return launch(a, B, quant, (cudaStream_t)stream);
 }

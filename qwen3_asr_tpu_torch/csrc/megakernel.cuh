@@ -880,7 +880,7 @@ inline size_t layout(const MegaDims& d, int B, char* base, Scratch* s) {
 
 // One decode step of B rows over a cache of element type CT (int8_t or nib2
 // with f32 row scales, or __nv_bfloat16): the launch sequence both entry
-// points share (K3 instantiates int8_t only). `gemv(wq, ws, layer, n_in, N,
+// points share (K3 instantiates int8_t and __nv_bfloat16). `gemv(wq, ws, layer, n_in, N,
 // G, in, terms_out, first)` launches the product (int4 or int8 weights) of
 // all B rows of the input row `in` (RowIn: how its int8 codes are made) into
 // terms_out; K1 launches one GEMV whose blocks make the codes themselves

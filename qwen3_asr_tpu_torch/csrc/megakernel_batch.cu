@@ -1,8 +1,10 @@
 // One greedy decode step of up to 16 sequences at once: int4 or int8
-// weights, int8 KV cache, each sequence at its own position.
+// weights, an int8 or a bf16 KV cache, each sequence at its own position.
 //
 // Replaces: qwen3_asr_tpu/ops/megakernel_batch.py::_mega_batch_kernel in its
-// resident-KV mode on either pack (entry mega_decode_step_batch). It computes
+// resident-KV mode on either pack (entry mega_decode_step_batch), and adds a
+// bf16-cache mode that the reference leaves to its vmapped XLA step
+// (qwen3_asr_tpu/parallel/mesh.py:304-329). It computes
 // what the Pallas body computes (megakernel_batch.py:351-567): for each row b
 // the single-sequence step of megakernel.cu at position pos[b] on cache slab
 // b, with per-row activation quantization scales, per-row RoPE, masks and
@@ -239,18 +241,17 @@ extern "C" size_t qw_mega_batch_scratch_bytes(const MegaDims* d, int B) {
   return layout(*d, B, nullptr, &s);
 }
 
-// One decode step of B sequences, on either pack. p's activation pointers
-// are [B, ...] (the token input [B] int32 or x_in [B, H] bf16; token_out [B];
-// h_out [B, H]), its caches [B, L, S, ...] int8 with f32 scales; pos [B]
-// int32 on the device, each in [1, S) and at most dp->pos, which sizes the
-// attention grid. Everything runs on `stream`; nothing is allocated and the
-// host is never waited on. Returns a cudaError_t code.
-extern "C" int qw_mega_decode_step_batch_i8(const MegaPtrs* p, const MegaDims* dp,
-                                            const int* pos, int B, void* stream) {
+namespace {
+
+// One decode step of B sequences over a cache of element type CT, on either
+// pack: decode_step's launch sequence with a norm_quant / silu_quant launch
+// and the batched GEMV per product.
+template <typename CT>
+int run_batch(const MegaPtrs* p, const MegaDims* dp, const int* pos, int B, void* stream) {
   const MegaDims d = *dp;
   cudaStream_t st = (cudaStream_t)stream;
   if (B < 1 || B > BGEMV_MAX_ROWS || !pos) return (int)cudaErrorInvalidValue;
-  if (!step_ok<int8_t>(d, BGEMV_COLS, BGEMV_MAX_GROUP)) return (int)cudaErrorInvalidValue;
+  if (!step_ok<CT>(d, BGEMV_COLS, BGEMV_MAX_GROUP)) return (int)cudaErrorInvalidValue;
   Scratch s;
   layout(d, B, (char*)p->scratch, &s);
   auto gemv = [&](const void* wq, const void* ws, size_t l, int n_in, int N, int G,
@@ -264,6 +265,31 @@ extern "C" int qw_mega_decode_step_batch_i8(const MegaPtrs* p, const MegaDims* d
     else if (B <= 8) launch_gemv<8>(d, s, st, wq, sc, l, n_in, N, G, B, terms);
     else launch_gemv<16>(d, s, st, wq, sc, l, n_in, N, G, B, terms);
   };
-  decode_step<int8_t>(p, d, pos, B, s, st, gemv);
+  decode_step<CT>(p, d, pos, B, s, st, gemv);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// One decode step of B sequences, on either pack. p's activation pointers
+// are [B, ...] (the token input [B] int32 or x_in [B, H] bf16; token_out [B];
+// h_out [B, H]), its caches [B, L, S, ...] int8 with f32 scales; pos [B]
+// int32 on the device, each in [1, S) and at most dp->pos, which sizes the
+// attention grid. Everything runs on `stream`; nothing is allocated and the
+// host is never waited on. Returns a cudaError_t code.
+extern "C" int qw_mega_decode_step_batch_i8(const MegaPtrs* p, const MegaDims* dp,
+                                            const int* pos, int B, void* stream) {
+  return run_batch<int8_t>(p, dp, pos, B, stream);
+}
+
+// The same step over bf16 cache slabs [B, L, S, DKV] with no scales
+// (k_scale / v_scale null): row b is K1's bf16-cache step (megakernel.cu
+// qw_mega_decode_step) on slab b, bit for bit. The reference keeps bf16
+// batches off its batched kernel because B bf16 slabs would not fit the
+// TPU core's VMEM; here a block stages one 64-row chunk of one row's slab
+// (attn_smem<bf16>, 35.9 KB at D 128, whatever B), so B bf16 slabs cost only
+// their bytes.
+extern "C" int qw_mega_decode_step_batch(const MegaPtrs* p, const MegaDims* dp,
+                                         const int* pos, int B, void* stream) {
+  return run_batch<__nv_bfloat16>(p, dp, pos, B, stream);
 }

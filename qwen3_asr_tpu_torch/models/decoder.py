@@ -6,7 +6,10 @@ Port of qwen3_asr_tpu/models/decoder.py: `rms_norm`, `rope_neox`,
 `decoder_forward` (the prefill; the decode step at T = 1 through the
 decode-attention kernel; and the block decode of T >= 1 rows at any cache
 offset), `decoder_prefill_batch`, `lm_logits` / `lm_logits_block`, and the
-aligner's `classify_logits`.
+aligner's `classify_logits`; and `decode_step_batch`, the decode step at T
+= 1 of B sequences in lockstep, each at its own position in its own cache
+slab (the reference's `decoder_forward` under `jax.vmap` in its batched
+per-layer decode).
 
 The layers take the fused weight layout (`wqkv`, `w_gate_up`) with dense
 bf16 matrices, Q8_0 leaves or int8pc leaves:
@@ -19,12 +22,17 @@ bf16 matrices, Q8_0 leaves or int8pc leaves:
   decode: the decode pack's steps run through `ops/megakernel.py`).
 Attention in the prefill is the flash kernel (`ops/flash_attention.py`),
 causal with the prompt's valid length; in the decode step it is
-`ops/decode_attention.py` (K4); in the block decode (the speculative verify
-pass, int8pc decode steps) it is plain torch, `_cached_attention`, as the
-reference computes it in XLA.
+`ops/decode_attention.py` (K4; B rows in one launch in the batched step);
+in the block decode (the speculative verify pass, int8pc decode steps) and
+wherever `use_decode_attn_kernel` is False it is plain torch,
+`_cached_attention`, as the reference computes it in XLA.
 
 Cache layout at the public functions is the JAX package's: k/v [L, S, n_kv,
-head_dim] bf16 or int8, and for int8 k_s/v_s [L, S, n_kv] f32.
+head_dim] bf16 or int8, and for int8 k_s/v_s [L, S, n_kv] f32. The batched
+step's cache of B slabs is the batched decode megakernel's pool
+(`models/generate.py::prefill_batch_mega_cache`): k/v [B, L, S, n_kv *
+head_dim], scales [B, L, S, n_kv]; layer l's slabs are k[:, l], one stride
+apart, which the batched decode-attention kernel reads as they lie.
 """
 
 from __future__ import annotations
@@ -33,7 +41,10 @@ import numpy as np
 import torch
 
 from qwen3_asr_tpu_torch.config import DecoderConfig
-from qwen3_asr_tpu_torch.ops.decode_attention import decode_attention
+from qwen3_asr_tpu_torch.ops.decode_attention import (
+    decode_attention,
+    decode_attention_batch,
+)
 from qwen3_asr_tpu_torch.ops.flash_attention import flash_attention_batch
 from qwen3_asr_tpu_torch.ops.q8_matmul import (
     INV127,
@@ -107,14 +118,18 @@ def _quantize_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _store(cache: dict, l: int, rows, k: torch.Tensor, v: torch.Tensor) -> None:
     """Write K/V rows ([n, n_kv, hd] for a slice of rows, [n_kv, hd] for one
-    row index) into layer l's cache rows `rows`, in the cache's format."""
+    row index) into layer l's cache rows `rows`, in the cache's format; in
+    the batched cache [B, L, S, n_kv * hd] rows = (slabs, positions), index
+    tensors [B], with k [B, n_kv, hd]."""
+    batched = isinstance(rows, tuple)
+    idx = (rows[0], l, rows[1]) if batched else (l, rows)
     for name, x in (("k", k), ("v", v)):
         if "k_s" in cache:
             q, s = _quantize_kv_rows(x)
-            cache[name][l, rows] = q
-            cache[name + "_s"][l, rows] = s
+            cache[name][idx] = q.flatten(-2) if batched else q
+            cache[name + "_s"][idx] = s
         else:
-            cache[name][l, rows] = x.to(cache[name].dtype)
+            cache[name][idx] = (x.flatten(-2) if batched else x).to(cache[name].dtype)
 
 
 def embed_with_audio(dec_params: dict, tokens: torch.Tensor,
@@ -191,9 +206,6 @@ def _decode_step(dec_params: dict, cfg: DecoderConfig, x: torch.Tensor,
     pos plus the fresh column, bf16, Wo, the residual, the MLP, the
     residual; the fresh K/V row is stored at cache row pos. -> [1, hidden]."""
     layers = dec_params["layers"]
-    if not cfg.use_decode_attn_kernel:
-        raise NotImplementedError("use_decode_attn_kernel=False (the XLA "
-                                  "decode attention) is not ported")
     eps = cfg.rms_norm_eps
     scale = 1.0 / float(np.sqrt(cfg.head_dim))
     quant = "k_s" in cache
@@ -210,6 +222,76 @@ def _decode_step(dec_params: dict, cfg: DecoderConfig, x: torch.Tensor,
         x = _mlp(layers, l, h1, cfg)
         _store(cache, l, pos, k_new[0], v_new[0])
     return x
+
+
+def decode_step_batch(dec_params: dict, cfg: DecoderConfig, x: torch.Tensor,
+                      cache: dict, pos: torch.Tensor, pos_host) -> torch.Tensor:
+    """One token of each of B sequences, x [B, hidden], through every layer
+    in _decode_step's order, row b at position pos[b] over slab b of the
+    batched cache (k / v [B, L, S, n_kv * head_dim], int8 with scales [B, L,
+    S, n_kv], as prefill_batch_mega_cache fills it): per layer one QKV product, one Wo
+    product and one MLP over the B rows (K6 / K5 / K7 at T = B on Q8_0
+    leaves, plain products on dense ones), attention through the batched
+    decode-attention kernel (each row over its rows < pos[b] plus its fresh
+    column), and the B fresh K/V rows stored at their own positions. pos is
+    int32 [B] on x's device (the kernel and the stores read it there);
+    pos_host holds the same positions on the host (the grid's bound).
+    use_decode_attn_kernel=False takes the reference's XLA attention
+    (`_cached_attention`) row by row instead. -> [B, hidden]."""
+    layers = dec_params["layers"]
+    B = x.shape[0]
+    NH, NKV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    eps = cfg.rms_norm_eps
+    scale = 1.0 / float(np.sqrt(D))
+    quant = "k_s" in cache
+    pos_host = [int(p) for p in pos_host]
+    idx = (torch.arange(B, device=x.device), pos.long())
+    for l in range(cfg.n_layers):
+        qkv = _qkv(layers, l, x, eps)
+        if cfg.use_decode_attn_kernel:
+            attn, k_new, v_new = decode_attention_batch(
+                qkv, cache["k"][:, l].unflatten(-1, (NKV, D)),
+                cache["v"][:, l].unflatten(-1, (NKV, D)), layers["q_norm"][l],
+                layers["k_norm"][l], pos, pos, max(pos_host), n_heads=NH, n_kv=NKV,
+                head_dim=D, eps=eps, theta=cfg.rope_theta, scale=scale,
+                k_scale=cache["k_s"][:, l] if quant else None,
+                v_scale=cache["v_s"][:, l] if quant else None)
+            attn = attn.to(x.dtype)
+        else:
+            attn, k_new, v_new = _cached_attention_rows(layers, l, cfg, qkv, cache,
+                                                        pos, pos_host, scale)
+        h1 = x + matmul_any(attn, _leaf(layers, "wo", l))
+        x = _mlp(layers, l, h1, cfg)
+        _store(cache, l, idx, k_new, v_new)
+    return x
+
+
+def _cached_attention_rows(layers: dict, l: int, cfg: DecoderConfig, qkv: torch.Tensor,
+                           cache: dict, pos: torch.Tensor, pos_host: list,
+                           scale: float):
+    """The reference's XLA decode attention of layer l for B rows (qkv [B,
+    ...]): q and k normed and roped at each row's position, then
+    `_cached_attention` of row b over its slab's rows < pos_host[b]
+    (dequantized to qkv's dtype) and its fresh column. -> (attn [B, n_heads
+    * D], k [B, n_kv, D], v [B, n_kv, D]) in qkv's dtype."""
+    NH, NKV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dq, dkv = NH * D, NKV * D
+    eps, B = cfg.rms_norm_eps, qkv.shape[0]
+    q = qkv[:, :dq].reshape(B, NH, D)
+    k = qkv[:, dq:dq + dkv].reshape(B, NKV, D)
+    v = qkv[:, dq + dkv:].reshape(B, NKV, D)
+    q = rope_neox(rms_norm(q, layers["q_norm"][l], eps), pos, cfg.rope_theta)
+    k = rope_neox(rms_norm(k, layers["k_norm"][l], eps), pos, cfg.rope_theta)
+    one = torch.ones(1, 1, dtype=torch.bool, device=qkv.device)
+    rows = []
+    for b, p in enumerate(pos_host):
+        kc, vc = (cache[n][b, l, :p].unflatten(-1, (NKV, D)) for n in ("k", "v"))
+        if "k_s" in cache:
+            kc = (kc.float() * cache["k_s"][b, l, :p, :, None]).to(qkv.dtype)
+            vc = (vc.float() * cache["v_s"][b, l, :p, :, None]).to(qkv.dtype)
+        rows.append(_cached_attention(q[b:b + 1], kc, vc, k[b:b + 1], v[b:b + 1], one,
+                                      scale))
+    return torch.cat(rows).reshape(B, dq), k, v
 
 
 def _cached_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -302,7 +384,8 @@ def decoder_forward(dec_params: dict, cfg: DecoderConfig, h: torch.Tensor,
     block rows at and past it are padding). One row with n_valid =
     cache_offset + 1 on the fused dense or Q8_0 layout is the decode step
     of the decode-attention kernel (K4); any other block (int8pc leaves, T >
-    1: the speculative verify pass) runs `_block_decode`.
+    1: the speculative verify pass; use_decode_attn_kernel=False, the
+    reference's XLA attention) runs `_block_decode`.
     """
     if not prefill:
         T, offset = h.shape[0], int(cache_offset)
@@ -310,7 +393,8 @@ def decoder_forward(dec_params: dict, cfg: DecoderConfig, h: torch.Tensor,
             raise ValueError(f"kv_valid_len {n_valid} outside (cache_offset, "
                              f"cache_offset + T] = ({offset}, {offset + T}]")
         wqkv = dec_params["layers"]["wqkv"]
-        if T == 1 and n_valid == offset + 1 and not is_pc_leaf(wqkv):
+        if (T == 1 and n_valid == offset + 1 and not is_pc_leaf(wqkv)
+                and cfg.use_decode_attn_kernel):
             return _decode_step(dec_params, cfg, h, cache, offset)
         return _block_decode(dec_params, cfg, h, cache, offset, int(n_valid))
     T = h.shape[0]

@@ -1,6 +1,6 @@
-"""Generation: the prefill, then the decode loop, for one sequence or
-(decode pack, int8 cache) a batch in lockstep, greedy, sampled or
-self-speculative; and the aligner's one non-autoregressive pass
+"""Generation: the prefill, then the decode loop, for one sequence or a
+batch in lockstep (on the decode pack or the per-layer step), greedy,
+sampled or self-speculative; and the aligner's one non-autoregressive pass
 (`nar_forward`, `nar_forward_batch`).
 
 Port of qwen3_asr_tpu/models/generate.py:36-462 (`generate_greedy`,
@@ -8,7 +8,9 @@ Port of qwen3_asr_tpu/models/generate.py:36-462 (`generate_greedy`,
 `decode_chunk*` functions), of `prefill_batch_mega_cache` /
 `generate_greedy_batch_mega` (:465-578), the batched path, of
 `generate_greedy_spec` (:606-737), greedy self-speculation, and of
-`sample_from_logits` / `generate_sample` (:755-967), sampled decoding. The branch
+`sample_from_logits` / `generate_sample` (:755-967), sampled decoding;
+`generate_greedy_batch` is `generate_greedy` under the reference's
+`jax.vmap` (parallel/mesh.py:318-329), written out over B rows. The branch
 follows what the tree holds, as in the reference: a decode pack (`"mega"`,
 int4 or int8 weights) runs each step through the decode megakernel, its
 entry picked by the cache dtype (`mega_decode_step_i8` for int8,
@@ -44,6 +46,7 @@ from qwen3_asr_tpu_torch.config import DecoderConfig
 from qwen3_asr_tpu_torch.models.decoder import (
     _prefill_layers,
     _quantize_kv_rows,
+    decode_step_batch,
     decoder_forward,
     decoder_prefill_batch,
     embed_with_audio,
@@ -519,13 +522,15 @@ def generate_greedy_streaming(dec_params: dict, cfg: DecoderConfig,
 
 def prefill_batch_mega_cache(dec_params: dict, cfg: DecoderConfig,
                              tokens: torch.Tensor, n_prompt, audio: torch.Tensor,
-                             n_audio, audio_offset: int, S: int):
+                             n_audio, audio_offset: int, S: int,
+                             cache_dtype: torch.dtype = torch.int8):
     """Batched prefill into the batched decode step's cache layout.
     tokens [B, P] int32 on the device (prompts left-aligned and padded to
     P), n_prompt / n_audio host sequences of B ints, audio [B, N, hidden]
     (the first n_audio[b] rows of item b are spliced over its audio_pad
     rows). -> (first tokens int32 [B] on the device, k, v [B, L, S, n_kv *
-    head_dim] int8, k_s, v_s [B, L, S, n_kv] f32), rows >= P zero."""
+    head_dim] int8 with k_s, v_s [B, L, S, n_kv] f32, or, for a bf16
+    cache_dtype, bf16 with k_s = v_s = None), rows >= P zero."""
     B, P = tokens.shape
     L, NKV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     n_prompt = np.asarray(n_prompt, np.int64).reshape(-1)
@@ -539,59 +544,104 @@ def prefill_batch_mega_cache(dec_params: dict, cfg: DecoderConfig,
                          dim=-1).to(torch.int32)
     out = []
     for name in ("k", "v"):
+        c = torch.zeros(B, L, S, NKV * D, dtype=cache_dtype, device=tokens.device)
+        if cache_dtype == torch.bfloat16:
+            c[:, :, :P] = rows[name].transpose(0, 1).reshape(B, L, P, NKV * D)
+            out += [c, None]
+            continue
         q8, sc = _quantize_kv_rows(rows[name])          # [L, B, P, NKV(, D)]
-        c = torch.zeros(B, L, S, NKV * D, dtype=torch.int8, device=h.device)
-        cs = torch.zeros(B, L, S, NKV, dtype=torch.float32, device=h.device)
+        cs = torch.zeros(B, L, S, NKV, dtype=torch.float32, device=tokens.device)
         c[:, :, :P] = q8.transpose(0, 1).reshape(B, L, P, NKV * D)
         cs[:, :, :P] = sc.transpose(0, 1)
         out += [c, cs]
     return first, out[0], out[2], out[1], out[3]
 
 
-def generate_greedy_batch_mega(dec_params: dict, cfg: DecoderConfig,
-                               tokens: torch.Tensor, n_prompt, audio: torch.Tensor,
-                               n_audio, audio_offset: int, max_tokens: int
-                               ) -> tuple[np.ndarray, np.ndarray]:
-    """Batched greedy generation, B <= 16 sequences in lockstep through the
-    batched decode step (the pack's weights are read once per step for the
-    batch), over an int8 cache. Arguments as in prefill_batch_mega_cache. A finished row keeps
+def _batch_loop(step, first: torch.Tensor, max_tokens: int, eos: int
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """The lockstep loop of B sequences: new = step(cur, i) gives step i's
+    tokens int32 [B] on the device (their inputs cur). A finished row keeps
     stepping with its outputs frozen (zeros after its EOS) until every row
     is done or the budget runs out; the host reads the done flags every
-    EOS_CHECK_EVERY steps. -> (out [B, max_tokens] int32, n_kept [B]) on
-    the host."""
-    B, P = tokens.shape
-    dev = tokens.device
-    S = cache_rows(P, max_tokens)
-    n_prompt = np.asarray(n_prompt, np.int64).reshape(-1)
-    first, k, v, ks, vs = prefill_batch_mega_cache(
-        dec_params, cfg, tokens, n_prompt, audio, n_audio, audio_offset, S)
-    eos = cfg.eos_token_id
-    out = torch.zeros(B, max_tokens, dtype=torch.int32, device=dev)
+    EOS_CHECK_EVERY steps. -> (out [B, max_tokens] int32, n_kept [B]) on the
+    host."""
+    B = first.shape[0]
+    out = torch.zeros(B, max_tokens, dtype=torch.int32, device=first.device)
     out[:, 0] = first
     done = first == eos
     nk = (~done).to(torch.int32)
     cur = first
-    pack = dec_params["mega"]
-    n_prompt_d = torch.from_numpy(n_prompt.astype(np.int32)).to(dev)
-    if dev.type == "cuda":
-        step = BatchDecodeStep(pack, cfg, k, v, ks, vs)
-        nxt = torch.empty(B, dtype=torch.int32, device=dev)
     for i in range(1, max_tokens):
         if (i - 1) % EOS_CHECK_EVERY == 0 and bool(done.all()):
             break
-        pos = n_prompt + i - 1
-        if dev.type == "cuda":
-            step(cur, n_prompt_d + (i - 1), nxt, (int(pos.min()), int(pos.max())))
-            new = nxt
-        else:
-            new = mega_decode_step_batch_ref(pack, cfg, cur, pos, k, v, ks, vs)[0]
-        new = torch.where(done, cur, new)
+        new = torch.where(done, cur, step(cur, i))
         out[:, i] = torch.where(done, out[:, i], new)
         hit = new == eos
         nk = torch.where(done, nk, torch.where(hit, i, i + 1).to(torch.int32))
         done = done | hit
         cur = new
     return out.cpu().numpy(), nk.cpu().numpy()
+
+
+def generate_greedy_batch_mega(dec_params: dict, cfg: DecoderConfig,
+                               tokens: torch.Tensor, n_prompt, audio: torch.Tensor,
+                               n_audio, audio_offset: int, max_tokens: int,
+                               cache_dtype: torch.dtype = torch.int8
+                               ) -> tuple[np.ndarray, np.ndarray]:
+    """Batched greedy generation, B <= 16 sequences in lockstep through the
+    batched decode step (the pack's weights are read once per step for the
+    batch), over an int8 or (cache_dtype torch.bfloat16) a bf16 cache.
+    Arguments as in prefill_batch_mega_cache, the loop _batch_loop's. ->
+    (out [B, max_tokens] int32, n_kept [B]) on the host."""
+    B, P = tokens.shape
+    dev = tokens.device
+    S = cache_rows(P, max_tokens)
+    n_prompt = np.asarray(n_prompt, np.int64).reshape(-1)
+    first, k, v, ks, vs = prefill_batch_mega_cache(
+        dec_params, cfg, tokens, n_prompt, audio, n_audio, audio_offset, S, cache_dtype)
+    pack = dec_params["mega"]
+    n_prompt_d = torch.from_numpy(n_prompt.astype(np.int32)).to(dev)
+    if dev.type == "cuda":
+        kernels = BatchDecodeStep(pack, cfg, k, v, ks, vs)
+        nxt = torch.empty(B, dtype=torch.int32, device=dev)
+
+    def step(cur, i):
+        pos = n_prompt + i - 1
+        if dev.type != "cuda":
+            return mega_decode_step_batch_ref(pack, cfg, cur, pos, k, v, ks, vs)[0]
+        kernels(cur, n_prompt_d + (i - 1), nxt, (int(pos.min()), int(pos.max())))
+        return nxt
+    return _batch_loop(step, first, max_tokens, cfg.eos_token_id)
+
+
+def generate_greedy_batch(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
+                          n_prompt, audio: torch.Tensor, n_audio, audio_offset: int,
+                          max_tokens: int, cache_dtype: torch.dtype = torch.bfloat16
+                          ) -> tuple[np.ndarray, np.ndarray]:
+    """Batched greedy generation on the per-layer decode step (a tree
+    without a decode pack: Q8_0 or dense leaves), the reference's vmapped
+    `generate_greedy`: the batched prefill into a cache of B slabs
+    (prefill_batch_mega_cache's pool, bf16 or int8; the int4 cache runs as
+    int8), then _batch_loop over decode_step_batch (K4 batched, K5-K7 at T = B) and the
+    lm head over the B rows (K6 on the Q8_0 copy). Arguments as in
+    prefill_batch_mega_cache. -> (out [B, max_tokens] int32, n_kept [B]) on
+    the host."""
+    P = tokens.shape[1]
+    dev = tokens.device
+    cache_dtype = torch.int8 if cache_dtype == INT4_KV else cache_dtype
+    n_prompt = np.asarray(n_prompt, np.int64).reshape(-1)
+    first, k, v, ks, vs = prefill_batch_mega_cache(
+        dec_params, cfg, tokens, n_prompt, audio, n_audio, audio_offset,
+        cache_rows(P, max_tokens), cache_dtype)
+    cache = {"k": k, "v": v} if ks is None else {"k": k, "v": v, "k_s": ks, "v_s": vs}
+    n_prompt_d = torch.from_numpy(n_prompt.astype(np.int32)).to(dev)
+
+    def step(cur, i):
+        x = dec_params["token_embd"][cur.long()]
+        h = decode_step_batch(dec_params, cfg, x, cache, n_prompt_d + (i - 1),
+                              n_prompt + i - 1)
+        return torch.argmax(lm_logits_block(dec_params, cfg, h), dim=-1).to(torch.int32)
+    return _batch_loop(step, first, max_tokens, cfg.eos_token_id)
 
 
 def nar_forward_batch(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,

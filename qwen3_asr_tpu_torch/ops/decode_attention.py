@@ -13,6 +13,14 @@ bodies `_decode_attn_kernel` / `_decode_attn_kernel_q`), with its signature:
 
 The fresh K/V takes part as one extra score column of the one softmax.
 `offset` and `pos` are host ints: they size the kernel's grid.
+
+`decode_attention_batch` is the same kernel over B rows (the reference runs
+`decode_attention` under `jax.vmap` in its batched per-layer step): qkv [B,
+...], caches [B, S, n_kv, D] (scales [B, S, n_kv]) whose slabs may lie any
+whole stride apart (layer l of the batched decode's [B, L, S, n_kv * D]
+cache), offsets and positions int32 [B] on the tensors' device, read
+there, and a host bound >= every offset that sizes the grid. Row b is the
+one-row call on slab b.
 """
 
 from __future__ import annotations
@@ -83,32 +91,74 @@ def decode_attention_ref(qkv, k_cache, v_cache, q_norm, k_norm, offset: int,
     return attn, k_all.reshape(1, n_kv, D), v_all.reshape(1, n_kv, D)
 
 
+def _scratch(n_heads: int, n_kv: int, D: int, bound: int, B: int) -> int:
+    from qwen3_asr_tpu_torch.ops.build import kernel
+
+    return int(kernel("qw_decode_attention_scratch", [ctypes.c_int] * 5,
+                      ctypes.c_size_t)(n_heads, n_kv, D, bound, B))
+
+
+def _check_common(qkv, q_norm, k_norm, rows, n_heads, n_kv, D, dev):
+    if qkv.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"qkv: expected bfloat16 or float32, got {qkv.dtype}")
+    check(qkv, "qkv", qkv.dtype, (rows, (n_heads + 2 * n_kv) * D), dev)
+    if q_norm.dtype != k_norm.dtype or q_norm.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError("q_norm / k_norm: expected one dtype, bfloat16 or float32")
+    check(q_norm, "q_norm", q_norm.dtype, (D,), dev)
+    check(k_norm, "k_norm", k_norm.dtype, (D,), dev)
+
+
+def _check_cache(k_cache, v_cache, k_scale, v_scale, lead: tuple, n_kv, D, dev):
+    """The caches [*lead, n_kv, D] (bf16, or int8 with f32 scales [*lead,
+    n_kv]). -> whether the cache is int8."""
+    quant = k_scale is not None
+    cdt = torch.int8 if quant else torch.bfloat16
+    check(k_cache, "k_cache", cdt, (*lead, n_kv, D), dev)
+    check(v_cache, "v_cache", cdt, (*lead, n_kv, D), dev)
+    if quant:
+        check(k_scale, "k_scale", torch.float32, (*lead, n_kv), dev)
+        check(v_scale, "v_scale", torch.float32, (*lead, n_kv), dev)
+    return quant
+
+
+def _check_slabs(k_cache, v_cache, k_scale, v_scale, n_kv, D, dev) -> tuple[bool, int]:
+    """B cache slabs [B, S, n_kv, D] (bf16, or int8 with f32 scales [B, S,
+    n_kv]), each slab contiguous, slab b + 1 a fixed stride after slab b, the
+    same for K, V and their scales. -> (whether the cache is int8, the
+    stride in (row, head) pairs)."""
+    quant = k_scale is not None
+    B, S = k_cache.shape[:2]
+    inner = (n_kv * D, D, 1)
+    slab = k_cache.stride(0) // D if B > 1 else S * n_kv
+    for name, t, dt, shape, strides in (
+            ("k_cache", k_cache, torch.int8 if quant else torch.bfloat16, (B, S, n_kv, D),
+             (slab * D, *inner)),
+            ("v_cache", v_cache, torch.int8 if quant else torch.bfloat16, (B, S, n_kv, D),
+             (slab * D, *inner)),
+            *((("k_scale", k_scale, torch.float32, (B, S, n_kv), (slab, n_kv, 1)),
+               ("v_scale", v_scale, torch.float32, (B, S, n_kv), (slab, n_kv, 1)))
+              if quant else ())):
+        check(t[0], name + "[0]", dt, shape[1:], dev)
+        if tuple(t.shape) != shape or (B > 1 and tuple(t.stride()) != strides) \
+                or slab < S * n_kv:
+            raise ValueError(f"{name}: expected slabs {shape} at (row, head) stride "
+                             f"{slab}, got {tuple(t.shape)} strides {tuple(t.stride())}")
+    return quant, slab
+
+
 def _launch(qkv, k_cache, v_cache, q_norm, k_norm, offset, pos, n_heads, n_kv,
             D, eps, theta, scale, k_scale, v_scale):
     from qwen3_asr_tpu_torch.ops.build import kernel
 
     dev = qkv.device
     S = k_cache.shape[0]
-    if qkv.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"qkv: expected bfloat16 or float32, got {qkv.dtype}")
-    check(qkv, "qkv", qkv.dtype, (1, (n_heads + 2 * n_kv) * D), dev)
-    quant = k_scale is not None
-    cdt = torch.int8 if quant else torch.bfloat16
-    check(k_cache, "k_cache", cdt, (S, n_kv, D), dev)
-    check(v_cache, "v_cache", cdt, (S, n_kv, D), dev)
-    if quant:
-        check(k_scale, "k_scale", torch.float32, (S, n_kv), dev)
-        check(v_scale, "v_scale", torch.float32, (S, n_kv), dev)
-    if q_norm.dtype != k_norm.dtype or q_norm.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError("q_norm / k_norm: expected one dtype, bfloat16 or float32")
-    check(q_norm, "q_norm", q_norm.dtype, (D,), dev)
-    check(k_norm, "k_norm", k_norm.dtype, (D,), dev)
+    _check_common(qkv, q_norm, k_norm, 1, n_heads, n_kv, D, dev)
+    quant = _check_cache(k_cache, v_cache, k_scale, v_scale, (S,), n_kv, D, dev)
     if n_heads % n_kv or D % 16 or D > 256 or not 0 <= offset <= S:
         raise ValueError(f"decode_attention takes n_heads % n_kv == 0, D % 16 "
                          f"== 0, D <= 256, 0 <= offset <= S (got {n_heads}, "
                          f"{n_kv}, {D}, offset {offset}, S {S})")
-    n_part = kernel("qw_decode_attention_scratch", [ctypes.c_int] * 4,
-                    ctypes.c_size_t)(n_heads, n_kv, D, offset)
+    n_part = _scratch(n_heads, n_kv, D, offset, 1)
     part = torch.empty(max(int(n_part), 1), dtype=torch.float32, device=dev)
     attn = torch.empty(1, n_heads * D, dtype=torch.float32, device=dev)
     k_new = torch.empty(1, n_kv, D, dtype=torch.float32, device=dev)
@@ -148,3 +198,79 @@ def decode_attention(qkv, k_cache, v_cache, q_norm, k_norm, offset: int, pos: in
 
 
 decode_attention.launches = 0
+
+
+def decode_attention_batch_ref(qkv, k_cache, v_cache, q_norm, k_norm, offsets, pos,
+                               *, n_heads: int, n_kv: int, head_dim: int, eps: float,
+                               theta: float, scale: float, k_scale=None, v_scale=None):
+    """Plain twin of the batched kernel: decode_attention_ref on each row's
+    slab at its own offset and position (host ints read from `offsets` and
+    `pos`)."""
+    kw = dict(n_heads=n_heads, n_kv=n_kv, head_dim=head_dim, eps=eps, theta=theta,
+              scale=scale)
+    outs = [decode_attention_ref(
+        qkv[b:b + 1], k_cache[b], v_cache[b], q_norm, k_norm, int(o), int(p), **kw,
+        k_scale=None if k_scale is None else k_scale[b],
+        v_scale=None if v_scale is None else v_scale[b])
+        for b, (o, p) in enumerate(zip(_host_ints(offsets), _host_ints(pos)))]
+    return tuple(torch.cat(t) for t in zip(*outs))
+
+
+def _host_ints(x) -> list[int]:
+    return [int(v) for v in (x.tolist() if isinstance(x, torch.Tensor) else x)]
+
+
+def decode_attention_batch(qkv, k_cache, v_cache, q_norm, k_norm, offsets: torch.Tensor,
+                           pos: torch.Tensor, bound: int, *, n_heads: int, n_kv: int,
+                           head_dim: int, eps: float, theta: float, scale: float,
+                           k_scale=None, v_scale=None):
+    """B rows in one launch: qkv [B, (n_heads + 2 n_kv) * D]; k_cache /
+    v_cache [B, S, n_kv, D] (bf16, or int8 with k_scale / v_scale [B, S,
+    n_kv] f32), each slab contiguous and the slabs one stride apart;
+    offsets and pos int32 [B] on the caches' device; `bound` a
+    host int >= every offset (<= S) that sizes the grid. -> (attn [B,
+    n_heads * D] f32, k_new [B, n_kv, D] f32, v_new [B, n_kv, D] f32). CPU
+    tensors take the twin (reading the offsets on the host); CUDA tensors
+    launch the kernel or raise, and the offsets are not read back."""
+    kw = dict(n_heads=n_heads, n_kv=n_kv, head_dim=head_dim, eps=eps,
+              theta=theta, scale=scale, k_scale=k_scale, v_scale=v_scale)
+    if k_cache.device.type == "cpu":
+        return decode_attention_batch_ref(qkv, k_cache, v_cache, q_norm, k_norm,
+                                          offsets, pos, **kw)
+    from qwen3_asr_tpu_torch.ops.build import kernel
+
+    require_cuda(k_cache, "k_cache")
+    dev, D = k_cache.device, head_dim
+    B, S = k_cache.shape[:2]
+    qkv, q_norm, k_norm = qkv.contiguous(), q_norm.contiguous(), k_norm.contiguous()
+    _check_common(qkv, q_norm, k_norm, B, n_heads, n_kv, D, dev)
+    quant, slab = _check_slabs(k_cache, v_cache, k_scale, v_scale, n_kv, D, dev)
+    check(offsets, "offsets", torch.int32, (B,), dev)
+    check(pos, "pos", torch.int32, (B,), dev)
+    if n_heads % n_kv or D % 16 or D > 256 or not 0 <= int(bound) <= S:
+        raise ValueError(f"decode_attention_batch takes n_heads % n_kv == 0, D % 16 "
+                         f"== 0, D <= 256, 0 <= bound <= S (got {n_heads}, {n_kv}, "
+                         f"{D}, bound {bound}, S {S})")
+    part = torch.empty(max(_scratch(n_heads, n_kv, D, int(bound), B), 1),
+                       dtype=torch.float32, device=dev)
+    attn = torch.empty(B, n_heads * D, dtype=torch.float32, device=dev)
+    k_new = torch.empty(B, n_kv, D, dtype=torch.float32, device=dev)
+    v_new = torch.empty(B, n_kv, D, dtype=torch.float32, device=dev)
+    fn = kernel("qw_decode_attention_batch",
+                [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
+                + [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+                + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    rc = fn(qkv.data_ptr(), int(qkv.dtype == torch.bfloat16), k_cache.data_ptr(),
+            v_cache.data_ptr(), k_scale.data_ptr() if quant else None,
+            v_scale.data_ptr() if quant else None, q_norm.data_ptr(), k_norm.data_ptr(),
+            int(q_norm.dtype == torch.bfloat16), part.data_ptr(), attn.data_ptr(),
+            k_new.data_ptr(), v_new.data_ptr(), offsets.data_ptr(), pos.data_ptr(), B,
+            S, slab, int(bound), n_heads, n_kv, D, float(eps), rope_coef(theta, D),
+            float(np.float32(scale)), stream_ptr(dev))
+    raise_on_error(rc, "decode_attention_batch")
+    decode_attention_batch.launches += 1
+    return attn, k_new, v_new
+
+
+decode_attention_batch.launches = 0

@@ -1,19 +1,26 @@
 """Batched greedy decode step (up to 16 sequences, each at its own
-position) on the decode pack (int4 or int8 weights) with an int8 KV cache:
-the CUDA kernels `csrc/megakernel_batch.cu` and their plain PyTorch version.
+position) on the decode pack (int4 or int8 weights) with an int8 or a bf16
+KV cache: the CUDA kernels `csrc/megakernel_batch.cu` and their plain
+PyTorch version.
 
 Port of qwen3_asr_tpu/ops/megakernel_batch.py (`mega_decode_step_batch`) in
 its resident mode, on the port's own packs
 (`ops/megakernel.py::pack_megakernel_params`, the packs the single-sequence
-step reads; the int8 KV cache is the JAX kernel's only resident mode). The streamed-KV mode and the VMEM sizing
-(`mega_batch_max_context`, `mega_batch_stream_max_batch`) are TPU
-artifacts and are not ported: the card's kernel takes any S.
+step reads). The JAX kernel's only resident mode is the int8 cache, because
+B bf16 slabs would not fit a TPU core's VMEM; on the card a block stages one
+chunk of one row's slab whatever B is, so the port adds the bf16 cache
+(`mega_decode_step_batch_bf16`), whose rows are K1's bf16-cache step, where
+the reference sends bf16 batches to its vmapped XLA step. The streamed-KV
+mode and the VMEM sizing (`mega_batch_max_context`,
+`mega_batch_stream_max_batch`) are TPU artifacts and are not ported: the
+card's kernel takes any S.
 
 Cache layout at the public functions: k/v `[B, L, S, n_kv * head_dim]`
-int8 and scales `[B, L, S, n_kv]` f32, so slab b is a single-sequence cache
-(the JAX package keeps its scales as `[B, L, n_kv, S]`). A step writes row
-`pos[b]` of slab b in place and reads rows `< pos[b]`. Rows are
-independent: row b equals the single-sequence step on slab b alone.
+int8 with scales `[B, L, S, n_kv]` f32, or bf16 with none, so slab b is a
+single-sequence cache (the JAX package keeps its scales as `[B, L, n_kv,
+S]`). A step writes row `pos[b]` of slab b in place and reads rows `<
+pos[b]`. Rows are independent: row b equals the single-sequence step on
+slab b alone.
 """
 
 from __future__ import annotations
@@ -48,8 +55,9 @@ def mega_decode_step_batch_ref(pack, cfg: DecoderConfig, tokens_or_x, pos,
     row pos[b] of slab b in place. -> (tokens int32 [B], h f32 [B, H])."""
     toks, hs = [], []
     for b, p in enumerate(_host_pos(pos)):
-        t, h = mega_decode_step_ref(pack, cfg, tokens_or_x[b:b + 1], int(p),
-                                       k[b], v[b], k_s[b], v_s[b])
+        t, h = mega_decode_step_ref(pack, cfg, tokens_or_x[b:b + 1], int(p), k[b], v[b],
+                                    None if k_s is None else k_s[b],
+                                    None if v_s is None else v_s[b])
         toks.append(t)
         hs.append(h)
     return torch.cat(toks), torch.cat(hs)
@@ -66,10 +74,12 @@ def _host_pos(pos) -> np.ndarray:
 
 class BatchDecodeStep:
     """The batched CUDA decode step bound to one pack and one cache pool of
-    B slabs: validates the pack and the pool once, allocates the scratch
-    once, then launches a step per call."""
+    B slabs (int8 with scales k_s / v_s, or bf16 with none): validates the
+    pack and the pool once, allocates the scratch once, then launches a step
+    per call through `qw_mega_decode_step_batch_i8` or
+    `qw_mega_decode_step_batch` (bf16)."""
 
-    def __init__(self, pack, cfg: DecoderConfig, k, v, k_s, v_s):
+    def __init__(self, pack, cfg: DecoderConfig, k, v, k_s=None, v_s=None):
         from qwen3_asr_tpu_torch.ops.build import kernel
 
         dev = k.device
@@ -79,13 +89,21 @@ class BatchDecodeStep:
             raise ValueError(f"batch {B} outside [1, {MAX_BATCH}]")
         _check_pack(pack, cfg, dev)
         DKV, NKV = cfg.n_kv_heads * cfg.head_dim, cfg.n_kv_heads
-        check(k, "k cache", torch.int8, (B, cfg.n_layers, S, DKV), dev)
-        check(v, "v cache", torch.int8, (B, cfg.n_layers, S, DKV), dev)
-        check(k_s, "k scales", torch.float32, (B, cfg.n_layers, S, NKV), dev)
-        check(v_s, "v scales", torch.float32, (B, cfg.n_layers, S, NKV), dev)
+        if k.dtype not in _ENTRIES:
+            raise TypeError(f"k cache: expected int8 or bf16, got {k.dtype}")
+        check(k, "k cache", k.dtype, (B, cfg.n_layers, S, DKV), dev)
+        check(v, "v cache", k.dtype, (B, cfg.n_layers, S, DKV), dev)
+        if k.dtype == torch.int8:
+            if k_s is None or v_s is None:
+                raise ValueError("an int8 cache needs its scales")
+            check(k_s, "k scales", torch.float32, (B, cfg.n_layers, S, NKV), dev)
+            check(v_s, "v scales", torch.float32, (B, cfg.n_layers, S, NKV), dev)
+        elif k_s is not None or v_s is not None:
+            raise ValueError("a bf16 cache takes no scales")
         self.cfg, self.dev, self.B, self.S = cfg, dev, B, S
         self.pack = pack
-        self._fn = kernel("qw_mega_decode_step_batch_i8",
+        self.counter = _COUNTERS[k.dtype]
+        self._fn = kernel(_ENTRIES[k.dtype],
                           [ctypes.POINTER(_Ptrs), ctypes.POINTER(_Dims),
                            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
         nbytes = kernel("qw_mega_batch_scratch_bytes",
@@ -98,7 +116,8 @@ class BatchDecodeStep:
             "qkv_q", "qkv_s", "wo_q", "wo_s", "gu_q", "gu_s", "wd_q", "wd_s",
             "head_q", "head_s")}
         self.ptrs = _Ptrs(**p, k_cache=k.data_ptr(), v_cache=v.data_ptr(),
-                          k_scale=k_s.data_ptr(), v_scale=v_s.data_ptr(),
+                          k_scale=None if k_s is None else k_s.data_ptr(),
+                          v_scale=None if v_s is None else v_s.data_ptr(),
                           h_out=self.h.data_ptr(),
                           scratch=self.scratch.data_ptr())
 
@@ -128,8 +147,8 @@ class BatchDecodeStep:
         rc = self._fn(ctypes.byref(self.ptrs), ctypes.byref(dims),
                       ctypes.c_void_p(pos.data_ptr()), self.B,
                       stream_ptr(self.dev))
-        raise_on_error(rc, "mega_decode_step_batch")
-        mega_decode_step_batch.launches += 1
+        raise_on_error(rc, self.counter.__name__)
+        self.counter.launches += 1
 
 
 def mega_decode_step_batch(pack, cfg: DecoderConfig, tokens_or_x, pos,
@@ -141,6 +160,16 @@ def mega_decode_step_batch(pack, cfg: DecoderConfig, tokens_or_x, pos,
     place. -> (next tokens int32 [B], h f32 [B, H], the hidden states before
     the final norm). CPU tensors take the plain version; CUDA tensors launch
     the kernels or raise."""
+    return _step_once(pack, cfg, tokens_or_x, pos, k, v, k_s, v_s)
+
+
+def mega_decode_step_batch_bf16(pack, cfg: DecoderConfig, tokens_or_x, pos, k, v):
+    """mega_decode_step_batch over bf16 slabs [B, L, S, n_kv * head_dim]
+    (no scales): row b equals K1's bf16-cache step on slab b."""
+    return _step_once(pack, cfg, tokens_or_x, pos, k, v, None, None)
+
+
+def _step_once(pack, cfg: DecoderConfig, tokens_or_x, pos, k, v, k_s, v_s):
     hp = _host_pos(pos)
     if len(hp) != k.shape[0]:
         raise ValueError(f"{len(hp)} positions for {k.shape[0]} slabs")
@@ -159,3 +188,8 @@ def mega_decode_step_batch(pack, cfg: DecoderConfig, tokens_or_x, pos,
 
 
 mega_decode_step_batch.launches = 0
+mega_decode_step_batch_bf16.launches = 0
+# the wrapper whose count a step adds to, and its C entry, by cache dtype
+_COUNTERS = {torch.int8: mega_decode_step_batch, torch.bfloat16: mega_decode_step_batch_bf16}
+_ENTRIES = {torch.int8: "qw_mega_decode_step_batch_i8",
+            torch.bfloat16: "qw_mega_decode_step_batch"}

@@ -24,10 +24,11 @@ cache) take the staged path too, as in the reference; spec_k is ignored
 under sampling, and a sampled request reports no per-token progress. Unlike
 the reference, spec runs wherever the pack does (the twins on the CPU) and
 at any audio length. `transcribe_batch` (the bucketed batched frontend, the
-batched prefill and the lockstep batched decode step in chunks of at most
-16 sequences, as the `mesh=None` branch of
-qwen3_asr_tpu/parallel/mesh.py::batched_transcribe_step runs them) takes a
-decode pack and the int8 cache.
+batched prefill and the lockstep batched decode,
+`parallel/mesh.py::batched_transcribe_step`) runs in every weight and cache
+mode: the decode pack's batched step (K3) over an int8 or a bf16 cache in
+chunks of at most 16 sequences, or without a pack the per-layer step at B
+rows; the int4 cache runs as int8 in a batch.
 """
 
 from __future__ import annotations
@@ -382,31 +383,16 @@ class Qwen3ASR:
             return None
         return samples
 
-    def check_batched(self) -> None:
-        """Raise NotImplementedError unless the model has a batched decode
-        path: a decode pack (int4 or int8 weights) and the int8 cache. The
-        int4 cache is a single-sequence stream: transcribe_batch runs it as
-        int8, as the reference does."""
-        if "mega" not in self.params["decoder"]:
-            raise NotImplementedError(
-                f"transcribe_batch runs the batched decode step on the decode "
-                f"pack; quantize={self.quantize or False!r} has none (the "
-                "batched Q8_0 / dense path is not ported, ROADMAP Queue 1 item 13)")
-        if self.kv_cache == "bf16":
-            raise NotImplementedError(
-                f"transcribe_batch runs the batched decode step over the int8 KV "
-                f"cache; kv_cache={self.kv_cache!r} in a batch is not ported "
-                "(ROADMAP Queue 1 item 13)")
-
     def transcribe_batch(self, audios: list,
                          params: TranscribeParams | None = None
                          ) -> list[TranscribeResult]:
         """Transcribe several utterances in one batched decode: all prompts
         pad to a common bucket, the frontend runs per mel bucket, and the
-        batched prefill and decode run in chunks of at most 16 sequences
-        (MAX_BATCH), each chunk one lockstep loop of the batched step."""
-        from qwen3_asr_tpu_torch.models.generate import generate_greedy_batch_mega
-        from qwen3_asr_tpu_torch.ops.megakernel_batch import MAX_BATCH
+        batched prefill and decode run as batched_transcribe_step routes
+        them (the decode pack in chunks of at most 16 sequences, each chunk
+        one lockstep loop of the batched step; without a pack the per-layer
+        step at B rows)."""
+        from qwen3_asr_tpu_torch.parallel.mesh import batched_transcribe_step
 
         params = params or TranscribeParams()
         results = [TranscribeResult() for _ in audios]
@@ -414,7 +400,6 @@ class Qwen3ASR:
             for r in results:
                 r.error_msg = "Model not loaded"
             return results
-        self.check_batched()
         t0 = time.perf_counter()
         samples_list = [self._load_samples(a, r) for a, r in zip(audios, results)]
         feats_list = frontend_feats_batch(self, samples_list, params.mel_bucket)
@@ -423,16 +408,9 @@ class Qwen3ASR:
             return results
         toks, n_prompt, n_audio, audio, offset = batch_prompts(
             self, [feats_list[i] for i in valid], params.prompt_bucket)
-        B = len(valid)
-        outs, kept = [], []
-        for c in range(0, B, MAX_BATCH):
-            e = min(B, c + MAX_BATCH)
-            o, k = generate_greedy_batch_mega(
-                self.params["decoder"], self.cfg.decoder, toks[c:e], n_prompt[c:e],
-                audio[c:e], n_audio[c:e], offset, params.max_tokens)
-            outs.append(o)
-            kept.append(k)
-        out, n_kept = np.concatenate(outs), np.concatenate(kept)
+        out, n_kept = batched_transcribe_step(
+            self.params["decoder"], self.cfg.decoder, toks, n_prompt, audio, n_audio,
+            offset, params.max_tokens, cache_dtype=self.cache_dtype)
         t_ms = (time.perf_counter() - t0) * 1000
         for b, i in enumerate(valid):
             r = results[i]

@@ -102,7 +102,10 @@ class ContinuousEngine:
     def __init__(self, asr, pool: int = 8, round_tokens: int = 64,
                  max_tokens: int = 1024, prompt_bucket: int = 128,
                  mel_bucket: int = 800, s_pool: int | None = None):
-        asr.check_batched()
+        if "mega" not in asr.params["decoder"]:
+            raise NotImplementedError(
+                f"the continuous engine runs the batched decode step on the decode "
+                f"pack; quantize={asr.quantize or False!r} has none")
         if asr.kv_cache != "int8":   # the reference's engine takes int8 only
             raise NotImplementedError(
                 f"the continuous engine runs the batched decode step over the int8 "

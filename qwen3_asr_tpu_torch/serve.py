@@ -9,9 +9,8 @@ a single worker thread does all device work, in one of two modes:
 
 - closed batches (the default): the worker groups up to `max_batch`
   requests arriving within `max_wait_ms` and runs them as one
-  `Qwen3ASR.transcribe_batch` call (a batch of one goes to `transcribe`;
-  a batch needs the decode pack and the int8 cache, and a model without
-  them runs the batch one request at a time through `transcribe`); a
+  `Qwen3ASR.transcribe_batch` call in any weight and cache mode (a batch
+  of one goes to `transcribe`); a
   streaming request runs alone through the pipeline's token callback
   (`_run_stream`: the streaming decode path, 8 tokens per host read);
   alignments arriving together run as one `align_batch` per language, and
@@ -315,15 +314,10 @@ class ASRServer:
         self.n_batches += 1
 
     def _run_transcribe(self, batch: list[_Request]) -> list:
-        """One batched transcription of a closed batch. Unlike the JAX
-        server there is no split by context length: the batched step takes
-        any context on the card. In a mode transcribe_batch refuses (no
-        decode pack, or a bf16 cache) the batch runs one request at a time
-        through transcribe, as the JAX server runs a one-item group."""
-        try:
-            self.asr.check_batched()
-        except NotImplementedError:
-            return [self.asr.transcribe(r.samples, self.params) for r in batch]
+        """One batched transcription of a closed batch, in every weight and
+        cache mode. Unlike the JAX server there is no split by context
+        length or padding to a power of two: the batched steps take any
+        context and batch size on the card."""
         return self.asr.transcribe_batch([r.samples for r in batch], self.params)
 
     def _run_align(self, batch: list[_Request]) -> list:
@@ -793,13 +787,12 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "none", "q8_0", "int8pc", "int4"],
                    help="decoder weights: auto = int8pc (per-channel int8) for "
                         "a dense GGUF, a Q8_0 GGUF as loaded; int4 nibble-packs "
-                        "the decode weights. Batches run on the decode pack "
-                        "(auto/int8pc/int4) with the int8 cache")
+                        "the decode weights. --continuous needs the decode pack "
+                        "(auto/int8pc/int4)")
     p.add_argument("--kv-cache", default="int8", choices=["int8", "bf16", "int4"],
-                   help="KV cache dtype: int8 (default, the batched step's "
-                        "cache), bf16 (single requests only) or int4 (the "
+                   help="KV cache dtype: int8 (default), bf16 or int4 (the "
                         "decode pack's nibble-packed cache for lone requests; "
-                        "batches still run int8, and --continuous needs int8)")
+                        "batches run int8, and --continuous needs int8)")
     p.add_argument("--warmup", default="",
                    help="comma-separated audio lengths (s) to run before serving")
     p.add_argument("--continuous", action="store_true",

@@ -1,7 +1,8 @@
 """Planted faults against `chip_smoke.py`'s checks, on the card, at
 Qwen3-ASR-0.6B's and Qwen3-ForcedAligner-0.6B's full width (random weights,
-seed 0): the per-layer decode path (Q8_0 weights), K1 / K3 on the int8 pack
-(`quantize="auto"`), sampled decoding and greedy self-speculation, the
+seed 0): the per-layer decode path (Q8_0 weights, one row and B rows), K1 /
+K3 on the int8 pack (`quantize="auto"`; K3 over both caches), sampled
+decoding and greedy self-speculation, the
 weight-stream microbenchmarks and the aligner.
 
 Each case plants one fault at run time (a slice of a weight dropped, the
@@ -18,7 +19,11 @@ one row off or its bucketed attention ignoring n_audio, the sampled loop
 fed K1's argmax through the greedy GraphStep's shortcut, the sampled head
 given the post-norm h, top-p dropping its cutoff element, the speculative
 verify reading the drafts' cache rows, a spec round emitting the draft at
-its first mismatch) and asserts that the phase of
+its first mismatch, K4's batched mode reading row 0's offset for every
+row, K3's bf16 mode writing the fresh rows into slab 0, the per-layer step
+at B rows storing every row at row 0's position, its attention output
+alone with q roped one position late or the newest 64 cache rows skipped)
+and asserts that the phase of
 `chip_smoke.py` that guards against it raises. The phases print their readings before they raise; run
 with `-s` to see them beside the bounds:
 
@@ -597,3 +602,99 @@ def test_acceptance_taking_the_draft_caught(auto_asr, int4_asr):
 
     with patched(gen, "accept", drafts_win):
         caught("acceptance taking the draft", lambda: cs.phase_spec(asr, int4_asr))
+
+
+def test_k4_batch_reading_row0_offset_caught(q8_asr):
+    """K4's batched mode reading row 0's offset for every row: the K4
+    batched phase's rows-equal-one-row-launches check raises."""
+    from qwen3_asr_tpu_torch.ops import decode_attention as da
+
+    cs, asr = q8_asr
+    real = da.decode_attention_batch
+
+    def row0(qkv, kc, vc, qn, kn, offsets, pos, bound, **kw):
+        return real(qkv, kc, vc, qn, kn, offsets[:1].expand_as(offsets).contiguous(), pos,
+                    bound, **kw)
+
+    row0.launches = 0
+    with patched(da, "decode_attention_batch", row0):
+        caught("K4 batched reading row 0's offset", lambda: cs.phase_decode_attention_batch(
+            asr.cfg.decoder))
+
+
+def test_k3_bf16_fresh_row_into_slab0_caught(auto_asr):
+    """K3's bf16 mode writing each row's fresh K/V rows into slab 0 (its own
+    slab's row left as it was): the K3 phase's rows-equal-K1 check raises."""
+    from qwen3_asr_tpu_torch.ops import megakernel_batch as mbt
+
+    cs, asr = auto_asr
+    init, call = mbt.BatchDecodeStep.__init__, mbt.BatchDecodeStep.__call__
+
+    def keeping(self, pack, cfg, k, v, k_s=None, v_s=None):
+        init(self, pack, cfg, k, v, k_s, v_s)
+        self.planted_kv = (k, v)
+
+    def into_slab0(self, tokens_or_x, pos, out, bounds):
+        p = pos.tolist()
+        old = [[t[b, :, p[b]].clone() for b in range(len(p))] for t in self.planted_kv]
+        call(self, tokens_or_x, pos, out, bounds)
+        if self.planted_kv[0].dtype == torch.bfloat16:
+            for t, rows in zip(self.planted_kv, old):
+                for b in range(1, len(p)):
+                    t[0, :, p[b]] = t[b, :, p[b]]
+                    t[b, :, p[b]] = rows[b]
+
+    with patched(mbt.BatchDecodeStep, "__init__", keeping), \
+            patched(mbt.BatchDecodeStep, "__call__", into_slab0):
+        caught("K3 bf16 writing the fresh rows into slab 0", lambda: cs.phase_mega_batch(
+            asr.cfg.decoder, asr.params["decoder"]["mega"], "bf16"))
+
+
+def test_batched_step_storing_at_row0_position_caught(q8_asr):
+    """The per-layer step at B rows storing every row's fresh K/V rows at row
+    0's position: the batched-step phase's cache check raises."""
+    from qwen3_asr_tpu_torch.models import decoder as dmod
+
+    cs, asr = q8_asr
+    store = dmod._store
+
+    def at_row0(cache, l, rows, k, v):
+        if isinstance(rows, tuple):
+            slabs, positions = rows
+            rows = (slabs, positions[:1].expand_as(positions))
+        return store(cache, l, rows, k, v)
+
+    with patched(dmod, "_store", at_row0):
+        caught("batched step storing at row 0's position",
+               lambda: cs.phase_step_batch(asr, "bf16"))
+
+
+def _attn_from(fault):
+    """decode_step_batch's K4 batched call with the attention output from a
+    launch whose arguments `fault` changed, and the fresh K/V rows (what
+    the cache stores) from the right launch: a fault on the q side alone."""
+    from qwen3_asr_tpu_torch.ops import decode_attention as da
+
+    real = da.decode_attention_batch
+
+    def call(qkv, kc, vc, qn, kn, offsets, pos, bound, **kw):
+        _, k_new, v_new = real(qkv, kc, vc, qn, kn, offsets, pos, bound, **kw)
+        offsets, pos = fault(offsets, pos)
+        return real(qkv, kc, vc, qn, kn, offsets, pos, bound, **kw)[0], k_new, v_new
+    return call
+
+
+@pytest.mark.parametrize("what,fault", [
+    ("q roped one position late", lambda offs, pos: (offs, pos + 1)),
+    ("the newest 64 cache rows skipped", lambda offs, pos: ((offs - 64).clamp(min=0), pos)),
+])
+def test_batched_step_q_side_fault_caught(q8_asr, what, fault):
+    """The per-layer step at B rows with a fault in its attention output
+    alone (the fresh K/V rows right, so the cache rule is silent): the
+    batched-step phase's h bound (STEP_BATCH_H_REL) or its near-tie rule
+    raises."""
+    from qwen3_asr_tpu_torch.models import decoder as dmod
+
+    cs, asr = q8_asr
+    with patched(dmod, "decode_attention_batch", _attn_from(fault)):
+        caught(f"batched step: {what}", lambda: cs.phase_step_batch(asr, "bf16"))

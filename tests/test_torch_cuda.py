@@ -410,6 +410,67 @@ def test_batched_megakernel_rows_equal_single(cuda_kernels, int4):
     assert tmb.mega_decode_step_batch.launches == before + 4
 
 
+def _pool_bf16(dcfg, S, pos, seed):
+    """[B, L, S, DKV] bf16 slabs with rows < pos[b] filled (no scales)."""
+    k = torch.stack([_cache(dcfg, S, p, seed + 2 * b, "bf16")[0] for b, p in enumerate(pos)])
+    v = torch.stack([_cache(dcfg, S, p, seed + 2 * b + 1, "bf16")[0]
+                     for b, p in enumerate(pos)])
+    return k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int4", [True, False], ids=["int4", "int8"])
+def test_batched_megakernel_bf16_rows_equal_k1_bf16(cuda_kernels, int4):
+    """K3's bf16-cache mode: each row equals K1's bf16-cache step on that
+    row's slab copy, bit for bit (token, h, every layer's fresh K/V row),
+    over 4 teacher-forced steps at spread positions; the whole pool equal
+    after them; against the plain version tokens equal or a near tie, h
+    atol/rtol 2e-2."""
+    from qwen3_asr_tpu_torch.ops import megakernel_batch as tmb
+
+    dcfg, pack = _tiny_pack(int4)
+    S, pos0 = 256, [12, 150, 64, 199, 1]
+    B = len(pos0)
+    pool = _pool_bf16(dcfg, S, pos0, 20)
+    singles = [[t[b].clone() for t in pool] for b in range(B)]
+    ref = [t.clone() for t in pool]
+    step = tmb.BatchDecodeStep(pack, dcfg, *pool)
+    out = torch.empty(B, dtype=torch.int32, device="cuda")
+    one = torch.empty(1, dtype=torch.int32, device="cuda")
+    toks = torch.tensor([7, 9, 11, 13, 15], dtype=torch.int32, device="cuda")
+    before = tmb.mega_decode_step_batch_bf16.launches, tmb.mega_decode_step_batch.launches
+    for i in range(4):
+        pos = [p + i for p in pos0]
+        step(toks, torch.tensor(pos, dtype=torch.int32, device="cuda"), out,
+             (min(pos), max(pos)))
+        rt, rh = tmb.mega_decode_step_batch_ref(pack, dcfg, toks, pos, *ref, None, None)
+        for b in range(B):
+            k1 = tmk.DecodeStep(pack, dcfg, *singles[b])
+            k1(toks[b:b + 1], pos[b], one)
+            assert torch.equal(out[b:b + 1], one), (i, b)
+            assert torch.equal(step.h[b:b + 1], k1.h), (i, b)
+            for t, s in zip(pool, singles[b]):
+                assert torch.equal(t[b, :, pos[b]], s[:, pos[b]]), (i, b)
+        torch.testing.assert_close(step.h, rh, atol=2e-2, rtol=2e-2)
+        for b in range(B):
+            if int(out[b]) != int(rt[b]):
+                _, _, lg = tmk.mega_decode_step_ref(
+                    pack, dcfg, toks[b:b + 1], pos[b], *[t[b].clone() for t in ref],
+                    return_logits=True)
+                assert float(lg[int(rt[b])] - lg[int(out[b])]) <= NEAR_TIE_TOL
+        for a, r in zip(pool, ref):
+            for b in range(B):
+                r[b, :, pos[b]] = a[b, :, pos[b]]
+        toks = rt.clone()
+    for b in range(B):
+        for t, s in zip(pool, singles[b]):
+            assert torch.equal(t[b], s), b
+    assert (tmb.mega_decode_step_batch_bf16.launches, tmb.mega_decode_step_batch.launches) \
+        == (before[0] + 4, before[1])
+    with pytest.raises(ValueError):
+        tmb.BatchDecodeStep(pack, dcfg, *pool, pool[0].float(), None)
+
+
 @pytest.mark.cuda
 def test_batched_megakernel_rejects_bad_arguments(cuda_kernels):
     from qwen3_asr_tpu_torch.ops import megakernel_batch as tmb
@@ -505,6 +566,104 @@ def test_decode_attention_matches_twin(cuda_kernels, quant, offset):
     want = da.decode_attention_ref(qkv, k, v, qn, qn, offset, offset, **kw)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_attention_batch_rows_equal_one_row(cuda_kernels, quant):
+    """K4's batched mode at the decoder's widths, S = 1,664, 8 rows at
+    spread offsets (0, chunk edges, S - 1; one row roped past its offset):
+    each row torch.equal to the one-row launch on its slab, all rows
+    against the twin at K4's tolerance, one launch for the batch; a grid
+    bound of S, and the slabs as layer 1 of a [B, 3, S, ...] pool (the
+    batched decode's layout: slabs 3 S rows apart), give the same bits."""
+    from qwen3_asr_tpu_torch.models.decoder import _quantize_kv_rows
+    from qwen3_asr_tpu_torch.ops import decode_attention as da
+
+    g = torch.Generator(device="cuda").manual_seed(40 + quant)
+    S, offs = 1664, [0, 1, 63, 64, 65, 700, 1248, 1663]
+    B = len(offs)
+    pos = [o + (5 if b == 5 else 0) for b, o in enumerate(offs)]
+    qkv = torch.randn(B, 4096, generator=g, device="cuda").to(torch.bfloat16)
+    k = torch.randn(B, S, 8, 128, generator=g, device="cuda")
+    v = torch.randn(B, S, 8, 128, generator=g, device="cuda")
+    kw = dict(n_heads=16, n_kv=8, head_dim=128, eps=1e-6, theta=1e6,
+              scale=1 / np.sqrt(128))
+    if quant:
+        (k, ks), (v, vs) = _quantize_kv_rows(k), _quantize_kv_rows(v)
+        kw.update(k_scale=ks, v_scale=vs)
+    else:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    qn = (1 + 0.1 * torch.randn(128, generator=g, device="cuda")).to(torch.bfloat16)
+    od = torch.tensor(offs, dtype=torch.int32, device="cuda")
+    pd = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    before = da.decode_attention_batch.launches
+    got = da.decode_attention_batch(qkv, k, v, qn, qn, od, pd, max(offs), **kw)
+    assert da.decode_attention_batch.launches == before + 1
+    again = da.decode_attention_batch(qkv, k, v, qn, qn, od, pd, S, **kw)
+    want = da.decode_attention_batch_ref(qkv, k, v, qn, qn, offs, pos, **kw)
+
+    def in_pool(t):
+        pool = torch.zeros(B, 3, *t.shape[1:], dtype=t.dtype, device="cuda")
+        pool[:, 1] = t
+        return pool[:, 1]
+
+    pkw = dict(kw, k_scale=in_pool(kw["k_scale"]), v_scale=in_pool(kw["v_scale"])) \
+        if quant else kw
+    pooled = da.decode_attention_batch(qkv, in_pool(k), in_pool(v), qn, qn, od, pd,
+                                       max(offs), **pkw)
+    for a, r, a2, a3 in zip(got, want, again, pooled):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-5 * float(r.abs().max()))
+        assert torch.equal(a, a2) and torch.equal(a, a3)
+    for b in range(B):
+        one_kw = dict(kw, k_scale=kw["k_scale"][b], v_scale=kw["v_scale"][b]) if quant else kw
+        single = da.decode_attention(qkv[b:b + 1], k[b], v[b], qn, qn, offs[b], pos[b],
+                                     **one_kw)
+        for a, s1 in zip(got, single):
+            assert torch.equal(a[b:b + 1], s1), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_decode_step_batch_near_single_rows(cuda_kernels, kv):
+    """The per-layer step at B rows (Q8_0 leaves: K6 / K5 / K7 at T = B, K4
+    batched) against the single step on each row's cache copy: h rel L2 <
+    1e-2 and every slab's other rows untouched (the B-row products may sum
+    in another f32 order than the T = 1 GEMVs)."""
+    from qwen3_asr_tpu_torch.models import decoder as dmod
+
+    cfg = tiny_asr_config()
+    dec = tparams.init_asr_params(cfg, seed=3, device="cuda")["decoder"]
+    dec = tparams.fuse_decoder_params(tparams.quantize_decoder_params(dec, "q8_0"))
+    dcfg = cfg.decoder
+    pos = [5, 40, 17]
+    B, S = len(pos), 64
+    L, NKV, D = dcfg.n_layers, dcfg.n_kv_heads, dcfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(9)
+    cdt = torch.int8 if kv == "int8" else torch.bfloat16
+    cache = {n: torch.zeros(B, L, S, NKV * D, dtype=cdt, device="cuda") for n in ("k", "v")}
+    if kv == "int8":
+        cache.update({n: torch.zeros(B, L, S, NKV, device="cuda") for n in ("k_s", "v_s")})
+    for b, p in enumerate(pos):
+        for n in ("k", "v"):
+            rows = torch.randn(L, p, NKV, D, generator=g, device="cuda") * 0.5
+            if kv == "int8":
+                q, sc = _quantize_kv_rows(rows)
+                cache[n][b, :, :p], cache[n + "_s"][b, :, :p] = q.flatten(2), sc
+            else:
+                cache[n][b, :, :p] = rows.flatten(2).to(torch.bfloat16)
+    singles = [{n: (t[b].unflatten(-1, (NKV, D)) if n in ("k", "v") else t[b]).clone()
+                for n, t in cache.items()} for b in range(B)]
+    x = (torch.randn(B, dcfg.hidden_size, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+    h = dmod.decode_step_batch(dec, dcfg, x, cache,
+                               torch.tensor(pos, dtype=torch.int32, device="cuda"), pos)
+    for b, p in enumerate(pos):
+        hs = dmod.decoder_forward(dec, dcfg, x[b:b + 1], singles[b], p + 1, prefill=False,
+                                  cache_offset=p)
+        assert float((h[b] - hs[0]).float().norm() / hs[0].float().norm()) < 1e-2, b
+        for n, t in cache.items():
+            assert torch.equal(t[b, :, :p], singles[b][n].flatten(2)[:, :p])
+            assert not t[b, :, p + 1:].any()
 
 
 @pytest.mark.cuda

@@ -144,10 +144,10 @@ def test_decode_branch_not_ported(setup):
     package in tests/test_torch_spec.py): it returns a finite row and writes
     cache row cache_offset alone; use_decode_attn_kernel=False, which
     raised first on these leaves, takes the same block decode (the
-    reference's XLA attention) and gives the same row (without the
-    decode-attention kernel the fused dense and Q8_0 layouts still raise,
-    tests/test_torch_q8_e2e.py). A kv_valid_len outside (cache_offset,
-    cache_offset + T] raises."""
+    reference's XLA attention) and gives the same row (it does so on the
+    fused dense and Q8_0 layouts too, single and batched:
+    tests/test_torch_q8_e2e.py, tests/test_torch_batch_modes.py). A
+    kv_valid_len outside (cache_offset, cache_offset + T] raises."""
     cfg, _, tp = setup
     dcfg = port_config(cfg.decoder)
     cache = tdec.init_kv_cache(dcfg, 8, "cpu")

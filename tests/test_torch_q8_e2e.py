@@ -160,10 +160,16 @@ def test_eos_stops_the_per_layer_loop():
 
 
 def test_modes_and_their_errors():
+    """The q8_0 model's modes: a batch runs (the per-layer step at B rows,
+    tests/test_torch_batch_modes.py holds its tokens), the int4 cache runs
+    as int8 without a pack, an unknown mode or cache dtype raises, and
+    use_decode_attn_kernel=False takes the reference's XLA attention
+    (`_block_decode`) for the step, within the near-tie rule's reach of K4's
+    twin."""
     j, t = jax_and_port(True, None)
     assert t.quantize == "q8_0" and t.kv_cache == "bf16" and t.cache_dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="batched"):
-        t.transcribe_batch([pcm()])
+    res = t.transcribe_batch([pcm(), pcm(1.0, 3)], TranscribeParams(max_tokens=3))
+    assert all(r.success and len(r.tokens) == 3 for r in res)
     # the int4 cache is the decode pack's: without one it runs as int8
     int4 = Qwen3ASR(quantize="q8_0", kv_cache="int4", device="cpu")
     assert int4.cache_dtype == INT4_KV
@@ -174,11 +180,18 @@ def test_modes_and_their_errors():
         generate_greedy(t.params["decoder"], t.cfg.decoder, torch.zeros(4, dtype=torch.int32),
                         4, None, 0, 0, 2, cache_dtype=torch.float16)
     no_dak = dataclasses.replace(t.cfg.decoder, use_decode_attn_kernel=False)
+    rng = np.random.default_rng(4)
     cache = tdec.init_kv_cache(no_dak, 8, "cpu", torch.bfloat16)
-    x = torch.zeros(1, no_dak.hidden_size, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="use_decode_attn_kernel"):
-        tdec.decoder_forward(t.params["decoder"], no_dak, x, cache, 2, prefill=False,
+    cache["k"][:, :1] = torch.from_numpy(rng.standard_normal(cache["k"][:, :1].shape)).bfloat16()
+    cache["v"][:, :1] = torch.from_numpy(rng.standard_normal(cache["v"][:, :1].shape)).bfloat16()
+    x = torch.from_numpy(rng.standard_normal((1, no_dak.hidden_size))).bfloat16()
+    dak_cache = {n: c.clone() for n, c in cache.items()}
+    h = tdec.decoder_forward(t.params["decoder"], no_dak, x, cache, 2, prefill=False,
                              cache_offset=1)
+    want = tdec.decoder_forward(t.params["decoder"], t.cfg.decoder, x, dak_cache, 2,
+                                prefill=False, cache_offset=1)
+    rel = float((h.float() - want.float()).norm() / want.float().norm())
+    assert rel < 1e-2 and not cache["k"][:, 2:].any()
 
 
 def test_load_model_q8_0_gguf(tmp_path):

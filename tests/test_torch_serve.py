@@ -292,9 +292,8 @@ def test_main_rejects_unported_modes(model, tmp_path, capsys):
     int8; --kv-cache int4 and --engine-kv-stream, which changes no kernel, are
     accepted): an unknown one fails in argparse; a missing model fails at
     start-up with exit 1; the continuous pool refuses a bf16 and an int4
-    cache; in a mode transcribe_batch refuses (here a bf16 cache) a closed
-    batch is answered one request at a time with transcribe's tokens, as
-    the JAX server answers a one-item group."""
+    cache; a closed batch over a bf16 cache runs as one transcribe_batch
+    (K3's bf16 mode), whose tokens the server returns."""
     from qwen3_asr_tpu_torch.serve import build_parser, main
 
     args = build_parser().parse_args(["-m", "x.gguf"])
@@ -319,18 +318,20 @@ def test_main_rejects_unported_modes(model, tmp_path, capsys):
     int4.kv_cache = "int4"
     with pytest.raises(NotImplementedError, match="int8 KV cache"):
         ASRServer(int4, PARAMS, continuous=True, pool=2, engine_context=KW["s_pool"])
-    with pytest.raises(NotImplementedError, match="int8 KV"):
-        bf16.transcribe_batch(AUDIO[:2], PARAMS)
     srv = ASRServer(bf16, PARAMS, max_batch=2, max_wait_ms=2000)
     batches = []
-    run = srv._run_transcribe
-    srv._run_transcribe = lambda batch: batches.append(len(batch)) or run(batch)
+    run = bf16.transcribe_batch
+    bf16.transcribe_batch = lambda audios, params: batches.append(len(audios)) or run(
+        audios, params)
+    single = bf16.transcribe
+    bf16.transcribe = lambda *a, **k: batches.append("transcribe") or single(*a, **k)
     try:
         got = [f.result(timeout=300) for f in [srv.submit(a) for a in AUDIO[:2]]]
     finally:
         srv.close()
+        del bf16.transcribe_batch, bf16.transcribe
     assert batches == [2]
-    want = [bf16.transcribe(a, PARAMS) for a in AUDIO[:2]]
+    want = bf16.transcribe_batch(AUDIO[:2], PARAMS)
     assert all(g.success for g in got)
     assert [g.tokens for g in got] == [w.tokens for w in want]
 
