@@ -16,8 +16,11 @@ replayed from its CUDA graph) and at a long context (S 8,192, pos
 7,996..7,999, on each cache), K1 replayed from its CUDA graph against eager
 steps on the CLI default mode (64 steps each, bit for bit; ms/step and the
 host's enqueue both ways, with programmatic dependent launch on and off),
-the batched decode step (K3) on either pack, whose rows must equal K1 run on
-each row's slab bit for bit, the Q8_0 products K5 / K6 / K7 at the decode
+the batched decode step (K3) on either pack at B 8, 13 and 16 (one and two
+8-row MMA n-tiles), whose rows must equal K1 run on each row's slab bit for
+bit, timed eager and from a CUDA graph at B 1 / 4 / 8 / 16 with a
+torch.profiler split at B 8, and one of its products alone against
+`torch._int_mm` (int32 sums equal), the Q8_0 products K5 / K6 / K7 at the decode
 step's T = 1 and a 5 s prompt's T, the decode attention K4 with a bf16 and
 an int8 cache, and the weight-stream microbenchmarks K9-K11 (every integer
 mode exact, the nibble-unpack probe bit-equal; `torch.Tensor.sum` over the
@@ -82,7 +85,7 @@ the launch counts set to 0 just before it and read just after:
    `--temperature 0.7 --seed 3` and `--spec-k 4` in this process;
 14. batches in every mode (`phase_batch_modes`): K4's batched mode (rows
    torch.equal to one-row launches) and K3 over a bf16 cache (rows equal to
-   K1 bf16) at B 8, the per-layer step at B 8 against single rows,
+   K1 bf16) at B 8, 13 and 16, the per-layer step at B 8 against single rows,
    `transcribe_batch` of four requests in q8_0 + bf16 / int8 KV, dense +
    bf16 and auto + bf16 (each a window; auto rows equal to `transcribe`'s)
    against the same requests one at a time, and the server's closed batch
@@ -158,27 +161,15 @@ Q8_LAYER_REL = 5e-3
 # Peaks of an H100 SXM (NVIDIA's data sheet) for the bounds: HBM bytes/s,
 # bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
 HBM_BPS, BF16_FLOPS, F32_FLOPS, INT8_OPS = 3.35e12, 989e12, 67e12, 1979e12
-WEIGHT_KEYS = ("qkv_q", "qkv_s", "wo_q", "wo_s", "gu_q", "gu_s", "wd_q", "wd_s",
-               "head_q", "head_s")
 
 
 def mega_step_bound(pack, dcfg, positions, kv: str = "int8") -> tuple[float, str]:
-    """K1 / K3 step: the pack's weights and scales once (int4: two weights a
-    byte; int8: one), each row's live cache (K and V rows < pos, all layers:
-    int8 codes, or int4 codes two a byte, and their f32 scales, or bf16
-    values) and its fresh row; 2 operations per weight and 4 D per (head,
-    cached row) per row."""
-    from qwen3_asr_tpu_torch.ops.megakernel import weight_bits
+    """K1 / K3 step over rows at `positions`: profile_decode.step_bound's
+    bytes and operations (the pack once, each row's live cache and fresh
+    row) against HBM_BPS and INT8_OPS."""
+    from qwen3_asr_tpu_torch.profile_decode import step_bound
 
-    L, NH, NKV, D = dcfg.n_layers, dcfg.n_heads, dcfg.n_kv_heads, dcfg.head_dim
-    w_bytes = sum(pack[k].numel() * pack[k].element_size() for k in WEIGHT_KEYS)
-    per_byte = 2 if weight_bits(pack) == 4 else 1
-    n_w = sum(per_byte * pack[k].numel() for k in WEIGHT_KEYS if k.endswith("_q"))
-    row = L * {"int8": 2 * NKV * D + 2 * NKV * 4, "int4": NKV * D + 2 * NKV * 4,
-               "bf16": 4 * NKV * D}[kv]
-    nbytes = w_bytes + sum((p + 1) * row for p in positions)
-    ops = 2.0 * n_w * len(positions) + sum(4.0 * L * NH * D * p for p in positions)
-    return bound(nbytes, ops, INT8_OPS)
+    return bound(*step_bound(pack, dcfg, positions, kv), INT8_OPS)
 
 
 def log(*a):
@@ -666,22 +657,23 @@ def _spread(B: int):
     return [int(p) for p in np.linspace(64, 1600, B).round()]
 
 
-def phase_mega_batch(dcfg, pack, kv: str = "int8"):
-    """K3 at full width over an int8 or (kv="bf16") a bf16 cache, S =
-    MEGA_BATCH_S, B = 8 rows at spread positions. (a) 16 teacher-forced
-    steps against K1 (its step over the same cache type) run on each row's
-    slab copy: tokens, h and every layer's fresh K/V rows (and scales)
-    torch.equal on every step and row, and the whole pool equal after the
-    last. (b) 4 steps against the plain version under the megakernel
-    phase's rules (near-tie tokens, h rel L2 <= MEGA_H_REL on every
-    row-step and bit-exact on at least half, the cache rule). (c) ms/step at
-    B = 1, 4, 8, 16 beside K1's, and the plain version's at B = 8."""
+MEGA_BATCH_ROWS = (8, 13, 16)   # K3's checked batches: one 8-row MMA n-tile, two (13: ragged)
+MEGA_BATCH_TIMED = (1, 4, 8, 16)
+PLAIN_STEPS = {8: 4, 13: 2, 16: 2}   # K3 vs its plain version: steps at each B
+
+
+def k3_vs_k1(dcfg, pack, kv: str, B: int):
+    """(a) K3 at B rows at spread positions over a pool of MEGA_BATCH_S
+    rows: MEGA_BATCH_STEPS teacher-forced steps against K1 (its step over the
+    same cache type) run on each row's slab copy: tokens, h and every layer's
+    fresh K/V rows (and scales) torch.equal on every step and row, and the
+    whole pool equal after the last. -> (pool, step, toks, pos0)."""
     import torch
 
     from qwen3_asr_tpu_torch.ops import megakernel as mk
     from qwen3_asr_tpu_torch.ops import megakernel_batch as mb
 
-    S, B = MEGA_BATCH_S, 8
+    S = MEGA_BATCH_S
     pos0 = _spread(B)
     pool = _filled_pool(dcfg, S, pos0, 100, kv)
     singles = [_clone(_slab(pool, b)) for b in range(B)]
@@ -702,7 +694,7 @@ def phase_mega_batch(dcfg, pack, kv: str = "int8"):
                     and all(torch.equal(pool[j][b, :, pos[b]], singles[b][j][:, pos[b]])
                             for j in live))
             if not same:
-                raise AssertionError(f"K3 row {b} differs from K1 on its slab at "
+                raise AssertionError(f"K3 row {b} of {B} differs from K1 on its slab at "
                                      f"step {i} (pos {pos[b]})")
             n_equal += 1
         toks = out.clone()
@@ -710,20 +702,33 @@ def phase_mega_batch(dcfg, pack, kv: str = "int8"):
     for b in range(B):
         for j in live:
             if not torch.equal(pool[j][b], singles[b][j]):
-                raise AssertionError(f"K3 cache pool tensor {j}, slab {b} differs "
+                raise AssertionError(f"K3 cache pool tensor {j}, slab {b} of {B} differs "
                                      f"from K1's slab after {MEGA_BATCH_STEPS} steps")
     log(f"phase K3 ({mode_name(pack, kv)}) vs K1 S={S} B={B} pos={pos0[0]}..{pos0[-1]}: "
         f"{n_equal}/{MEGA_BATCH_STEPS * B} row-steps torch.equal (token, h, "
         f"fresh K/V rows{' and scales' if kv == 'int8' else ''} of all "
         f"{dcfg.n_layers} layers); whole cache pool torch.equal to the K1 slabs "
         f"after the last step")
+    return pool, step, toks, pos0
 
-    # (b) against the plain version, teacher-forced on its tokens
+
+def k3_vs_plain(dcfg, pack, kv: str, pool, step, toks, pos0, steps: int):
+    """(b) K3 against its plain version, teacher-forced on the plain
+    version's tokens, from the positions after (a): near-tie tokens, h rel
+    L2 <= MEGA_H_REL on every row-step and bit-exact on at least half, the
+    cache rule. -> (max_abs_err, plain ms of one step of all B rows)."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops import megakernel as mk
+    from qwen3_asr_tpu_torch.ops import megakernel_batch as mb
+
+    B = len(pos0)
     ref = _clone(pool)
-    base = MEGA_BATCH_STEPS
+    live = [i for i, t in enumerate(pool) if t is not None]
+    out = torch.empty(B, dtype=torch.int32, device="cuda")
     rels, mism, worst_gap, max_err = [], 0, 0.0, 0.0
-    for i in range(4):
-        pos = [p + base + i for p in pos0]
+    for i in range(steps):
+        pos = [p + MEGA_BATCH_STEPS + i for p in pos0]
         step(toks, torch.tensor(pos, dtype=torch.int32, device="cuda"), out,
              (min(pos), max(pos)))
         nxt = []
@@ -740,45 +745,113 @@ def phase_mega_batch(dcfg, pack, kv: str = "int8"):
                 worst_gap = max(worst_gap, float(logits[want_t] - logits[got_t]))
             bad = _bad_cache_layers(_slab(pool, b), rb, pos[b])
             if bad and (rels[-1] == 0.0 or bad[0] == 0):
-                raise AssertionError(f"K3 vs plain, step {i} row {b}: fresh cache "
+                raise AssertionError(f"K3 vs plain, B={B} step {i} row {b}: fresh cache "
                                      f"rows of layers {bad} differ")
             for j in live:
                 ref[j][b, :, pos[b]] = pool[j][b, :, pos[b]]
             nxt.append(rt)
         toks = torch.cat(nxt)
     n_exact = sum(r == 0.0 for r in rels)
-    log(f"phase K3 ({kv} KV) vs plain, 4 steps x {B} rows: max_abs_err(h)={max_err:.3e} "
-        f"rel_l2(h) max {max(rels):.4f}, bit-exact on {n_exact}/{len(rels)}; "
-        f"token mismatches {mism} (worst plain logit gap {worst_gap:.4f})")
+    log(f"phase K3 ({mode_name(pack, kv)}) vs plain, {steps} steps x {B} rows: "
+        f"max_abs_err(h)={max_err:.3e} rel_l2(h) max {max(rels):.4f}, bit-exact on "
+        f"{n_exact}/{len(rels)}; token mismatches {mism} (worst plain logit gap "
+        f"{worst_gap:.4f})")
     if worst_gap > NEAR_TIE_TOL:
-        raise AssertionError("K3 tokens disagree with the plain version")
+        raise AssertionError(f"K3 tokens disagree with the plain version at B={B}")
     if not max(rels) <= MEGA_H_REL or 2 * n_exact < len(rels):
-        raise AssertionError(f"K3 h vs plain: rel_l2 max {max(rels)}, "
+        raise AssertionError(f"K3 h vs plain at B={B}: rel_l2 max {max(rels)}, "
                              f"{n_exact}/{len(rels)} bit-exact")
+    last = [p + MEGA_BATCH_STEPS + steps for p in pos0]
+    plain = cuda_ms(lambda: mb.mega_decode_step_batch_ref(pack, dcfg, toks, last, *ref), 1,
+                    warmup=0) if B == 8 else None
+    return max_err, plain
+
+
+def phase_mega_batch(dcfg, pack, kv: str = "int8", trace: bool = False):
+    """K3 at full width over an int8 or (kv="bf16") a bf16 cache, S =
+    MEGA_BATCH_S, at MEGA_BATCH_ROWS rows (one and two MMA n-tiles) at spread
+    positions: (a) k3_vs_k1 and (b) k3_vs_plain at each B. (c) eager and
+    graphed ms/step at B = 1, 4, 8, 16 with the bound at each
+    (profile_decode.profile_batch), with `trace` torch.profiler's split by
+    kernel at B = 8, K1's eager ms/step beside them. -> (max_abs_err, eager
+    ms at B 8, plain ms at B 8, bound ms at B 8, bound_by, the readings)."""
+    import torch
+
+    from qwen3_asr_tpu_torch import profile_decode as pd
+    from qwen3_asr_tpu_torch.ops import megakernel as mk
+
+    name = mode_name(pack, kv)
+    max_err, plain = 0.0, None
+    for B in MEGA_BATCH_ROWS:
+        pool, step, toks, pos0 = k3_vs_k1(dcfg, pack, kv, B)
+        err, p = k3_vs_plain(dcfg, pack, kv, pool, step, toks, pos0, PLAIN_STEPS[B])
+        max_err, plain = max(max_err, err), p if p is not None else plain
+        del pool, step
 
     # (c) times at the spread positions
-    times = {}
-    pos_end = max(pos) + 1
-    for nb in (1, 4, 8, 16):
-        p_b = _spread(nb) if nb > 1 else [pos0[B // 2]]
-        pl = _filled_pool(dcfg, S, p_b, 200, kv) if nb != B else pool
-        st = mb.BatchDecodeStep(pack, dcfg, *pl)
-        o = torch.empty(nb, dtype=torch.int32, device="cuda")
-        tk = torch.full((nb,), 1000, dtype=torch.int32, device="cuda")
-        pd = torch.tensor([min(p, pos_end) for p in p_b], dtype=torch.int32,
-                          device="cuda")
-        bounds = (int(pd.min()), int(pd.max()))
-        times[nb] = cuda_ms(lambda: st(tk, pd, o, bounds), 20)
-        del pl, st
-    single = cuda_ms(lambda: k1[B // 2](toks[:1], pos0[B // 2] + base + 4, one), 20)
-    plain = cuda_ms(lambda: mb.mega_decode_step_batch_ref(
-        pack, dcfg, toks, [p + base + 4 for p in pos0], *ref), 1, warmup=1)
-    b_ms, b_by = mega_step_bound(pack, dcfg, [min(p, pos_end) for p in _spread(B)], kv)
-    log(f"phase K3 ({kv} KV) times (ms/step): " + ", ".join(
-        f"B={nb} {t:.4f}" for nb, t in times.items())
-        + f"; K1 {single:.4f} (B x K1 at B=8: {8 * single:.4f}); "
-        f"plain at B=8 {plain:.4f}; bound at B=8 {b_ms:.4f} ms ({b_by})")
-    return max_err, times[8], plain, b_ms, b_by
+    gen = torch.Generator(device="cuda").manual_seed(200)
+    rows = {B: pd.profile_batch(pack, dcfg, B, kv, gen=gen, trace=trace and B == 8)
+            for B in MEGA_BATCH_TIMED}
+    single = _filled_cache(dcfg, MEGA_BATCH_S, pd.spread_positions(1)[0], gen, kv)
+    k1 = mk.DecodeStep(pack, dcfg, *single)
+    one = torch.empty(1, dtype=torch.int32, device="cuda")
+    tok = torch.full((1,), 1000, dtype=torch.int32, device="cuda")
+    k1_ms = cuda_ms(lambda: k1(tok, pd.spread_positions(1)[0], one), 20)
+    r8 = rows[8]
+    log(f"phase K3 ({name}) times (ms/step, eager / graphed / bound): " + ", ".join(
+        f"B={B} {r['eager_ms']:.4f} / {r['graphed_ms']:.4f} / {r['bound_ms']:.4f}"
+        for B, r in rows.items())
+        + f"; K1 eager {k1_ms:.4f} (B x K1 at B=8: {8 * k1_ms:.4f}); plain at B=8 "
+        f"{plain:.4f}")
+    if trace:
+        log(f"  B=8 profiled: device {r8['device_ms']:.4f} ms/step, busy {r8['busy']:.3f}, "
+            f"{r8['launches_per_step']:.1f} launches/step: " + "; ".join(
+                f"{k[:40]} {us:.1f} us ({r8['kernels_n'][k]:.0f})"
+                for k, us in sorted(r8["kernels_us"].items(), key=lambda kv: -kv[1])))
+    readings = {"eager_ms": {B: r["eager_ms"] for B, r in rows.items()},
+                "graphed_ms": {B: r["graphed_ms"] for B, r in rows.items()},
+                "bound_ms_at": {B: r["bound_ms"] for B, r in rows.items()},
+                "b8_trace_us": r8["kernels_us"], "b8_busy": r8["busy"],
+                "k1_eager_ms": k1_ms}
+    return max_err, r8["eager_ms"], plain, r8["bound_ms"], r8["bound_by"], readings
+
+
+PRODUCT_ROWS = (8, 16)
+
+
+def phase_k3_product(dcfg, pack):
+    """One of K3's products alone (`batch_product_i8`) on the int8 pack, at
+    the QKV (layer 0) and the lm head's shapes for B = 8 and 16, on random
+    codes: its int32 sums torch.equal to `torch._int_mm`'s (rows padded as
+    `q8_matmul.int8_matmul` pads them), both timed from a CUDA graph of 20
+    calls beside the bound. -> {(shape, B): (ms, library ms, bound ms,
+    bound_by)}."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops import megakernel_batch as mb
+    from qwen3_asr_tpu_torch.ops.q8_matmul import int8_matmul
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for shape, w in (("QKV", pack["qkv_q"][0]), ("lm head", pack["head_q"])):
+        K, N = w.shape
+        for B in PRODUCT_ROWS:
+            xq = torch.randint(-127, 128, (B, K), generator=g, device="cuda",
+                               dtype=torch.int32).to(torch.int8)
+            got, want = mb.batch_product_i8(xq, w), int8_matmul(xq, w)
+            if not torch.equal(got, want):
+                raise AssertionError(f"K3 product alone ({shape}, B={B}): int32 sums "
+                                     f"differ from torch._int_mm's")
+            scratch = mb.product_scratch(B, K, N, "cuda")
+            xp = torch.nn.functional.pad(xq, (0, 0, 0, max(32, -(-B // 8) * 8) - B))
+            ms = graph_ms(lambda: mb.batch_product_i8(xq, w, scratch))
+            lib = graph_ms(lambda: torch._int_mm(xp, w))
+            b_ms, b_by = bound(K * N + B * K + 4 * B * N, 2.0 * B * K * N, INT8_OPS)
+            out[(shape, B)] = (ms, lib, b_ms, b_by)
+            log(f"phase K3 product alone ({shape}: K {K}, N {N}), B={B}: int32 sums "
+                f"torch.equal to torch._int_mm's; {ms:.4f} ms (graph), _int_mm "
+                f"{lib:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+    return out
 
 
 def twin_steps(asr, samples, tokens, mel_bucket: int = 0) -> list:
@@ -1611,7 +1684,9 @@ def phase_server_default(auto):
     at once form one closed batch (K3 on the int8 pack) and a lone request
     goes to `transcribe` (K1, int8 weights and int8 KV), one window; their
     tokens must equal transcribe_batch's and transcribe's on the same audio
-    (a second window)."""
+    (a second window). -> the closed batch's decode ms/step: (the reference
+    transcribe_batch - the same batch with one token) / (ENGINE_TOKENS - 1),
+    host clock."""
     import torch
 
     from qwen3_asr_tpu_torch.pipeline.asr import TranscribeParams
@@ -1651,10 +1726,19 @@ def phase_server_default(auto):
     if batches != [4] or served != want:
         raise AssertionError(f"server default: batches {batches}, launches {served}")
     reset_counts()
+    t0 = time.perf_counter()
     ref = asr.transcribe_batch(audio, params)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
     ref_lone = asr.transcribe(audio[0], params)
     torch.cuda.synchronize()
     window("server default reference", 8, counts())
+    t0 = time.perf_counter()
+    asr.transcribe_batch(audio, dataclasses.replace(params, max_tokens=1))
+    torch.cuda.synchronize()
+    step_ms = (batch_ms - (time.perf_counter() - t0) * 1e3) / (ENGINE_TOKENS - 1)
+    log(f"  the closed batch of 4 (transcribe_batch, auto + int8 KV): decode "
+        f"{step_ms:.4f} ms/step")
     V = asr.cfg.decoder.vocab_size
     for k, (r, w) in enumerate(zip(got_batch + [lone], ref + [ref_lone])):
         check_request(f"server request {k}", r.tokens, V)
@@ -1663,6 +1747,7 @@ def phase_server_default(auto):
                                  f"transcribe")
     log("  server tokens equal transcribe_batch's (batch of 4) and transcribe's (lone)")
     check_tokens_vs_twins(asr, audio[0], lone.tokens[:16], mel_bucket=ENGINE_KW["mel_bucket"])
+    return step_ms
 
 
 MB_ITERS = 10
@@ -3547,8 +3632,9 @@ def main() -> int:
     long_ctx = {kv: phase_mega(auto.cfg, auto.params["decoder"], kv, steps=4, floor_steps=0,
                                S=LONG_S, pos_end=LONG_POS, layers=False)
                 for kv in ("int8", "bf16", "int4")}
-    k3_8 = phase_mega_batch(auto.cfg.decoder, auto.params["decoder"]["mega"])
-    phase_server_default(auto)
+    k3_8 = phase_mega_batch(auto.cfg.decoder, auto.params["decoder"]["mega"], trace=True)
+    k3_product = phase_k3_product(auto.cfg.decoder, auto.params["decoder"]["mega"])
+    server_step_ms = phase_server_default(auto)
     i4_step = phase_kv_int4(asr, auto)
     stream_ms = phase_streaming(asr, auto)
     phase_server_int4(auto)
@@ -3568,7 +3654,8 @@ def main() -> int:
     _, align_stages = phase_aligner()
     mb, mb_res, mb_lib = phase_microbench()
     total = {k: launches_of(k) for k in no_launches()}
-    log(f"pool decode {engine_tps:.1f} tokens/s; q8_0 decode {q8_step_ms:.4f} "
+    log(f"pool decode {engine_tps:.1f} tokens/s; server default closed batch of 4 decode "
+        f"{server_step_ms:.4f} ms/step; q8_0 decode {q8_step_ms:.4f} "
         f"ms/step; auto decode {auto_step[True]:.4f} ms/step (staged "
         f"{auto_step[False]:.4f}); int4 + int4 KV decode {i4_step:.4f} ms/step; "
         f"streaming decode (vs generate_greedy, staged) " + ", ".join(
@@ -3647,11 +3734,15 @@ def main() -> int:
             launches_per_sampled_request=sampling["auto"]["launches"]["flash"],
             launches_per_spec_request=spec[("auto", 4)]["launches"]["flash"]),
         row("mega_decode_step_batch", "megakernel_batch.cu", k3_src,
-            launches_of("mega_batch", 4), *k3),
+            launches_of("mega_batch", 4), *k3[:5], **k3[5]),
         row("mega_decode_step_batch (int8 weights)", "megakernel_batch.cu", k3_src,
-            launches_of("mega_batch", 8), *k3_8),
+            launches_of("mega_batch", 8), *k3_8[:5], **k3_8[5],
+            product_alone={f"{shape} B={B}": {"ms": v[0], "library_ms": v[1],
+                                              "bound_ms": v[2], "bound_by": v[3]}
+                           for (shape, B), v in k3_product.items()}),
         row("mega_decode_step_batch (int8 weights, bf16 KV)", "megakernel_batch.cu", k3_src,
-            launches_of("mega_batch_bf16", 8), *batch_modes["k3_bf16"],
+            launches_of("mega_batch_bf16", 8), *batch_modes["k3_bf16"][:5],
+            **batch_modes["k3_bf16"][5],
             launches_per_batch_of_4=launches_of_label("server --kv-cache bf16",
                                                       "mega_batch_bf16")),
         row("decode_attention", "decode_attention.cu",

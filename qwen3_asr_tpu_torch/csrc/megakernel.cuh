@@ -1,8 +1,9 @@
 // Device code shared by the single-sequence decode step (megakernel.cu, K1)
 // and the batched one (megakernel_batch.cu, K3): the per-row norm /
-// quantization kernels and the GEMV input prologues that compute the same
-// codes, attention and the lm-head argmax of one Qwen3 decode step on int4
-// or int8 weights over an int8, bf16 or (K1 only) int4 KV cache.
+// quantization kernel, the element math of the rows (resid_of, silu_of)
+// and K1's GEMV input prologues that compute the same codes, attention and
+// the lm-head argmax of one Qwen3 decode step on int4 or int8 weights over
+// an int8, bf16 or (K1 only) int4 KV cache.
 //
 // Every kernel here works on one sequence ("row") per block index along its
 // row axis and never mixes rows, so the batched step computes each row with
@@ -57,7 +58,8 @@ struct MegaPtrs {
 // attention grid (the positions themselves are on the device). wbits: 4
 // (the int4 pack, scale groups g_*) or 8 (the int8 pack: one scale per
 // column, every g_* equal to its product's input dim). pdl: K1 launches its
-// GEMVs with programmatic dependent launch (K3 ignores it).
+// GEMVs with programmatic dependent launch (K3 always launches its products
+// so).
 struct MegaDims {
   int L, H, NH, NKV, D, FF, V, Vp, S, pos;
   int g_qkv, g_wo, g_gu, g_wd, g_head;
@@ -175,6 +177,20 @@ inline size_t attn_smem(const MegaDims& d) {
 // replace them on K1's path (RowIn, row_codes): one definition, so both give
 // the same codes.
 
+// The residual sum from the row's value x and its product's group sum t:
+// bf16(x + bf16(t)).
+__device__ __forceinline__ float resid_of(float x, float t) {
+  return bf16_round(x + bf16_round(t));
+}
+
+// The SwiGLU activation from the gate and up group sums:
+// bf16(silu(bf16(g)) * bf16(u)).
+__device__ __forceinline__ float silu_of(float g, float u) {
+  g = bf16_round(g);
+  u = bf16_round(u);
+  return bf16_round((g * (1.f / (1.f + expf(-g)))) * u);
+}
+
 // x = base (+ bf16(sum_g terms[g]) when terms is given, rounded to bf16)
 __device__ __forceinline__ float resid_elem(const __nv_bfloat16* __restrict__ base,
                                             const float* __restrict__ terms, int n_g, int N,
@@ -183,7 +199,7 @@ __device__ __forceinline__ float resid_elem(const __nv_bfloat16* __restrict__ ba
   if (terms) {
     float t = terms[n];
     for (int g = 1; g < n_g; ++g) t += terms[(size_t)g * N + n];
-    x = bf16_round(x + bf16_round(t));
+    x = resid_of(x, t);
   }
   return x;
 }
@@ -197,9 +213,7 @@ __device__ __forceinline__ float silu_elem(const float* __restrict__ terms, int 
     g += terms[(size_t)k * N2 + n];
     u += terms[(size_t)k * N2 + FF + n];
   }
-  g = bf16_round(g);
-  u = bf16_round(u);
-  return bf16_round((g * (1.f / (1.f + expf(-g)))) * u);
+  return silu_of(g, u);
 }
 
 __device__ __forceinline__ float quant_scale(float amax) {
@@ -257,36 +271,14 @@ __global__ void __launch_bounds__(NORM_THREADS) norm_quant(
   if (threadIdx.x == 0) sx_out[row] = sx;
 }
 
-// -- SwiGLU activation + int8 quantization ---------------------------------
-//
-// Block = row. gu = bf16(sum_g terms[g]) over [2FF]; act = silu_elem.
-__global__ void __launch_bounds__(NORM_THREADS) silu_quant(
-    const float* __restrict__ terms, int n_g, int FF, int8_t* __restrict__ xq,
-    float* __restrict__ sx_out, size_t ts, size_t qs) {
-  __shared__ float xs[NORM_MAX];
-  __shared__ float red[32];
-  const int row = blockIdx.x;
-  terms += row * ts;
-  xq += row * qs;
-  float amax = 0.f;
-  for (int n = threadIdx.x; n < FF; n += blockDim.x) {
-    const float a = silu_elem(terms, n_g, FF, n);
-    xs[n] = a;
-    amax = fmaxf(amax, fabsf(a));
-  }
-  amax = block_max(amax, red);
-  const float sx = quant_scale(amax);
-  for (int n = threadIdx.x; n < FF; n += blockDim.x) xq[n] = quant_code(xs[n], sx);
-  if (threadIdx.x == 0) sx_out[row] = sx;
-}
-
 // -- GEMV input prologues (K1) -------------------------------------------------
 //
 // On K1's path no kernel of its own quantizes a GEMV's input row: each GEMV
 // block recomputes the whole row from its f32 terms and bf16 rows in L2 (4-12
 // KB), its RMS and its amax, and keeps the int8 codes of the input rows it
-// reads. The codes and the scale equal norm_quant's / silu_quant's bit for
-// bit: the same element functions, max reductions (exact in any order) and
+// reads. The codes and the scale equal norm_quant's (the SwiGLU row's:
+// silu_elem's act, quantized as norm_quant quantizes) bit for bit: the same
+// element functions, max reductions (exact in any order) and
 // the sum of squares in norm_quant's order, the NORM_THREADS virtual
 // threads' strided sums reduced by the same warp butterflies (four virtual
 // threads per thread of a 256-thread block). Kinds:
@@ -879,13 +871,13 @@ inline size_t layout(const MegaDims& d, int B, char* base, Scratch* s) {
 }
 
 // One decode step of B rows over a cache of element type CT (int8_t or nib2
-// with f32 row scales, or __nv_bfloat16): the launch sequence both entry
-// points share (K3 instantiates int8_t and __nv_bfloat16). `gemv(wq, ws, layer, n_in, N,
-// G, in, terms_out, first)` launches the product (int4 or int8 weights) of
-// all B rows of the input row `in` (RowIn: how its int8 codes are made) into
-// terms_out; K1 launches one GEMV whose blocks make the codes themselves
-// (row_codes), K3 a norm_quant / silu_quant launch into s.xq / s.sx and then
-// its batched GEMV. `first` marks the step's first GEMV. Per layer: the QKV
+// with f32 row scales, or __nv_bfloat16): K1's launch sequence (K3 has its
+// own, megakernel_batch.cu's batch_step, whose products also do the row
+// work in their epilogues). `gemv(wq, ws, layer, n_in, N, G, in, terms_out,
+// first)` launches the product (int4 or int8 weights) of all B rows of the
+// input row `in` (RowIn: how its int8 codes are made) into terms_out; K1
+// launches one GEMV whose blocks make the codes themselves (row_codes).
+// `first` marks the step's first GEMV. Per layer: the QKV
 // GEMV, attn_step, then the Wo, gate-up and down GEMVs; then the final norm
 // (h_out = the pre-norm hidden state), the lm head and the argmax. pos_arr:
 // the rows' positions [B] on the device.

@@ -45,7 +45,7 @@ from qwen3_asr_tpu_torch.ops.support import (
     stream_ptr,
 )
 
-MAX_BATCH = 16   # rows per launch (the kernel's GEMV tile)
+MAX_BATCH = 16   # rows per launch (two 8-row n-tiles of the products' MMA)
 
 
 def mega_decode_step_batch_ref(pack, cfg: DecoderConfig, tokens_or_x, pos,
@@ -77,16 +77,17 @@ class BatchDecodeStep:
     B slabs (int8 with scales k_s / v_s, or bf16 with none): validates the
     pack and the pool once, allocates the scratch once, then launches a step
     per call through `qw_mega_decode_step_batch_i8` or
-    `qw_mega_decode_step_batch` (bf16)."""
+    `qw_mega_decode_step_batch` (bf16). The batch size is checked before
+    the device."""
 
     def __init__(self, pack, cfg: DecoderConfig, k, v, k_s=None, v_s=None):
         from qwen3_asr_tpu_torch.ops.build import kernel
 
         dev = k.device
-        require_cuda(k, "k cache")
         B, L, S, _ = k.shape
         if not 1 <= B <= MAX_BATCH:
             raise ValueError(f"batch {B} outside [1, {MAX_BATCH}]")
+        require_cuda(k, "k cache")
         _check_pack(pack, cfg, dev)
         DKV, NKV = cfg.n_kv_heads * cfg.head_dim, cfg.n_kv_heads
         if k.dtype not in _ENTRIES:
@@ -101,7 +102,7 @@ class BatchDecodeStep:
         elif k_s is not None or v_s is not None:
             raise ValueError("a bf16 cache takes no scales")
         self.cfg, self.dev, self.B, self.S = cfg, dev, B, S
-        self.pack = pack
+        self.pack, self.caches = pack, (k, v, k_s, v_s)   # the launches hold their pointers
         self.counter = _COUNTERS[k.dtype]
         self._fn = kernel(_ENTRIES[k.dtype],
                           [ctypes.POINTER(_Ptrs), ctypes.POINTER(_Dims),
@@ -129,10 +130,7 @@ class BatchDecodeStep:
         pos[b] of each slab. `bounds` = (lo, hi) are the host's bounds of
         every pos[b]: 1 <= lo and hi < S are checked, and hi sizes the
         attention grid."""
-        lo, hi = (int(b) for b in bounds)
-        if not 1 <= lo <= hi < self.S:
-            raise ValueError(f"positions bounded by [{lo}, {hi}] are not "
-                             f"inside [1, {self.S})")
+        lo, hi = check_bounds(bounds, self.S)
         if tokens_or_x.dtype == torch.int32:
             check(tokens_or_x, "tokens", torch.int32, (self.B,), self.dev)
             self.ptrs.token_in, self.ptrs.x_in = tokens_or_x.data_ptr(), None
@@ -149,6 +147,15 @@ class BatchDecodeStep:
                       stream_ptr(self.dev))
         raise_on_error(rc, self.counter.__name__)
         self.counter.launches += 1
+
+
+def check_bounds(bounds, S: int) -> tuple[int, int]:
+    """The host's bounds (lo, hi) of a step's positions as ints: raises
+    ValueError unless 1 <= lo <= hi < S."""
+    lo, hi = (int(b) for b in bounds)
+    if not 1 <= lo <= hi < S:
+        raise ValueError(f"positions bounded by [{lo}, {hi}] are not inside [1, {S})")
+    return lo, hi
 
 
 def mega_decode_step_batch(pack, cfg: DecoderConfig, tokens_or_x, pos,
@@ -187,8 +194,56 @@ def _step_once(pack, cfg: DecoderConfig, tokens_or_x, pos, k, v, k_s, v_s):
     return out, step.h
 
 
+def _product_scratch_ints(B: int, K: int, N: int) -> int:
+    from qwen3_asr_tpu_torch.ops.build import kernel
+
+    return kernel("qw_mega_batch_product_scratch", [ctypes.c_int] * 3, ctypes.c_size_t)(B, K, N)
+
+
+def product_scratch(B: int, K: int, N: int, device) -> torch.Tensor:
+    """The zeroed int32 scratch of `batch_product_i8` at these sizes (the
+    kernel leaves it zero, so one serves repeated calls)."""
+    return torch.zeros(_product_scratch_ints(B, K, N), dtype=torch.int32, device=device)
+
+
+def batch_product_i8(xq: torch.Tensor, w: torch.Tensor,
+                     scratch: torch.Tensor | None = None) -> torch.Tensor:
+    """One of the step's int8 products alone (`qw_mega_batch_product_i8`):
+    int8 codes [B <= 16, K] x int8 weights [K, N] -> the exact int32 sums
+    [B, N], on the tensor cores as the step runs them (for holding them
+    against a library product). `scratch`: `product_scratch(B, K, N)`, or
+    None to allocate one. CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise."""
+    B, K = xq.shape
+    if w.shape[0] != K or xq.dtype != torch.int8 or w.dtype != torch.int8:
+        raise ValueError(f"codes {tuple(xq.shape)} {xq.dtype} and weights "
+                         f"{tuple(w.shape)} {w.dtype} do not make an int8 product")
+    if not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"batch {B} outside [1, {MAX_BATCH}]")
+    if xq.device.type == "cpu":
+        from qwen3_asr_tpu_torch.ops.q8_matmul import int8_matmul
+
+        return int8_matmul(xq, w)
+    from qwen3_asr_tpu_torch.ops.build import kernel
+
+    N = w.shape[1]
+    check(xq, "codes", torch.int8, (B, K), xq.device)
+    check(w, "weights", torch.int8, (K, N), xq.device)
+    out = torch.empty(B, N, dtype=torch.int32, device=xq.device)
+    if scratch is None:
+        scratch = product_scratch(B, K, N, xq.device)
+    check(scratch, "scratch", torch.int32, (_product_scratch_ints(B, K, N),), xq.device)
+    rc = kernel("qw_mega_batch_product_i8", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                + [ctypes.c_void_p])(xq.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                     scratch.data_ptr(), B, K, N, stream_ptr(xq.device))
+    raise_on_error(rc, "batch_product_i8")
+    batch_product_i8.launches += 1
+    return out
+
+
 mega_decode_step_batch.launches = 0
 mega_decode_step_batch_bf16.launches = 0
+batch_product_i8.launches = 0
 # the wrapper whose count a step adds to, and its C entry, by cache dtype
 _COUNTERS = {torch.int8: mega_decode_step_batch, torch.bfloat16: mega_decode_step_batch_bf16}
 _ENTRIES = {torch.int8: "qw_mega_decode_step_batch_i8",

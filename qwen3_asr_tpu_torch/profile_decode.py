@@ -2,6 +2,8 @@
 
     python3 -m qwen3_asr_tpu_torch.profile_decode [--quantize q8_0|int8pc|int4]
                                                   [--kv-cache bf16|int8|int4] [--no-pdl]
+    python3 -m qwen3_asr_tpu_torch.profile_decode --batch 1 8 16 [--quantize int8pc|int4]
+                                                  [--kv-cache int8|bf16]
 
 Builds Qwen3-ASR-0.6B's decoder at full width and depth with random weights
 (seed 0): Q8_0 weights (the default) for the per-layer path, or int8pc
@@ -23,6 +25,14 @@ argmax written on the device) for Q8_0, K1's `DecodeStep` for a pack:
    CUDA graph (`GraphStep`): enqueue and wall per step, and the profiled
    window's device busy share.
 
+With `--batch B ...` it profiles the batched step (K3, `BatchDecodeStep`)
+instead, on a pack (`--quantize int8pc` or `int4`) over a pool of B slabs of BATCH_S
+rows at `spread_positions(B)` (`profile_batch`): per B the eager step's
+device ms (CUDA events) and host enqueue, `torch.profiler`'s device time by
+kernel name, launches and busy share over STEPS steps, the step captured
+once in a CUDA graph at the same positions and replayed (device ms), and
+the step's bound.
+
 Prints one line per measurement and a JSON summary last. Needs a CUDA
 device.
 """
@@ -37,6 +47,12 @@ import time
 
 POS = 1520     # the 92 s request's prompt (1,211 rows) plus ~300 tokens
 STEPS = 16
+BATCH_S = 1664   # the batched step's pool context (chip_smoke.py's K3 phase)
+# Peaks of an H100 SXM (NVIDIA's data sheet) for the bounds: HBM bytes/s and
+# int8 tensor-core operations/s.
+HBM_BPS, INT8_OPS = 3.35e12, 1979e12
+WEIGHT_KEYS = ("qkv_q", "qkv_s", "wo_q", "wo_s", "gu_q", "gu_s", "wd_q", "wd_s",
+               "head_q", "head_s")
 
 
 def _steps(run, pos0: int) -> None:
@@ -71,6 +87,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--quantize", default="q8_0", choices=["q8_0", "int8pc", "int4"])
     p.add_argument("--kv-cache", default="bf16", choices=["bf16", "int8", "int4"])
+    p.add_argument("--batch", type=int, nargs="+", metavar="B",
+                   help="profile the batched step (K3) at these batch sizes instead")
     p.add_argument("--no-pdl", action="store_true",
                    help="launch K1's GEMVs without programmatic dependent launch (the "
                         "profiler then sees each kernel alone; with it, a GEMV's time "
@@ -88,6 +106,25 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     dec = init_decoder_params(dcfg, gen, torch.bfloat16, "cuda")
     q8 = args.quantize == "q8_0"
+    if args.batch:
+        if q8 or args.kv_cache == "int4":
+            p.error("--batch takes a pack (int8pc or int4) and an int8 or bf16 cache")
+        dec = fuse_decoder_params(quantize_decoder_params(dec, "int8pc"))
+        pack = pack_megakernel_params(dec, dcfg, int4=args.quantize == "int4")
+        rows = [profile_batch(pack, dcfg, B, args.kv_cache, gen=gen) for B in args.batch]
+        for r in rows:
+            print(f"{args.quantize} weights, {args.kv_cache} cache, K3 B={r['B']} S={BATCH_S} "
+                  f"pos={r['positions'][0]}..{r['positions'][-1]}: eager {r['eager_ms']:.4f} "
+                  f"ms/step (enqueue {r['enqueue_ms']:.4f}), graphed {r['graphed_ms']:.4f}; "
+                  f"profiled device {r['device_ms']:.4f} ms/step, busy {r['busy']:.3f}, "
+                  f"{r['launches_per_step']:.1f} launches/step; bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']})", flush=True)
+            for name, us in sorted(r["kernels_us"].items(), key=lambda kv: -kv[1]):
+                print(f"  {us:9.2f} us/step {100 * us / 1e3 / r['device_ms']:5.1f}%  "
+                      f"{r['kernels_n'][name]:6.1f} launches/step  {name[:110]}", flush=True)
+        print(json.dumps({"card": smi, "quantize": args.quantize, "kv_cache": args.kv_cache,
+                          "S": BATCH_S, "batch": rows}), flush=True)
+        return 0
     dec = fuse_decoder_params(quantize_decoder_params(dec, "q8_0" if q8 else "int8pc"))
     n = STEPS
     S = -(-(POS + 6 * n + 2) // 128) * 128
@@ -174,22 +211,159 @@ def _timed(run, pos0: int) -> tuple[float, float]:
 def _profiled(run, pos0: int):
     """STEPS steps from pos0 under torch.profiler: (window ms/step, {kernel:
     (device us/step, launches/step)})."""
+    return _profile_window(lambda: _steps(run, pos0), STEPS)
+
+
+def _profile_window(run_all, n: int):
+    """run_all() (n steps) under torch.profiler: (window ms/step, {kernel:
+    (device us/step, launches/step)})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _steps(run, pos0)
+        run_all()
         torch.cuda.synchronize()
-        window = (time.perf_counter() - t0) / STEPS * 1e3
+        window = (time.perf_counter() - t0) / n * 1e3
     kernels = {}
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0.0)
         if dev_us > 0 and "CUDA" in str(getattr(evt, "device_type", "")):
-            kernels[evt.key] = (dev_us / STEPS, evt.count / STEPS)
+            kernels[evt.key] = (dev_us / n, evt.count / n)
     return window, kernels
+
+
+def spread_positions(B: int) -> list[int]:
+    """B cache positions spread over 64 .. 1,600 (chip_smoke.py's K3
+    positions); B = 1 takes the middle one of the spread of 8."""
+    import numpy as np
+
+    if B == 1:
+        return [spread_positions(8)[4]]
+    return [int(p) for p in np.linspace(64, 1600, B).round()]
+
+
+def step_bound(pack, dcfg, positions, kv: str = "int8") -> tuple[float, float]:
+    """(bytes, operations) of a K1 / K3 step over rows at `positions`: the
+    pack's weights and scales once (int4: two weights a byte; int8: one),
+    each row's live cache (K and V rows < pos, all layers: int8 codes, or
+    int4 codes two a byte, and their f32 scales, or bf16 values) and its
+    fresh row; 2 operations per weight and row, and 4 D per (head, cached
+    row) per row."""
+    from qwen3_asr_tpu_torch.ops.megakernel import weight_bits
+
+    L, NH, NKV, D = dcfg.n_layers, dcfg.n_heads, dcfg.n_kv_heads, dcfg.head_dim
+    w_bytes = sum(pack[k].numel() * pack[k].element_size() for k in WEIGHT_KEYS)
+    per_byte = 2 if weight_bits(pack) == 4 else 1
+    n_w = sum(per_byte * pack[k].numel() for k in WEIGHT_KEYS if k.endswith("_q"))
+    row = L * {"int8": 2 * NKV * D + 2 * NKV * 4, "int4": NKV * D + 2 * NKV * 4,
+               "bf16": 4 * NKV * D}[kv]
+    nbytes = w_bytes + sum((p + 1) * row for p in positions)
+    ops = 2.0 * n_w * len(positions) + sum(4.0 * L * NH * D * p for p in positions)
+    return nbytes, ops
+
+
+def filled_pool(dcfg, S: int, positions, kv: str, gen):
+    """(k, v, k_s, v_s) [B, L, S, ...]: int8 codes with f32 scales, or bf16
+    rows with no scales (None); slab b's rows < positions[b] random."""
+    import torch
+
+    from qwen3_asr_tpu_torch.models.decoder import _quantize_kv_rows
+
+    L, NKV, D = dcfg.n_layers, dcfg.n_kv_heads, dcfg.head_dim
+    B = len(positions)
+    dt = torch.bfloat16 if kv == "bf16" else torch.int8
+    out = [torch.zeros(B, L, S, NKV * D, dtype=dt, device="cuda") for _ in range(2)]
+    scales = ([torch.zeros(B, L, S, NKV, dtype=torch.float32, device="cuda")
+               for _ in range(2)] if kv == "int8" else [None, None])
+    for b, p in enumerate(positions):
+        for c, sc in zip(out, scales):
+            x = torch.randn(L, p, NKV, D, generator=gen, device="cuda") * 0.5
+            if sc is None:
+                c[b, :, :p] = x.reshape(L, p, NKV * D).to(dt)
+            else:
+                q, s = _quantize_kv_rows(x)
+                c[b, :, :p] = q.reshape(L, p, NKV * D)
+                sc[b, :, :p] = s
+    return out[0], out[1], scales[0], scales[1]
+
+
+def profile_batch(pack, dcfg, B: int, kv: str = "int8", S: int = BATCH_S,
+                  n: int = STEPS, gen=None, trace: bool = True) -> dict:
+    """K3 (`BatchDecodeStep`) at B rows over a pool of S rows at
+    spread_positions(B), every step at the same positions (it rewrites the
+    fresh rows): the eager step's device ms/step between CUDA events and the
+    host's enqueue ms/step over n steps; with `trace`, torch.profiler over n
+    more steps (device us per kernel name, launches, busy share of the
+    window; else those keys are None); the step captured once in a CUDA
+    graph and replayed n times (device ms/step); the bound (bytes over
+    HBM_BPS against operations over INT8_OPS)."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.megakernel_batch import BatchDecodeStep
+
+    positions = spread_positions(B)
+    gen = gen or torch.Generator(device="cuda").manual_seed(0)
+    pool = filled_pool(dcfg, S, positions, kv, gen)   # kept alive: the step holds pointers
+    step = BatchDecodeStep(pack, dcfg, *pool)
+    toks = torch.full((B,), 1000, dtype=torch.int32, device="cuda")
+    out = torch.empty(B, dtype=torch.int32, device="cuda")
+    pos_d = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    bounds = (min(positions), max(positions))
+
+    def run():
+        step(toks, pos_d, out, bounds)
+
+    def run_all():
+        for _ in range(n):
+            run()
+
+    for _ in range(3):
+        run()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    run_all()
+    end.record()
+    enqueue = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    eager = start.elapsed_time(end) / n
+    window, kernels, device = None, {}, None
+    if trace:
+        window, kernels = _profile_window(run_all, n)
+        device = sum(us for us, _ in kernels.values()) / 1e3
+        if not device:
+            raise RuntimeError("the profiler recorded no device time")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    graph.replay()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    graphed = start.elapsed_time(end) / n
+    nbytes, ops = step_bound(pack, dcfg, positions, kv)
+    t_b, t_o = nbytes / HBM_BPS * 1e3, ops / INT8_OPS * 1e3
+    del graph, step, pool
+    return {"B": B, "positions": positions, "eager_ms": eager, "enqueue_ms": enqueue,
+            "graphed_ms": graphed, "window_ms": window, "device_ms": device,
+            "busy": device / window if trace else None,
+            "launches_per_step": (sum(c for k, (_, c) in kernels.items() if "emset" not in k)
+                                  if trace else None),
+            "kernels_us": {k: v[0] for k, v in kernels.items()},
+            "kernels_n": {k: v[1] for k, v in kernels.items()},
+            "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations"}
 
 
 if __name__ == "__main__":

@@ -197,6 +197,11 @@ class ASRServer:
         self._queue.put(_Request(np.asarray(samples), fut, params=params))
         return fut
 
+    def transcribe(self, samples: np.ndarray):
+        """One utterance through the server's queue, waited on:
+        submit(samples).result()."""
+        return self.submit(samples).result()
+
     def submit_align(self, samples: np.ndarray, text: str,
                      language: str = "") -> Future:
         """Enqueue a forced alignment -> Future of an AlignmentResult.

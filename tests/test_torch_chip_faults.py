@@ -20,7 +20,10 @@ fed K1's argmax through the greedy GraphStep's shortcut, the sampled head
 given the post-norm h, top-p dropping its cutoff element, the speculative
 verify reading the drafts' cache rows, a spec round emitting the draft at
 its first mismatch, K4's batched mode reading row 0's offset for every
-row, K3's bf16 mode writing the fresh rows into slab 0, the per-layer step
+row, K3's bf16 mode writing the fresh rows into slab 0, K3's product built
+with rows 8-15 reading rows 0-7's codes or with two output columns of an
+MMA tile swapped (a copy of the sources with one line changed), K3's
+prologue reading no attn_norm weight, the per-layer step
 at B rows storing every row at row 0's position, its attention output
 alone with q roped one position late or the newest 64 cache rows skipped)
 and asserts that the phase of
@@ -648,6 +651,80 @@ def test_k3_bf16_fresh_row_into_slab0_caught(auto_asr):
             patched(mbt.BatchDecodeStep, "__call__", into_slab0):
         caught("K3 bf16 writing the fresh rows into slab 0", lambda: cs.phase_mega_batch(
             asr.cfg.decoder, asr.params["decoder"]["mega"], "bf16"))
+
+
+@contextlib.contextmanager
+def mutated_kernels(tmp_path, file: str, old: str, new: str):
+    """The kernel library built from a copy of the sources (under tmp_path)
+    with the one line `old` of `file` replaced by `new`, in place of the
+    checkout's library while the block runs; the checkout's sources are
+    not touched. The copy's library is keyed by its own source hash."""
+    import shutil
+
+    from qwen3_asr_tpu_torch.ops import build
+
+    src = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, src)
+    text = (src / file).read_text()
+    assert text.count(old) == 1, f"{file}: the line to mutate is not there once"
+    (src / file).write_text(text.replace(old, new))
+    saved = build.CSRC, build._lib
+    build.CSRC, build._lib = src, None
+    try:
+        build.library()
+        yield
+    finally:
+        build.CSRC, build._lib = saved
+
+
+K3_FAULTS = {
+    # the second n-tile's MMAs read the first n-tile's rows of codes
+    "rows 8-15 given rows 0-7's codes": (
+        "const int* crow = c32 + ((g + 8 * nt) * kcp + BMMA_ROUND * r) / 4;",
+        "const int* crow = c32 + (g * kcp + BMMA_ROUND * r) / 4;"),
+    # the sums of columns 0 and 1 of each 128-column tile written to each other's place
+    "two output columns of an MMA tile swapped": (
+        "const int c = ((nn & 1) << 1) | (b & 1),",
+        "const int c = (((nn & 1) ^ (nn < 2)) << 1) | (b & 1),"),
+}
+
+
+@pytest.mark.parametrize("fault", list(K3_FAULTS))
+def test_k3_product_faults_caught(auto_asr, tmp_path, fault):
+    """K3's tensor-core product on the int8 pack, built with one line
+    changed: batch rows 8-15 multiplied by rows 0-7's codes (B <= 8 is
+    unaffected, so only the checks at B 13 and 16 can see it), or two
+    output columns of one MMA tile swapped in the epilogue. The K3 phase's
+    rows-equal-K1 check raises."""
+    cs, asr = auto_asr
+    old, new = K3_FAULTS[fault]
+    with mutated_kernels(tmp_path, "megakernel_batch.cu", old, new):
+        caught(f"K3 {fault}", lambda: cs.phase_mega_batch(
+            asr.cfg.decoder, asr.params["decoder"]["mega"]))
+
+
+def test_k3_prologue_without_attn_norm_caught(auto_asr):
+    """K3's QKV products making their input codes with an all-ones attn_norm
+    (the weight dropped) on a pack whose attn_norm is not ones (the random
+    model's is, so the pack's copy takes 1 + N(0, 0.25) per element, K1 and
+    the twin reading it too): the K3 phase's rows-equal-K1 check raises."""
+    from qwen3_asr_tpu_torch.ops import megakernel_batch as mbt
+
+    cs, asr = auto_asr
+    g = torch.Generator(device="cuda").manual_seed(12)
+    pack = dict(asr.params["decoder"]["mega"])
+    pack["attn_norm"] = (1 + 0.5 * torch.randn(pack["attn_norm"].shape, generator=g,
+                                               device="cuda")).contiguous()
+    init = mbt.BatchDecodeStep.__init__
+
+    def dropped(self, pk, cfg, *a, **k):
+        init(self, pk, cfg, *a, **k)
+        self._ones = torch.ones_like(pk["attn_norm"])
+        self.ptrs.attn_norm = self._ones.data_ptr()
+
+    with patched(mbt.BatchDecodeStep, "__init__", dropped):
+        caught("K3 prologue without attn_norm", lambda: cs.phase_mega_batch(
+            asr.cfg.decoder, pack))
 
 
 def test_batched_step_storing_at_row0_position_caught(q8_asr):

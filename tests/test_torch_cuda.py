@@ -364,25 +364,34 @@ def _pool(dcfg, S, pos, seed):
     return k, v, ks, vs
 
 
+# K3's batches: one 8-row MMA n-tile (5 rows), two of them (13: the second
+# ragged, 16: both full); positions spread over the pool of S = 256
+K3_POSITIONS = {5: [12, 150, 64, 199, 1],
+                13: [12, 150, 64, 199, 1, 33, 240, 97, 5, 180, 128, 71, 220],
+                16: [12, 150, 64, 199, 1, 33, 240, 97, 5, 180, 128, 71, 220, 2, 111, 250]}
+K3_PARAMS = [(i4, B) for i4 in (True, False) for B in K3_POSITIONS]
+K3_IDS = [f"{'int4' if i4 else 'int8'}-B{B}" for i4, B in K3_PARAMS]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("int4", [True, False], ids=["int4", "int8"])
-def test_batched_megakernel_rows_equal_single(cuda_kernels, int4):
+@pytest.mark.parametrize("int4,B", K3_PARAMS, ids=K3_IDS)
+def test_batched_megakernel_rows_equal_single(cuda_kernels, int4, B):
     """K3's rows equal K1 run on each row's slab copy, bit for bit (token,
     h, every layer's fresh K/V row and scales), over 4 teacher-forced
-    steps at spread positions, on either pack; and K3 against its plain
-    version: tokens equal or a near tie, h atol/rtol 2e-2."""
+    steps at spread positions, on either pack, at B 5, 13 and 16 (rows 9-16
+    in the products' second MMA n-tile); and K3 against its plain version:
+    tokens equal or a near tie, h atol/rtol 2e-2."""
     from qwen3_asr_tpu_torch.ops import megakernel_batch as tmb
 
     dcfg, pack = _tiny_pack(int4)
-    S, pos0 = 256, [12, 150, 64, 199, 1]
-    B = len(pos0)
+    S, pos0 = 256, K3_POSITIONS[B]
     pool = _pool(dcfg, S, pos0, 10)
     singles = [[t[b].clone() for t in pool] for b in range(B)]
     ref = [t.clone() for t in pool]
     step = tmb.BatchDecodeStep(pack, dcfg, *pool)
     out = torch.empty(B, dtype=torch.int32, device="cuda")
     one = torch.empty(1, dtype=torch.int32, device="cuda")
-    toks = torch.tensor([7, 9, 11, 13, 15], dtype=torch.int32, device="cuda")
+    toks = torch.arange(7, 7 + 2 * B, 2, dtype=torch.int32, device="cuda")
     before = tmb.mega_decode_step_batch.launches
     for i in range(4):
         pos = [p + i for p in pos0]
@@ -419,25 +428,24 @@ def _pool_bf16(dcfg, S, pos, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("int4", [True, False], ids=["int4", "int8"])
-def test_batched_megakernel_bf16_rows_equal_k1_bf16(cuda_kernels, int4):
+@pytest.mark.parametrize("int4,B", K3_PARAMS, ids=K3_IDS)
+def test_batched_megakernel_bf16_rows_equal_k1_bf16(cuda_kernels, int4, B):
     """K3's bf16-cache mode: each row equals K1's bf16-cache step on that
     row's slab copy, bit for bit (token, h, every layer's fresh K/V row),
-    over 4 teacher-forced steps at spread positions; the whole pool equal
-    after them; against the plain version tokens equal or a near tie, h
-    atol/rtol 2e-2."""
+    over 4 teacher-forced steps at spread positions, at B 5, 13 and 16; the
+    whole pool equal after them; against the plain version tokens equal or
+    a near tie, h atol/rtol 2e-2."""
     from qwen3_asr_tpu_torch.ops import megakernel_batch as tmb
 
     dcfg, pack = _tiny_pack(int4)
-    S, pos0 = 256, [12, 150, 64, 199, 1]
-    B = len(pos0)
+    S, pos0 = 256, K3_POSITIONS[B]
     pool = _pool_bf16(dcfg, S, pos0, 20)
     singles = [[t[b].clone() for t in pool] for b in range(B)]
     ref = [t.clone() for t in pool]
     step = tmb.BatchDecodeStep(pack, dcfg, *pool)
     out = torch.empty(B, dtype=torch.int32, device="cuda")
     one = torch.empty(1, dtype=torch.int32, device="cuda")
-    toks = torch.tensor([7, 9, 11, 13, 15], dtype=torch.int32, device="cuda")
+    toks = torch.arange(7, 7 + 2 * B, 2, dtype=torch.int32, device="cuda")
     before = tmb.mega_decode_step_batch_bf16.launches, tmb.mega_decode_step_batch.launches
     for i in range(4):
         pos = [p + i for p in pos0]
@@ -490,6 +498,28 @@ def test_batched_megakernel_rejects_bad_arguments(cuda_kernels):
     big = [t[:1].expand(17, *t.shape[1:]).contiguous() for t in pool]
     with pytest.raises(ValueError):
         tmb.BatchDecodeStep(pack, dcfg, *big)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(1024, 4096), (3072, 1024), (96, 192), (2048, 1088)])
+@pytest.mark.parametrize("B", [1, 8, 13, 16])
+def test_batch_product_equals_int_mm(cuda_kernels, K, N, B):
+    """One of K3's products alone on the tensor cores: its int32 sums
+    torch.equal to torch._int_mm's (q8_matmul.int8_matmul, rows padded),
+    at the decoder's QKV and down shapes, a tiny one (one block row of 96
+    input rows, a half tile of columns) and a ragged column count."""
+    from qwen3_asr_tpu_torch.ops import megakernel_batch as tmb
+    from qwen3_asr_tpu_torch.ops.q8_matmul import int8_matmul
+
+    g = torch.Generator(device="cuda").manual_seed(K + N + B)
+    xq = torch.randint(-127, 128, (B, K), generator=g, device="cuda",
+                       dtype=torch.int32).to(torch.int8)
+    w = torch.randint(-127, 128, (K, N), generator=g, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    before = tmb.batch_product_i8.launches
+    got = tmb.batch_product_i8(xq, w)
+    assert torch.equal(got, int8_matmul(xq, w))
+    assert tmb.batch_product_i8.launches == before + 1
 
 
 def _q8_leaf(n_in, n_out, g, pad_out_to=1):

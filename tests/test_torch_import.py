@@ -48,8 +48,9 @@ def _chip_smoke_imports() -> list[str]:
 
 def test_no_jax_package_in_import_chain():
     """Every module of the port and every import of chip_smoke.py, in a fresh
-    process: no module named qwen3_asr_tpu or qwen3_asr_tpu.* is loaded."""
-    mods = _modules() + _chip_smoke_imports() + ["chip_smoke"]
+    process (and chip_compare.py, which runs chip_smoke's phases): no module
+    named qwen3_asr_tpu or qwen3_asr_tpu.* is loaded."""
+    mods = _modules() + _chip_smoke_imports() + ["chip_smoke", "chip_compare"]
     assert {"qwen3_asr_tpu_torch.pipeline.asr", "qwen3_asr_tpu_torch.cli",
             "qwen3_asr_tpu_torch.microbench_stream", "torch",
             "qwen3_asr_tpu_torch.pipeline.aligner", "qwen3_asr_tpu_torch.pipeline.combined",

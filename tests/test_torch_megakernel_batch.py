@@ -122,3 +122,39 @@ def test_rejects_bad_positions(setup, pos, err):
     with pytest.raises(ValueError, match=err):
         tmb.mega_decode_step_batch(td["mega"], port_config(dcfg), torch.tensor([1, 2, 3], dtype=torch.int32),
                                    pos, k, v, ks, vs)
+
+
+def test_batch_step_refuses_17_rows(setup):
+    """BatchDecodeStep takes at most MAX_BATCH = 16 slabs (two 8-row MMA
+    n-tiles); 17 are refused before anything touches a device."""
+    dcfg, _, _, td = setup
+    k, ks = (torch.from_numpy(a) for a in _pool(dcfg, 1))
+    big = [t[:1].expand(tmb.MAX_BATCH + 1, *t.shape[1:]).contiguous() for t in (k, k, ks, ks)]
+    with pytest.raises(ValueError, match="batch 17 outside"):
+        tmb.BatchDecodeStep(td["mega"], port_config(dcfg), *big)
+
+
+@pytest.mark.parametrize("bounds", [(0, 12), (5, S), (12, 5), (-3, 4)])
+def test_batch_step_refuses_bad_position_bounds(bounds):
+    """A step's host bounds (lo, hi) of the positions must satisfy 1 <= lo
+    <= hi < S; hi sizes the attention grid."""
+    with pytest.raises(ValueError, match="not inside"):
+        tmb.check_bounds(bounds, S)
+    assert tmb.check_bounds((1, S - 1), S) == (1, S - 1)
+
+
+@pytest.mark.parametrize("B,K,N", [(1, 64, 128), (13, 96, 192), (16, 1024, 64)])
+def test_batch_product_plain_is_exact(B, K, N):
+    """The product alone's plain version (`batch_product_i8` on CPU
+    tensors): the exact int32 sums of int8 codes x int8 weights, as an
+    int64 numpy product gives them; malformed operands are refused."""
+    rng = np.random.default_rng(B + K + N)
+    xq = rng.integers(-127, 128, (B, K), dtype=np.int8)
+    w = rng.integers(-127, 128, (K, N), dtype=np.int8)
+    got = tmb.batch_product_i8(torch.from_numpy(xq), torch.from_numpy(w))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), xq.astype(np.int64) @ w.astype(np.int64))
+    with pytest.raises(ValueError):
+        tmb.batch_product_i8(torch.from_numpy(xq), torch.from_numpy(w[1:]))
+    with pytest.raises(ValueError):
+        tmb.batch_product_i8(torch.zeros(17, K, dtype=torch.int8), torch.from_numpy(w))

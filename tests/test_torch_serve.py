@@ -82,6 +82,19 @@ def test_closed_batches_match_transcribe_batch(model):
     assert srv.n_served == 4 and srv.n_batches == 2
 
 
+def test_server_transcribe_waits_on_submit(model):
+    """ASRServer.transcribe(samples) is submit(samples).result(), the JAX
+    server's contract: the lone request's result, as transcribe gives it."""
+    srv = ASRServer(model, PARAMS, max_batch=2, max_wait_ms=1.0)
+    try:
+        r = srv.transcribe(AUDIO[0])
+    finally:
+        srv.close()
+    assert r.success
+    assert r.tokens == model.transcribe(AUDIO[0], PARAMS).tokens
+    assert srv.n_served == 1
+
+
 def test_continuous_server_matches_engine(model):
     srv = ASRServer(model, PARAMS, continuous=True, pool=2,
                     round_tokens=KW["round_tokens"], engine_context=KW["s_pool"])
