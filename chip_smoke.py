@@ -21,7 +21,8 @@ the batched decode step (K3) on either pack at B 8, 13 and 16 (one and two
 bit, timed eager and from a CUDA graph at B 1 / 4 / 8 / 16 with a
 torch.profiler split at B 8, and one of its products alone against
 `torch._int_mm` (int32 sums equal), the Q8_0 products K5 / K6 / K7 at the decode
-step's T = 1 and a 5 s prompt's T, the decode attention K4 with a bf16 and
+step's T = 1, the batched step's T 4 / 8 / 16 and a 5 s prompt's T (every
+row torch.equal to its one-row launch), the decode attention K4 with a bf16 and
 an int8 cache, and the weight-stream microbenchmarks K9-K11 (every integer
 mode exact, the nibble-unpack probe bit-equal; `torch.Tensor.sum` over the
 same bytes beside the read modes). Then, at the full Qwen3-ASR-0.6B width
@@ -85,7 +86,8 @@ the launch counts set to 0 just before it and read just after:
    `--temperature 0.7 --seed 3` and `--spec-k 4` in this process;
 14. batches in every mode (`phase_batch_modes`): K4's batched mode (rows
    torch.equal to one-row launches) and K3 over a bf16 cache (rows equal to
-   K1 bf16) at B 8, 13 and 16, the per-layer step at B 8 against single rows,
+   K1 bf16) at B 8, 13 and 16, the per-layer step at B 8 against single rows
+   (every row and step torch.equal),
    `transcribe_batch` of four requests in q8_0 + bf16 / int8 KV, dense +
    bf16 and auto + bf16 (each a window; auto rows equal to `transcribe`'s)
    against the same requests one at a time, and the server's closed batch
@@ -150,6 +152,7 @@ SLICE_REQUESTS = (("q8_0", "bf16", 5, 64), ("q8_0", "bf16", 92, 323),
 # the other bf16 neighbour, rel L2 <= Q8_BF16_REL and |err| <= Q8_BF16_ATOL x
 # the output's largest magnitude.
 Q8_F32_REL, Q8_BF16_REL, Q8_BF16_ATOL = 1e-5, 1e-4, 1e-3
+Q8_ROWS = (1, 4, 8, 16)   # phase_q8's T besides a 5 s prompt's rows
 # Decode attention vs twin: the same f32 math in another order, |err| <=
 # DA_ATOL x scale + DA_RTOL x |ref| elementwise.
 DA_RTOL, DA_ATOL = 1e-4, 1e-5
@@ -949,8 +952,11 @@ def _q8_bytes(n_in: int, n_out: int) -> int:
 
 def phase_q8(dec, dcfg, Ts) -> dict:
     """K5 (Wo), K6 (QKV and the lm head) and K7 against their twins on layer
-    0's Q8_0 weights of the model, at each T of Ts. -> {(name, T): (max_abs_err,
-    kernel ms, twin ms, bound ms, bound_by)}."""
+    0's Q8_0 weights of the model, at each T of Ts; at each T every row
+    torch.equal to the one-row launch on that row alone, and two launches
+    on the same input equal (the body sums each output in one order, whatever
+    T is). -> {(name, T): (max_abs_err, kernel ms, twin ms, bound ms,
+    bound_by)}."""
     import torch
 
     from qwen3_asr_tpu_torch.ops import q8_matmul as q8
@@ -973,41 +979,48 @@ def phase_q8(dec, dcfg, Ts) -> dict:
         cases = []
         for name, w, xx, fn, ref in (
                 ("K5 q8_matmul (Wo)", wo, xa,
-                 lambda: q8.q8_matmul(xa, wo["q8:q"], wo["q8:s"]),
-                 lambda: q8.q8_matmul_ref(xa, wo["q8:q"], wo["q8:s"])),
+                 lambda v: q8.q8_matmul(v, wo["q8:q"], wo["q8:s"]),
+                 lambda v: q8.q8_matmul_ref(v, wo["q8:q"], wo["q8:s"])),
                 ("K6 q8_norm_matmul (QKV)", wqkv, x,
-                 lambda: q8.q8_norm_matmul(x, wqkv, nw, eps),
-                 lambda: q8.q8_norm_matmul_ref(x, wqkv["q8:q"], wqkv["q8:s"], nw, eps)),
+                 lambda v: q8.q8_norm_matmul(v, wqkv, nw, eps),
+                 lambda v: q8.q8_norm_matmul_ref(v, wqkv["q8:q"], wqkv["q8:s"], nw, eps)),
                 ("K6 q8_norm_matmul (lm head)", head, x,
-                 lambda: q8.q8_norm_matmul(x, head, nw, eps),
-                 lambda: q8.q8_norm_matmul_ref(x, head["q8:q"], head["q8:s"], nw, eps))):
+                 lambda v: q8.q8_norm_matmul(v, head, nw, eps),
+                 lambda v: q8.q8_norm_matmul_ref(v, head["q8:q"], head["q8:s"], nw, eps))):
             n_in, n_out = w["q8:q"].shape
             bf16 = q8.deq_bf16_for(n_out)
             nbytes = _q8_bytes(n_in, n_out) + 2 * T * n_in + 4 * T * n_out
-            cases.append((name, fn, ref, bf16, nbytes, 2.0 * T * n_in * n_out))
+            cases.append((name, xx, fn, ref, bf16, nbytes, 2.0 * T * n_in * n_out))
         n_w = H * 2 * FF + FF * H
-        cases.append(("K7 q8_mlp", lambda: q8.q8_mlp(x, gu, dn, nw, eps, FF),
-                      lambda: q8.q8_mlp_ref(x, gu["q8:q"], gu["q8:s"], dn["q8:q"],
-                                            dn["q8:s"], nw, eps, FF),
+        cases.append(("K7 q8_mlp", x, lambda v: q8.q8_mlp(v, gu, dn, nw, eps, FF),
+                      lambda v: q8.q8_mlp_ref(v, gu["q8:q"], gu["q8:s"], dn["q8:q"],
+                                              dn["q8:s"], nw, eps, FF),
                       True, _q8_bytes(H, 2 * FF) + _q8_bytes(FF, H) + 2 * T * H + 4 * T * H,
                       2.0 * T * n_w))
-        for name, fn, ref, bf16, nbytes, ops in cases:
-            got, want = fn(), ref()
+        for name, xx, fn, ref, bf16, nbytes, ops in cases:
+            got, again, want = fn(xx), fn(xx), ref(xx)
+            rows = [fn(xx[t:t + 1]) for t in range(T)]
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             rel = float((got - want).norm() / want.norm())
             scale = float(want.abs().max())
-            ms = graph_ms(fn)
-            call = cuda_ms(fn, 20)
-            plain = cuda_ms(ref, 3, warmup=1)
+            n_equal = sum(torch.equal(got[t:t + 1], r) for t, r in enumerate(rows))
+            ms = graph_ms(lambda: fn(xx))
+            call = cuda_ms(lambda: fn(xx), 20)
+            plain = cuda_ms(lambda: ref(xx), 3, warmup=1)
             b_ms, b_by = bound(nbytes, ops, BF16_FLOPS if bf16 else F32_FLOPS)
             log(f"phase {name} T={T} ({'bf16' if bf16 else 'f32'} dequant): "
-                f"max_abs_err={err:.3e} rel_l2 {rel:.3e} (max |ref| {scale:.3f}); "
-                f"kernel {ms:.4f} ms (graph; {call:.4f} ms a call from the host), "
-                f"twin {plain:.4f} ms; bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.3f} MB)")
+                f"max_abs_err={err:.3e} rel_l2 {rel:.3e} (max |ref| {scale:.3f}); rows "
+                f"torch.equal to one-row launches {n_equal}/{T}, two launches equal "
+                f"{torch.equal(got, again)}; kernel {ms:.4f} ms (graph; {call:.4f} ms a call "
+                f"from the host), twin {plain:.4f} ms; bound {b_ms:.4f} ms ({b_by}, "
+                f"{nbytes / 1e6:.3f} MB)")
             if not rel <= (Q8_BF16_REL if bf16 else Q8_F32_REL) or (
                     bf16 and not err <= Q8_BF16_ATOL * scale):
                 raise AssertionError(f"{name} T={T} disagrees with its twin")
+            if n_equal != T or not torch.equal(got, again):
+                raise AssertionError(f"{name} T={T}: {T - n_equal} rows differ from their "
+                                     f"one-row launches, or two launches differ")
             out[(name, T)] = (err, ms, plain, b_ms, b_by)
     return out
 
@@ -3086,15 +3099,16 @@ BATCH_TWIN_TOKENS = 16   # of each row, held against the twins teacher-forced
 BATCH_MODES = (("q8_0", "bf16"), ("q8_0", "int8"), (False, "bf16"), ("auto", "bf16"))
 STEP_BATCH_STEPS = 4
 # The per-layer step at B rows vs the single-row step on each row's cache
-# copy, teacher-forced: K5-K7 at T = B (the tiled kernel) and at T = 1 (the
-# GEMV) may sum in another f32 order, a bf16 output then rounds the other
-# way and 28 quantized layers spread it. Held: h rel L2 <= STEP_BATCH_H_REL
-# on every row and step, tokens under the near-tie rule, every slab's other
-# rows untouched, the fresh rows under the cache rule. The bound is this
-# step's own: its readings on an H100 80GB HBM3 (700 W) are rel L2 <= 0.035
-# on either cache (0 of 32 rows bit-equal); a fault in the attention output
-# alone, which the cache rule cannot see, reads 0.55 (q roped one position
-# late) and 2.6 (a row's newest 64 cache rows skipped)
+# copy, teacher-forced. K5-K7 sum each output in one f32 order whatever T is
+# and K4's batched rows are its one-row launches, so every row and step must
+# be torch.equal to the single step's, tokens included. Held beside that: h
+# rel L2 <= STEP_BATCH_H_REL on every row and step, tokens under the
+# near-tie rule, every slab's other rows untouched, the fresh rows under the
+# cache rule. The bound is this step's own, from when B-row products summed
+# in another order than one-row ones: rel L2 <= 0.035 on either cache on an
+# H100 80GB HBM3 (700 W); a fault in the attention output alone, which the
+# cache rule cannot see, reads 0.55 (q roped one position late) and 2.6 (a
+# row's newest 64 cache rows skipped)
 # (tests/test_torch_chip_faults.py::test_batched_step_q_side_fault_caught).
 STEP_BATCH_H_REL = 0.08
 
@@ -3208,12 +3222,14 @@ def phase_step_batch(asr, kv: str) -> dict:
     T = 8 and K4 batched) against the single-row step (K6 / K5 / K7 at T =
     1, K4 one row) on each row's cache copy, STEP_BATCH_STEPS steps at
     spread positions (S = MEGA_BATCH_S), teacher-forced on the single rows'
-    tokens and cache rows: tokens under the near-tie rule, h rel L2 <=
-    STEP_BATCH_H_REL (how many rows are bit-equal is reported), every slab's
-    rows other than the fresh one torch.equal to its copy's, the fresh rows
-    under the cache rule (all layers on a bit-exact row, layer 0 on the
-    others). Then the batched step's wall, enqueue and device-busy ms beside
-    8 single steps'. -> the readings."""
+    tokens and cache rows: every row and step torch.equal to the single
+    step's and no token mismatch; beside that, tokens under the near-tie
+    rule, h rel L2 <= STEP_BATCH_H_REL, every slab's rows other than the
+    fresh one torch.equal to its copy's, the fresh rows under the cache
+    rule (all layers on a bit-exact row, layer 0 on the others). Then the
+    batched step's wall, enqueue and device-busy ms beside 8 single steps',
+    and the device time split into the Q8_0 body (K5-K7), K4 and the rest.
+    -> the readings."""
     import torch
 
     from qwen3_asr_tpu_torch.models import decoder as dmod
@@ -3224,7 +3240,7 @@ def phase_step_batch(asr, kv: str) -> dict:
     g = torch.Generator(device="cuda").manual_seed(300)
     cache, singles = step_batch_cache(dcfg, pos0, S, kv, g)
     toks = torch.arange(1000, 1000 + B, device="cuda") % dcfg.vocab_size
-    rels, mism, worst_gap = [], 0, 0.0
+    rels, equal, mism, worst_gap = [], [], 0, 0.0
     for i in range(STEP_BATCH_STEPS):
         pos = [p + i for p in pos0]
         x = dec["token_embd"][toks]
@@ -3238,6 +3254,7 @@ def phase_step_batch(asr, kv: str) -> dict:
             lg = dmod.lm_logits(dec, dcfg, hs[0])
             ts = int(torch.argmax(lg))
             rels.append(_rel(h[b:b + 1], hs))
+            equal.append(torch.equal(h[b:b + 1], hs))
             if int(tok_b[b]) != ts:
                 mism += 1
                 worst_gap = max(worst_gap, float(lg[ts] - lg[int(tok_b[b])]))
@@ -3257,7 +3274,7 @@ def phase_step_batch(asr, kv: str) -> dict:
                     cache[n][b, :, p] = c[:, p]
             nxt.append(ts)
         toks = torch.tensor(nxt, device="cuda")
-    n_exact = sum(r == 0.0 for r in rels)
+    n_exact = sum(equal)
     log(f"phase batched per-layer step (q8_0, {kv} KV) vs single rows, "
         f"{STEP_BATCH_STEPS} steps x {B} rows at pos {pos0[0]}..{pos0[-1]}: rel_l2(h) max "
         f"{max(rels):.4f}, bit-equal on {n_exact}/{len(rels)}; token mismatches {mism} "
@@ -3265,6 +3282,9 @@ def phase_step_batch(asr, kv: str) -> dict:
     if worst_gap > NEAR_TIE_TOL or not max(rels) <= STEP_BATCH_H_REL:
         raise AssertionError(f"the batched step disagrees with the single-row step: "
                              f"rel_l2 {max(rels)}, gap {worst_gap}")
+    if n_exact != len(rels) or mism:
+        raise AssertionError(f"the batched step's rows are not the single-row step's: "
+                             f"{len(rels) - n_exact} of {len(rels)} differ, {mism} tokens")
 
     # where a step's time goes: the host's enqueue against the device
     pos = [p + STEP_BATCH_STEPS for p in pos0]
@@ -3290,11 +3310,16 @@ def phase_step_batch(asr, kv: str) -> dict:
         wall = (time.perf_counter() - t0) * 1e3
         pwall, kernels = profiled(fn)
         busy = sum(k[0] for k in kernels)
+        split = {part: sum(k[0] for k in kernels if key(k[2]))
+                 for part, key in (("q8_body_ms", lambda n: "q8_rows" in n),
+                                   ("k4_ms", lambda n: "dattn_" in n))}
+        split["rest_ms"] = busy - sum(split.values())
         out[label] = {"wall_ms": wall, "enqueue_ms": enq, "busy_ms": busy,
-                      "kernels": sum(k[1] for k in kernels)}
+                      "kernels": sum(k[1] for k in kernels), **split}
         log(f"  {label} step ({kv} KV): wall {wall:.4f} ms, enqueue {enq:.4f} ms, device "
-            f"busy {busy:.4f} ms (profiled wall {pwall:.4f} ms, "
-            f"{out[label]['kernels']} kernels); top: "
+            f"busy {busy:.4f} ms (Q8_0 body {split['q8_body_ms']:.4f}, K4 "
+            f"{split['k4_ms']:.4f}, the rest {split['rest_ms']:.4f}; profiled wall "
+            f"{pwall:.4f} ms, {out[label]['kernels']} kernels); top: "
             + "; ".join(f"{name[:48]} {ms:.3f} ms x{n}" for ms, n, name in kernels[:5]))
     return out
 
@@ -3615,9 +3640,9 @@ def main() -> int:
     for c in caches:
         assert_on_device(c, "cuda")
     p5 = prompt_rows(5)
-    # T 4 and 8: the per-layer step at B rows (a closed batch of 4, the
-    # batched-step phase's 8)
-    q8k = phase_q8(q8_asr.params["decoder"], q8_asr.cfg.decoder, (1, 4, 8, p5))
+    # T 4, 8 and 16: the per-layer step at B rows (a closed batch of 4, the
+    # batched-step phase's 8, the widest batch); p5: a 5 s prompt's prefill
+    q8k = phase_q8(q8_asr.params["decoder"], q8_asr.cfg.decoder, Q8_ROWS + (p5,))
     sampling = {"q8_0": phase_sampling(q8_asr, "q8_0", None, None, 64, 16)}
 
     # the JAX package's default weight mode: the int8 pack
@@ -3685,11 +3710,13 @@ def main() -> int:
 
     head = ("K6 q8_norm_matmul (lm head)", 1)
 
-    def at_batch(*names):
-        """K5-K7 at the per-layer step's B rows (T 4 and 8)."""
+    def by_rows(*names):
+        """K5-K7 at every T of phase_q8 (one row, the per-layer step's B rows,
+        a 5 s prompt's rows). The parent's times beside them are in PERF.md,
+        measured in one call with these by chip_compare.py."""
         return {f"{n} T={T}": dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by"), q8k[(n, T)]))
-                for n in names for T in (4, 8)}
+                for n in names for T in Q8_ROWS + (p5,)}
 
     k1 = "qwen3_asr_tpu/ops/megakernel.py:460"
     k4b = batch_modes["k4"]
@@ -3759,16 +3786,16 @@ def main() -> int:
                                                       "decode_attention_batch")),
         row("q8_matmul", "q8_matmul.cu", "qwen3_asr_tpu/ops/q8_matmul.py:69",
             total["q8_matmul"], max(v[0] for k, v in q8k.items() if k[0].startswith("K5")),
-            *q8k[("K5 q8_matmul (Wo)", 1)][1:], batch_rows=at_batch("K5 q8_matmul (Wo)"),
+            *q8k[("K5 q8_matmul (Wo)", 1)][1:], by_rows=by_rows("K5 q8_matmul (Wo)"),
             launches_per_sampled_request=sampling["q8_0"]["launches"]["q8_matmul"]),
         row("q8_norm_matmul", "q8_matmul.cu", "qwen3_asr_tpu/ops/q8_matmul.py:173",
             total["q8_norm_matmul"],
             max(v[0] for k, v in q8k.items() if k[0].startswith("K6")), *q8k[head][1:],
-            batch_rows=at_batch("K6 q8_norm_matmul (QKV)", "K6 q8_norm_matmul (lm head)"),
+            by_rows=by_rows("K6 q8_norm_matmul (QKV)", "K6 q8_norm_matmul (lm head)"),
             launches_per_sampled_request=sampling["q8_0"]["launches"]["q8_norm_matmul"]),
         row("q8_mlp", "q8_matmul.cu", "qwen3_asr_tpu/ops/q8_matmul.py:224",
             total["q8_mlp"], max(v[0] for k, v in q8k.items() if k[0].startswith("K7")),
-            *q8k[("K7 q8_mlp", 1)][1:], batch_rows=at_batch("K7 q8_mlp"),
+            *q8k[("K7 q8_mlp", 1)][1:], by_rows=by_rows("K7 q8_mlp"),
             launches_per_sampled_request=sampling["q8_0"]["launches"]["q8_mlp"]),
         row("probe (K8, y = 2 x)", "probe.cu", "qwen3_asr_tpu/ops/support.py:35",
             k8_launches, *k8, "bytes", lib=k8[2]),

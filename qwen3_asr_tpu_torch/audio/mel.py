@@ -102,6 +102,38 @@ def _dft_device(device: torch.device) -> tuple[torch.Tensor, ...]:
     return tuple(torch.from_numpy(a).to(device) for a in _dft_tables())
 
 
+def load_mel_filters_npy(path: str) -> np.ndarray:
+    """A HuggingFace-exported mel filterbank .npy ([n_fft_bins, n_mels]) in
+    this stack's [n_mels, n_fft_bins] layout, float32."""
+    arr = np.load(path)
+    if arr.ndim != 2:
+        raise ValueError(f"expected 2D mel filterbank, got shape {arr.shape}")
+    return np.ascontiguousarray(arr.T, dtype=np.float32)
+
+
+def log_mel_spectrogram_ref(samples: np.ndarray, filters: np.ndarray | None = None
+                            ) -> np.ndarray:
+    """Float64 oracle of the log-mel -> float32 [n_mels, n_frames]."""
+    if filters is None:
+        filters = generate_mel_filters()
+    samples = np.asarray(samples, dtype=np.float32)
+    padded = reflect_pad(samples).astype(np.float64)
+    n_frames = num_mel_frames(len(samples))
+    if n_frames <= 0:
+        return np.zeros((filters.shape[0], 0), dtype=np.float32)
+    idx = np.arange(n_frames)[:, None] * HOP_LENGTH + np.arange(N_FFT)[None, :]
+    frames = padded[idx] * _hann_window()[None, :]
+    k = np.arange(1 + N_FFT // 2, dtype=np.float64)
+    n = np.arange(N_FFT, dtype=np.float64)
+    angle = 2.0 * np.pi * np.outer(n, k) / N_FFT
+    re = frames @ np.cos(angle)
+    im = -(frames @ np.sin(angle))
+    mel = (re * re + im * im) @ filters.astype(np.float64).T
+    logmel = np.log10(np.maximum(mel, _LOG_FLOOR))
+    logmel = (np.maximum(logmel, logmel.max() - 8.0) + 4.0) / 4.0
+    return logmel.T.astype(np.float32)
+
+
 def filters_t(filters: np.ndarray, device) -> torch.Tensor:
     """[n_mels, 201] host filterbank -> [201, n_mels] f32 on `device`."""
     return torch.from_numpy(np.ascontiguousarray(filters.T)).to(device)
@@ -196,3 +228,24 @@ def log_mel_spectrogram_padded(samples, filters_t: torch.Tensor,
     mel, n_frames = log_mel_spectrogram_padded_batch([samples], filters_t,
                                                      bucket)
     return mel[0], n_frames[0]
+
+
+def log_mel_spectrogram(samples, filters: np.ndarray | None = None, bucket: int = 0,
+                        as_numpy: bool = True, device="cuda"):
+    """Log-mel spectrogram on `device` -> float32 [n_mels, n_frames] (a
+    numpy array, or the device tensor with as_numpy=False). `bucket` rounds
+    the frame count the device computes up to a multiple (frames past the
+    true count stay out of the max and are cut off); 0 is the exact
+    shape."""
+    if filters is None:
+        filters = generate_mel_filters()
+    samples = _as_pcm(samples)
+    n_frames = num_mel_frames(len(samples))
+    if n_frames <= 0:
+        return np.zeros((filters.shape[0], 0), dtype=np.float32)
+    dev = torch.device(device)
+    dev_frames = -(-n_frames // bucket) * bucket if bucket > 0 else n_frames
+    buf = _padded_buffer(samples, n_frames, dev_frames, samples.dtype)
+    out = mel_device(torch.from_numpy(buf).to(dev), filters_t(filters, dev),
+                     dev_frames)[:n_frames].T
+    return out.cpu().numpy() if as_numpy else out

@@ -190,3 +190,9 @@ def tiny_aligner_config(vocab_size: int = 512) -> AlignerModelConfig:
         ),
         timestamp_token_id=vocab_size - 5,
     )
+
+
+def default_aligner_config() -> AlignerModelConfig:
+    """Qwen3-ForcedAligner-0.6B: the 24-layer windowed encoder, the decoder
+    backbone with the 5,000-class head (AlignerModelConfig's defaults)."""
+    return AlignerModelConfig()

@@ -232,6 +232,15 @@ def encode_audio_padded_batch(params: dict, cfg: AudioEncoderConfig,
     return _post(params, cfg, h), [int(g) for g in gaps[:, 2]]
 
 
+def encode_audio(params: dict, cfg: AudioEncoderConfig, mel) -> torch.Tensor:
+    """mel [n_mel, n_frames] (a tensor on the params' device, or host data
+    moved there) -> encoder features [n_ctx, output_dim], 13 rows per full
+    second of audio."""
+    dev = params["conv_out_w"].device
+    mel = torch.as_tensor(mel, device=dev)
+    return encode(params, cfg, mel, int(mel.shape[1]))
+
+
 def encode_audio_padded(params: dict, cfg: AudioEncoderConfig,
                         mel_p: torch.Tensor, n_frames_true: int
                         ) -> tuple[torch.Tensor, int]:

@@ -12,6 +12,22 @@ from __future__ import annotations
 import torch
 
 
+def causal_mask(T: int, S: int, offset, valid_len, device=None) -> torch.Tensor:
+    """[T, S] bool: row t attends to s iff s <= offset + t and s < valid_len
+    (offset: cached positions before this block; valid_len: real cache
+    rows)."""
+    rows = torch.arange(T, device=device)[:, None]
+    cols = torch.arange(S, device=device)[None, :]
+    return (cols <= offset + rows) & (cols < valid_len)
+
+
+def block_diagonal_mask(n_ctx: int, window: int, device=None) -> torch.Tensor:
+    """[n_ctx, n_ctx] bool: attend within windows of `window` positions
+    (segment id = position // window)."""
+    seg = torch.arange(n_ctx, device=device) // window
+    return seg[:, None] == seg[None, :]
+
+
 def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   mask: torch.Tensor | None, scale: float) -> torch.Tensor:
     """q [T, n_heads, D], k/v [S, n_kv, D], mask [T, S] bool (True =

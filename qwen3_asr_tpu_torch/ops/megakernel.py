@@ -174,6 +174,11 @@ def pack_megakernel_params(dec_params: dict, cfg: DecoderConfig,
     return pack
 
 
+def has_megakernel(dec_params: dict) -> bool:
+    """True iff the decoder tree carries a decode pack."""
+    return "mega" in dec_params
+
+
 def weight_bits(pack: dict) -> int:
     """4 for the int4 pack (uint8 nibble bytes), 8 for the int8 one."""
     dt = pack["qkv_q"].dtype

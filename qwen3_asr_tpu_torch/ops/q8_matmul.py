@@ -162,6 +162,27 @@ def q8_mlp_ref(x, qgu, sgu, qd, sd, norm_w, eps: float, n_ffn: int) -> torch.Ten
 
 # -- the kernels ---------------------------------------------------------------
 
+def check_kernel_args(T: int, n_in: int, n_out: int, n_ffn: int | None = None) -> None:
+    """The shapes the kernel body takes, checked before a launch on any
+    device (`args_ok` in `csrc/q8_matmul.cu`): 1 <= T <= _MAX_KERNEL_ROWS
+    rows, an input width in 32-row Q8_0 blocks, and output columns in
+    64-column tiles; with n_ffn (K7's gate-up product) the weight is the
+    gate and up halves, [n_in, 2 n_ffn], in tiles of 32 gate and 32 up
+    columns. Raises ValueError."""
+    if not 1 <= T <= _MAX_KERNEL_ROWS:
+        raise ValueError(f"q8 kernels take 1 to {_MAX_KERNEL_ROWS} rows, got {T}")
+    if n_in <= 0 or n_in % Q8_BLOCK:
+        raise ValueError(f"q8 kernels take an input width in {Q8_BLOCK}-row blocks, "
+                         f"got {n_in}")
+    if n_ffn is None:
+        if n_out <= 0 or n_out % 64:
+            raise ValueError(f"q8 kernels take output columns in 64-column tiles, "
+                             f"got {n_out}")
+    elif n_ffn <= 0 or n_ffn % 32 or n_out != 2 * n_ffn:
+        raise ValueError(f"q8_mlp: the gate|up weight [{n_in}, {n_out}] is not two "
+                         f"halves of {n_ffn} columns in 32-column tiles")
+
+
 def _check_leaf(q, s, n_in: int, dev, name: str) -> None:
     n_out = q.shape[-1]
     check(q, f"{name} q", torch.int8, (n_in, n_out), dev)
@@ -176,6 +197,12 @@ def _float_arg(t: torch.Tensor, name: str, shape, dev) -> int:
     return int(t.dtype == torch.bfloat16)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it if its data does not start on 16 bytes (the
+    kernel reads x and the norm weight in 16-byte pieces)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch_matmul(x, q, s, norm_w, eps: float) -> torch.Tensor:
     from qwen3_asr_tpu_torch.ops.build import kernel
 
@@ -188,9 +215,7 @@ def _launch_matmul(x, q, s, norm_w, eps: float) -> torch.Tensor:
     if norm_w is not None:
         nw_bf16 = _float_arg(norm_w, "norm_w", (n_in,), dev)
         nw_ptr = norm_w.data_ptr()
-    if n_in % Q8_BLOCK or n_out % 64 or (T == 1 and n_in > 4096):
-        raise ValueError(f"q8 kernels take in % 32 == 0 (<= 4096 at T = 1) and "
-                         f"out % 64 == 0 (got in={n_in}, out={n_out})")
+    check_kernel_args(T, n_in, n_out)
     out = torch.empty(T, n_out, dtype=torch.float32, device=dev)
     fn = kernel("qw_q8_matmul", [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                                  ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
@@ -210,7 +235,7 @@ def q8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor
     if x.device.type == "cpu":
         return q8_matmul_ref(x, q, s)
     require_cuda(x, "x")
-    out = _launch_matmul(x.contiguous(), q, s, None, 0.0)
+    out = _launch_matmul(_aligned(x.contiguous()), q, s, None, 0.0)
     q8_matmul.launches += 1
     return out
 
@@ -228,7 +253,7 @@ def q8_norm_matmul(x: torch.Tensor, leaf: dict, norm_w: torch.Tensor,
     if x.device.type == "cpu":
         return q8_norm_matmul_ref(x, q, s, norm_w, eps)
     require_cuda(x, "x")
-    out = _launch_matmul(x.contiguous(), q, s, norm_w.contiguous(), eps)
+    out = _launch_matmul(_aligned(x.contiguous()), q, s, _aligned(norm_w.contiguous()), eps)
     q8_norm_matmul.launches += 1
     return out
 
@@ -253,7 +278,7 @@ def q8_mlp(x: torch.Tensor, gu_leaf: dict, down_leaf: dict, norm_w: torch.Tensor
     require_cuda(x, "x")
     from qwen3_asr_tpu_torch.ops.build import kernel
 
-    x = x.contiguous()
+    x, norm_w = _aligned(x.contiguous()), _aligned(norm_w.contiguous())
     T, n_in = x.shape
     n_out = qd.shape[1]
     dev = x.device
@@ -261,10 +286,8 @@ def q8_mlp(x: torch.Tensor, gu_leaf: dict, down_leaf: dict, norm_w: torch.Tensor
     nw_bf16 = _float_arg(norm_w, "norm_w", (n_in,), dev)
     _check_leaf(qgu, sgu, n_in, dev, "W_gate_up")
     _check_leaf(qd, sd, n_ffn, dev, "W_down")
-    if (qgu.shape[1] != 2 * n_ffn or n_in % Q8_BLOCK or n_ffn % 32 or n_out % 64
-            or (T == 1 and max(n_in, n_ffn) > 4096)):
-        raise ValueError(f"q8_mlp: gate|up [{n_in}, {qgu.shape[1]}], down "
-                         f"[{n_ffn}, {n_out}] not taken by the kernel")
+    check_kernel_args(T, n_in, qgu.shape[1], n_ffn)
+    check_kernel_args(T, n_ffn, n_out)
     ffn = torch.empty(T, n_ffn, dtype=torch.bfloat16, device=dev)
     out = torch.empty(T, n_out, dtype=torch.float32, device=dev)
     fn = kernel("qw_q8_mlp", [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
@@ -307,6 +330,19 @@ def quantize_pc_weights(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
                       torch.zeros_like(s))
     q = torch.clamp(torch.round(wf * inv.unsqueeze(-2)), -127, 127)
     return q.to(torch.int8), s
+
+
+def pc_leaf(w: torch.Tensor) -> dict:
+    """An int8pc leaf {i8pc:q, i8pc:s} from a float [in, out] matrix, by the
+    reference's numpy quantizer: s = amax / 127 (a true division, where
+    quantize_pc_weights mirrors the jitted pass's product with f32(1/127)),
+    q = round(w * (1 / s))."""
+    wf = w.float()
+    s = wf.abs().amax(dim=0) / 127.0
+    inv = torch.where(s > 0, 1.0 / torch.where(s == 0, torch.ones_like(s), s),
+                      torch.zeros_like(s))
+    q = torch.clamp(torch.round(wf * inv[None, :]), -127, 127).to(torch.int8)
+    return {"i8pc:q": q, "i8pc:s": s}
 
 
 def quantize_rows(xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -23,7 +23,10 @@ its first mismatch, K4's batched mode reading row 0's offset for every
 row, K3's bf16 mode writing the fresh rows into slab 0, K3's product built
 with rows 8-15 reading rows 0-7's codes or with two output columns of an
 MMA tile swapped (a copy of the sources with one line changed), K3's
-prologue reading no attn_norm weight, the per-layer step
+prologue reading no attn_norm weight, the Q8_0 body (K5-K7) built with a
+later row group reading the first group's x rows, its split-K meeting
+dropping the last slice, the SwiGLU pairing gate column j with up column
+j + 1 or two rows' results swapped, the per-layer step
 at B rows storing every row at row 0's position, its attention output
 alone with q roped one position late or the newest 64 cache rows skipped)
 and asserts that the phase of
@@ -701,6 +704,44 @@ def test_k3_product_faults_caught(auto_asr, tmp_path, fault):
     with mutated_kernels(tmp_path, "megakernel_batch.cu", old, new):
         caught(f"K3 {fault}", lambda: cs.phase_mega_batch(
             asr.cfg.decoder, asr.params["decoder"]["mega"]))
+
+
+Q8_FAULTS = {
+    # the row groups past the first (16 rows each) multiplied by the first
+    # group's x rows (their norm factors still their own)
+    "a later row group reading the first group's x rows": (
+        "xv[j] = load8(a.x, (size_t)(t0 + r) * a.in + kk, a.x_bf16);",
+        "xv[j] = load8(a.x, (size_t)r * a.in + kk, a.x_bf16);", "p5"),
+    # the cluster's last slice of `in` left out of every output's sum
+    "the split-K meeting dropping its last slice": (
+        "for (int s = 1; s < S; ++s) m += *cl.map_shared_rank(part + i, s);",
+        "for (int s = 1; s < S - 1; ++s) m += *cl.map_shared_rank(part + i, s);", 8),
+    # K7's gate column j multiplied by up column j + 1 of the tile
+    "the SwiGLU pairing gate column j with up column j + 1": (
+        "silu_mul(meet(r * COLS + j), meet(r * COLS + half + j))",
+        "silu_mul(meet(r * COLS + j), meet(r * COLS + half + (j + 1) % half))", 8),
+    # rows 0 and 1 of each group stored in each other's place
+    "two rows' results swapped in the epilogue": (
+        "o[(size_t)(t0 + r) * a.N + blockIdx.x * COLS + c] = meet(i);",
+        "o[(size_t)(t0 + (nrows > 1 && r < 2 ? r ^ 1 : r)) * a.N + blockIdx.x * COLS + c] = "
+        "meet(i);", 8),
+}
+
+
+@pytest.mark.parametrize("fault", list(Q8_FAULTS))
+def test_q8_body_faults_caught(q8_asr, tmp_path, fault):
+    """The Q8_0 body (K5-K7), built with one line changed: a later row
+    group reading the first group's x rows (seen only past 16 rows: a 5 s
+    prompt's T), the split-K meeting dropping its last slice, the SwiGLU
+    pairing gate column j with up column j + 1, or two rows' results swapped
+    in the epilogue (T 8). phase_q8 raises (the twin or the one-row
+    launches)."""
+    cs, asr = q8_asr
+    old, new, T = Q8_FAULTS[fault]
+    T = cs.prompt_rows(5) if T == "p5" else T
+    with mutated_kernels(tmp_path, "q8_matmul.cu", old, new):
+        caught(f"Q8_0 body: {fault} (T={T})", lambda: cs.phase_q8(
+            asr.params["decoder"], asr.cfg.decoder, (T,)))
 
 
 def test_k3_prologue_without_attn_norm_caught(auto_asr):

@@ -540,11 +540,12 @@ def _q8_close(got, want, bf16: bool):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [1, 75])
+@pytest.mark.parametrize("T", [1, 4, 8, 16, 75])
 def test_q8_kernels_match_twins(cuda_kernels, T):
     """K5 (Wo 2,048 -> 1,024), K6 (QKV 1,024 -> 4,096 and the lm head, 151,936
     columns padded to 155,648) and K7 (1,024 -> 2 x 3,072 -> 1,024) at the
-    decode step's T = 1 and a 5 s prompt's T = 75."""
+    decode step's T = 1, the per-layer step's batches (4, 8, 16) and a 5 s
+    prompt's T = 75."""
     from qwen3_asr_tpu_torch.ops import q8_matmul as q8
 
     g = torch.Generator(device="cuda").manual_seed(T)
@@ -566,6 +567,58 @@ def test_q8_kernels_match_twins(cuda_kernels, T):
     assert q8.q8_mlp.launches == before + 1
     _q8_close(got, q8.q8_mlp_ref(x, gu["q8:q"], gu["q8:s"], dn["q8:q"], dn["q8:s"],
                                  nw, 1e-6, 3072), bf16=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 8, 16, 75])
+def test_q8_mlp_matches_twin_on_its_own_act(cuda_kernels, T):
+    """K7 at full width with the SwiGLU act's bf16 rounding taken out of the
+    comparison: its gate-up launch sums what K6 sums on the fused gate|up
+    leaf (the same body, split and order), so the act the kernel rounds is
+    bf16(silu(g) * u) of K6's output; K7 against the twin's down product
+    on that act is the same f32 products in another order (rel L2 < 1e-5).
+    Against the whole twin a few act elements can round to the other bf16
+    neighbour (test_q8_kernels_match_twins)."""
+    from qwen3_asr_tpu_torch.ops import q8_matmul as q8
+
+    g = torch.Generator(device="cuda").manual_seed(T)
+    x = torch.randn(T, 1024, generator=g, device="cuda").to(torch.bfloat16)
+    nw = (1 + 0.1 * torch.randn(1024, generator=g, device="cuda")).to(torch.bfloat16)
+    gu, dn = _q8_leaf(1024, 6144, g), _q8_leaf(3072, 1024, g)
+    got = q8.q8_mlp(x, gu, dn, nw, 1e-6, 3072)
+    sums = q8.q8_norm_matmul(x, gu, nw, 1e-6)
+    gate, up = sums[:, :3072], sums[:, 3072:]
+    act = (gate * (1.0 / (1.0 + torch.exp(-gate))) * up).to(torch.bfloat16)
+    want = q8._matmul_f32(act, q8._deq_tile(dn["q8:q"], dn["q8:s"], True))
+    _q8_close(got, want, bf16=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [2, 8, 16, 75])
+def test_q8_rows_equal_one_row_launches(cuda_kernels, T):
+    """K5 (Wo), K6 (QKV and the lm head) and K7 at full width: every row of a
+    T-row launch torch.equal to the one-row launch on that row alone, and
+    two launches on the same input equal (each output summed in one f32
+    order, whatever T is: T 2 and 8 one row group, 16 a full one, 75 five
+    groups, the last ragged)."""
+    from qwen3_asr_tpu_torch.ops import q8_matmul as q8
+
+    g = torch.Generator(device="cuda").manual_seed(60 + T)
+    x = torch.randn(T, 1024, generator=g, device="cuda").to(torch.bfloat16)
+    xa = torch.randn(T, 2048, generator=g, device="cuda").to(torch.bfloat16)
+    nw = (1 + 0.1 * torch.randn(1024, generator=g, device="cuda")).to(torch.bfloat16)
+    wo, qkv = _q8_leaf(2048, 1024, g), _q8_leaf(1024, 4096, g)
+    head = _q8_leaf(1024, 151936, g, pad_out_to=4096)
+    gu, dn = _q8_leaf(1024, 6144, g), _q8_leaf(3072, 1024, g)
+    for name, xx, fn in (
+            ("K5 Wo", xa, lambda v: q8.q8_matmul(v, wo["q8:q"], wo["q8:s"])),
+            ("K6 QKV", x, lambda v: q8.q8_norm_matmul(v, qkv, nw, 1e-6)),
+            ("K6 lm head", x, lambda v: q8.q8_norm_matmul(v, head, nw, 1e-6)),
+            ("K7", x, lambda v: q8.q8_mlp(v, gu, dn, nw, 1e-6, 3072))):
+        got = fn(xx)
+        assert torch.equal(got, fn(xx)), name
+        for t in range(T):
+            assert torch.equal(got[t:t + 1], fn(xx[t:t + 1])), (name, t)
 
 
 @pytest.mark.cuda
@@ -653,13 +706,11 @@ def test_decode_attention_batch_rows_equal_one_row(cuda_kernels, quant):
             assert torch.equal(a[b:b + 1], s1), b
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kv", ["bf16", "int8"])
-def test_decode_step_batch_near_single_rows(cuda_kernels, kv):
-    """The per-layer step at B rows (Q8_0 leaves: K6 / K5 / K7 at T = B, K4
-    batched) against the single step on each row's cache copy: h rel L2 <
-    1e-2 and every slab's other rows untouched (the B-row products may sum
-    in another f32 order than the T = 1 GEMVs)."""
+def _step_batch_and_singles(kv):
+    """The per-layer step at B = 3 rows on the tiny config's Q8_0 leaves (K6 /
+    K5 / K7 at T = 3, K4 batched) and the single step on each row's cache
+    copy. -> (pos, the batched cache, h [B, hidden], [(single cache, h [1,
+    hidden])])."""
     from qwen3_asr_tpu_torch.models import decoder as dmod
 
     cfg = tiny_asr_config()
@@ -687,13 +738,39 @@ def test_decode_step_batch_near_single_rows(cuda_kernels, kv):
     x = (torch.randn(B, dcfg.hidden_size, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
     h = dmod.decode_step_batch(dec, dcfg, x, cache,
                                torch.tensor(pos, dtype=torch.int32, device="cuda"), pos)
-    for b, p in enumerate(pos):
-        hs = dmod.decoder_forward(dec, dcfg, x[b:b + 1], singles[b], p + 1, prefill=False,
-                                  cache_offset=p)
+    rows = [(singles[b], dmod.decoder_forward(dec, dcfg, x[b:b + 1], singles[b], p + 1,
+                                              prefill=False, cache_offset=p))
+            for b, p in enumerate(pos)]
+    return pos, cache, h, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_decode_step_batch_near_single_rows(cuda_kernels, kv):
+    """The per-layer step at B rows (Q8_0 leaves: K6 / K5 / K7 at T = B, K4
+    batched) against the single step on each row's cache copy: h rel L2 <
+    1e-2 and every slab's other rows untouched."""
+    pos, cache, h, rows = _step_batch_and_singles(kv)
+    for b, (p, (single, hs)) in enumerate(zip(pos, rows)):
         assert float((h[b] - hs[0]).float().norm() / hs[0].float().norm()) < 1e-2, b
         for n, t in cache.items():
-            assert torch.equal(t[b, :, :p], singles[b][n].flatten(2)[:, :p])
+            assert torch.equal(t[b, :, :p], single[n].flatten(2)[:, :p])
             assert not t[b, :, p + 1:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_decode_step_batch_rows_equal_single(cuda_kernels, kv):
+    """The same batched step, held bit for bit: every row of h torch.equal to
+    the single step's, and every slab torch.equal to its single cache
+    (the fresh row included), since K5-K7 sum each output in one order
+    whatever T is and K4's batched rows are its one-row launches."""
+    pos, cache, h, rows = _step_batch_and_singles(kv)
+    for b, (p, (single, hs)) in enumerate(zip(pos, rows)):
+        assert torch.equal(h[b:b + 1], hs), b
+        for n, t in cache.items():
+            assert torch.equal(t[b], single[n].flatten(2) if n in ("k", "v") else single[n]), \
+                (b, n)
 
 
 @pytest.mark.cuda

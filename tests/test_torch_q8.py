@@ -95,7 +95,13 @@ def test_deq_dtype_follows_tile_for(n_out):
     assert tq8.deq_bf16_for(n_out) == (dt == jnp.bfloat16)
 
 
-@pytest.mark.parametrize("T", [1, 8])
+# 1: the decode step; 8 and 16: the per-layer step's batches (16 the
+# widest); 75: a 5 s prompt's rows, more than one row group and not a
+# multiple of 8
+ROWS = [1, 8, 16, 75]
+
+
+@pytest.mark.parametrize("T", ROWS)
 @pytest.mark.parametrize("n_in,n_out", [(64, 128), (128, 2048)])
 def test_q8_matmul_twin_matches_pallas(T, n_in, n_out):
     jl, tl = _leaf(n_in, n_out, T)
@@ -107,7 +113,7 @@ def test_q8_matmul_twin_matches_pallas(T, n_in, n_out):
     _close(got.numpy(), want, exact_f32=n_out < 2048)
 
 
-@pytest.mark.parametrize("T", [1, 8])
+@pytest.mark.parametrize("T", ROWS)
 @pytest.mark.parametrize("n_in,n_out,pad", [(64, 128, 1), (64, 4096, 1), (64, 500, 4096)])
 def test_q8_norm_matmul_twin_matches_pallas(T, n_in, n_out, pad):
     """(64, 500) padded to 4,096 columns is the tiny lm head's shape."""
@@ -122,7 +128,7 @@ def test_q8_norm_matmul_twin_matches_pallas(T, n_in, n_out, pad):
     _close(got.numpy(), want, exact_f32=not tq8.deq_bf16_for(tl["q8:q"].shape[1]))
 
 
-@pytest.mark.parametrize("T", [1, 8])
+@pytest.mark.parametrize("T", ROWS)
 @pytest.mark.parametrize("n_ffn", [96, 2048])
 def test_q8_mlp_twin_matches_pallas(T, n_ffn):
     """n_ffn 96: the Pallas grid's one gate/up tile; 2,048: two tiles."""
@@ -137,6 +143,33 @@ def test_q8_mlp_twin_matches_pallas(T, n_ffn):
     got = tq8.q8_mlp(torch.from_numpy(x).to(torch.bfloat16), tgu, td,
                      torch.from_numpy(nw).to(torch.bfloat16), EPS, n_ffn)
     _close(got.numpy(), want, exact_f32=False)
+
+
+def test_kernel_args_taken():
+    """What the kernel body takes (check_kernel_args, the C body's args_ok):
+    1 to 256 rows, any input width in 32-row blocks (no upper bound at one
+    row), outputs in 64-column tiles; K7's gate-up weight as two halves of
+    a width in 32-column tiles."""
+    for T in (1, 2, 16, 75, 256):
+        tq8.check_kernel_args(T, 1024, 4096)
+    tq8.check_kernel_args(1, 8192, 64)
+    tq8.check_kernel_args(1, 32, 155648)
+    tq8.check_kernel_args(8, 1024, 6144, 3072)
+    tq8.check_kernel_args(8, 64, 192, 96)
+
+
+@pytest.mark.parametrize("args,what", [
+    ((0, 1024, 4096), "rows"), ((257, 1024, 4096), "rows"),
+    ((8, 0, 4096), "input width"), ((8, 1000, 4096), "input width"),
+    ((8, 1024, 0), "output columns"), ((8, 1024, 4000), "output columns"),
+    ((8, 1024, 6144, 3000), "gate|up"), ((8, 1024, 6000, 3072), "gate|up"),
+    ((8, 1000, 6144, 3072), "input width"), ((300, 64, 192, 96), "rows"),
+])
+def test_kernel_args_refused(args, what):
+    """Each rule of check_kernel_args on its own: the call raises
+    ValueError naming what it refuses."""
+    with pytest.raises(ValueError, match=what.replace("|", r"\|")):
+        tq8.check_kernel_args(*args)
 
 
 def test_above_256_rows_is_the_reference_xla_path():
