@@ -1025,15 +1025,34 @@ def phase_q8(dec, dcfg, Ts) -> dict:
     return out
 
 
+# K4's graphed ms before its one-launch redesign (PERF.md §5, K4's readings:
+# the two-kernel tree's phase_decode_attention(_batch), which had no store,
+# read by chip_compare.py on an H100 80GB HBM3 at 700 W): one row at offset
+# 1,248 on each cache, B 8 at offsets 64..1,600 on each cache. Logged beside
+# this run's, never in the kernels line (it holds this run's measurements).
+K4_PARENT_MS = {("bf16", 1248): 0.0174, ("int8", 1248): 0.0182, "bf16": 0.0377,
+                "int8": 0.0357}
+# the one-row store checks' offsets: chunk edges (64-row chunks), the timed
+# row and the last row of S 1,664
+K4_STORE_OFFSETS = (0, 1, 63, 64, 65, 1248, 1663)
+
+
 def phase_decode_attention(dcfg, pos: int, S: int) -> dict:
     """K4 against its twin with a bf16 and an int8 cache of S rows, at
-    offset = pos and at offset 0. -> {(cache, offset): (max_abs_err, kernel
-    ms, twin ms, bound ms, bound_by)}."""
+    offset = pos and at offset 0; two launches with the same bits; one
+    kernel a call (the kernel nodes of a call captured in a CUDA graph); the
+    in-kernel store torch.equal to store_kv_rows (what _store runs) at
+    K4_STORE_OFFSETS. Timed as the decode step calls it, store on (into a
+    copy of the caches; every call rewrites the same row), the store-off
+    time logged beside it; the bound counts the stored row's bytes. ->
+    {(cache, offset): (max_abs_err, kernel ms, twin ms, bound ms,
+    bound_by)}."""
     import numpy as np
     import torch
 
     from qwen3_asr_tpu_torch.models.decoder import _quantize_kv_rows
     from qwen3_asr_tpu_torch.ops import decode_attention as da
+    from qwen3_asr_tpu_torch.ops.support import kernels_a_call
 
     NH, NKV, D = dcfg.n_heads, dcfg.n_kv_heads, dcfg.head_dim
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -1056,23 +1075,56 @@ def phase_decode_attention(dcfg, pos: int, S: int) -> dict:
         for off in (pos, 0):
             args = (qkv, k, v, qn, kn, off, off)
             got, want = da.decode_attention(*args, **kw), da.decode_attention_ref(*args, **kw)
+            again = da.decode_attention(*args, **kw)
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"decode attention ({cache}, offset {off}): two "
+                                     f"launches give other bits")
             err = max(float((a - b).abs().max()) for a, b in zip(got, want))
             ratio = max(float(((a - b).abs() / (DA_ATOL * b.abs().max() + DA_RTOL * b.abs()))
                               .max()) for a, b in zip(got, want))
-            ms = graph_ms(lambda: da.decode_attention(*args, **kw))
-            call = cuda_ms(lambda: da.decode_attention(*args, **kw), 50)
-            plain = cuda_ms(lambda: da.decode_attention_ref(*args, **kw), 5)
-            nbytes = off * row_bytes + 2 * qkv.numel() + 4 * (NH + 2 * NKV) * D
+            # the decoder's call: store on, into a copy of the caches
+            tk, tv = k.clone(), v.clone()
+            tkw = dict(kw, store=True, **({"k_scale": kw["k_scale"].clone(),
+                                           "v_scale": kw["v_scale"].clone()}
+                                          if cache == "int8" else {}))
+            targs = (qkv, tk, tv, qn, kn, off, off)
+            ms = graph_ms(lambda: da.decode_attention(*targs, **tkw))
+            no_store = graph_ms(lambda: da.decode_attention(*args, **kw))
+            call = cuda_ms(lambda: da.decode_attention(*targs, **tkw), 50)
+            plain = cuda_ms(lambda: da.decode_attention_ref(*targs, **tkw), 5)
+            n_kernels = kernels_a_call(lambda: da.decode_attention(*targs, **tkw))
+            # the live rows read, qkv read, the f32 outputs and the stored row written
+            nbytes = (off + 1) * row_bytes + 2 * qkv.numel() + 4 * (NH + 2 * NKV) * D
             b_ms, b_by = bound(nbytes, 4.0 * NH * D * (off + 1), F32_FLOPS)
+            parent = K4_PARENT_MS.get((cache, off))
             log(f"phase K4 decode_attention {cache} cache S={S} offset=pos={off}: "
                 f"max_abs_err={err:.3e} worst |err| / (atol + rtol |ref|) {ratio:.4f}; "
-                f"kernel {ms:.4f} ms (graph; {call:.4f} ms a call from the host), twin "
-                f"{plain:.4f} ms; bound {b_ms:.5f} ms ({b_by}, {nbytes / 1e6:.3f} MB)")
+                f"kernel with its store {ms:.4f} ms (graph; store off {no_store:.4f} ms; "
+                f"parent, store off, "
+                f"{'not measured' if parent is None else f'{parent:.4f} ms'}; "
+                f"{call:.4f} ms a call from the host), {n_kernels} kernel(s) a call, twin "
+                f"with its store {plain:.4f} ms; bound {b_ms:.5f} ms ({b_by}, "
+                f"{nbytes / 1e6:.3f} MB)")
             if not ratio <= 1.0:
                 raise AssertionError(f"decode attention ({cache}, offset {off}) "
                                      f"disagrees with its twin")
+            if n_kernels != 1:
+                raise AssertionError(f"decode attention ({cache}, offset {off}): "
+                                     f"{n_kernels} kernels a call, not 1")
             out[(cache, off)] = (err, ms, plain, b_ms, b_by)
+        caches = {"k": k, "v": v, **({"k_s": kw["k_scale"], "v_s": kw["v_scale"]}
+                                     if cache == "int8" else {})}
+        one = {n: x for n, x in kw.items() if n not in ("k_scale", "v_scale")}
+        for off in K4_STORE_OFFSETS:
+            da.check_store(
+                f"K4 {cache} store at offset {off}",
+                lambda c, st: da.decode_attention(qkv, c["k"], c["v"], qn, kn, off, off,
+                                                  **one, k_scale=c.get("k_s"),
+                                                  v_scale=c.get("v_s"), store=st),
+                caches, off)
+        log(f"  K4 {cache}: the in-kernel store torch.equal to store_kv_rows (_store) at "
+            f"offsets {K4_STORE_OFFSETS}")
     return out
 
 
@@ -3117,14 +3169,20 @@ def phase_decode_attention_batch(dcfg, S: int = 1664) -> dict:
     """K4's batched mode at full width, B = 8 rows at spread offsets (64 ..
     1,600, one row roped 5 past its offset), bf16 and int8 caches of S rows:
     each row torch.equal to the one-row launch on its slab, every row
-    against the twin under K4's tolerance; the batch's ms beside 8 one-row
-    launches and the bytes bound. -> {cache: (max_abs_err, ms, twin ms,
-    bound ms, bound_by, 8 one-row ms)}."""
+    against the twin under K4's tolerance, a grid bound of S with the bits
+    of max(offsets), one kernel a call (kernels_a_call), and the in-kernel
+    store torch.equal to store_kv_rows (what _store runs) on the decoder's
+    pool layout (the slabs as layer 1 of [B, 3, S, n_kv * D]); the batch's
+    ms beside 8 one-row launches and the bytes bound, timed as the batched
+    step calls it, store on (into a copy of the slabs), the store-off time
+    logged beside it. -> {cache: (max_abs_err, ms, twin ms, bound ms,
+    bound_by, 8 one-row ms)}."""
     import numpy as np
     import torch
 
     from qwen3_asr_tpu_torch.models.decoder import _quantize_kv_rows
     from qwen3_asr_tpu_torch.ops import decode_attention as da
+    from qwen3_asr_tpu_torch.ops.support import kernels_a_call
 
     NH, NKV, D = dcfg.n_heads, dcfg.n_kv_heads, dcfg.head_dim
     B = 8
@@ -3151,14 +3209,18 @@ def phase_decode_attention_batch(dcfg, S: int = 1664) -> dict:
             row_bytes = 4 * NKV * D
         args = (qkv, k, v, qn, kn, od, pd, max(offs))
         got = da.decode_attention_batch(*args, **kw)
+        at_s = da.decode_attention_batch(*args[:-1], S, **kw)
         want = da.decode_attention_batch_ref(qkv, k, v, qn, kn, offs, pos, **kw)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, at_s)):
+            raise AssertionError(f"K4 batched ({cache}): a grid bound of S gives other "
+                                 f"bits than max(offsets)")
 
-        def one_row(b):
-            rkw = dict(kw, k_scale=kw["k_scale"][b], v_scale=kw["v_scale"][b]) \
-                if cache == "int8" else kw
-            return da.decode_attention(qkv[b:b + 1], k[b], v[b], qn, kn, offs[b], pos[b],
-                                       **rkw)
+        def one_row(b, kk=k, vv=v, skw=kw, store=False):
+            rkw = dict(skw, k_scale=skw["k_scale"][b], v_scale=skw["v_scale"][b]) \
+                if cache == "int8" else skw
+            return da.decode_attention(qkv[b:b + 1], kk[b], vv[b], qn, kn, offs[b], pos[b],
+                                       **rkw, store=store)
 
         for b in range(B):
             if not all(torch.equal(a[b:b + 1], r) for a, r in zip(got, one_row(b))):
@@ -3167,19 +3229,57 @@ def phase_decode_attention_batch(dcfg, S: int = 1664) -> dict:
         err = max(float((a - r).abs().max()) for a, r in zip(got, want))
         ratio = max(float(((a - r).abs() / (DA_ATOL * r.abs().max() + DA_RTOL * r.abs()))
                           .max()) for a, r in zip(got, want))
-        ms = graph_ms(lambda: da.decode_attention_batch(*args, **kw))
-        rows_ms = graph_ms(lambda: [one_row(b) for b in range(B)])
-        plain = cuda_ms(lambda: da.decode_attention_batch_ref(qkv, k, v, qn, kn, offs, pos,
-                                                              **kw), 3)
-        nbytes = sum(offs) * row_bytes + B * (2 * qkv.shape[1] + 4 * (NH + 2 * NKV) * D)
+        # the batched step's call: store on, into a copy of the slabs
+        tk, tv = k.clone(), v.clone()
+        tkw = dict(kw, **({"k_scale": kw["k_scale"].clone(),
+                           "v_scale": kw["v_scale"].clone()} if cache == "int8" else {}))
+        targs = (qkv, tk, tv, qn, kn, od, pd, max(offs))
+        ms = graph_ms(lambda: da.decode_attention_batch(*targs, **tkw, store=True))
+        no_store = graph_ms(lambda: da.decode_attention_batch(*args, **kw))
+        rows_ms = graph_ms(lambda: [one_row(b, tk, tv, tkw, True) for b in range(B)])
+        plain = cuda_ms(lambda: da.decode_attention_batch_ref(qkv, tk, tv, qn, kn, offs, pos,
+                                                              **tkw, store=True), 3)
+        n_kernels = kernels_a_call(lambda: da.decode_attention_batch(*targs, **tkw,
+                                                                     store=True))
+        # the live rows read, qkv read, the f32 outputs and the B stored rows written
+        nbytes = (sum(offs) + B) * row_bytes + B * (2 * qkv.shape[1]
+                                                    + 4 * (NH + 2 * NKV) * D)
         b_ms, b_by = bound(nbytes, 4.0 * NH * D * sum(o + 1 for o in offs), F32_FLOPS)
         log(f"phase K4 batched, {cache} cache, B={B} offsets {offs[0]}..{offs[-1]} S={S}: "
-            f"rows torch.equal to one-row launches; max_abs_err={err:.3e} worst |err| / "
-            f"(atol + rtol |ref|) {ratio:.4f}; batch {ms:.4f} ms (graph), 8 one-row "
-            f"launches {rows_ms:.4f} ms; twin {plain:.4f} ms; bound {b_ms:.5f} ms "
-            f"({b_by}, {nbytes / 1e6:.3f} MB)")
+            f"rows torch.equal to one-row launches, bound S the same bits; "
+            f"max_abs_err={err:.3e} worst |err| / (atol + rtol |ref|) {ratio:.4f}; batch "
+            f"with its store {ms:.4f} ms (graph; store off {no_store:.4f} ms; parent, "
+            f"store off, {K4_PARENT_MS[cache]:.4f} ms), {n_kernels} kernel(s) a call; 8 "
+            f"one-row launches with their stores {rows_ms:.4f} ms; twin with its store "
+            f"{plain:.4f} ms; bound {b_ms:.5f} ms ({b_by}, {nbytes / 1e6:.3f} MB)")
         if not ratio <= 1.0:
             raise AssertionError(f"K4 batched ({cache}) disagrees with its twin")
+        if n_kernels != 1:
+            raise AssertionError(f"K4 batched ({cache}): {n_kernels} kernels a call, not 1")
+
+        # the store, on slabs laid out as layer 1 of the decoder's pool
+        pool = {n: torch.zeros(B, 3, *t.shape[1:2], NKV * D if n in ("k", "v") else NKV,
+                               dtype=t.dtype, device="cuda")
+                for n, t in (("k", k), ("v", v), *((("k_s", kw["k_scale"]),
+                                                    ("v_s", kw["v_scale"]))
+                                                   if cache == "int8" else ()))}
+        for n, t in (("k", k), ("v", v)):
+            pool[n][:, 1] = t.flatten(-2)
+        if cache == "int8":
+            pool["k_s"][:, 1], pool["v_s"][:, 1] = kw["k_scale"], kw["v_scale"]
+        bkw = {n: x for n, x in kw.items() if n not in ("k_scale", "v_scale")}
+
+        def batched(c, st):
+            return da.decode_attention_batch(
+                qkv, c["k"][:, 1].unflatten(-1, (NKV, D)),
+                c["v"][:, 1].unflatten(-1, (NKV, D)), qn, kn, od, pd, max(offs), **bkw,
+                k_scale=c["k_s"][:, 1] if "k_s" in c else None,
+                v_scale=c["v_s"][:, 1] if "v_s" in c else None, store=st)
+
+        da.check_store(f"K4 batched {cache} store", batched, pool,
+                       (torch.arange(B, device="cuda"), od.long()), view=lambda t: t[:, 1])
+        log(f"  K4 batched {cache}: the in-kernel store torch.equal to store_kv_rows "
+            f"(_store) in every slab")
         out[cache] = (err, ms, plain, b_ms, b_by, rows_ms)
     return out
 
@@ -3775,6 +3875,8 @@ def main() -> int:
         row("decode_attention", "decode_attention.cu",
             "qwen3_asr_tpu/ops/decode_attention.py:65", total["decode_attention"],
             max(v[0] for v in da_ms.values()), *da_ms[("bf16", 1248)][1:],
+            int8={"ms": da_ms[("int8", 1248)][1], "plain_ms": da_ms[("int8", 1248)][2],
+                  "bound_ms": da_ms[("int8", 1248)][3]},
             launches_per_sampled_request=sampling["q8_0"]["launches"]["decode_attention"]),
         row("decode_attention_batch (K4, B rows)", "decode_attention.cu",
             "qwen3_asr_tpu/ops/decode_attention.py:65", total["decode_attention_batch"],

@@ -42,12 +42,13 @@ import torch
 
 from qwen3_asr_tpu_torch.config import DecoderConfig
 from qwen3_asr_tpu_torch.ops.decode_attention import (
+    _quantize_kv_rows,
     decode_attention,
     decode_attention_batch,
+    store_kv_rows,
 )
 from qwen3_asr_tpu_torch.ops.flash_attention import flash_attention_batch
 from qwen3_asr_tpu_torch.ops.q8_matmul import (
-    INV127,
     is_pc_leaf,
     is_quant_leaf,
     matmul_any,
@@ -108,28 +109,16 @@ def init_kv_cache(cfg: DecoderConfig, n_ctx: int, device,
     return cache
 
 
-def _quantize_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """[T, n_kv, hd] float -> (int8 rows, f32 scales [T, n_kv])."""
-    xf = x.float()
-    s = torch.clamp(xf.abs().amax(dim=-1) * INV127, min=1e-12)
-    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
-    return q, s
-
-
 def _store(cache: dict, l: int, rows, k: torch.Tensor, v: torch.Tensor) -> None:
     """Write K/V rows ([n, n_kv, hd] for a slice of rows, [n_kv, hd] for one
-    row index) into layer l's cache rows `rows`, in the cache's format; in
-    the batched cache [B, L, S, n_kv * hd] rows = (slabs, positions), index
-    tensors [B], with k [B, n_kv, hd]."""
-    batched = isinstance(rows, tuple)
-    idx = (rows[0], l, rows[1]) if batched else (l, rows)
-    for name, x in (("k", k), ("v", v)):
-        if "k_s" in cache:
-            q, s = _quantize_kv_rows(x)
-            cache[name][idx] = q.flatten(-2) if batched else q
-            cache[name + "_s"][idx] = s
-        else:
-            cache[name][idx] = (x.flatten(-2) if batched else x).to(cache[name].dtype)
+    row index) into layer l's cache rows `rows`, in the cache's format
+    (`store_kv_rows`, the decode-attention kernel's store); in the batched
+    cache [B, L, S, n_kv * hd] rows = (slabs, positions), index tensors [B],
+    with k [B, n_kv, hd]. The prefill and the block decode store here; the
+    decode steps' kernel stores its own rows."""
+    layer = (lambda t: t[:, l]) if isinstance(rows, tuple) else (lambda t: t[l])
+    store_kv_rows(*(layer(cache[n]) if n in cache else None
+                    for n in ("k", "v", "k_s", "v_s")), rows, k, v)
 
 
 def embed_with_audio(dec_params: dict, tokens: torch.Tensor,
@@ -204,23 +193,23 @@ def _decode_step(dec_params: dict, cfg: DecoderConfig, x: torch.Tensor,
     """One token x [1, hidden] at position pos through every layer, in the
     reference's order: QKV, the decode-attention kernel over cache rows <
     pos plus the fresh column, bf16, Wo, the residual, the MLP, the
-    residual; the fresh K/V row is stored at cache row pos. -> [1, hidden]."""
+    residual; the kernel stores the fresh K/V row at cache row pos in the
+    same launch (store=True). -> [1, hidden]."""
     layers = dec_params["layers"]
     eps = cfg.rms_norm_eps
     scale = 1.0 / float(np.sqrt(cfg.head_dim))
     quant = "k_s" in cache
     for l in range(cfg.n_layers):
         qkv = _qkv(layers, l, x, eps)
-        attn, k_new, v_new = decode_attention(
+        attn = decode_attention(
             qkv, cache["k"][l], cache["v"][l], layers["q_norm"][l],
             layers["k_norm"][l], pos, pos, n_heads=cfg.n_heads,
             n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim, eps=eps,
             theta=cfg.rope_theta, scale=scale,
             k_scale=cache["k_s"][l] if quant else None,
-            v_scale=cache["v_s"][l] if quant else None)
+            v_scale=cache["v_s"][l] if quant else None, store=True)[0]
         h1 = x + matmul_any(attn.to(x.dtype), _leaf(layers, "wo", l))
         x = _mlp(layers, l, h1, cfg)
-        _store(cache, l, pos, k_new[0], v_new[0])
     return x
 
 
@@ -233,11 +222,11 @@ def decode_step_batch(dec_params: dict, cfg: DecoderConfig, x: torch.Tensor,
     product and one MLP over the B rows (K6 / K5 / K7 at T = B on Q8_0
     leaves, plain products on dense ones), attention through the batched
     decode-attention kernel (each row over its rows < pos[b] plus its fresh
-    column), and the B fresh K/V rows stored at their own positions. pos is
-    int32 [B] on x's device (the kernel and the stores read it there);
+    column), which stores the B fresh K/V rows at their own positions in the
+    same launch. pos is int32 [B] on x's device (the kernel reads it there);
     pos_host holds the same positions on the host (the grid's bound).
     use_decode_attn_kernel=False takes the reference's XLA attention
-    (`_cached_attention`) row by row instead. -> [B, hidden]."""
+    (`_cached_attention`) row by row instead, and `_store`. -> [B, hidden]."""
     layers = dec_params["layers"]
     B = x.shape[0]
     NH, NKV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -245,24 +234,24 @@ def decode_step_batch(dec_params: dict, cfg: DecoderConfig, x: torch.Tensor,
     scale = 1.0 / float(np.sqrt(D))
     quant = "k_s" in cache
     pos_host = [int(p) for p in pos_host]
-    idx = (torch.arange(B, device=x.device), pos.long())
+    if not cfg.use_decode_attn_kernel:   # the rows _store writes
+        idx = (torch.arange(B, device=x.device), pos.long())
     for l in range(cfg.n_layers):
         qkv = _qkv(layers, l, x, eps)
         if cfg.use_decode_attn_kernel:
-            attn, k_new, v_new = decode_attention_batch(
+            attn = decode_attention_batch(
                 qkv, cache["k"][:, l].unflatten(-1, (NKV, D)),
                 cache["v"][:, l].unflatten(-1, (NKV, D)), layers["q_norm"][l],
                 layers["k_norm"][l], pos, pos, max(pos_host), n_heads=NH, n_kv=NKV,
                 head_dim=D, eps=eps, theta=cfg.rope_theta, scale=scale,
                 k_scale=cache["k_s"][:, l] if quant else None,
-                v_scale=cache["v_s"][:, l] if quant else None)
-            attn = attn.to(x.dtype)
+                v_scale=cache["v_s"][:, l] if quant else None, store=True)[0].to(x.dtype)
         else:
             attn, k_new, v_new = _cached_attention_rows(layers, l, cfg, qkv, cache,
                                                         pos, pos_host, scale)
+            _store(cache, l, idx, k_new, v_new)
         h1 = x + matmul_any(attn, _leaf(layers, "wo", l))
         x = _mlp(layers, l, h1, cfg)
-        _store(cache, l, idx, k_new, v_new)
     return x
 
 

@@ -107,3 +107,31 @@ def has_cuda_kernels() -> bool:
 
 
 has_cuda_kernels.launches = 0
+
+
+def kernels_a_call(fn) -> int:
+    """Kernel launches one fn() makes: the kernel nodes of a CUDA graph
+    that captures one call (made after one call outside it), read with
+    cuGraphGetNodes. A graph records every launch on the stream, whichever
+    library makes it."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kernel_nodes = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernel_nodes += kind.value == 0   # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernel_nodes

@@ -320,3 +320,85 @@ def test_server_closed_batch_without_a_pack_is_one_transcribe_batch():
         srv.close()
     assert calls == [2]
     assert [g.tokens for g in got] == [r.tokens for r in batch(AUDIO[:2], params)]
+
+
+@pytest.mark.parametrize("quantize,kv_cache", STEP_MODES)
+def test_decode_step_batch_rejects_a_row_at_S(quantize, kv_cache):
+    """decode_step_batch stores each row's fresh K/V at its position, in the
+    kernel's launch: a row at position S (no such cache row) raises in the
+    first layer's attention call, before anything is stored."""
+    _, _, td, tcfg, caches, x = _step_setup(quantize, kv_cache, seed=5)
+    cache = _port_batch_cache(caches)
+    before = {n: t.clone() for n, t in cache.items()}
+    S = cache["k"].shape[2]
+    pos = (5, S, 9)
+    with pytest.raises(ValueError, match="store=True"):
+        tdec.decode_step_batch(td, tcfg, _t(x), cache,
+                               torch.tensor(pos, dtype=torch.int32), pos)
+    for n in cache:
+        assert torch.equal(cache[n], before[n]), n
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
+@pytest.mark.parametrize("quantize,kv_cache", STEP_MODES)
+def test_decode_step_store_path_is_the_store_after_the_step(monkeypatch, quantize,
+                                                            kv_cache, batched):
+    """The decode steps' kernel path stores the fresh K/V rows through the
+    decode-attention call (store=True). Against the path that left them to
+    `_store` after the call (the call with store=False, then `_store` of its
+    k_new / v_new at each row's position, layer by layer): the same h and
+    the same caches, bit for bit; and against the JAX step on each row's
+    cache, h and the fresh rows at the tests' bounds (relative L2 < REL)."""
+    jd, jcfg, td, tcfg, caches, x = _step_setup(quantize, kv_cache, seed=9)
+    want = [_jax_step(jd, jcfg, x[b], caches[b], p) for b, p in enumerate(POS)]
+    pos = torch.tensor(POS, dtype=torch.int32)
+    fresh = []
+    real = tdec.decode_attention_batch if batched else tdec.decode_attention
+
+    def without_store(*a, store, **kw):
+        assert store
+        out = real(*a, **kw)
+        fresh.append(out[1:])
+        return out
+
+    def run(name, fn):
+        with monkeypatch.context() as m:
+            if fn is not None:
+                m.setattr(tdec, name, fn)
+            if batched:
+                cache = _port_batch_cache(caches)
+                return tdec.decode_step_batch(td, tcfg, _t(x), cache, pos, POS), [cache]
+            hs, cs = [], []
+            for b, p in enumerate(POS):
+                cache = {n: _t(c) for n, c in caches[b].items()}
+                hs.append(tdec.decoder_forward(td, tcfg, _t(x)[b:b + 1], cache, p + 1,
+                                               prefill=False, cache_offset=p))
+                cs.append(cache)
+            return torch.cat(hs), cs
+
+    name = "decode_attention_batch" if batched else "decode_attention"
+    h, got_caches = run(name, None)
+    h_old, old_caches = run(name, without_store)
+    for l, (k_new, v_new) in enumerate(fresh):   # the parent path's stores
+        if batched:
+            tdec._store(old_caches[0], l % tcfg.n_layers, (torch.arange(len(POS)),
+                                                           pos.long()), k_new, v_new)
+        else:
+            b, layer = divmod(l, tcfg.n_layers)
+            tdec._store(old_caches[b], layer, POS[b], k_new[0], v_new[0])
+    assert torch.equal(h, h_old)
+    for got, old in zip(got_caches, old_caches):
+        for n in got:
+            assert torch.equal(got[n], old[n]), n
+    for b, p in enumerate(POS):
+        hw, cw = want[b]
+        assert _rel(h[b].float(), hw[0]) < REL, b
+        cache = got_caches[0] if batched else got_caches[b]
+        for n in ("k", "v"):
+            w_row = np.asarray(cw[n][:, p], np.float32)
+            row = cache[n][b, :, p] if batched else cache[n][:, p]
+            g = row.float().reshape(w_row.shape)
+            if kv_cache == "int8":
+                w_row = w_row * np.asarray(cw[n + "_s"][:, p])[..., None]
+                g = g * (cache[n + "_s"][b, :, p] if batched else cache[n + "_s"][:, p])[..., None]
+            assert _rel(g, w_row) < REL, (b, n)

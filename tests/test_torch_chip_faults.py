@@ -28,7 +28,10 @@ later row group reading the first group's x rows, its split-K meeting
 dropping the last slice, the SwiGLU pairing gate column j with up column
 j + 1 or two rows' results swapped, the per-layer step
 at B rows storing every row at row 0's position, its attention output
-alone with q roped one position late or the newest 64 cache rows skipped)
+alone with q roped one position late or the newest 64 cache rows skipped,
+K4 built with its store one row early or late, its int8 store's scale from
+a divide by 127, its weighted V's chunks met in arrival order or one of
+them skipped)
 and asserts that the phase of
 `chip_smoke.py` that guards against it raises. The phases print their readings before they raise; run
 with `-s` to see them beside the bounds:
@@ -159,20 +162,17 @@ def test_decode_attention_faults_caught(q8_asr, phase, fault):
             caught(f"one layer, K4 {fault}", lambda: cs.phase_q8_layers(asr, 1248))
 
 
-def test_store_one_row_early_caught(q8_asr):
-    """The kernel path's fresh K/V row stored at pos - 1."""
-    from qwen3_asr_tpu_torch.models import decoder as dmod
-    from qwen3_asr_tpu_torch.ops import decode_attention as da
+K4_STORE_ROW = "const size_t h = slab + (size_t)offset * NKV + kvh;"
 
+
+def test_store_one_row_early_caught(q8_asr, tmp_path):
+    """The kernel path's fresh K/V row stored at pos - 1: K4 built with its
+    store one row early (its own slab; row 0 at offset 0). Each q8_0 layer
+    alone on the twins' input compares the fresh rows at pos."""
     cs, asr = q8_asr
-    store = dmod._store
-
-    def early(cache, l, rows, k, v):
-        if dmod.decode_attention is not da.decode_attention_ref and isinstance(rows, int):
-            rows -= 1
-        return store(cache, l, rows, k, v)
-
-    with patched(dmod, "_store", early):
+    with mutated_kernels(tmp_path, "decode_attention.cu", K4_STORE_ROW,
+                         K4_STORE_ROW.replace("(size_t)offset",
+                                              "(size_t)(offset > 0 ? offset - 1 : 0)")):
         caught("fresh row stored at pos - 1", lambda: cs.phase_q8_layers(asr, 1248))
 
 
@@ -768,29 +768,23 @@ def test_k3_prologue_without_attn_norm_caught(auto_asr):
             asr.cfg.decoder, pack))
 
 
-def test_batched_step_storing_at_row0_position_caught(q8_asr):
+def test_batched_step_storing_at_row0_position_caught(q8_asr, tmp_path):
     """The per-layer step at B rows storing every row's fresh K/V rows at row
-    0's position: the batched-step phase's cache check raises."""
-    from qwen3_asr_tpu_torch.models import decoder as dmod
-
+    0's position (each in its own slab): K4 built with its store row read
+    from offsets[0]. The batched-step phase's cache check raises."""
     cs, asr = q8_asr
-    store = dmod._store
-
-    def at_row0(cache, l, rows, k, v):
-        if isinstance(rows, tuple):
-            slabs, positions = rows
-            rows = (slabs, positions[:1].expand_as(positions))
-        return store(cache, l, rows, k, v)
-
-    with patched(dmod, "_store", at_row0):
+    with mutated_kernels(tmp_path, "decode_attention.cu", K4_STORE_ROW,
+                         K4_STORE_ROW.replace("(size_t)offset",
+                                              "(size_t)(a.offs ? a.offs[0] : offset)")):
         caught("batched step storing at row 0's position",
                lambda: cs.phase_step_batch(asr, "bf16"))
 
 
 def _attn_from(fault):
     """decode_step_batch's K4 batched call with the attention output from a
-    launch whose arguments `fault` changed, and the fresh K/V rows (what
-    the cache stores) from the right launch: a fault on the q side alone."""
+    launch whose arguments `fault` changed (its store off), and the fresh
+    K/V rows and the store from the right launch: a fault on the q side
+    alone."""
     from qwen3_asr_tpu_torch.ops import decode_attention as da
 
     real = da.decode_attention_batch
@@ -798,6 +792,7 @@ def _attn_from(fault):
     def call(qkv, kc, vc, qn, kn, offsets, pos, bound, **kw):
         _, k_new, v_new = real(qkv, kc, vc, qn, kn, offsets, pos, bound, **kw)
         offsets, pos = fault(offsets, pos)
+        kw["store"] = False   # the faulted launch stores nothing
         return real(qkv, kc, vc, qn, kn, offsets, pos, bound, **kw)[0], k_new, v_new
     return call
 
@@ -816,3 +811,45 @@ def test_batched_step_q_side_fault_caught(q8_asr, what, fault):
     cs, asr = q8_asr
     with patched(dmod, "decode_attention_batch", _attn_from(fault)):
         caught(f"batched step: {what}", lambda: cs.phase_step_batch(asr, "bf16"))
+
+
+K4_MERGE_ORDER = "const int cc = n;   // chunk order"
+K4_MERGE_TERM = "o = fmaf(__ldcg(src + cc * cstep), w[cc * GROUP + j], o);"
+K4_FAULTS = {
+    # the fresh K/V rows written one cache row past `offset` (row offset kept
+    # at S - 1, where the slab ends)
+    "the store one row late": (
+        K4_STORE_ROW,
+        K4_STORE_ROW.replace("(size_t)offset",
+                             "(size_t)(offset + 1 < a.S ? offset + 1 : offset)"),
+        "decode_attention"),
+    # the int8 store's scale amax / 127 instead of amax * f32(1 / 127)
+    "the int8 scale computed with a divide by 127": (
+        "const float s = fmaxf(amax * (1.f / 127.f), 1e-12f);",
+        "const float s = fmaxf(amax / 127.f, 1e-12f);", "decode_attention"),
+    # the weighted V sum met from the chunk after the merging block's own:
+    # the last to arrive picks the order
+    "the chunks met in arrival order": (
+        K4_MERGE_ORDER, "const int cc = (n + c + 1) % nch;",
+        "decode_attention_batch"),
+    # chunk 0's weighted V left out of the merge (its weight kept in the sum)
+    "one chunk skipped": (
+        K4_MERGE_TERM, "if (cc != 0) " + K4_MERGE_TERM,
+        "decode_attention"),
+}
+
+
+@pytest.mark.parametrize("fault", list(K4_FAULTS))
+def test_k4_kernel_faults_caught(q8_asr, tmp_path, fault):
+    """K4 built with one line changed: its store one row late, the int8
+    store's scale from a divide by 127 (the last bit of some scales), the
+    weighted V's chunks met in an order the last arrival picks, or one
+    chunk's weighted V skipped. The K4 phase raises: the in-kernel store
+    against _store, the rows against one-row launches, or the twin."""
+    cs, asr = q8_asr
+    old, new, phase = K4_FAULTS[fault]
+    dcfg = asr.cfg.decoder
+    run = (lambda: cs.phase_decode_attention(dcfg, 1248, 1664)) \
+        if phase == "decode_attention" else (lambda: cs.phase_decode_attention_batch(dcfg))
+    with mutated_kernels(tmp_path, "decode_attention.cu", old, new):
+        caught(f"K4 {fault}", run)

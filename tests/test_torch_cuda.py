@@ -623,12 +623,16 @@ def test_q8_rows_equal_one_row_launches(cuda_kernels, T):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("offset", [0, 1, 64, 1248])
+@pytest.mark.parametrize("offset", [0, 1, 63, 64, 65, 1248, 1663])
 def test_decode_attention_matches_twin(cuda_kernels, quant, offset):
     """K4 at the decoder's widths (16 q / 8 kv heads, D = 128), S = 1,664:
-    the same f32 math in another order, rtol 1e-4 and atol 1e-5 x scale."""
-    from qwen3_asr_tpu_torch.models.decoder import _quantize_kv_rows
+    the same f32 math in another order, rtol 1e-4 and atol 1e-5 x scale;
+    one kernel a call (a call captured in a CUDA graph has one kernel
+    node), two launches with the same bits, and the in-kernel store
+    (store=True) torch.equal to store_kv_rows (what _store runs) at offsets
+    around the 64-row chunk edges."""
     from qwen3_asr_tpu_torch.ops import decode_attention as da
+    from qwen3_asr_tpu_torch.ops.support import kernels_a_call
 
     g = torch.Generator(device="cuda").manual_seed(offset + quant)
     S = 1664
@@ -649,6 +653,18 @@ def test_decode_attention_matches_twin(cuda_kernels, quant, offset):
     want = da.decode_attention_ref(qkv, k, v, qn, qn, offset, offset, **kw)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))
+    for a, b in zip(got, da.decode_attention(qkv, k, v, qn, qn, offset, offset, **kw)):
+        assert torch.equal(a, b)
+    assert kernels_a_call(lambda: da.decode_attention(qkv, k, v, qn, qn, offset, offset,
+                                                      **kw, store=True)) == 1
+    caches = {"k": k, "v": v, **({"k_s": ks, "v_s": vs} if quant else {})}
+    one = {n: x for n, x in kw.items() if n not in ("k_scale", "v_scale")}
+    da.check_store(
+        "K4 store",
+        lambda c, st: da.decode_attention(qkv, c["k"], c["v"], qn, qn, offset, offset, **one,
+                                          k_scale=c.get("k_s"), v_scale=c.get("v_s"),
+                                          store=st),
+        caches, offset)
 
 
 @pytest.mark.cuda
@@ -657,11 +673,15 @@ def test_decode_attention_batch_rows_equal_one_row(cuda_kernels, quant):
     """K4's batched mode at the decoder's widths, S = 1,664, 8 rows at
     spread offsets (0, chunk edges, S - 1; one row roped past its offset):
     each row torch.equal to the one-row launch on its slab, all rows
-    against the twin at K4's tolerance, one launch for the batch; a grid
-    bound of S, and the slabs as layer 1 of a [B, 3, S, ...] pool (the
-    batched decode's layout: slabs 3 S rows apart), give the same bits."""
-    from qwen3_asr_tpu_torch.models.decoder import _quantize_kv_rows
+    against the twin at K4's tolerance, one launch for the batch and one
+    kernel (the kernel nodes of a captured call); a grid bound of S, and
+    the slabs as layer 1 of a [B, 3, S, ...] pool (the batched decode's
+    layout: slabs 3 S rows apart), give the same bits; the in-kernel store
+    into that pool (row b at offsets[b] of its slab, S - 1 the last)
+    torch.equal to store_kv_rows (what _store runs), the pool's other layers
+    untouched; with the store on, a bound of S raises."""
     from qwen3_asr_tpu_torch.ops import decode_attention as da
+    from qwen3_asr_tpu_torch.ops.support import kernels_a_call
 
     g = torch.Generator(device="cuda").manual_seed(40 + quant)
     S, offs = 1664, [0, 1, 63, 64, 65, 700, 1248, 1663]
@@ -686,10 +706,13 @@ def test_decode_attention_batch_rows_equal_one_row(cuda_kernels, quant):
     again = da.decode_attention_batch(qkv, k, v, qn, qn, od, pd, S, **kw)
     want = da.decode_attention_batch_ref(qkv, k, v, qn, qn, offs, pos, **kw)
 
-    def in_pool(t):
+    def pool_of(t):
         pool = torch.zeros(B, 3, *t.shape[1:], dtype=t.dtype, device="cuda")
         pool[:, 1] = t
-        return pool[:, 1]
+        return pool
+
+    def in_pool(t):
+        return pool_of(t)[:, 1]
 
     pkw = dict(kw, k_scale=in_pool(kw["k_scale"]), v_scale=in_pool(kw["v_scale"])) \
         if quant else kw
@@ -704,6 +727,23 @@ def test_decode_attention_batch_rows_equal_one_row(cuda_kernels, quant):
                                      **one_kw)
         for a, s1 in zip(got, single):
             assert torch.equal(a[b:b + 1], s1), b
+    assert kernels_a_call(lambda: da.decode_attention_batch(qkv, k, v, qn, qn, od, pd,
+                                                            max(offs), **kw,
+                                                            store=True)) == 1
+    with pytest.raises(ValueError, match="store=True"):
+        da.decode_attention_batch(qkv, k, v, qn, qn, od, pd, S, **kw, store=True)
+    pool = {n: pool_of(t) for n, t in (("k", k.flatten(-2)), ("v", v.flatten(-2)),
+                                       *((("k_s", ks), ("v_s", vs)) if quant else ()))}
+    bkw = {n: x for n, x in kw.items() if n not in ("k_scale", "v_scale")}
+
+    def layer1(c, st):
+        return da.decode_attention_batch(
+            qkv, c["k"][:, 1].unflatten(-1, (8, 128)), c["v"][:, 1].unflatten(-1, (8, 128)),
+            qn, qn, od, pd, max(offs), **bkw, k_scale=c["k_s"][:, 1] if quant else None,
+            v_scale=c["v_s"][:, 1] if quant else None, store=st)
+
+    da.check_store("K4 batched store", layer1, pool,
+                   (torch.arange(B, device="cuda"), od.long()), view=lambda t: t[:, 1])
 
 
 def _step_batch_and_singles(kv):

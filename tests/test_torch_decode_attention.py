@@ -76,3 +76,123 @@ def test_offset_zero_is_the_fresh_row():
         head_dim=D, eps=EPS, theta=THETA, scale=0.1)
     want = v_new[0].repeat_interleave(NH // NKV, dim=0).reshape(1, -1)
     torch.testing.assert_close(attn, want, rtol=1e-6, atol=1e-6)
+
+
+STORE_OFFSETS = (0, 1, 63, 64, 65, S - 1)
+
+
+def _filled(seed, quant, lead=()):
+    """Caches [*lead, S, NKV, D] with every row drawn (int8 with scales)."""
+    rng = np.random.default_rng(seed)
+    k = torch.from_numpy(rng.standard_normal((*lead, S, NKV, D)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((*lead, S, NKV, D)).astype(np.float32))
+    if quant:
+        (k, ks), (v, vs) = tda._quantize_kv_rows(k), tda._quantize_kv_rows(v)
+        return {"k": k, "v": v, "k_s": ks, "v_s": vs}
+    return {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+
+
+def _args(c):
+    return c["k"], c["v"], dict(k_scale=c.get("k_s"), v_scale=c.get("v_s"))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("batched", [False, True], ids=["one_row", "batched"])
+@pytest.mark.parametrize("offset", STORE_OFFSETS)
+def test_twin_store_is_the_decoders_store(quant, batched, offset):
+    """The twin with store=True returns what it returns without, and leaves
+    both caches torch.equal to `models/decoder.py::_store` of its own k_new /
+    v_new at row offset (bf16 rounded to nearest even, or int8 codes and
+    scales), every other row untouched. Batched: three slabs, the middle
+    one at `offset`, the others at other chunk positions, each row stored
+    in its own slab (the decoder's pool [B, L, S, n_kv * D] for _store)."""
+    from qwen3_asr_tpu_torch.models.decoder import _store
+
+    _, t = _inputs(offset + 3 * quant, quant)
+    kw = dict(n_heads=NH, n_kv=NKV, head_dim=D, eps=EPS, theta=THETA,
+              scale=1.0 / np.sqrt(D))
+    if batched:
+        offs = [(offset + 40) % S, offset, S - 1 - offset % 7]
+        B = len(offs)
+        rng = np.random.default_rng(offset)
+        qkv = torch.from_numpy(rng.standard_normal((B, (NH + 2 * NKV) * D))
+                               .astype(np.float32)).to(torch.bfloat16)
+        base = _filled(offset + 1, quant, (B,))
+        got_c = {n: x.clone() for n, x in base.items()}
+        od = torch.tensor(offs, dtype=torch.int32)
+        args = (qkv, t["qn"], t["kn"], od, od + 2)
+        k, v, sc = _args(got_c)
+        got = tda.decode_attention_batch(args[0], k, v, *args[1:], max(offs), **kw, **sc,
+                                         store=True)
+        k, v, sc = _args(base)
+        plain = tda.decode_attention_batch(args[0], k, v, *args[1:], max(offs), **kw, **sc)
+        # _store on the decoder's pool layout [B, L = 1, S, n_kv * D]
+        want_c = {n: (x.flatten(-2) if n in ("k", "v") else x)[:, None].clone()
+                  for n, x in base.items()}
+        _store(want_c, 0, (torch.arange(B), od.long()), plain[1], plain[2])
+        want_c = {n: (x[:, 0].unflatten(-1, (NKV, D)) if n in ("k", "v") else x[:, 0])
+                  for n, x in want_c.items()}
+        rows = [(b, o) for b, o in enumerate(offs)]
+    else:
+        base = _filled(offset + 1, quant)
+        got_c = {n: x.clone() for n, x in base.items()}
+        k, v, sc = _args(got_c)
+        got = tda.decode_attention(t["qkv"], k, v, t["qn"], t["kn"], offset, offset + 2,
+                                   **kw, **sc, store=True)
+        k, v, sc = _args(base)
+        plain = tda.decode_attention(t["qkv"], k, v, t["qn"], t["kn"], offset, offset + 2,
+                                     **kw, **sc)
+        want_c = {n: x[None].clone() for n, x in base.items()}
+        _store(want_c, 0, offset, plain[1][0], plain[2][0])
+        want_c = {n: x[0] for n, x in want_c.items()}
+        rows = [(None, offset)]
+    for g, p in zip(got, plain):
+        assert torch.equal(g, p)
+    for n in base:
+        assert torch.equal(got_c[n], want_c[n]), n
+        for b, o in rows:
+            sl = (lambda x: x[b]) if b is not None else (lambda x: x)
+            assert torch.equal(sl(got_c[n])[:o], sl(base[n])[:o]), (n, b)
+            assert torch.equal(sl(got_c[n])[o + 1:], sl(base[n])[o + 1:]), (n, b)
+            assert not torch.equal(sl(got_c[n])[o], sl(base[n])[o]), (n, b)
+
+
+def test_store_rejects_a_row_at_S():
+    """store=True writes cache row offset: an offset of S (no such row)
+    raises, one-row and batched."""
+    _, t = _inputs(5, False)
+    c = _filled(6, False)
+    kw = dict(n_heads=NH, n_kv=NKV, head_dim=D, eps=EPS, theta=THETA, scale=0.1)
+    tda.decode_attention(t["qkv"], c["k"], c["v"], t["qn"], t["kn"], S, S, **kw)
+    with pytest.raises(ValueError, match="store=True"):
+        tda.decode_attention(t["qkv"], c["k"], c["v"], t["qn"], t["kn"], S, S, **kw,
+                             store=True)
+    cb = _filled(7, False, (2,))
+    offs = torch.tensor([3, S], dtype=torch.int32)
+    qkv = t["qkv"].expand(2, -1).contiguous()
+    with pytest.raises(ValueError, match="store=True"):
+        tda.decode_attention_batch(qkv, cb["k"], cb["v"], t["qn"], t["kn"], offs, offs, S,
+                                   **kw, store=True)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_store_rejects_a_bound_of_S(quant):
+    """The batched kernel does not read its offsets back on the host, so
+    with store=True its bound, at least every offset, must be < S: a bound
+    of S raises even when every offset is below S (and leaves the caches as
+    they were); with the store off the same call runs."""
+    _, t = _inputs(8, quant)
+    c = _filled(9, quant, (2,))
+    before = {n: x.clone() for n, x in c.items()}
+    kw = dict(n_heads=NH, n_kv=NKV, head_dim=D, eps=EPS, theta=THETA, scale=0.1)
+    offs = torch.tensor([3, S - 1], dtype=torch.int32)
+    qkv = t["qkv"].expand(2, -1).contiguous()
+    k, v, sc = _args(c)
+    with pytest.raises(ValueError, match="store=True"):
+        tda.decode_attention_batch(qkv, k, v, t["qn"], t["kn"], offs, offs, S, **kw, **sc,
+                                   store=True)
+    for n in c:
+        assert torch.equal(c[n], before[n]), n
+    tda.decode_attention_batch(qkv, k, v, t["qn"], t["kn"], offs, offs, S, **kw, **sc)
+    tda.decode_attention_batch(qkv, k, v, t["qn"], t["kn"], offs, offs, S - 1, **kw, **sc,
+                               store=True)
