@@ -53,7 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-timing", action="store_false", dest="print_timing")
     p.add_argument("--tokens", action="store_true", dest="print_tokens")
     p.add_argument("--profile", action="store_true",
-                   help="Print the named-section timing profile")
+                   help="Print the host time of each span (qwen3.mel, "
+                        "qwen3.encode, ...) as a table")
     p.add_argument("--align", action="store_true", dest="align_mode",
                    help="Forced alignment of --text against the audio (-m is "
                         "the aligner GGUF)")
@@ -114,7 +115,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="'cpu' runs on the CPU; anything else (or nothing) on "
                         "the CUDA card")
     p.add_argument("--trace-dir", default="",
-                   help="Write a torch.profiler trace (Chrome JSON) here")
+                   help="Write a torch.profiler trace (Chrome JSON) here; "
+                        "each stage is a qwen3.* range over its kernels")
     p.add_argument("--output-format", default="json", choices=["json", "srt", "vtt"],
                    help="Alignment output (--align / --transcribe-align): the "
                         "words JSON (default), or SubRip / WebVTT subtitles "
@@ -223,13 +225,17 @@ def _run_align(args, aligner) -> int:
         elif not aligner.load_korean_dict(dict_path):
             _eprint(f"Warning: Failed to load Korean dictionary from {dict_path}")
     _eprint("Model loaded. Running alignment...")
+    fused = args.fused and args.mel_bucket == 0
     result = aligner.align(args.audio, args.align_text, args.language,
-                           mel_bucket=args.mel_bucket,
-                           fused=args.fused and args.mel_bucket == 0)
+                           mel_bucket=args.mel_bucket, fused=fused)
     if not result.success:
         _eprint(f"Error: {result.error_msg}")
         return 1
-    if args.print_timing:
+    if args.print_timing and fused:   # no stage times: one dispatch
+        _eprint(f"\nTiming (fused single-dispatch):\n"
+                f"  Total:           {result.t_total_ms:.0f} ms\n"
+                f"  Words aligned:   {len(result.words)}")
+    elif args.print_timing:
         _eprint(f"\nTiming:\n"
                 f"  Mel spectrogram: {result.t_mel_ms:.0f} ms\n"
                 f"  Audio encoding:  {result.t_encode_ms:.0f} ms\n"
@@ -304,6 +310,10 @@ def main(argv: list[str] | None = None) -> int:
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         seed=args.seed)
 
+    from qwen3_asr_tpu_torch.runtime.profiler import profiler
+
+    profiler.reset()
+    profiler.enabled = args.profile
     device = "cpu" if args.platform == "cpu" else "cuda"
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     quantize = "" if args.quantize == "none" else args.quantize

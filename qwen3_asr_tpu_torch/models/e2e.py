@@ -23,6 +23,7 @@ from qwen3_asr_tpu_torch.text.prompt import audio_start_pos, build_asr_prompt
 from qwen3_asr_tpu_torch.audio.mel import _as_pcm, _padded_buffer, mel_device, num_mel_frames
 from qwen3_asr_tpu_torch.models.encoder import chunk_output_len, encode
 from qwen3_asr_tpu_torch.models.generate import generate_greedy
+from qwen3_asr_tpu_torch.runtime.profiler import span
 
 
 def expected_n_audio(n_frames: int, chunk: int = 100) -> int:
@@ -54,9 +55,10 @@ class PreparedPCM:
 def prepare_pcm(samples, device) -> PreparedPCM:
     """Pad the PCM and upload it to `device` once, for transcribe_fused and
     align_fused."""
-    samples = _as_pcm(samples)
-    buf, n_frames = _pad_pcm(samples)
-    return PreparedPCM(samples, torch.from_numpy(buf).to(device), n_frames)
+    with span("qwen3.upload"):
+        samples = _as_pcm(samples)
+        buf, n_frames = _pad_pcm(samples)
+        return PreparedPCM(samples, torch.from_numpy(buf).to(device), n_frames)
 
 
 def upload(arrays: list[np.ndarray], device) -> list[torch.Tensor]:
@@ -87,17 +89,20 @@ def transcribe_fused(params: dict, cfg: ASRModelConfig, samples: np.ndarray,
     generate_greedy takes it: bf16 by default, as in the reference, int8,
     or generate.INT4_KV (the decode pack's int4 cache, packed from the
     prefill's int8 rows; int8 without a pack)."""
-    buf_d, n_frames, buf = _staged(samples)
-    n_audio = expected_n_audio(n_frames)
-    prompt = build_asr_prompt(n_audio, cfg.decoder, system_prompt_tokens)
-    offset = audio_start_pos(prompt, cfg.decoder)
-    if buf_d is None:
-        buf_d, prompt_d = upload([buf, np.asarray(prompt, np.int32)],
-                                 filters_t.device)
-    else:
-        prompt_d = torch.from_numpy(np.asarray(prompt, np.int32)).to(buf_d.device)
-    mel = mel_device(buf_d, filters_t, n_frames).T          # [n_mels, N]
-    feats = encode(params["encoder"], cfg.encoder, mel, n_frames)
+    with span("qwen3.upload"):
+        buf_d, n_frames, buf = _staged(samples)
+        n_audio = expected_n_audio(n_frames)
+        prompt = build_asr_prompt(n_audio, cfg.decoder, system_prompt_tokens)
+        offset = audio_start_pos(prompt, cfg.decoder)
+        if buf_d is None:
+            buf_d, prompt_d = upload([buf, np.asarray(prompt, np.int32)],
+                                     filters_t.device)
+        else:
+            prompt_d = torch.from_numpy(np.asarray(prompt, np.int32)).to(buf_d.device)
+    with span("qwen3.mel"):
+        mel = mel_device(buf_d, filters_t, n_frames).T          # [n_mels, N]
+    with span("qwen3.encode"):
+        feats = encode(params["encoder"], cfg.encoder, mel, n_frames)
     return generate_greedy(params["decoder"], cfg.decoder, prompt_d,
                            len(prompt), feats, feats.shape[0], offset,
                            max_tokens, cache_dtype)
@@ -134,17 +139,21 @@ def align_fused(params: dict, cfg: AlignerModelConfig, samples,
     from qwen3_asr_tpu_torch.models.decoder import classify_logits
     from qwen3_asr_tpu_torch.models.generate import nar_forward
 
-    buf_d, n_frames, buf = _staged(samples)
-    n_real = len(input_tokens)
-    toks = pad_prompts([input_tokens], cfg.decoder)[0]
-    if buf_d is None:
-        buf_d, toks_d = upload([buf, toks], filters_t.device)
-    else:
-        toks_d = torch.from_numpy(toks).to(buf_d.device)
-    mel = mel_device(buf_d, filters_t, n_frames).T
-    feats = encode(params["encoder"], cfg.encoder, mel, n_frames)
-    h = nar_forward(params["decoder"], cfg.decoder, toks_d, feats, feats.shape[0],
-                    audio_offset, n_valid=n_real)
-    pred = torch.argmax(classify_logits(params["decoder"], cfg.decoder, h[:n_real]),
-                        dim=-1)
-    return pred.to(torch.int32).cpu().numpy()
+    with span("qwen3.upload"):
+        buf_d, n_frames, buf = _staged(samples)
+        n_real = len(input_tokens)
+        toks = pad_prompts([input_tokens], cfg.decoder)[0]
+        if buf_d is None:
+            buf_d, toks_d = upload([buf, toks], filters_t.device)
+        else:
+            toks_d = torch.from_numpy(toks).to(buf_d.device)
+    with span("qwen3.mel"):
+        mel = mel_device(buf_d, filters_t, n_frames).T
+    with span("qwen3.encode"):
+        feats = encode(params["encoder"], cfg.encoder, mel, n_frames)
+    with span("qwen3.nar"):
+        h = nar_forward(params["decoder"], cfg.decoder, toks_d, feats, feats.shape[0],
+                        audio_offset, n_valid=n_real)
+        pred = torch.argmax(classify_logits(params["decoder"], cfg.decoder, h[:n_real]),
+                            dim=-1)
+        return pred.to(torch.int32).cpu().numpy()

@@ -64,6 +64,7 @@ from qwen3_asr_tpu_torch.ops.megakernel_batch import (
     BatchDecodeStep,
     mega_decode_step_batch_ref,
 )
+from qwen3_asr_tpu_torch.runtime.profiler import span
 
 EOS_CHECK_EVERY = 16   # decode steps between the host's reads of the tokens
 STREAM_CHUNK = 8       # decode steps per host read on the streaming path
@@ -127,10 +128,11 @@ def prefill(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
             audio_offset: int, S: int, cache_dtype: torch.dtype):
     """Port of `prefill_only`: prefill_hidden, then the first greedy token.
     -> (that token int32 [1] on the device, the cache)."""
-    h_last, cache = prefill_hidden(dec_params, cfg, tokens, n_prompt, audio,
-                                   n_audio, audio_offset, S, cache_dtype)
-    first = torch.argmax(lm_logits(dec_params, cfg, h_last))
-    return first.to(torch.int32).reshape(1), cache
+    with span("qwen3.prefill"):
+        h_last, cache = prefill_hidden(dec_params, cfg, tokens, n_prompt, audio,
+                                       n_audio, audio_offset, S, cache_dtype)
+        first = torch.argmax(lm_logits(dec_params, cfg, h_last))
+        return first.to(torch.int32).reshape(1), cache
 
 
 def mega_caches(cfg: DecoderConfig, cache: dict, cache_dtype: torch.dtype):
@@ -209,13 +211,14 @@ def _decode_loop(step, out: torch.Tensor, n_prompt: int, eos: int
     """step(i, pos) writes out[i] on the device for i = 1, 2, ...; the token
     of step i sits at position n_prompt + i - 1. The host reads out for EOS
     every EOS_CHECK_EVERY steps. -> (out on the host, n_kept)."""
-    i = 1
-    while i < out.shape[0]:
-        if (i - 1) % EOS_CHECK_EVERY == 0 and bool((out[:i] == eos).any()):
-            break
-        step(i, n_prompt + i - 1)
-        i += 1
-    host = out.cpu().numpy()
+    with span("qwen3.decode"):
+        i = 1
+        while i < out.shape[0]:
+            if (i - 1) % EOS_CHECK_EVERY == 0 and bool((out[:i] == eos).any()):
+                break
+            step(i, n_prompt + i - 1)
+            i += 1
+        host = out.cpu().numpy()
     hits = np.flatnonzero(host[:i] == eos)
     return host, int(hits[0]) if hits.size else i
 
@@ -311,8 +314,6 @@ def generate_sample(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
     cache_dtype = kv_dtype(dec_params, cache_dtype)
     dev = tokens.device
     S = cache_rows(tokens.shape[0], max_tokens)
-    h_last, cache = prefill_hidden(dec_params, cfg, tokens, n_prompt, audio,
-                                   n_audio, audio_offset, S, cache_dtype)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
 
     def pick(h):
@@ -321,7 +322,10 @@ def generate_sample(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
         return sample_from_logits(logits, u, temperature, top_k, top_p)
 
     out = torch.zeros(max_tokens, dtype=torch.int32, device=dev)
-    out[:1] = pick(h_last)
+    with span("qwen3.prefill"):
+        h_last, cache = prefill_hidden(dec_params, cfg, tokens, n_prompt, audio,
+                                       n_audio, audio_offset, S, cache_dtype)
+        out[:1] = pick(h_last)
     run = _hidden_runner(dec_params, cfg, cache, cache_dtype)
 
     def step(i, pos):
@@ -386,23 +390,24 @@ def generate_greedy_spec(dec_params: dict, cfg: DecoderConfig, tokens: torch.Ten
     done = bool(out[0] == eos)
     n = 0 if done else 1
     stats = {"rounds": 0, "drafted": 0, "accepted": 0}
-    while not done and n < max_tokens:
-        pos0 = n_prompt + n - 1
-        for j in range(1, k + 1):
-            draft(d, j, pos0 + j - 1)
-        hb = vparams["token_embd"][d[:k].long()]
-        hv = decoder_forward(vparams, cfg, hb, cache, pos0 + k, prefill=False,
-                             cache_offset=pos0)
-        v = torch.argmax(lm_logits_block(vparams, cfg, hv), dim=-1).to(torch.int32)
-        host = torch.cat([d[1:], v]).cpu().numpy()
-        emitted, n_acc, kept, done = accept(host[:k], host[k:], max_tokens - n, eos)
-        out[n:n + k] = emitted
-        if kept:
-            d[:1] = int(emitted[kept - 1])
-        stats["rounds"] += 1
-        stats["drafted"] += k
-        stats["accepted"] += n_acc
-        n += kept
+    with span("qwen3.decode"):
+        while not done and n < max_tokens:
+            pos0 = n_prompt + n - 1
+            for j in range(1, k + 1):
+                draft(d, j, pos0 + j - 1)
+            hb = vparams["token_embd"][d[:k].long()]
+            hv = decoder_forward(vparams, cfg, hb, cache, pos0 + k, prefill=False,
+                                 cache_offset=pos0)
+            v = torch.argmax(lm_logits_block(vparams, cfg, hv), dim=-1).to(torch.int32)
+            host = torch.cat([d[1:], v]).cpu().numpy()
+            emitted, n_acc, kept, done = accept(host[:k], host[k:], max_tokens - n, eos)
+            out[n:n + k] = emitted
+            if kept:
+                d[:1] = int(emitted[kept - 1])
+            stats["rounds"] += 1
+            stats["drafted"] += k
+            stats["accepted"] += n_acc
+            n += kept
     return out[:max_tokens], n, stats
 
 
@@ -506,17 +511,18 @@ def generate_greedy_streaming(dec_params: dict, cfg: DecoderConfig,
             on_token_id(t)
         return len(out) < max_tokens
 
-    if not emit(int(token[0])):
-        return out
-    while True:
-        limit = min(chunk, max_tokens - len(out))
-        succ, n = decode(token, n_prompt + len(out) - 1, limit)
-        arr = succ[:n]
-        if len(arr) == 0:
-            break
-        token = torch.tensor(arr[-1:], dtype=torch.int32, device=tokens.device)
-        if not all(emit(int(t)) for t in arr) or n < limit:
-            break
+    with span("qwen3.decode"):
+        if not emit(int(token[0])):
+            return out
+        while True:
+            limit = min(chunk, max_tokens - len(out))
+            succ, n = decode(token, n_prompt + len(out) - 1, limit)
+            arr = succ[:n]
+            if len(arr) == 0:
+                break
+            token = torch.tensor(arr[-1:], dtype=torch.int32, device=tokens.device)
+            if not all(emit(int(t)) for t in arr) or n < limit:
+                break
     return out
 
 
@@ -531,30 +537,31 @@ def prefill_batch_mega_cache(dec_params: dict, cfg: DecoderConfig,
     rows). -> (first tokens int32 [B] on the device, k, v [B, L, S, n_kv *
     head_dim] int8 with k_s, v_s [B, L, S, n_kv] f32, or, for a bf16
     cache_dtype, bf16 with k_s = v_s = None), rows >= P zero."""
-    B, P = tokens.shape
-    L, NKV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    n_prompt = np.asarray(n_prompt, np.int64).reshape(-1)
-    h0 = torch.stack([
-        embed_with_audio(dec_params, tokens[b], audio[b], int(n_audio[b]),
-                         audio_offset) for b in range(B)])
-    valid = torch.from_numpy(n_prompt.astype(np.int32)).to(tokens.device)
-    h, rows = decoder_prefill_batch(dec_params, cfg, h0, valid)
-    h_last = h[torch.arange(B, device=h.device), valid.long() - 1]
-    first = torch.argmax(lm_logits_block(dec_params, cfg, h_last),
-                         dim=-1).to(torch.int32)
-    out = []
-    for name in ("k", "v"):
-        c = torch.zeros(B, L, S, NKV * D, dtype=cache_dtype, device=tokens.device)
-        if cache_dtype == torch.bfloat16:
-            c[:, :, :P] = rows[name].transpose(0, 1).reshape(B, L, P, NKV * D)
-            out += [c, None]
-            continue
-        q8, sc = _quantize_kv_rows(rows[name])          # [L, B, P, NKV(, D)]
-        cs = torch.zeros(B, L, S, NKV, dtype=torch.float32, device=tokens.device)
-        c[:, :, :P] = q8.transpose(0, 1).reshape(B, L, P, NKV * D)
-        cs[:, :, :P] = sc.transpose(0, 1)
-        out += [c, cs]
-    return first, out[0], out[2], out[1], out[3]
+    with span("qwen3.prefill"):
+        B, P = tokens.shape
+        L, NKV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        n_prompt = np.asarray(n_prompt, np.int64).reshape(-1)
+        h0 = torch.stack([
+            embed_with_audio(dec_params, tokens[b], audio[b], int(n_audio[b]),
+                             audio_offset) for b in range(B)])
+        valid = torch.from_numpy(n_prompt.astype(np.int32)).to(tokens.device)
+        h, rows = decoder_prefill_batch(dec_params, cfg, h0, valid)
+        h_last = h[torch.arange(B, device=h.device), valid.long() - 1]
+        first = torch.argmax(lm_logits_block(dec_params, cfg, h_last),
+                             dim=-1).to(torch.int32)
+        out = []
+        for name in ("k", "v"):
+            c = torch.zeros(B, L, S, NKV * D, dtype=cache_dtype, device=tokens.device)
+            if cache_dtype == torch.bfloat16:
+                c[:, :, :P] = rows[name].transpose(0, 1).reshape(B, L, P, NKV * D)
+                out += [c, None]
+                continue
+            q8, sc = _quantize_kv_rows(rows[name])          # [L, B, P, NKV(, D)]
+            cs = torch.zeros(B, L, S, NKV, dtype=torch.float32, device=tokens.device)
+            c[:, :, :P] = q8.transpose(0, 1).reshape(B, L, P, NKV * D)
+            cs[:, :, :P] = sc.transpose(0, 1)
+            out += [c, cs]
+        return first, out[0], out[2], out[1], out[3]
 
 
 def _batch_loop(step, first: torch.Tensor, max_tokens: int, eos: int
@@ -565,22 +572,23 @@ def _batch_loop(step, first: torch.Tensor, max_tokens: int, eos: int
     is done or the budget runs out; the host reads the done flags every
     EOS_CHECK_EVERY steps. -> (out [B, max_tokens] int32, n_kept [B]) on the
     host."""
-    B = first.shape[0]
-    out = torch.zeros(B, max_tokens, dtype=torch.int32, device=first.device)
-    out[:, 0] = first
-    done = first == eos
-    nk = (~done).to(torch.int32)
-    cur = first
-    for i in range(1, max_tokens):
-        if (i - 1) % EOS_CHECK_EVERY == 0 and bool(done.all()):
-            break
-        new = torch.where(done, cur, step(cur, i))
-        out[:, i] = torch.where(done, out[:, i], new)
-        hit = new == eos
-        nk = torch.where(done, nk, torch.where(hit, i, i + 1).to(torch.int32))
-        done = done | hit
-        cur = new
-    return out.cpu().numpy(), nk.cpu().numpy()
+    with span("qwen3.decode"):
+        B = first.shape[0]
+        out = torch.zeros(B, max_tokens, dtype=torch.int32, device=first.device)
+        out[:, 0] = first
+        done = first == eos
+        nk = (~done).to(torch.int32)
+        cur = first
+        for i in range(1, max_tokens):
+            if (i - 1) % EOS_CHECK_EVERY == 0 and bool(done.all()):
+                break
+            new = torch.where(done, cur, step(cur, i))
+            out[:, i] = torch.where(done, out[:, i], new)
+            hit = new == eos
+            nk = torch.where(done, nk, torch.where(hit, i, i + 1).to(torch.int32))
+            done = done | hit
+            cur = new
+        return out.cpu().numpy(), nk.cpu().numpy()
 
 
 def generate_greedy_batch_mega(dec_params: dict, cfg: DecoderConfig,

@@ -44,6 +44,7 @@ from qwen3_asr_tpu_torch.ops.support import (
     require_cuda,
     stream_ptr,
 )
+from qwen3_asr_tpu_torch.runtime.profiler import span
 
 INT4_GROUP = 512   # rows per (group, output column) scale
 CHUNK_IN = 1024    # the reference's group sizes divide its 1024-row chunks
@@ -524,8 +525,9 @@ class GraphStep:
 
     def __call__(self, out: torch.Tensor, i: int, pos: int) -> None:
         if self.graph is None:
-            self.step(out[i - 1:i], pos, out[i:i + 1])
-            self._capture()
+            with span("qwen3.graph_capture"):
+                self.step(out[i - 1:i], pos, out[i:i + 1])
+                self._capture()
             return
         if not 1 <= pos < self.step.S:
             raise ValueError(f"pos {pos} outside [1, {self.step.S})")

@@ -42,7 +42,7 @@ from qwen3_asr_tpu_torch.runtime.params import (
     quantize_decoder_params,
     resolve_quantize,
 )
-from qwen3_asr_tpu_torch.runtime.profiler import timer
+from qwen3_asr_tpu_torch.runtime.profiler import span
 from qwen3_asr_tpu_torch.text import (
     BPETokenizer,
     build_aligner_prompt,
@@ -174,10 +174,10 @@ class ForcedAligner:
 
         if bucket:
             return log_mel_spectrogram_padded(samples, self.filters_t, bucket)
-        buf, n_frames = _pad_pcm(samples)
-        mel = mel_device(torch.from_numpy(buf).to(self.device), self.filters_t,
-                         n_frames).T
-        return mel, n_frames
+        with span("qwen3.upload"):
+            buf, n_frames = _pad_pcm(samples)
+            pcm = torch.from_numpy(buf).to(self.device)
+        return mel_device(pcm, self.filters_t, n_frames).T, n_frames
 
     def encode(self, mel: torch.Tensor, n_frames: int, bucket: int = 0):
         """-> (feats [N, hidden] on the device, n_audio); rows past n_audio
@@ -225,11 +225,12 @@ class ForcedAligner:
               duration: float) -> list[AlignedWord]:
         """Host post-processing: the classes at the <ts> slots, repaired,
         in seconds, paired per word and clamped to the audio."""
-        ts_id = self.cfg.timestamp_token_id
-        ts = [int(classes[i]) for i, t in enumerate(prompt) if t == ts_id]
-        seconds = classes_to_timestamps(fix_timestamp_classes(ts),
-                                        self.cfg.timestamp_segment_time_ms)
-        return [AlignedWord(**w) for w in pair_words(words, seconds, duration)]
+        with span("qwen3.words"):
+            ts_id = self.cfg.timestamp_token_id
+            ts = [int(classes[i]) for i, t in enumerate(prompt) if t == ts_id]
+            seconds = classes_to_timestamps(fix_timestamp_classes(ts),
+                                            self.cfg.timestamp_segment_time_ms)
+            return [AlignedWord(**w) for w in pair_words(words, seconds, duration)]
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -243,6 +244,11 @@ class ForcedAligner:
         device) or a PreparedPCM. mel_bucket > 0 (frames, rounded up to the
         100-frame chunk) pads mel and encoder to a bucket; fused=True (and
         mel_bucket 0) runs models/e2e.py::align_fused."""
+        with span("qwen3.request"):
+            return self._align(audio, text, language, mel_bucket, fused)
+
+    def _align(self, audio, text: str, language: str, mel_bucket: int,
+               fused: bool) -> AlignmentResult:
         from qwen3_asr_tpu_torch.models.e2e import PreparedPCM
 
         result = AlignmentResult()
@@ -271,33 +277,29 @@ class ForcedAligner:
             from qwen3_asr_tpu_torch.models.e2e import align_fused
 
             prompt, words = self.prompt(text, language, num_mel_frames(len(samples)))
-            with timer("fa.fused"):
-                pred = align_fused(self.params, self.cfg, samples, self.filters_t,
-                                   prompt, AUDIO_OFFSET)
+            pred = align_fused(self.params, self.cfg, samples, self.filters_t,
+                               prompt, AUDIO_OFFSET)
             result.words = self.words(prompt, pred, words, duration)
             result.success = True
-            result.t_total_ms = result.t_decode_ms = (time.perf_counter() - t_total) * 1000
+            result.t_total_ms = (time.perf_counter() - t_total) * 1000
             return result
 
         bucket = mel_bucket
         if bucket > 0:
             chunk = self.cfg.encoder.chunk_size
             bucket = -(-bucket // chunk) * chunk
-        t0 = time.perf_counter()
-        with timer("fa.mel"):
+        with span("qwen3.mel", timed=True) as sp:
             mel, n_frames = self.frontend(samples, bucket)
             self._sync()
-        result.t_mel_ms = (time.perf_counter() - t0) * 1000
-        t0 = time.perf_counter()
-        with timer("fa.encode"):
+        result.t_mel_ms = sp.ms
+        with span("qwen3.encode", timed=True) as sp:
             feats, n_audio = self.encode(mel, n_frames, bucket)
             self._sync()
-        result.t_encode_ms = (time.perf_counter() - t0) * 1000
+        result.t_encode_ms = sp.ms
         prompt, words = self.prompt(text, language, n_frames)
-        t0 = time.perf_counter()
-        with timer("fa.decode"):
+        with span("qwen3.nar", timed=True) as sp:
             pred = self.classify([prompt], feats[None], [n_audio])[0]
-        result.t_decode_ms = (time.perf_counter() - t0) * 1000
+        result.t_decode_ms = sp.ms
         result.words = self.words(prompt, pred, words, duration)
         result.success = True
         result.t_total_ms = (time.perf_counter() - t_total) * 1000
@@ -308,14 +310,19 @@ class ForcedAligner:
         """Align several (audio, text) pairs: the bucketed mel and encoder
         once per mel bucket (`mel_bucket` frames, rounded up to the chunk),
         then one batched causal pass and classify for the whole batch."""
+        if len(audios) != len(texts):
+            raise ValueError(f"{len(audios)} audios for {len(texts)} texts")
+        with span("qwen3.request"):
+            return self._align_batch(audios, texts, language, mel_bucket)
+
+    def _align_batch(self, audios: list, texts: list, language: str,
+                     mel_bucket: int) -> list[AlignmentResult]:
         from qwen3_asr_tpu_torch.audio.mel import (
             log_mel_spectrogram_padded_batch,
             num_mel_frames,
         )
         from qwen3_asr_tpu_torch.models.encoder import encode_audio_padded_batch
 
-        if len(audios) != len(texts):
-            raise ValueError(f"{len(audios)} audios for {len(texts)} texts")
         results = [AlignmentResult() for _ in audios]
         if self.params is None:
             for r in results:
@@ -340,16 +347,16 @@ class ForcedAligner:
         feats_map = {}
         t_mel_ms = t_encode_ms = 0.0
         for idxs in groups.values():
-            t0 = time.perf_counter()
-            mel_b, n_true = log_mel_spectrogram_padded_batch(
-                [samples_list[i] for i in idxs], self.filters_t, bf)
-            self._sync()
-            t_mel_ms += (time.perf_counter() - t0) * 1000
-            t0 = time.perf_counter()
-            feats_b, n_audio = encode_audio_padded_batch(
-                self.params["encoder"], self.cfg.encoder, mel_b, n_true)
-            self._sync()
-            t_encode_ms += (time.perf_counter() - t0) * 1000
+            with span("qwen3.mel", timed=True) as sp:
+                mel_b, n_true = log_mel_spectrogram_padded_batch(
+                    [samples_list[i] for i in idxs], self.filters_t, bf)
+                self._sync()
+            t_mel_ms += sp.ms
+            with span("qwen3.encode", timed=True) as sp:
+                feats_b, n_audio = encode_audio_padded_batch(
+                    self.params["encoder"], self.cfg.encoder, mel_b, n_true)
+                self._sync()
+            t_encode_ms += sp.ms
             for j, i in enumerate(idxs):
                 feats_map[i] = (feats_b[j], n_audio[j])
 
@@ -361,9 +368,10 @@ class ForcedAligner:
                             device=self.device)
         for i, (f, _) in feats_map.items():
             feats[i, :f.shape[0]] = f.to(self.dtype)
-        t0 = time.perf_counter()
-        preds = self.classify(list(prompts), feats, [feats_map[i][1] for i in range(B)])
-        t_decode_ms = (time.perf_counter() - t0) * 1000
+        with span("qwen3.nar", timed=True) as sp:
+            preds = self.classify(list(prompts), feats,
+                                  [feats_map[i][1] for i in range(B)])
+        t_decode_ms = sp.ms
         for i, r in enumerate(results):
             r.words = self.words(prompts[i], preds[i], word_lists[i],
                                  len(samples_list[i]) / SAMPLE_RATE)

@@ -57,7 +57,7 @@ from qwen3_asr_tpu_torch.runtime.params import (
     quantize_decoder_params,
     resolve_quantize,
 )
-from qwen3_asr_tpu_torch.runtime.profiler import timer
+from qwen3_asr_tpu_torch.runtime.profiler import span
 
 SPEC_NEEDS_PACK = ("spec_k needs a quantized model with the decode megakernel "
                    "(quantize='int8pc'/'auto'/'int4')")
@@ -210,9 +210,12 @@ class Qwen3ASR:
         """`audio`: path to a 16 kHz mono WAV, a sample array (int16 PCM is
         scaled on the device), or a PreparedPCM (the padded PCM already on
         the device; only the fused path reads that copy)."""
+        with span("qwen3.request"):
+            return self._transcribe(audio, params or TranscribeParams())
+
+    def _transcribe(self, audio, params: TranscribeParams) -> TranscribeResult:
         from qwen3_asr_tpu_torch.models.e2e import PreparedPCM
 
-        params = params or TranscribeParams()
         result = TranscribeResult()
         if self.params is None:
             result.error_msg = "Model not loaded"
@@ -238,7 +241,8 @@ class Qwen3ASR:
     def _finish(self, result: TranscribeResult, out, n_kept: int,
                 t_total: float) -> TranscribeResult:
         result.tokens = [int(t) for t in out[:n_kept]]
-        result.text = self.tokenizer.decode(result.tokens)
+        with span("qwen3.detokenize"):
+            result.text = self.tokenizer.decode(result.tokens)
         result.success = True
         result.t_total_ms = (time.perf_counter() - t_total) * 1000
         return result
@@ -252,7 +256,6 @@ class Qwen3ASR:
                                        system_prompt_tokens=self._sys_tokens(params),
                                        cache_dtype=self.cache_dtype)
         self._finish(result, out, n_kept, t0)
-        result.t_decode_ms = result.t_total_ms
         if params.print_timing:
             print(f"\nTiming (fused single-dispatch):\n"
                   f"  Total: {result.t_total_ms:.0f} ms", file=sys.stderr, flush=True)
@@ -263,7 +266,9 @@ class Qwen3ASR:
         padded to its bucket and the decode: generate_greedy_spec (spec_k >
         0, greedy), generate_sample (temperature > 0), generate_greedy_streaming
         (callbacks or print_progress) or generate_greedy. Each stage ends in
-        a synchronize, so the stage times are the device's."""
+        a synchronize, so the stage times are the device's: t_mel_ms and
+        t_encode_ms from their spans, t_decode_ms the prefill and the
+        decode together."""
         from qwen3_asr_tpu_torch.models.e2e import _pad_pcm
         from qwen3_asr_tpu_torch.models.encoder import encode, encode_audio_padded
         from qwen3_asr_tpu_torch.models.generate import (
@@ -281,20 +286,19 @@ class Qwen3ASR:
             chunk = self.cfg.encoder.chunk_size
             bucket_frames = -(-bucket_frames // chunk) * chunk
 
-        t0 = time.perf_counter()
-        with timer("mel_spectrogram"):
+        with span("qwen3.mel", timed=True) as sp:
             if bucket_frames:
                 mel, n_frames = log_mel_spectrogram_padded(samples, self.filters_t,
                                                            bucket_frames)
             else:
-                buf, n_frames = _pad_pcm(samples)
-                mel = mel_device(torch.from_numpy(buf).to(dev), self.filters_t,
-                                 n_frames).T
+                with span("qwen3.upload"):
+                    buf, n_frames = _pad_pcm(samples)
+                    pcm = torch.from_numpy(buf).to(dev)
+                mel = mel_device(pcm, self.filters_t, n_frames).T
             _sync(dev)
-        result.t_mel_ms = (time.perf_counter() - t0) * 1000
+        result.t_mel_ms = sp.ms
 
-        t0 = time.perf_counter()
-        with timer("audio_encoding"):
+        with span("qwen3.encode", timed=True) as sp:
             if bucket_frames:
                 feats, n_audio = encode_audio_padded(self.params["encoder"],
                                                      self.cfg.encoder, mel, n_frames)
@@ -302,7 +306,7 @@ class Qwen3ASR:
                 feats = encode(self.params["encoder"], self.cfg.encoder, mel, n_frames)
                 n_audio = int(feats.shape[0])
             _sync(dev)
-        result.t_encode_ms = (time.perf_counter() - t0) * 1000
+        result.t_encode_ms = sp.ms
 
         prompt = build_asr_prompt(n_audio, dcfg, self._sys_tokens(params))
         n_prompt = len(prompt)
@@ -320,41 +324,40 @@ class Qwen3ASR:
         if use_spec and "mega" not in self.params["decoder"]:
             result.error_msg = SPEC_NEEDS_PACK
             return result
-        t0 = time.perf_counter()
-        with timer("decode.generate"):
-            if use_spec:
-                if self.cache_dtype != torch.int8:
-                    print("Note: spec_k uses an int8 KV cache; the configured "
-                          "kv_cache setting is ignored.", file=sys.stderr, flush=True)
-                out, n_kept, stats = generate_greedy_spec(*args, k=params.spec_k)
-                if params.print_timing:
-                    drafted = max(stats["drafted"], 1)
-                    print(f"spec: rounds={stats['rounds']} "
-                          f"accepted={stats['accepted']}/{drafted} "
-                          f"({stats['accepted'] / drafted:.0%})",
-                          file=sys.stderr, flush=True)
-            elif sampled:
-                if self._streaming(params):
-                    print("Note: temperature>0 decodes without per-token "
-                          "callbacks; per-token progress is not reported.",
-                          file=sys.stderr, flush=True)
-                out, n_kept = generate_sample(
-                    *args, seed=params.seed, temperature=float(params.temperature),
-                    top_k=int(params.top_k), top_p=float(params.top_p),
-                    cache_dtype=self.cache_dtype)
-            elif self._streaming(params):
-                def on_token(i, total):
-                    if self._progress_cb:
-                        self._progress_cb(i, total)
-                    if params.print_progress and i % 10 == 0:
-                        print(f"Generated {i} tokens...", file=sys.stderr, flush=True)
+        t0 = time.perf_counter()   # the prefill and the decode: their own spans
+        if use_spec:
+            if self.cache_dtype != torch.int8:
+                print("Note: spec_k uses an int8 KV cache; the configured "
+                      "kv_cache setting is ignored.", file=sys.stderr, flush=True)
+            out, n_kept, stats = generate_greedy_spec(*args, k=params.spec_k)
+            if params.print_timing:
+                drafted = max(stats["drafted"], 1)
+                print(f"spec: rounds={stats['rounds']} "
+                      f"accepted={stats['accepted']}/{drafted} "
+                      f"({stats['accepted'] / drafted:.0%})",
+                      file=sys.stderr, flush=True)
+        elif sampled:
+            if self._streaming(params):
+                print("Note: temperature>0 decodes without per-token "
+                      "callbacks; per-token progress is not reported.",
+                      file=sys.stderr, flush=True)
+            out, n_kept = generate_sample(
+                *args, seed=params.seed, temperature=float(params.temperature),
+                top_k=int(params.top_k), top_p=float(params.top_p),
+                cache_dtype=self.cache_dtype)
+        elif self._streaming(params):
+            def on_token(i, total):
+                if self._progress_cb:
+                    self._progress_cb(i, total)
+                if params.print_progress and i % 10 == 0:
+                    print(f"Generated {i} tokens...", file=sys.stderr, flush=True)
 
-                out = generate_greedy_streaming(
-                    *args, on_token=on_token, cache_dtype=self.cache_dtype,
-                    on_token_id=self._token_cb)
-                n_kept = len(out)
-            else:
-                out, n_kept = generate_greedy(*args, self.cache_dtype)
+            out = generate_greedy_streaming(
+                *args, on_token=on_token, cache_dtype=self.cache_dtype,
+                on_token_id=self._token_cb)
+            n_kept = len(out)
+        else:
+            out, n_kept = generate_greedy(*args, self.cache_dtype)
         result.t_decode_ms = (time.perf_counter() - t0) * 1000
         self._finish(result, out, n_kept, t_total)
         if params.print_timing:
@@ -392,9 +395,13 @@ class Qwen3ASR:
         them (the decode pack in chunks of at most 16 sequences, each chunk
         one lockstep loop of the batched step; without a pack the per-layer
         step at B rows)."""
+        with span("qwen3.request"):
+            return self._transcribe_batch(audios, params or TranscribeParams())
+
+    def _transcribe_batch(self, audios: list, params: TranscribeParams
+                          ) -> list[TranscribeResult]:
         from qwen3_asr_tpu_torch.parallel.mesh import batched_transcribe_step
 
-        params = params or TranscribeParams()
         results = [TranscribeResult() for _ in audios]
         if self.params is None:
             for r in results:
@@ -412,12 +419,13 @@ class Qwen3ASR:
             self.params["decoder"], self.cfg.decoder, toks, n_prompt, audio, n_audio,
             offset, params.max_tokens, cache_dtype=self.cache_dtype)
         t_ms = (time.perf_counter() - t0) * 1000
-        for b, i in enumerate(valid):
-            r = results[i]
-            r.tokens = [int(t) for t in out[b, :int(n_kept[b])]]
-            r.text = self.tokenizer.decode(r.tokens)
-            r.success = True
-            r.t_total_ms = t_ms
+        with span("qwen3.detokenize"):
+            for b, i in enumerate(valid):
+                r = results[i]
+                r.tokens = [int(t) for t in out[b, :int(n_kept[b])]]
+                r.text = self.tokenizer.decode(r.tokens)
+                r.success = True
+                r.t_total_ms = t_ms
         return results
 
 
@@ -466,19 +474,24 @@ def frontend_feats_batch(asr: Qwen3ASR, samples_list: list,
                 F_b = -(-num_mel_frames(len(s)) // bf) * bf
                 groups.setdefault(F_b, []).append(i)
         for idxs in groups.values():
-            mel_b, n_true = log_mel_spectrogram_padded_batch(
-                [samples_list[i] for i in idxs], asr.filters_t, bf)
-            feats_b, n_audio = encode_audio_padded_batch(enc, ecfg, mel_b, n_true)
+            with span("qwen3.mel"):
+                mel_b, n_true = log_mel_spectrogram_padded_batch(
+                    [samples_list[i] for i in idxs], asr.filters_t, bf)
+            with span("qwen3.encode"):
+                feats_b, n_audio = encode_audio_padded_batch(enc, ecfg, mel_b, n_true)
             for j, i in enumerate(idxs):
                 feats_list[i] = (feats_b[j], n_audio[j])
         return feats_list
     for i, samples in enumerate(samples_list):
         if samples is None:
             continue
-        buf, n_frames = _pad_pcm(samples)
-        mel = mel_device(torch.from_numpy(buf).to(asr.device), asr.filters_t,
-                         n_frames).T
-        f = encode(enc, ecfg, mel, n_frames)
+        with span("qwen3.upload"):
+            buf, n_frames = _pad_pcm(samples)
+            pcm = torch.from_numpy(buf).to(asr.device)
+        with span("qwen3.mel"):
+            mel = mel_device(pcm, asr.filters_t, n_frames).T
+        with span("qwen3.encode"):
+            f = encode(enc, ecfg, mel, n_frames)
         feats_list[i] = (f, int(f.shape[0]))
     return feats_list
 

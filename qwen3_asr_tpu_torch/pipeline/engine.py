@@ -49,6 +49,7 @@ from qwen3_asr_tpu_torch.pipeline.asr import (
     batch_prompts,
     frontend_feats_batch,
 )
+from qwen3_asr_tpu_torch.runtime.profiler import span
 
 DEFAULT_AUDIO_S = 92          # the longest utterance a default pool admits
 POOL_MEMORY_SHARE = 0.25      # of the device's free memory, at most
@@ -255,7 +256,8 @@ class ContinuousEngine:
                               for s in self._slots])
         done: list = []
         if live_mask.any():
-            res = self._decode_round(live_mask)
+            with span("qwen3.decode"):
+                res = self._decode_round(live_mask)
             out = res[:, :self.round_tokens]
             self._cur = res[:, -2].astype(np.int32)
             self._pos = res[:, -1].astype(np.int32)
@@ -295,7 +297,8 @@ class ContinuousEngine:
                 continue
             r = TranscribeResult()
             r.tokens = list(slot.tokens)
-            r.text = self.asr.tokenizer.decode(r.tokens)
+            with span("qwen3.detokenize"):
+                r.text = self.asr.tokenizer.decode(r.tokens)
             r.success = True
             r.t_total_ms = (time.perf_counter() - slot.t_start) * 1e3
             done.append((slot.ticket, r))

@@ -60,7 +60,7 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import Future
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -72,6 +72,7 @@ from qwen3_asr_tpu_torch.text.prompt import (
 )
 from qwen3_asr_tpu_torch.audio.wav import load_wav_bytes
 from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams
+from qwen3_asr_tpu_torch.runtime.profiler import span
 from qwen3_asr_tpu_torch.text.subtitles import (
     group_words_into_cues,
     words_to_srt,
@@ -139,6 +140,8 @@ class _Request:
     align_text: str | None = None           # set: forced-alignment request
     language: str = ""
     params: TranscribeParams | None = None  # set: runs alone with these params
+    t_submit: float = field(default_factory=time.perf_counter)
+    t_admit: float = 0.0                    # continuous mode: its admission's start
 
 
 def _request_kind(req: _Request) -> str:
@@ -180,6 +183,9 @@ class ASRServer:
                 s_pool=engine_context)
         self.n_served = 0
         self.n_batches = 0
+        # seconds from submit to the start of the work that serves a
+        # request, summed over served requests (the worker's alone)
+        self.queue_wait_s = 0.0
         self._worker = threading.Thread(
             target=self._run_continuous if continuous else self._run, daemon=True)
         self._worker.start()
@@ -288,33 +294,37 @@ class ASRServer:
 
     def _run(self):
         while not self._stop.is_set():
-            batch = self._collect()
+            with span("qwen3.collect"):
+                batch = self._collect()
             if batch:
                 self._process_batch(batch)
 
     def _process_batch(self, batch: list[_Request]) -> None:
         """Run one closed batch, or one stream or own-params request alone,
         and deliver its results."""
-        try:
-            if batch[0].stream_q is not None:
-                self._run_stream(batch[0])
-                results = []
-            elif batch[0].align_text is not None:
-                results = self._run_align(batch)
-            elif batch[0].params is not None:
-                results = [self.asr.transcribe(batch[0].samples, batch[0].params)]
-            elif len(batch) == 1:
-                results = [self.asr.transcribe(batch[0].samples, self.params)]
-            else:
-                results = self._run_transcribe(batch)
-            for req, res in zip(batch, results):
-                req.future.set_result(res)
-        except Exception as e:  # noqa: BLE001 - propagate to all waiters
-            for req in batch:
-                if req.stream_q is not None:
-                    req.stream_q.put(("error", str(e)))
-                elif not req.future.done():
-                    req.future.set_exception(e)
+        now = time.perf_counter()
+        self.queue_wait_s += sum(now - r.t_submit for r in batch)
+        with span("qwen3.batch"):
+            try:
+                if batch[0].stream_q is not None:
+                    self._run_stream(batch[0])
+                    results = []
+                elif batch[0].align_text is not None:
+                    results = self._run_align(batch)
+                elif batch[0].params is not None:
+                    results = [self.asr.transcribe(batch[0].samples, batch[0].params)]
+                elif len(batch) == 1:
+                    results = [self.asr.transcribe(batch[0].samples, self.params)]
+                else:
+                    results = self._run_transcribe(batch)
+                for req, res in zip(batch, results):
+                    req.future.set_result(res)
+            except Exception as e:  # noqa: BLE001 - propagate to all waiters
+                for req in batch:
+                    if req.stream_q is not None:
+                        req.stream_q.put(("error", str(e)))
+                    elif not req.future.done():
+                        req.future.set_exception(e)
         self.n_served += len(batch)
         self.n_batches += 1
 
@@ -415,8 +425,9 @@ class ASRServer:
         eng.on_progress = self._engine_progress
         backlog: deque = deque()  # pool-eligible requests awaiting a slot
         while not self._stop.is_set():
-            self._drain_queue(block=eng.n_active() == 0 and not backlog
-                              and not self._pending)
+            with span("qwen3.collect"):
+                self._drain_queue(block=eng.n_active() == 0 and not backlog
+                                  and not self._pending)
             if self._stop.is_set():
                 break
             rest: deque = deque()
@@ -432,6 +443,9 @@ class ASRServer:
             n = min(len(eng.free_slots()), len(backlog))
             admit = [backlog.popleft() for _ in range(n)]
             if admit:
+                now = time.perf_counter()
+                for r in admit:
+                    r.t_admit = now
                 try:
                     eng.admit(admit, [r.samples for r in admit])
                 except Exception as e:  # noqa: BLE001
@@ -459,6 +473,7 @@ class ASRServer:
                         req.stream_q.put(("done", res))
                     req.future.set_result(res)
                     self.n_served += 1
+                    self.queue_wait_s += req.t_admit - req.t_submit
                 self.n_batches += 1
             if self._pending:   # what the pool cannot take: one closed batch
                 self._process_batch(self._collect_pending_batch())
@@ -556,7 +571,9 @@ def _make_handler(server: ASRServer):
                 self._reply(404, {"error": "not found"})
                 return
             health = {"status": "ok", "served": server.n_served,
-                      "batches": server.n_batches}
+                      "batches": server.n_batches,
+                      "queue_wait_ms": round(1e3 * server.queue_wait_s
+                                             / max(server.n_served, 1), 3)}
             if server._engine is not None:
                 health["engine"] = server._engine.stats()
             self._reply(200, health)

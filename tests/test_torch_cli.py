@@ -73,7 +73,7 @@ def test_stdout_holds_only_the_transcript(files, capsys, tmp_path):
     cap = capsys.readouterr()
     assert cap.out.count("\n") == 1 and "Timing" not in cap.out
     assert "Threads: 2" in cap.err and "Audio encoding:" in cap.err
-    assert "=== Timing Profile ===" in cap.err and "decode.generate" in cap.err
+    assert "=== Timing Profile ===" in cap.err and "qwen3.decode" in cap.err
     out = tmp_path / "out.txt"
     assert main(["-m", model, "-f", wav, "--max-tokens", "4", "--platform", "cpu",
                  "--no-timing", "-o", str(out)]) == 0
@@ -214,7 +214,8 @@ def test_align_output_formats_equal_jax_cli(files, fa_files, capsys, tmp_path, f
     """--output-format json / srt / vtt: stdout byte-equal to the JAX CLI's
     in align mode (fused, and staged with q8_0 weights) and in
     transcribe-align mode (bucketed); the timing block on stderr only; -o
-    writes the same bytes."""
+    writes the same bytes; the fused alignment's timing block has its total
+    alone."""
     model, _, _ = files
     fa, wav = fa_files
     argv = ["-f", wav, "--dtype", "float32", "--max-tokens", "6", "--platform", "cpu",
@@ -228,6 +229,9 @@ def test_align_output_formats_equal_jax_cli(files, fa_files, capsys, tmp_path, f
     if mode[0] == "--align":   # the tiny ASR model's transcript is empty
         head = {"json": '{\n  "words"', "srt": "1\n", "vtt": "WEBVTT\n"}[fmt]
         assert got.out.startswith(head)
+        # stage times only where the staged path measured them
+        assert ("Mel spectrogram" in got.err) == ("--no-fused" in mode)
+        assert "Total:" in got.err
     out = tmp_path / f"out.{fmt}"
     assert main(argv + ["-o", str(out)]) == 0
     assert capsys.readouterr().out == "" and out.read_text() == got.out

@@ -34,6 +34,9 @@ NOT_PORTED = {
     # the GGUF writer and JAX's host staging / device placement; loading
     # reads GGUF through runtime.params.load_*_model
     "runtime.gguf": {"GGUFWriter", "dequantize_q8_0_py", "quantize_q8_0"},
+    # the section timer: the port's stages are spans (runtime.profiler.span),
+    # torch.profiler ranges as well as the --profile table
+    "runtime.profiler": {"timer"},
     "runtime.params": {"assert_resident", "host_staging", "ship_to_device",
                        "load_decoder_params", "load_encoder_params",
                        "unfuse_decoder_params"},
