@@ -39,7 +39,12 @@ the launch counts set to 0 just before it and read just after:
    twins' input;
 3. the CLI's default configuration, `Qwen3ASR(quantize="auto")` (int8pc ->
    the int8 pack, bf16 cache): 5 s / 64, 92 s / 323 and 92 s / 1 tokens on
-   the fused path and on the staged one, whose tokens must be equal;
+   the fused path and on the staged one, whose tokens must be equal; then
+   its prefill's four fused passes (`phase_prefill_passes`) against their
+   twins at T 80, 730, 1,280 and a server batch of 6 x 405 rows, each
+   layer and the 28-layer stack against the eager chain, ms and device
+   operations a prefill both ways, no host-device sync, 28 fused layers a
+   request;
 4. the server's default configuration (auto with the int8 cache): four
    requests in one closed batch (K3 on the int8 pack) and a lone one (K1),
    tokens equal to `transcribe_batch`'s and `transcribe`'s;
@@ -96,8 +101,11 @@ the launch counts set to 0 just before it and read just after:
 
 It checks that every parameter and cache tensor of paths 1 and 2 is on the
 GPU, that each kernel of a path ran there (launch counts against a formula
-from the code), and that tokens agree with the twins' on a 5 s request of
-paths 1-5 and 7.
+from the code; a window also counts the decoder prefill's layers by path,
+`_prefill_layers.fused_layers` / `.eager_layers`, and each prefill on
+int8pc leaves must launch the four fused passes once a layer as
+`prefill_want` says), and that tokens agree with the twins' on a 5 s
+request of paths 1-5 and 7.
 
 Output: diagnostic lines, then one JSON line with the kernels' errors and
 times, then, as the last line, {"ok": true, "device": {...}}. Exits non-zero
@@ -1176,9 +1184,10 @@ def slice_launches(quantize, P: int, max_tokens: int, L: int) -> dict:
     the prefill's 28 K2 (causal) and, at P <= 256 rows, 28 each of K6 (QKV),
     K5 (Wo) and K7; the first token's lm head (K6); then per decode step 28
     K4, and with Q8_0 weights 29 K6 (28 QKV + the head), 28 K5 and 28 K7.
-    Dense weights launch no K5-K7."""
+    Dense weights launch no K5-K7. Its L prefill layers run eager."""
     steps = max_tokens - 1
-    want = dict(no_launches(), flash=L, decode_attention=L * steps)
+    want = dict(no_launches(), flash=L, decode_attention=L * steps,
+                **prefill_want(1, False, L))
     if quantize:
         small = L if P <= 256 else 0
         want.update(q8_norm_matmul=(L + 1) * steps + 1 + small,
@@ -1272,6 +1281,7 @@ def _wrappers() -> dict:
     from qwen3_asr_tpu_torch.ops import flash_attention as fa
     from qwen3_asr_tpu_torch.ops import megakernel as mk
     from qwen3_asr_tpu_torch.ops import megakernel_batch as mb
+    from qwen3_asr_tpu_torch.ops import prefill_fused as pf
     from qwen3_asr_tpu_torch.ops import q8_matmul as q8
 
     return {"flash": fa.flash_attention_batch, "mega": mk.mega_decode_step_i8,
@@ -1283,7 +1293,13 @@ def _wrappers() -> dict:
             "q8_norm_matmul": q8.q8_norm_matmul, "q8_mlp": q8.q8_mlp,
             "mb_read": ms.stream_read, "mb_read_ring": ms.stream_read_ring,
             "mb_gemv": ms.stream_gemv, "mb_gemv_i4": ms.stream_gemv_i4,
-            "mb_unpack": ms.unpack_probe}
+            "mb_unpack": ms.unpack_probe,
+            **{n: getattr(pf, n) for n in PREFILL_PASSES}}
+
+
+# The int8pc prefill's fused passes (`ops/prefill_fused.py`), by the names
+# the launch counts and `models/decoder.py` use.
+PREFILL_PASSES = ("norm_quant_rows", "qkv_epilogue", "residual_norm_quant", "swiglu_quant")
 
 
 # Every checked window of a path: (label, the decode pack's weight bits or
@@ -1307,18 +1323,42 @@ def launches_of(key: str, wbits=None) -> int:
     return sum(c[key] for _, w, c in WINDOWS if wbits is None or w == wbits)
 
 
-def counts() -> dict:
+def launch_counts() -> dict:
     """Launch counts of the kernels' wrappers."""
     return {k: w.launches for k, w in _wrappers().items()}
 
 
+def counts() -> dict:
+    """launch_counts() and the decoder prefill's layers by path
+    (`_prefill_layers.fused_layers` / `.eager_layers`)."""
+    from qwen3_asr_tpu_torch.models import decoder as dmod
+
+    return dict(launch_counts(), fused_layers=dmod._prefill_layers.fused_layers,
+                eager_layers=dmod._prefill_layers.eager_layers)
+
+
 def reset_counts() -> None:
+    from qwen3_asr_tpu_torch.models import decoder as dmod
+
     for w in _wrappers().values():
         w.launches = 0
+    dmod._prefill_layers.fused_layers = dmod._prefill_layers.eager_layers = 0
 
 
 def no_launches() -> dict:
-    return {k: 0 for k in _wrappers()}
+    return {k: 0 for k in counts()}
+
+
+def prefill_want(n: int, fused: bool, L: int = 28) -> dict:
+    """What n decoder prefills of L layers add to a window's counts: on
+    int8pc leaves (fused) n * L fused layers and each pass's launches a
+    prefill (norm_quant_rows L + 1: layer 0's norm and every attention
+    output; qkv_epilogue L; residual_norm_quant 2 L; swiglu_quant L);
+    otherwise n * L eager layers and no pass."""
+    if not fused:
+        return {"eager_layers": n * L}
+    return {"fused_layers": n * L, "norm_quant_rows": (L + 1) * n, "qkv_epilogue": L * n,
+            "residual_norm_quant": 2 * L * n, "swiglu_quant": L * n}
 
 
 def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
@@ -1329,19 +1369,21 @@ def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
 
 
 class twins:
-    """Inside the block the decoder and encoder call the plain twins of K2
-    and K4-K7 on the card (the Q8_0 wrappers' own path above 256 rows is no
-    kernel and stays). Leaving it raises if any launch count moved: a call
-    site left unpatched would compare a kernel with itself."""
+    """Inside the block the decoder and encoder call the plain twins of K2,
+    K4-K7 and the int8pc prefill's fused passes on the card (the Q8_0
+    wrappers' own path above 256 rows is no kernel and stays). Leaving it
+    raises if any launch count moved: a call site left unpatched would
+    compare a kernel with itself."""
 
     def __enter__(self):
         from qwen3_asr_tpu_torch.models import decoder as dmod
         from qwen3_asr_tpu_torch.models import encoder as emod
         from qwen3_asr_tpu_torch.ops import decode_attention as da
         from qwen3_asr_tpu_torch.ops import flash_attention as fa
+        from qwen3_asr_tpu_torch.ops import prefill_fused as pf
         from qwen3_asr_tpu_torch.ops import q8_matmul as q8
 
-        self._counts = counts()
+        self._counts = launch_counts()
         k5, k6, k7 = q8.q8_matmul, q8.q8_norm_matmul, q8.q8_mlp
         rows = q8._MAX_KERNEL_ROWS
 
@@ -1371,14 +1413,17 @@ class twins:
             lambda qkv, kc, vc, qn, kn, offs, pos, bound, **kw:
             da.decode_attention_batch_ref(qkv, kc, vc, qn, kn, offs, pos, **kw))
         dmod.q8_norm_matmul, dmod.q8_mlp, q8.q8_matmul = t6, t7, t5
+        for name in PREFILL_PASSES:
+            self._saved.append((dmod, name, getattr(dmod, name)))
+            setattr(dmod, name, getattr(pf, name + "_ref"))
         return self
 
     def __exit__(self, exc_type, *exc):
         for mod, name, fn in self._saved:
             setattr(mod, name, fn)
-        if exc_type is None and counts() != self._counts:
+        if exc_type is None and launch_counts() != self._counts:
             raise AssertionError(f"a kernel launched inside twins(): launch counts "
-                                 f"{self._counts} -> {counts()}")
+                                 f"{self._counts} -> {launch_counts()}")
         return False
 
 
@@ -1393,12 +1438,14 @@ def encoder_calls(groups) -> int:
 
 def check_launches(what: str, got: dict, k3_steps: int, groups) -> None:
     """K3 = k3_steps; K2 = 28 per batched prefill (one per group) + 18 per
-    batched encoder call; no K1 on these paths."""
+    batched encoder call, each prefill fused (the int4 model's int8pc
+    leaves); no K1 on these paths."""
     from qwen3_asr_tpu_torch.config import ASRModelConfig
 
     cfg = ASRModelConfig()
     want = dict(no_launches(), flash=cfg.decoder.n_layers * len(groups)
-                + cfg.encoder.n_layers * encoder_calls(groups), mega_batch=k3_steps)
+                + cfg.encoder.n_layers * encoder_calls(groups), mega_batch=k3_steps,
+                **prefill_want(len(groups), True, cfg.decoder.n_layers))
     log(f"launches on the {what}: {got} (want {want})")
     if got != want:
         raise AssertionError(f"{what}: launch counts {got} != {want}")
@@ -1511,7 +1558,7 @@ def phase_int4_bf16(asr4):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     got = window("int4 weights, bf16 KV, 5 s", 4, counts())
-    want = dict(no_launches(), flash=L, mega_bf16=63)
+    want = dict(no_launches(), flash=L, mega_bf16=63, **prefill_want(1, True, L))
     log(f"request int4 weights, bf16 KV, 5 s: {ms:.1f} ms, {len(r.tokens)} tokens; "
         f"launches {got}")
     if got != want or len(r.tokens) != 64:
@@ -1535,12 +1582,13 @@ def timed_request(asr, seconds: float, max_tokens: int, **kw):
 
 def check_window(what: str, wbits, got: dict, r, max_tokens: int, **want_kw) -> None:
     """A request's window: launch counts as want_kw says (K2 once per
-    decoder layer), max_tokens in-range tokens."""
+    decoder layer; one prefill, fused on a model with a decode pack of
+    wbits, whose leaves are int8pc), max_tokens in-range tokens."""
     from qwen3_asr_tpu_torch.config import DecoderConfig
 
     window(what, wbits, got)
     L, V = DecoderConfig().n_layers, DecoderConfig().vocab_size
-    want = dict(no_launches(), flash=L, **want_kw)
+    want = dict(no_launches(), flash=L, **prefill_want(1, wbits is not None, L), **want_kw)
     if got != want:
         raise AssertionError(f"{what}: launch counts {got} != {want}")
     if not r.success or len(r.tokens) != max_tokens or not all(0 <= t < V for t in r.tokens):
@@ -1654,7 +1702,7 @@ def phase_server_int4(auto):
                 replies[what] = (rsp.status, rsp.read(), (time.perf_counter() - t0) * 1e3)
             got = window(f"server --kv-cache int4, {what}", 8, counts())
             want = dict(no_launches(), flash=L + EL * encoder_calls([[audio]]),
-                        mega_i4=ENGINE_TOKENS - 1)
+                        mega_i4=ENGINE_TOKENS - 1, **prefill_want(1, True, L))
             log(f"phase server --kv-cache int4, {what}: code {replies[what][0]}, "
                 f"{replies[what][2]:.1f} ms; launches {got} (want {want})")
             if replies[what][0] != 200 or got != want:
@@ -1720,7 +1768,8 @@ def phase_auto():
             torch.cuda.synchronize()
             ms[(fused, seconds, max_tokens)] = (time.perf_counter() - t0) * 1e3
             got = window(f"auto {path} {seconds} s / {max_tokens}", 8, counts())
-            want = dict(no_launches(), flash=L, mega_bf16=max_tokens - 1)
+            want = dict(no_launches(), flash=L, mega_bf16=max_tokens - 1,
+                        **prefill_want(1, True, L))
             log(f"request quantize='auto' ({path}) {seconds} s: "
                 f"{ms[(fused, seconds, max_tokens)]:.1f} ms, {len(r.tokens)} tokens "
                 f"(max {max_tokens}); launches {got}")
@@ -1741,6 +1790,252 @@ def phase_auto():
     log("  staged tokens equal fused tokens on every request")
     check_tokens_vs_twins(asr, pcm(5), tokens[(True, 5, 64)][:16])
     return asr, per_step, stages
+
+
+# The int8pc prefill's fused passes (phase_prefill_passes) at the main
+# path's rows: prompts of 5, 55 and 92+ s (T 80, 730, 1,280) and a server
+# batch of six 30 s prompts (B·P 6 x 405), on layer 0 with norm weights 1 +
+# N(0, 0.25) (the random model's are ones, under which a dropped rounding of
+# x * r before the product with w shows nothing). A pass without a norm must
+# equal its twin (torch's own ops on the card) bit for bit. A pass with a
+# norm sums its f32 squares in another order than torch's reduction, which
+# can round a bf16 value the other way: at most PF_MOVED of its int8 codes
+# (of its bf16 values for q and k) may differ, codes by one. An H100 reads
+# at most 1.1e-5; a kernel with one of the chain's bf16 roundings skipped
+# moves 4e-2 or more (tests/test_torch_chip_faults.py). The stack (phase_prefill_fused): a layer alone
+# on the eager chain's input to it, h rel L2 <= PF_LAYER_REL and at most
+# PF_LAYER_K_MOVED of its k rows' values moved (a moved code moves a whole
+# row of its product: 1.1e-3 read); the whole stack against the eager chain
+# from one prompt, the first greedy token equal.
+PF_SHAPES = ((1, 80), (1, 730), (1, 1280), (6, 405))
+PF_MOVED = 1e-4
+PF_LAYER_REL = 1e-2
+PF_LAYER_K_MOVED = 5e-3
+
+
+def _pf_codes(got, want, N: int) -> tuple[float, int]:
+    """(share of moved codes in rows < N, largest code difference); the
+    padding rows must stay zero."""
+    if got[0][N:].any():
+        raise AssertionError("a fused pass wrote a padding row of its codes")
+    d = (got[0][:N].int() - want[0][:N].int()).abs()
+    return float((d != 0).float().mean()), int(d.max())
+
+
+def _pf_bf16(got, want) -> tuple[float, int]:
+    """(share of moved bf16 values, largest difference in bf16 steps)."""
+    import torch
+
+    d = (got.contiguous().view(torch.int16).int() - want.contiguous().view(torch.int16).int())
+    return float((d != 0).float().mean()), int(d.abs().max())
+
+
+def phase_prefill_passes(auto) -> dict:
+    """The four fused passes of the int8pc prefill (`ops/prefill_fused.py`)
+    against their twins at PF_SHAPES, on the twins' layer 0 (embedded random
+    tokens, norm weights 1 + N(0, 0.25)): moved codes and values, kernel and
+    twin ms from a CUDA graph of 20 calls, the bound (bytes). -> {pass name:
+    {shape: (moved share, ms, plain_ms, bound_ms, bound_by)}}."""
+    import torch
+
+    from qwen3_asr_tpu_torch.models import decoder as dmod
+    from qwen3_asr_tpu_torch.ops import prefill_fused as pf
+    from qwen3_asr_tpu_torch.ops.q8_matmul import int8_matmul
+
+    dec, dcfg = auto.params["decoder"], auto.cfg.decoder
+    lay, eps = dec["layers"], dcfg.rms_norm_eps
+    NH, NKV, D, F, H = (dcfg.n_heads, dcfg.n_kv_heads, dcfg.head_dim,
+                        dcfg.intermediate_size, dcfg.hidden_size)
+    dq, cols = NH * D, (NH + 2 * NKV) * D
+    g = torch.Generator(device="cuda").manual_seed(17)
+    nw = {n: (1 + 0.5 * torch.randn(lay[n][0].shape, generator=g, device="cuda"))
+          .to(torch.bfloat16) for n in ("attn_norm", "ffn_norm", "q_norm", "k_norm")}
+    inv_freq = dmod.rope_inv_freq(D, float(dcfg.rope_theta), torch.device("cuda"))
+    passes: dict = {}
+
+    for B, P in PF_SHAPES:
+        N, shape = B * P, f"B{B}xP{P}"
+        tok = torch.randint(0, dcfg.vocab_size, (B, P), generator=g, device="cuda")
+        x = dec["token_embd"][tok].reshape(N, H)
+        valid = torch.tensor([P - 7 * b for b in range(B)], dtype=torch.int32, device="cuda")
+        w = {n: dmod._leaf(lay, n, 0) for n in dmod._PC_MATRICES}
+
+        def bufs(n):
+            return pf.codes_buffer(N, n, "cuda"), torch.empty(N, 1, device="cuda")
+
+        # the twins' layer 0: each pass's inputs
+        xq, sx = bufs(H)
+        pf.norm_quant_rows_ref(x, nw["attn_norm"], eps, xq, sx)
+        acc_qkv = int8_matmul(xq, w["wqkv"]["i8pc:q"])
+        qkv_args = (acc_qkv, sx, w["wqkv"]["i8pc:s"], nw["q_norm"], nw["k_norm"],
+                    P, NH, NKV, D, eps, inv_freq)
+        q, k, v = pf.qkv_epilogue_ref(*qkv_args)
+        attn = dmod.flash_attention_batch(q, k, v, valid, causal=True,
+                                          scale=1.0 / float(D) ** 0.5).reshape(N, dq)
+        aq, asx = bufs(dq)
+        pf.norm_quant_rows_ref(attn, None, eps, aq, asx)
+        acc_wo = int8_matmul(aq, w["wo"]["i8pc:q"])
+        gq, gsx = bufs(H)
+        pf.residual_norm_quant_ref(x, acc_wo, asx, w["wo"]["i8pc:s"], nw["ffn_norm"], eps,
+                                   gq, gsx)
+        acc_gu = int8_matmul(gq, w["w_gate_up"]["i8pc:q"])
+
+        cases = {
+            "norm_quant_rows (RMSNorm, QKV input)": (
+                lambda f, c, s: f(x, nw["attn_norm"], eps, c, s), H,
+                2 * N * H + 2 * H + N * H + 4 * N, True),
+            "norm_quant_rows (attention output, Wo input)": (
+                lambda f, c, s: f(attn, None, eps, c, s), dq, 2 * N * dq + N * dq + 4 * N, False),
+            "residual_norm_quant (Wo, FFN norm)": (
+                lambda f, c, s: f(x, acc_wo, asx, w["wo"]["i8pc:s"], nw["ffn_norm"], eps,
+                                  c, s), H, 2 * N * H + 4 * N * H + 6 * H + 4 * N
+                + 2 * N * H + N * H + 4 * N, True),
+            "swiglu_quant": (
+                lambda f, c, s: f(acc_gu, gsx, w["w_gate_up"]["i8pc:s"], F, c, s), F,
+                8 * N * F + 8 * F + 4 * N + N * F + 4 * N, False),
+        }
+        kern = {"norm_quant_rows": (pf.norm_quant_rows, pf.norm_quant_rows_ref),
+                "residual_norm_quant": (pf.residual_norm_quant, pf.residual_norm_quant_ref),
+                "swiglu_quant": (pf.swiglu_quant, pf.swiglu_quant_ref)}
+        for name, (call, n, nbytes, normed) in cases.items():
+            fn, ref = kern[name.split()[0]]
+            got, want = bufs(n), bufs(n)
+            rg, rw = call(fn, *got), call(ref, *want)
+            if rg is not None and not torch.equal(rg, rw):
+                raise AssertionError(f"{name} {shape}: the residual differs from the twin's")
+            moved, dmax = _pf_codes(got, want, N)
+            sx_rel = float(((got[1] - want[1]).abs() / want[1]).max())
+            exact = moved == 0.0 and torch.equal(got[1], want[1])
+            log(f"  {name} {shape}: codes moved {moved:.3e}, largest difference {dmax}, "
+                f"scales rel {sx_rel:.2e}" + ("" if normed else " (must be bit-equal)")
+                + f"; bound {PF_MOVED:g}")
+            if (not normed and not exact) or moved > PF_MOVED or dmax > 1:
+                raise AssertionError(f"{name} {shape}: codes moved {moved}, difference {dmax}")
+            c, s = bufs(n)
+            ms = graph_ms(lambda: call(fn, c, s))
+            plain = graph_ms(lambda: call(ref, c, s))
+            passes.setdefault(name, {})[shape] = (moved, ms, plain,
+                                                  *bound(nbytes, 0.0, INT8_OPS))
+        qg, kg, vg = pf.qkv_epilogue(*qkv_args)
+        if not torch.equal(vg, v):
+            raise AssertionError(f"qkv_epilogue {shape}: v differs from the twin's")
+        (qm, qd), (km, kd) = _pf_bf16(qg, q), _pf_bf16(kg, k)
+        log(f"  qkv_epilogue {shape}: q moved {qm:.3e} (largest {qd} bf16 steps), "
+            f"k moved {km:.3e} ({kd}), v bit-equal; bound {PF_MOVED:g}")
+        if max(qm, km) > PF_MOVED:
+            raise AssertionError(f"qkv_epilogue {shape}: q / k moved {qm} / {km}")
+        ms = graph_ms(lambda: pf.qkv_epilogue(*qkv_args))
+        plain = graph_ms(lambda: pf.qkv_epilogue_ref(*qkv_args))
+        nbytes = 4 * N * cols + 4 * cols + 4 * N + 4 * D + 2 * D + 2 * N * cols
+        passes.setdefault("qkv_epilogue", {})[shape] = (max(qm, km), ms, plain,
+                                                        *bound(nbytes, 0.0, INT8_OPS))
+    return passes
+
+
+def phase_prefill_fused(auto) -> dict:
+    """The int8pc prefill's fused chain: its passes (phase_prefill_passes),
+    then `_prefill_layers` fused against the eager chain at PF_SHAPES (ms a
+    prefill, device operations a prefill and a layer from torch.profiler),
+    each layer alone on the eager input, the stack's first token, no
+    host-device sync in the fused stack, and 28 fused layers a CLI request.
+    -> {"passes": phase_prefill_passes's, "prefill": {...}}."""
+    import torch
+
+    from qwen3_asr_tpu_torch.models import decoder as dmod
+
+    passes = phase_prefill_passes(auto)
+    dec, dcfg = auto.params["decoder"], auto.cfg.decoder
+    lay, L = dec["layers"], dcfg.n_layers
+    g = torch.Generator(device="cuda").manual_seed(18)
+    prefill: dict = {}
+
+    def eager(fn):
+        saved = dmod._fusable
+        dmod._fusable = lambda *a: False
+        try:
+            return fn()
+        finally:
+            dmod._fusable = saved
+
+    for B, P in PF_SHAPES:
+        shape = f"B{B}xP{P}"
+        tok = torch.randint(0, dcfg.vocab_size, (B, P), generator=g, device="cuda")
+        h = dec["token_embd"][tok]
+        valid = torch.tensor([P - 7 * b for b in range(B)], dtype=torch.int32, device="cuda")
+
+        def stack():
+            return dmod._prefill_layers(dec, dcfg, h, valid, lambda *a: None)
+
+        fused_ms, eager_ms = cuda_ms(stack, 5), eager(lambda: cuda_ms(stack, 5))
+        _, kf = profiled(stack)
+        _, ke = eager(lambda: profiled(stack))
+        nf, ne = sum(c for _, c, _ in kf), sum(c for _, c, _ in ke)
+        prefill[shape] = {"fused_ms": fused_ms, "eager_ms": eager_ms,
+                          "fused_device_ops": nf, "eager_device_ops": ne}
+        log(f"  prefill {shape}: fused {fused_ms:.3f} ms, eager {eager_ms:.3f} ms; device "
+            f"operations a prefill (torch.profiler) fused {nf} ({nf / L:.1f} a layer), "
+            f"eager {ne} ({ne / L:.1f} a layer); fused busiest: "
+            + "; ".join(f"{nm[:40]} {t:.3f} ms x{c}" for t, c, nm in kf[:6]))
+        if nf > 12 * L + 8:
+            raise AssertionError(f"prefill {shape}: {nf} device operations")
+
+    # each layer alone on the eager chain's input, and the stack from one prompt
+    B, P = 1, 730
+    tok = torch.randint(0, dcfg.vocab_size, (B, P), generator=g, device="cuda")
+    h0 = dec["token_embd"][tok]
+    valid = torch.tensor([P], dtype=torch.int32, device="cuda")
+    cfg1 = dataclasses.replace(dcfg, n_layers=1)
+    xin, rels, kmoved = h0, [], []
+    for l in range(L):
+        d1 = dict(dec, layers={n: ({a: b[l:l + 1] for a, b in t.items()}
+                                   if isinstance(t, dict) else t[l:l + 1])
+                               for n, t in lay.items()})
+        rows, erows = [], []
+        got = dmod._prefill_layers(d1, cfg1, xin, valid, lambda _, k_, v_: rows.append(k_))
+        ref = eager(lambda: dmod._prefill_layers(d1, cfg1, xin, valid,
+                                                 lambda _, k_, v_: erows.append(k_)))
+        rels.append(_rel(got, ref))
+        kmoved.append(_pf_bf16(rows[0], erows[0])[0])
+        xin = ref
+    log(f"  each layer alone on the eager input ({P} rows): h rel L2 max {max(rels):.3e} "
+        f"(layer {rels.index(max(rels))}; bound {PF_LAYER_REL}), k rows moved "
+        f"{max(kmoved):.3e} at most (bound {PF_LAYER_K_MOVED})")
+    if max(rels) > PF_LAYER_REL or max(kmoved) > PF_LAYER_K_MOVED:
+        raise AssertionError(f"fused layer rel L2 {max(rels):.3e}, k rows moved "
+                             f"{max(kmoved):.3e}")
+
+    def first(h_):
+        lg = dmod.lm_logits(dec, dcfg, h_[0, P - 1])
+        return int(torch.argmax(lg)), lg
+
+    hf = dmod._prefill_layers(dec, dcfg, h0, valid, lambda *a: None)
+    he = eager(lambda: dmod._prefill_layers(dec, dcfg, h0, valid, lambda *a: None))
+    (tf, _), (te, lge) = first(hf), first(he)
+    diff = float((hf.float() - he.float()).abs().max())
+    log(f"  stack of {L} layers, fused vs eager ({P} rows): h rel L2 {_rel(hf, he):.3e}, "
+        f"largest difference {diff:.4f}; first token {tf} / {te} (gap "
+        f"{float(lge[te] - lge[tf]):.4f})")
+    if tf != te:
+        raise AssertionError(f"the fused stack's first token {tf} != the eager {te}")
+    prefill["stack"] = {"h_rel": _rel(hf, he), "h_max_abs": diff, "layer_rel_max": max(rels),
+                        "k_moved_max": max(kmoved)}
+
+    # no host-device sync in the fused stack; 28 fused layers a CLI request
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dmod._prefill_layers(dec, dcfg, h0, valid, lambda *a: None)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("  the fused stack ran under set_sync_debug_mode('error')")
+    fused0, eager0 = dmod._prefill_layers.fused_layers, dmod._prefill_layers.eager_layers
+    auto.transcribe(pcm(5), tparams(8))
+    got = (dmod._prefill_layers.fused_layers - fused0, dmod._prefill_layers.eager_layers - eager0)
+    log(f"  a 5 s CLI request: fused / eager layers {got}")
+    if got != (L, 0):
+        raise AssertionError(f"a CLI request's prefill layers (fused, eager) {got}")
+    return {"passes": passes, "prefill": prefill}
 
 
 def phase_server_default(auto):
@@ -1785,7 +2080,8 @@ def phase_server_default(auto):
     groups = [audio, audio[:1]]
     want = dict(no_launches(), mega_batch=ENGINE_TOKENS - 1, mega=ENGINE_TOKENS - 1,
                 flash=asr.cfg.decoder.n_layers * len(groups)
-                + asr.cfg.encoder.n_layers * encoder_calls(groups))
+                + asr.cfg.encoder.n_layers * encoder_calls(groups),
+                **prefill_want(len(groups), True, asr.cfg.decoder.n_layers))
     log(f"phase server default (auto, int8 KV, closed batches): batches {batches}; "
         f"wall {wall * 1e3:.1f} ms; launches {served} (want {want})")
     if batches != [4] or served != want:
@@ -2346,7 +2642,7 @@ def phase_aligner():
         torch.cuda.synchronize()
         got = window(f"aligner {name}", None, counts())
         got_launches[name] = got
-        want = dict(no_launches(), flash=L)
+        want = dict(no_launches(), flash=L, **prefill_want(1, False, L))
         log(f"  align {name}: {len(r.words)} words, first {r.words[0]}, last "
             f"{r.words[-1]}; launches {got}")
         if got != want:
@@ -2398,7 +2694,7 @@ def phase_aligner():
     finally:
         del fa.classify
     got_launches["align_batch"] = got
-    want = dict(no_launches(), flash=L)
+    want = dict(no_launches(), flash=L, **prefill_want(1, False, L))
     log(f"  align_batch of {len(pairs)} ({[s for s, _ in ALIGN_BATCH]} s): launches {got}")
     if got != want or len(recorded) != 1:
         raise AssertionError(f"align_batch launch counts {got} != {want} or "
@@ -2423,7 +2719,16 @@ def phase_aligner():
     fa8 = load_aligner("auto")
     if not isinstance(fa8.params["decoder"]["layers"]["wqkv"], dict):
         raise AssertionError("quantize='auto' did not give the aligner int8pc layers")
-    check_words("aligner auto", fa8.align(audio, text), ALIGN_WORDS, float(ALIGN_SECONDS))
+    torch.cuda.synchronize()
+    reset_counts()
+    r = fa8.align(audio, text)
+    torch.cuda.synchronize()
+    got = window("aligner auto", None, counts())
+    want = dict(no_launches(), flash=L, **prefill_want(1, True, L))
+    log(f"  align auto (int8pc layers): launches {got}")
+    if got != want:
+        raise AssertionError(f"aligner auto: launch counts {got} != {want}")
+    check_words("aligner auto", r, ALIGN_WORDS, float(ALIGN_SECONDS))
     stages["auto"] = align_stage_ms(fa8, audio, text)
     profile_align(fa8, audio, text, "auto")
     for mode, st in stages.items():
@@ -2940,7 +3245,7 @@ def phase_spec(auto, asr4) -> dict:
             toks, n, st = res[0]
             what = f"spec {label} k={k}"
             got = window(what, wbits, counts())
-            want = dict(no_launches(), flash=L, mega=st["drafted"])
+            want = dict(no_launches(), flash=L, mega=st["drafted"], **prefill_want(1, True, L))
             per_tok = (ms - one) / (n_tok - 1)
             log(f"request {what}, 92 s / {n_tok}: {ms:.1f} ms; rounds {st['rounds']} "
                 f"(verify passes), accepted {st['accepted']}/{st['drafted']} "
@@ -3430,11 +3735,13 @@ def batch_launches(quantize, L: int, B: int, P: int, steps: int, groups) -> dict
     bf16 once (a decode pack over bf16) or K4 batched 28 times, with Q8_0
     weights 29 K6 (28 QKV + the head over B rows), 28 K5 and 28 K7; the
     first tokens' head (K6) once; the prefill's products at B * P > 256
-    rows are no kernel (Q8_0 wrappers' own path)."""
+    rows are no kernel (Q8_0 wrappers' own path); the prefill is fused on
+    auto's int8pc leaves."""
     from qwen3_asr_tpu_torch.config import ASRModelConfig
 
     want = dict(no_launches(), flash=L * len(groups)
-                + ASRModelConfig().encoder.n_layers * encoder_calls(groups))
+                + ASRModelConfig().encoder.n_layers * encoder_calls(groups),
+                **prefill_want(len(groups), quantize == "auto", L))
     if quantize == "auto":
         want.update(mega_batch_bf16=steps)
         return want
@@ -3584,14 +3891,18 @@ def phase_server_batches(models: dict) -> dict:
         L, steps = asr.cfg.decoder.n_layers, BATCH_TOKENS - 1
         key, want = (("mega_batch_bf16", steps) if wbits else ("decode_attention_batch",
                                                                 L * steps))
+        prefill = prefill_want(1, wbits is not None, L)
+        moved = {k: got[k] for k in set(prefill) | {"fused_layers", "eager_layers",
+                                                    *PREFILL_PASSES}}
         log(f"phase server {label}: codes {[r and r[0] for r in replies]}, "
             f"transcribe_batch calls {calls}, wall {wall:.1f} ms; launches {got}")
         if any(r is None or r[0] != 200 or "text" not in r[1] for r in replies):
             raise AssertionError(f"server {label}: a request was not answered 200 with text")
         if calls != [len(BATCH_REQUESTS)] or got[key] != want or got["decode_attention"] \
-                or got["mega"] or got["mega_bf16"]:
+                or got["mega"] or got["mega_bf16"] or moved != dict.fromkeys(moved, 0) | prefill:
             raise AssertionError(f"server {label}: transcribe_batch calls {calls}, "
-                                 f"{key} {got[key]} (want {want}), launches {got}")
+                                 f"{key} {got[key]} (want {want}), prefill {moved} (want "
+                                 f"{prefill}), launches {got}")
         out[label] = got
     return out
 
@@ -3716,7 +4027,8 @@ def main() -> int:
     for c in caches:
         assert_on_device(c, "cuda")
     want = dict(no_launches(), flash=asr.cfg.decoder.n_layers * len(REQUESTS),
-                mega=sum(mt - 1 for _, mt in REQUESTS))
+                mega=sum(mt - 1 for _, mt in REQUESTS),
+                **prefill_want(len(REQUESTS), True, asr.cfg.decoder.n_layers))
     log(f"launches on the int4 path: {launches} (want {want})")
     if launches != want:
         raise AssertionError(f"launch counts {launches}")
@@ -3747,6 +4059,7 @@ def main() -> int:
 
     # the JAX package's default weight mode: the int8 pack
     auto, auto_step, auto_stages = phase_auto()
+    prefill_fused = phase_prefill_fused(auto)
     batch_modes = phase_batch_modes(q8_asr, auto)
     del q8_asr
     m8 = phase_mega(auto.cfg, auto.params["decoder"], "int8", steps=16, floor_steps=0)
@@ -3899,6 +4212,15 @@ def main() -> int:
             total["q8_mlp"], max(v[0] for k, v in q8k.items() if k[0].startswith("K7")),
             *q8k[("K7 q8_mlp", 1)][1:], by_rows=by_rows("K7 q8_mlp"),
             launches_per_sampled_request=sampling["q8_0"]["launches"]["q8_mlp"]),
+        *(row(name, "prefill_fused.cu", "none: XLA fuses these ops in the JAX package",
+              launches_of(name.split()[0]),
+              max(v[0] for v in prefill_fused["passes"][name].values()),
+              *prefill_fused["passes"][name]["B1xP1280"][1:],
+              by_shape={s: dict(zip(("codes_moved", "ms", "plain_ms", "bound_ms",
+                                     "bound_by"), v))
+                        for s, v in prefill_fused["passes"][name].items()},
+              prefill=prefill_fused["prefill"])
+          for name in prefill_fused["passes"]),
         row("probe (K8, y = 2 x)", "probe.cu", "qwen3_asr_tpu/ops/support.py:35",
             k8_launches, *k8, "bytes", lib=k8[2]),
         row("stream_read (K9 read)", "microbench_stream.cu",

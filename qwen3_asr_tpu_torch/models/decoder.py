@@ -18,8 +18,13 @@ bf16 matrices, Q8_0 leaves or int8pc leaves:
   above 256 rows those wrappers run the reference's dequantize-and-dot;
 - dense: RMSNorm then plain matrix products, as the reference leaves them
   to XLA;
-- int8pc: the W8A8 products of `pc_matmul` (the prefill and the block
-  decode: the decode pack's steps run through `ops/megakernel.py`).
+- int8pc: the W8A8 products of `pc_matmul` (the block decode; the decode
+  pack's steps run through `ops/megakernel.py`). The prefill of bf16 rows
+  on int8pc leaves runs `_prefill_fused`: `torch._int_mm` on int8 codes and
+  the four fused passes of `ops/prefill_fused.py` around it (norm and row
+  quantization, dequantization with QK-norm and RoPE, residual, SwiGLU),
+  about ten launches a layer and no host wait, at the eager chain's
+  rounding points.
 Attention in the prefill is the flash kernel (`ops/flash_attention.py`),
 causal with the prompt's valid length; in the decode step it is
 `ops/decode_attention.py` (K4; B rows in one launch in the batched step);
@@ -37,6 +42,8 @@ apart, which the batched decode-attention kernel reads as they lie.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -48,7 +55,15 @@ from qwen3_asr_tpu_torch.ops.decode_attention import (
     store_kv_rows,
 )
 from qwen3_asr_tpu_torch.ops.flash_attention import flash_attention_batch
+from qwen3_asr_tpu_torch.ops.prefill_fused import (
+    codes_buffer,
+    norm_quant_rows,
+    qkv_epilogue,
+    residual_norm_quant,
+    swiglu_quant,
+)
 from qwen3_asr_tpu_torch.ops.q8_matmul import (
+    int8_matmul,
     is_pc_leaf,
     is_quant_leaf,
     matmul_any,
@@ -63,12 +78,19 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor | None, eps: float) -> torch.Tenso
     return y if w is None else y * w
 
 
-def rope_tables(positions: torch.Tensor, d: int, theta: float
+@functools.cache
+def rope_inv_freq(d: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The NEOX rotary embedding's frequencies 1 / theta^(2i / d), f32 [d / 2]
+    on `device`, computed in float64 on the host and copied once per (d,
+    theta, device): no later call waits on a host copy."""
+    inv = 1.0 / (theta ** (np.arange(0, d // 2, dtype=np.float64) * 2.0 / d))
+    return torch.from_numpy(inv.astype(np.float32)).to(device)
+
+
+def rope_tables(positions: torch.Tensor, inv_freq: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The NEOX rotary embedding's cos and sin [T, 1, d/2] f32 at positions."""
-    inv_freq = torch.from_numpy(
-        (1.0 / (theta ** (np.arange(0, d // 2, dtype=np.float64) * 2.0 / d)))
-        .astype(np.float32)).to(positions.device)
+    """The NEOX rotary embedding's cos and sin [T, 1, d/2] f32 at positions,
+    for the frequencies inv_freq [d/2] of `rope_inv_freq`."""
     ang = positions.float()[:, None] * inv_freq[None, :]
     return torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]
 
@@ -84,7 +106,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 def rope_neox(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """NEOX rotary embedding on [T, n_heads, head_dim]: pairs (x[i], x[i+d/2])."""
-    return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
+    inv_freq = rope_inv_freq(x.shape[-1], float(theta), positions.device)
+    return apply_rope(x, *rope_tables(positions, inv_freq))
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -159,20 +182,35 @@ def _mlp(layers: dict, l: int, h1: torch.Tensor, cfg: DecoderConfig) -> torch.Te
     return h1 + matmul_any(silu(g_u[:, :ffn]) * g_u[:, ffn:], down)
 
 
+_PC_MATRICES = ("wqkv", "wo", "w_gate_up", "w_down")
+
+
+def _fusable(layers: dict, h: torch.Tensor) -> bool:
+    """Whether `_prefill_layers` takes the fused chain: bf16 rows on int8pc
+    leaves (the fused passes' kernels take bf16)."""
+    return h.dtype == torch.bfloat16 and all(is_pc_leaf(layers[n]) for n in _PC_MATRICES)
+
+
 def _prefill_layers(dec_params: dict, cfg: DecoderConfig, h: torch.Tensor,
                     valid: torch.Tensor, on_rows) -> torch.Tensor:
     """The prefill's layer stack on prompt blocks h [B, P, hidden]: every
     matmul runs once on the flattened [B * P] rows, attention is the flash
     kernel, causal, keys at index >= valid[b] masked. Calls on_rows(l, k, v)
     with each layer's fresh rows [B, P, n_kv, head_dim] in h's dtype;
-    returns the hidden states [B, P, hidden]."""
+    returns the hidden states [B, P, hidden]. A `_fusable` stack takes the
+    fused chain (`_prefill_fused`), counted in `.fused_layers`; every other
+    runs op by op, counted in `.eager_layers`."""
+    layers = dec_params["layers"]
+    if _fusable(layers, h):
+        _prefill_layers.fused_layers += cfg.n_layers
+        return _prefill_fused(layers, cfg, h, valid, on_rows)
+    _prefill_layers.eager_layers += cfg.n_layers
     B, P, H = h.shape
     NH, NKV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dq, dkv = NH * D, NKV * D
     scale = 1.0 / float(np.sqrt(D))
     positions = torch.arange(P, device=h.device, dtype=torch.int32)
     eps = cfg.rms_norm_eps
-    layers = dec_params["layers"]
     x = h.reshape(B * P, H)
     for l in range(cfg.n_layers):
         qkv = _qkv(layers, l, x, eps).reshape(B, P, -1)
@@ -184,6 +222,44 @@ def _prefill_layers(dec_params: dict, cfg: DecoderConfig, h: torch.Tensor,
         attn = flash_attention_batch(q, k, v, valid, causal=True, scale=scale)
         h1 = x + matmul_any(attn.reshape(B * P, dq), _leaf(layers, "wo", l))
         x = _mlp(layers, l, h1, cfg)
+        on_rows(l, k, v)
+    return x.reshape(B, P, H)
+
+
+_prefill_layers.fused_layers = 0
+_prefill_layers.eager_layers = 0
+
+
+def _prefill_fused(layers: dict, cfg: DecoderConfig, h: torch.Tensor,
+                   valid: torch.Tensor, on_rows) -> torch.Tensor:
+    """`_prefill_layers` on int8pc leaves and bf16 rows as a fixed chain a
+    layer (`ops/prefill_fused.py`): the int8 products on codes that the
+    pass before each one leaves in a padded buffer, and four fused passes
+    around them, the same ops at the same rounding points as the eager
+    chain; nothing waits on the host."""
+    B, P, H = h.shape
+    N, L = B * P, cfg.n_layers
+    NH, NKV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    F, eps, dev = cfg.intermediate_size, cfg.rms_norm_eps, h.device
+    scale = 1.0 / float(np.sqrt(D))
+    xq, aq, fq = (codes_buffer(N, n, dev) for n in (H, NH * D, F))
+    sx, asx, fsx = (torch.empty(N, 1, dtype=torch.float32, device=dev) for _ in range(3))
+    x = h.reshape(N, H)
+    inv_freq = rope_inv_freq(D, float(cfg.rope_theta), dev)
+    norm_quant_rows(x, layers["attn_norm"][0], eps, xq, sx)
+    for l in range(L):
+        wqkv, wo, gu, down = (_leaf(layers, n, l) for n in _PC_MATRICES)
+        q, k, v = qkv_epilogue(int8_matmul(xq, wqkv["i8pc:q"]), sx, wqkv["i8pc:s"],
+                               layers["q_norm"][l], layers["k_norm"][l], P, NH, NKV, D,
+                               eps, inv_freq)
+        attn = flash_attention_batch(q, k, v, valid, causal=True, scale=scale)
+        norm_quant_rows(attn.reshape(N, NH * D), None, eps, aq, asx)
+        h1 = residual_norm_quant(x, int8_matmul(aq, wo["i8pc:q"]), asx, wo["i8pc:s"],
+                                 layers["ffn_norm"][l], eps, xq, sx)
+        swiglu_quant(int8_matmul(xq, gu["i8pc:q"]), sx, gu["i8pc:s"], F, fq, fsx)
+        x = residual_norm_quant(h1, int8_matmul(fq, down["i8pc:q"]), fsx, down["i8pc:s"],
+                                layers["attn_norm"][l + 1] if l + 1 < L else None, eps,
+                                xq, sx)
         on_rows(l, k, v)
     return x.reshape(B, P, H)
 
@@ -336,7 +412,7 @@ def _block_decode(dec_params: dict, cfg: DecoderConfig, h: torch.Tensor,
     rows = torch.arange(T, device=dev)[:, None]
     cols = torch.arange(T, device=dev)[None, :]
     block_mask = (cols <= rows) & ((offset + cols < valid) | (cols == rows))
-    cos, sin = rope_tables(positions, D, cfg.rope_theta)
+    cos, sin = rope_tables(positions, rope_inv_freq(D, float(cfg.rope_theta), dev))
     n = _cache_rows_read(offset, valid)
     # the rows every layer reads, dequantized once (the block writes rows >= n)
     kc, vc = cache["k"][:, :n], cache["v"][:, :n]

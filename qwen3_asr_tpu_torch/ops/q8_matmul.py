@@ -352,12 +352,18 @@ def quantize_rows(xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return xq, sx
 
 
+def padded_rows(T: int) -> int:
+    """The row count `torch._int_mm` takes for T rows: more than 16, a
+    multiple of 8."""
+    return max(32, -(-T // 8) * 8)
+
+
 def int8_matmul(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Exact int8 [T, in] x int8 [in, out] -> int32 [T, out]."""
     if xq.device.type == "cuda":
         # _int_mm takes more than 16 rows and k, n multiples of 8
         T = xq.shape[0]
-        Tp = max(32, -(-T // 8) * 8)
+        Tp = padded_rows(T)
         if Tp != T:
             xq = torch.nn.functional.pad(xq, (0, 0, 0, Tp - T))
         return torch._int_mm(xq, q)[:T]

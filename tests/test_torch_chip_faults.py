@@ -31,7 +31,9 @@ at B rows storing every row at row 0's position, its attention output
 alone with q roped one position late or the newest 64 cache rows skipped,
 K4 built with its store one row early or late, its int8 store's scale from
 a divide by 127, its weighted V's chunks met in arrival order or one of
-them skipped)
+them skipped, the int8pc prefill's fused passes built with one of the
+eager chain's bf16 roundings skipped: RMSNorm's of x * r, the QK-norm's of
+y * r, or the residual's sum before its norm)
 and asserts that the phase of
 `chip_smoke.py` that guards against it raises. The phases print their readings before they raise; run
 with `-s` to see them beside the bounds:
@@ -853,3 +855,31 @@ def test_k4_kernel_faults_caught(q8_asr, tmp_path, fault):
         if phase == "decode_attention" else (lambda: cs.phase_decode_attention_batch(dcfg))
     with mutated_kernels(tmp_path, "decode_attention.cu", old, new):
         caught(f"K4 {fault}", run)
+
+
+PF_FAULTS = {
+    # RMSNorm's product with w taken on the unrounded x * r (both normed passes)
+    "RMSNorm's rounding of x * r skipped": (
+        "v[k][i] = bf16_round(__fmul_rn(bf16_round(__fmul_rn(v[k][i], r)), wk[i]));",
+        "v[k][i] = bf16_round(__fmul_rn(__fmul_rn(v[k][i], r), wk[i]));"),
+    # the first half of each q / k head normed with w on the unrounded y * r
+    "the QK-norm's rounding of y * r skipped": (
+        "const float z1 = bf16_round(__fmul_rn(bf16_round(__fmul_rn(y1[t], r)), bf2f(w[j])));",
+        "const float z1 = bf16_round(__fmul_rn(__fmul_rn(y1[t], r), bf2f(w[j])));"),
+    # the residual's sum normed before its bf16 rounding (its store still rounds)
+    "the residual's rounding before its norm skipped": (
+        "r.v[k][i] = bf16_round(__fadd_rn(r.v[k][i], deq(a[i], sxr, sc[i])));",
+        "r.v[k][i] = __fadd_rn(r.v[k][i], deq(a[i], sxr, sc[i]));"),
+}
+
+
+@pytest.mark.parametrize("fault", list(PF_FAULTS))
+def test_prefill_pass_rounding_faults_caught(auto_asr, tmp_path, fault):
+    """The int8pc prefill's fused passes built with one of the eager chain's
+    bf16 roundings skipped, each in a pass whose codes (q / k values) the
+    sum order alone may move: the passes' phase raises, its share of moved
+    codes or values beyond PF_MOVED."""
+    cs, asr = auto_asr
+    old, new = PF_FAULTS[fault]
+    with mutated_kernels(tmp_path, "prefill_fused.cu", old, new):
+        caught(f"fused prefill pass: {fault}", lambda: cs.phase_prefill_passes(asr))

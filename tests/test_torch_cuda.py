@@ -964,3 +964,198 @@ def test_spec_on_card_equals_int8pc_greedy(cuda_kernels, k):
     elif diff:
         j = diff[0]
         assert abs(float(logits[j][ref[j]] - logits[j][got[j]])) <= NEAR_TIE_TOL
+
+
+def _wide_int8pc(n_layers: int, lm_head: bool = False):
+    """The 0.6B decoder's widths at n_layers, random weights on the card,
+    int8pc leaves (and the int8 lm head with lm_head), bf16."""
+    import dataclasses
+
+    from qwen3_asr_tpu_torch.config import ASRModelConfig
+
+    cfg = dataclasses.replace(ASRModelConfig().decoder, n_layers=n_layers)
+    dec = tparams.init_decoder_params(cfg, torch.Generator(device="cuda").manual_seed(5),
+                                      torch.bfloat16, "cuda")
+    dec = tparams.quantize_decoder_params(dec, "int8pc", lm_head=lm_head)
+    return cfg, tparams.fuse_decoder_params(dec)
+
+
+def _prompt_rows(cfg, dec, B, P, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tok = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device="cuda")
+    valid = torch.tensor([max(1, P - 9 * b) for b in range(B)], dtype=torch.int32,
+                         device="cuda")
+    return dec["token_embd"][tok], valid
+
+
+def _bf16_moved(a, b) -> float:
+    """The share of bf16 values of a that differ from b's."""
+    return float((a.contiguous().view(torch.int16) != b.contiguous().view(torch.int16))
+                 .float().mean())
+
+
+# A normed pass's kernel sums its f32 squares in another order than torch's
+# reduction, which can round a bf16 value the other way: at most this share
+# of its codes (of q's and k's values) may move, by one step. An H100 reads
+# at most 1.1e-5 at the 0.6B widths; a kernel with one of the chain's bf16
+# roundings skipped moves 4e-2 or more (tests/test_torch_chip_faults.py).
+PF_MOVED = 1e-4
+# A layer alone on the eager input: a moved code moves a whole row of its
+# product, so the layer's k rows move more (an H100 reads 1.1e-3).
+PF_LAYER_K_MOVED = 5e-3
+
+
+def _norm_weights(lay, g) -> dict:
+    """Layer 0's norm weights as 1 + N(0, 0.25) in bf16: the random model's
+    are ones, under which a dropped rounding of x * r before * w shows no
+    difference."""
+    return {n: (1 + 0.5 * torch.randn(lay[n][0].shape, generator=g, device="cuda"))
+            .to(torch.bfloat16) for n in ("attn_norm", "ffn_norm", "q_norm", "k_norm")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,P", [(1, 80), (1, 1280), (3, 100)], ids=["T80", "T1280", "B3xP100"])
+def test_prefill_fused_kernels_match_twins(cuda_kernels, B, P):
+    """The four fused passes of the int8pc prefill against their twins
+    (torch's ops on the card) on layer 0 of the 0.6B widths: the passes
+    without a norm (the attention output's codes, the SwiGLU's codes, every
+    residual, v) bit for bit; those with one (the layer's RMSNorm codes, q
+    and k after their per-head norm, with norm weights other than ones) at
+    most PF_MOVED of codes / values one step off, the only freedom being the
+    order of the f32 sum of squares. One launch a call; padding rows of the
+    codes stay zero."""
+    from qwen3_asr_tpu_torch.models import decoder as dmod
+    from qwen3_asr_tpu_torch.ops import prefill_fused as pf
+    from qwen3_asr_tpu_torch.ops.q8_matmul import int8_matmul
+
+    cfg, dec = _wide_int8pc(1)
+    lay, eps = dec["layers"], cfg.rms_norm_eps
+    NH, NKV, D, F, H = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.intermediate_size,
+                        cfg.hidden_size)
+    h, valid = _prompt_rows(cfg, dec, B, P, P + B)
+    N = B * P
+    x = h.reshape(N, H)
+    w = {n: dmod._leaf(lay, n, 0) for n in dmod._PC_MATRICES}
+    nw = _norm_weights(lay, torch.Generator(device="cuda").manual_seed(P))
+    inv_freq = dmod.rope_inv_freq(D, cfg.rope_theta, x.device)
+
+    def bufs(n):
+        return pf.codes_buffer(N, n, "cuda"), torch.empty(N, 1, device="cuda")
+
+    def both(name, call, n, normed):
+        fn = getattr(pf, name)
+        got, want = bufs(n), bufs(n)
+        before = fn.launches
+        rg = call(fn, *got)
+        assert fn.launches == before + 1
+        rw = call(getattr(pf, name + "_ref"), *want)
+        if rg is not None:
+            assert torch.equal(rg, rw), name
+        assert not got[0][N:].any()
+        d = (got[0][:N].int() - want[0][:N].int()).abs()
+        if normed:
+            assert float((d != 0).float().mean()) <= PF_MOVED and int(d.max()) <= 1, name
+            torch.testing.assert_close(got[1], want[1], rtol=1e-2, atol=0)
+        else:
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), name
+        return want
+
+    xq, sx = both("norm_quant_rows", lambda f, c, s: f(x, nw["attn_norm"], eps, c, s),
+                  H, True)
+    args = (int8_matmul(xq, w["wqkv"]["i8pc:q"]), sx, w["wqkv"]["i8pc:s"], nw["q_norm"],
+            nw["k_norm"], P, NH, NKV, D, eps, inv_freq)
+    before = pf.qkv_epilogue.launches
+    q, k, v = pf.qkv_epilogue(*args)
+    assert pf.qkv_epilogue.launches == before + 1
+    q_ref, k_ref, v_ref = pf.qkv_epilogue_ref(*args)
+    assert torch.equal(v, v_ref)
+    for got, want in ((q, q_ref), (k, k_ref)):
+        # a normed value one bf16 step off, then rotated: within a step of
+        # the head's largest values
+        assert _bf16_moved(got, want) <= PF_MOVED
+        assert float((got.float() - want.float()).abs().max()) <= \
+            2 ** -6 * float(want.float().abs().max())
+    attn = tfa.flash_attention_batch(q_ref, k_ref, v_ref, valid, causal=True,
+                                     scale=1.0 / float(np.sqrt(D))).reshape(N, NH * D)
+    aq, asx = both("norm_quant_rows", lambda f, c, s: f(attn, None, eps, c, s), NH * D, False)
+    acc = int8_matmul(aq, w["wo"]["i8pc:q"])
+    fq_in = both("residual_norm_quant", lambda f, c, s: f(
+        x, acc, asx, w["wo"]["i8pc:s"], nw["ffn_norm"], eps, c, s), H, True)
+    acc_gu = int8_matmul(fq_in[0], w["w_gate_up"]["i8pc:q"])
+    both("swiglu_quant", lambda f, c, s: f(acc_gu, fq_in[1], w["w_gate_up"]["i8pc:s"], F,
+                                           c, s), F, False)
+    # the last layer's pass: the residual alone, its codes untouched
+    got, want = bufs(H), bufs(H)
+    assert torch.equal(pf.residual_norm_quant(x, acc, asx, w["wo"]["i8pc:s"], None, eps, *got),
+                       pf.residual_norm_quant_ref(x, acc, asx, w["wo"]["i8pc:s"], None, eps,
+                                                  *want))
+    assert not got[0].any()
+
+
+@pytest.mark.cuda
+def test_prefill_fused_stack_matches_eager(cuda_kernels, monkeypatch):
+    """`_prefill_layers` at the 0.6B widths and depth, fused against the
+    eager chain from one 730-row prompt: each layer alone on the eager
+    input within rel L2 1e-2 (at most PF_LAYER_K_MOVED of its k rows'
+    values moved), the whole stack's first greedy token equal, 28 fused
+    layers counted; under set_sync_debug_mode("error") the fused stack
+    makes no host-device sync."""
+    import dataclasses
+
+    from qwen3_asr_tpu_torch.models import decoder as dmod
+
+    cfg, dec = _wide_int8pc(28, lm_head=True)
+    h, valid = _prompt_rows(cfg, dec, 1, 730, 1)
+    P = h.shape[1]
+    valid[0] = P
+
+    def eager(fn):
+        with monkeypatch.context() as m:
+            m.setattr(dmod, "_fusable", lambda *a: False)
+            return fn()
+
+    cfg1 = dataclasses.replace(cfg, n_layers=1)
+    x = h
+    for l in range(cfg.n_layers):
+        d1 = dict(dec, layers={n: ({a: b[l:l + 1] for a, b in t.items()}
+                                   if isinstance(t, dict) else t[l:l + 1])
+                               for n, t in dec["layers"].items()})
+        rows, erows = [], []
+        got = dmod._prefill_layers(d1, cfg1, x, valid, lambda _, k, v: rows.append(k))
+        ref = eager(lambda: dmod._prefill_layers(d1, cfg1, x, valid,
+                                                 lambda _, k, v: erows.append(k)))
+        rel = float((got.float() - ref.float()).norm() / ref.float().norm())
+        assert rel <= 1e-2, (l, rel)
+        assert _bf16_moved(rows[0], erows[0]) <= PF_LAYER_K_MOVED, l
+        x = ref
+
+    fused0 = dmod._prefill_layers.fused_layers
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hf = dmod._prefill_layers(dec, cfg, h, valid, lambda *a: None)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert dmod._prefill_layers.fused_layers == fused0 + cfg.n_layers
+    he = eager(lambda: dmod._prefill_layers(dec, cfg, h, valid, lambda *a: None))
+    tf = int(torch.argmax(dmod.lm_logits(dec, cfg, hf[0, P - 1])))
+    te = int(torch.argmax(dmod.lm_logits(dec, cfg, he[0, P - 1])))
+    assert tf == te
+
+
+@pytest.mark.cuda
+def test_cli_request_prefills_fused(cuda_kernels):
+    """The CLI default (`Qwen3ASR(quantize="auto")`, the 0.6B config) runs
+    its prefill as 28 fused layers and no eager one."""
+    from qwen3_asr_tpu_torch.config import ASRModelConfig
+    from qwen3_asr_tpu_torch.models import decoder as dmod
+    from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams
+
+    asr = Qwen3ASR(quantize="auto", device="cuda")
+    asr.load_random(ASRModelConfig(), seed=0)
+    pcm = (np.sin(np.arange(5 * 16000) / 16000 * 2 * np.pi * 440) * 8000).astype(np.int16)
+    counts = dmod._prefill_layers.fused_layers, dmod._prefill_layers.eager_layers
+    r = asr.transcribe(pcm, TranscribeParams(max_tokens=4, fused=True, print_timing=False))
+    assert r.success
+    assert (dmod._prefill_layers.fused_layers - counts[0],
+            dmod._prefill_layers.eager_layers - counts[1]) == (28, 0)
