@@ -2,9 +2,10 @@
 
 Once the window has closed and the program is freed, a sample of the
 window's finished requests, drawn from the seed and always holding the
-longest, is judged by the plain reference (`asrbench/reference/`), which
-makes the weights again from the seed and works out the log-mel, the
-encoder rows, the prompt and the logits itself:
+longest, is judged by the plain reference of the configuration's family
+(`family.reference`, `asrbench/families/`), which makes the weights again
+from the seed and works out the log-mel, the encoder rows and the logits
+itself, over the prompt the family gives (`family.prompt`):
 
 - a transcription: the prompt and the served tokens in one causal pass;
   each served token's gap is the reference's best logit at its position
@@ -23,19 +24,18 @@ The numbers compared, each against its limit:
 
 The control (`control` in the mix): "program" runs the program's own
 lower-precision path and is judged as above; "reference" puts the
-reference in the program's place, its decoder at int4: each judged
-position's output is then the int4 reference's argmax.
+family's reference in the program's place at its control precision
+(int4 decoder matrices): each judged position's output is then that
+reference's argmax.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from asrbench import weights
-from asrbench.reference import mel as rmel
-from asrbench.reference import model as rmodel
-from asrbench.reference import prompt as rprompt
 from asrbench.traffic import Plan, Request
 
 SAMPLE_STREAM = 7
@@ -57,45 +57,48 @@ def _gaps(logits: torch.Tensor, chosen: torch.Tensor) -> torch.Tensor:
     return logits.max(dim=-1).values - logits.gather(1, chosen[:, None])[:, 0]
 
 
-def judge(cfg: dict, kind: str, plan: Plan, judged: list[Request], seed: int, device,
-          reference_control: bool = False) -> dict:
+@dataclasses.dataclass
+class Job:
+    """One judged request as the reference runs it: its PCM, the tokens of
+    one causal pass with the audio rows spliced in from `audio_offset`, and
+    the rows whose logits judge the program's output."""
+
+    pcm: np.ndarray
+    tokens: list[int]
+    audio_offset: int
+    rows: slice | list[int]
+
+
+def judge(family, cfg: dict, kind: str, plan: Plan, judged: list[Request], seed: int,
+          device, reference_control: bool = False) -> dict:
     """-> {"max_gap": the widest gap, "mean_gap": the mean gap over every
     judged position, "malformed": count, "positions": positions judged}
     over `judged`."""
-    tree = rmodel.f32(weights.make(cfg, seed, device))
-    enc, dec = tree["encoder"], tree["decoder"]
-    low = rmodel.quantize_int4(dec) if reference_control else None
-    worst, total, malformed, positions = 0.0, 0.0, 0, 0
+    jobs, picked, malformed = [], [], 0
     for req in judged:
-        mel = rmel.log_mel(plan.pcm(req), device)
-        audio = rmodel.encode(enc, cfg, mel)
+        toks, off = family.prompt(cfg, kind, req)
         out = list(req.output)
         if kind == "asr":
-            toks, off = rprompt.asr_prompt(cfg, audio.shape[0])
             if len(out) != req.max_tokens:
                 malformed += 1
                 continue
             seq = toks + out[:-1]
-            rows = slice(len(toks) - 1, len(seq))
-            logits = rmodel.lm_logits(dec, rmodel.decode(dec, cfg, seq, audio, off)[rows])
-            if low is not None:
-                lo = rmodel.lm_logits(low, rmodel.decode(low, cfg, seq, audio, off)[rows])
-                chosen = lo.argmax(dim=-1)
-            else:
-                chosen = torch.tensor(out, dtype=torch.long, device=device)
+            jobs.append(Job(plan.pcm(req), seq, off, slice(len(toks) - 1, len(seq))))
+            picked.append(out)
         else:
-            words = rprompt.align_words(req.n_words)
-            toks, off = rprompt.align_prompt(cfg, audio.shape[0], words)
             if len(out) != len(toks):
                 malformed += 1
                 continue
             ts = [i for i, t in enumerate(toks) if t == cfg["tokens"]["timestamp"]]
-            logits = rmodel.classify_logits(dec, rmodel.decode(dec, cfg, toks, audio, off)[ts])
-            if low is not None:
-                lo = rmodel.classify_logits(low, rmodel.decode(low, cfg, toks, audio, off)[ts])
-                chosen = lo.argmax(dim=-1)
-            else:
-                chosen = torch.tensor([out[i] for i in ts], dtype=torch.long, device=device)
+            jobs.append(Job(plan.pcm(req), toks, off, ts))
+            picked.append([out[i] for i in ts])
+    worst, total, positions = 0.0, 0.0, 0
+    refs = family.reference(cfg, seed, device, jobs, control=reference_control)
+    for ids, (logits, low) in zip(picked, refs):
+        if low is not None:
+            chosen = low.argmax(dim=-1)
+        else:
+            chosen = torch.tensor(ids, dtype=torch.long, device=device)
         if int(chosen.min()) < 0 or int(chosen.max()) >= logits.shape[1]:
             malformed += 1
             continue

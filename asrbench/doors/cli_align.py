@@ -7,15 +7,14 @@ has no such method, and a call raises where `words` did not run."""
 
 from __future__ import annotations
 
-from asrbench import weights
-from asrbench.doors import byte_vocab, port_config
 from asrbench.reference.prompt import align_words
 
 kind = "align"
 
 
 class Door:
-    def __init__(self, cfg: dict, mix: dict, seed: int, device, quantize: str | None = None):
+    def __init__(self, family, cfg: dict, mix: dict, seed: int, device,
+                 quantize: str | None = None):
         from qwen3_asr_tpu_torch.pipeline.aligner import ForcedAligner
 
         if not callable(getattr(ForcedAligner, "words", None)):
@@ -30,8 +29,7 @@ class Door:
 
         args = mix["door_args"]
         self.fa = Recording(quantize=quantize or args["quantize"], device=device)
-        self.fa._finish_load(port_config(cfg), weights.make(cfg, seed, device),
-                             byte_vocab(cfg["vocab_size"]), [])
+        family.load(self.fa, cfg, seed, device)
 
     def call(self, req, pcm):
         self.fa.classes = None

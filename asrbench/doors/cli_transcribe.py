@@ -6,21 +6,19 @@ from __future__ import annotations
 
 import torch
 
-from asrbench import weights
-from asrbench.doors import byte_vocab, port_config
 
 kind = "asr"
 
 
 class Door:
-    def __init__(self, cfg: dict, mix: dict, seed: int, device, quantize: str | None = None):
+    def __init__(self, family, cfg: dict, mix: dict, seed: int, device,
+                 quantize: str | None = None):
         from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams
 
         args = mix["door_args"]
         self.asr = Qwen3ASR(quantize=quantize or args["quantize"], kv_cache=args["kv_cache"],
                             device=device)
-        self.asr._finish_load(port_config(cfg), weights.make(cfg, seed, device),
-                              byte_vocab(cfg["vocab_size"]), [])
+        family.load(self.asr, cfg, seed, device)
         self._params = TranscribeParams
 
     def call(self, req, pcm) -> list[int]:

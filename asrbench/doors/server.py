@@ -14,14 +14,13 @@ from __future__ import annotations
 
 import threading
 
-from asrbench import weights
-from asrbench.doors import byte_vocab, port_config
 
 kind = "asr"
 
 
 class Door:
-    def __init__(self, cfg: dict, mix: dict, seed: int, device, quantize: str | None = None):
+    def __init__(self, family, cfg: dict, mix: dict, seed: int, device,
+                 quantize: str | None = None):
         from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams
         from qwen3_asr_tpu_torch.serve import ASRServer
 
@@ -43,8 +42,7 @@ class Door:
         self._lock = threading.Lock()
         self.asr = Qwen3ASR(quantize=quantize or args["quantize"], kv_cache=args["kv_cache"],
                             device=device)
-        self.asr._finish_load(port_config(cfg), weights.make(cfg, seed, device),
-                              byte_vocab(cfg["vocab_size"]), [])
+        family.load(self.asr, cfg, seed, device)
         params = TranscribeParams(max_tokens=mix["max_tokens"], mel_bucket=args["mel_bucket"],
                                   print_timing=False)
         self.server = Recording(self.asr, params, max_batch=args["max_batch"],

@@ -1,7 +1,8 @@
 """What the per-layer readers share: the model's share of the chip's peak
 over the traced sub-window, a decode kernel's share of its roofline, and
-the device's idle share. Each returns None where its trace holds nothing
-to read."""
+the device's idle share. The operations and bytes come from the run's
+family (`request_ops`, `decode_positions`, `step_work`), the peaks from
+`work.py`. Each returns None where its trace holds nothing to read."""
 
 from __future__ import annotations
 
@@ -13,12 +14,6 @@ K3_OWN = {"prod_batch"}                  # K3's products
 DECODE_SHARED = {"norm_quant", "attn_step", "argmax_partial", "argmax_final"}
 
 
-def request_ops(run, req) -> float:
-    if run.kind == "asr":
-        return work.asr_request_ops(run.config, req.n_samples, req.max_tokens)
-    return work.align_request_ops(run.config, req.n_samples, req.n_words)
-
-
 def mfu(run) -> float | None:
     """The operations of the traced requests over the traced window's
     seconds at the bf16 peak, in %."""
@@ -26,12 +21,8 @@ def mfu(run) -> float | None:
     done = [r for r in t.requests if r.ok] if t else []
     if not done or t.window_s <= 0:
         return None
-    ops = sum(request_ops(run, r) for r in done)
+    ops = sum(run.family.request_ops(run.config, run.kind, r) for r in done)
     return 100.0 * ops / (t.window_s * work.BF16_FLOPS)
-
-
-def _positions(run, req) -> list[int]:
-    return work.asr_request(run.config, req.n_samples, req.max_tokens)["positions"]
 
 
 def decode_roofline(run, kernel: str) -> float | None:
@@ -55,9 +46,10 @@ def decode_roofline(run, kernel: str) -> float | None:
     for rows in groups:
         if not rows or (len(rows) == 1) != (kernel == "k1"):
             continue
-        pos = [_positions(run, r) for r in rows]
+        pos = [run.family.decode_positions(run.config, r) for r in rows]
         for i in range(min(len(p) for p in pos)):
-            least += work.step_bound(run.config, [p[i] for p in pos], run.kv)
+            step = run.family.step_work(run.config, [p[i] for p in pos], run.kv)
+            least += work.bound(*step, work.INT8_OPS)
     if least == 0.0:
         return None
     return 100.0 * least / covered(spans)

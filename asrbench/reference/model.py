@@ -3,7 +3,10 @@
 Weights come in the benchmark's layout (`asrbench/weights.py`): [in, out]
 matrices, OIHW convolutions, per-layer matrices stacked on a leading axis.
 `quantize_int4` gives the control its weights: the decoder's matrices
-rounded per output channel to int4.
+rounded per output channel to int4 (`int4`, a matrix at a time). The
+decoder's pieces (`embed`, `attention`, `dense_ffn`, `decoder_layer`,
+`output_norm`) take one layer's weights each, for a family whose
+reference runs layer by layer.
 """
 
 from __future__ import annotations
@@ -39,15 +42,19 @@ def f32(tree):
     return tree.float()
 
 
+def int4(w: torch.Tensor) -> torch.Tensor:
+    """A matrix [..., in, out] rounded to int4 per output channel
+    (symmetric, codes -7..7, scale max|w| / 7): the precision below the
+    int8 the deployment runs."""
+    s = w.abs().amax(dim=-2, keepdim=True).clamp_min(1e-12) / 7.0
+    return torch.clamp(torch.round(w / s), -7, 7) * s
+
+
 def quantize_int4(dec: dict) -> dict:
-    """The decoder with each layer matrix rounded to int4 per output
-    channel (symmetric, codes -7..7, scale max|w| / 7): the precision
-    below the int8 the deployment runs."""
+    """The decoder with each layer matrix rounded by `int4`."""
     layers = dict(dec["layers"])
     for key in DECODER_MATRICES:
-        w = layers[key]
-        s = w.abs().amax(dim=-2, keepdim=True).clamp_min(1e-12) / 7.0
-        layers[key] = torch.clamp(torch.round(w / s), -7, 7) * s
+        layers[key] = int4(layers[key])
     return dict(dec, layers=layers)
 
 
@@ -123,35 +130,69 @@ def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+def embed(dec: dict, tokens: list[int], audio: torch.Tensor, audio_offset: int) -> torch.Tensor:
+    """The token embedding rows of `tokens` with the audio rows spliced over
+    rows [audio_offset, audio_offset + len(audio)) -> [T, hidden]. The
+    prompt's run of audio placeholders from `audio_offset` has to be as
+    long as the audio."""
+    pad = tokens[audio_offset]
+    run = next((i for i, t in enumerate(tokens[audio_offset:]) if t != pad),
+               len(tokens) - audio_offset)
+    if run != audio.shape[0]:
+        raise ValueError(f"the prompt holds {run} audio rows from {audio_offset}, "
+                         f"the tower gave {audio.shape[0]}")
+    ids = torch.tensor(tokens, dtype=torch.long, device=audio.device)
+    h = dec["token_embd"][ids].clone()
+    h[audio_offset:audio_offset + audio.shape[0]] = audio
+    return h
+
+
+def attention(lw: dict, t: dict, h: torch.Tensor) -> torch.Tensor:
+    """One layer's causal self-attention block over h [T, hidden] at
+    positions 0..T-1 (RMSNorm, QK-norm, RoPE, grouped KV heads), with its
+    residual; `lw` is the layer's weights."""
+    T = h.shape[0]
+    nh, nkv, hd, eps = t["attention_heads"], t["num_key_value_heads"], t["head_dim"], t["rms_norm_eps"]
+    causal = torch.ones(T, T, dtype=torch.bool, device=h.device).tril()
+    y = _rms_norm(h, lw["attn_norm"], eps)
+    q = _rms_norm((y @ lw["wq"]).reshape(T, nh, hd), lw["q_norm"], eps)
+    k = _rms_norm((y @ lw["wk"]).reshape(T, nkv, hd), lw["k_norm"], eps)
+    v = (y @ lw["wv"]).reshape(T, nkv, hd)
+    q, k = _rope(q, t["rope_theta"]), _rope(k, t["rope_theta"])
+    k = k.repeat_interleave(nh // nkv, dim=1)
+    v = v.repeat_interleave(nh // nkv, dim=1)
+    s = torch.einsum("thd,shd->hts", q, k) / math.sqrt(hd)
+    s = s.masked_fill(~causal[None], float("-inf"))
+    o = torch.einsum("hts,shd->thd", s.softmax(-1), v).reshape(T, nh * hd)
+    return h + o @ lw["wo"]
+
+
+def dense_ffn(lw: dict, t: dict, h: torch.Tensor) -> torch.Tensor:
+    """One layer's SwiGLU feed-forward block, with its residual."""
+    y = _rms_norm(h, lw["ffn_norm"], t["rms_norm_eps"])
+    return h + (F.silu(y @ lw["w_gate"]) * (y @ lw["w_up"])) @ lw["w_down"]
+
+
+def decoder_layer(lw: dict, t: dict, h: torch.Tensor) -> torch.Tensor:
+    """One dense decoder layer (`t`: the configuration's "text")."""
+    with exact_f32():
+        return dense_ffn(lw, t, attention(lw, t, h))
+
+
+def output_norm(dec: dict, t: dict, h: torch.Tensor) -> torch.Tensor:
+    return _rms_norm(h, dec["output_norm"], t["rms_norm_eps"])
+
+
 def decode(dec: dict, cfg: dict, tokens: list[int], audio: torch.Tensor,
            audio_offset: int) -> torch.Tensor:
     """One causal pass over `tokens` with the audio rows spliced over rows
     [audio_offset, audio_offset + len(audio)) -> the final hidden states
     [T, hidden] after the output norm."""
     t = cfg["text"]
-    T = len(tokens)
-    ids = torch.tensor(tokens, dtype=torch.long, device=audio.device)
-    h = dec["token_embd"][ids].clone()
-    h[audio_offset:audio_offset + audio.shape[0]] = audio
-    nh, nkv, hd, eps = t["attention_heads"], t["num_key_value_heads"], t["head_dim"], t["rms_norm_eps"]
-    causal = torch.ones(T, T, dtype=torch.bool, device=h.device).tril()
-    with exact_f32():
-        for l in range(t["decoder_layers"]):
-            lw = {k: v[l] for k, v in dec["layers"].items()}
-            y = _rms_norm(h, lw["attn_norm"], eps)
-            q = _rms_norm((y @ lw["wq"]).reshape(T, nh, hd), lw["q_norm"], eps)
-            k = _rms_norm((y @ lw["wk"]).reshape(T, nkv, hd), lw["k_norm"], eps)
-            v = (y @ lw["wv"]).reshape(T, nkv, hd)
-            q, k = _rope(q, t["rope_theta"]), _rope(k, t["rope_theta"])
-            k = k.repeat_interleave(nh // nkv, dim=1)
-            v = v.repeat_interleave(nh // nkv, dim=1)
-            s = torch.einsum("thd,shd->hts", q, k) / math.sqrt(hd)
-            s = s.masked_fill(~causal[None], float("-inf"))
-            o = torch.einsum("hts,shd->thd", s.softmax(-1), v).reshape(T, nh * hd)
-            h = h + o @ lw["wo"]
-            y = _rms_norm(h, lw["ffn_norm"], eps)
-            h = h + (F.silu(y @ lw["w_gate"]) * (y @ lw["w_up"])) @ lw["w_down"]
-        return _rms_norm(h, dec["output_norm"], eps)
+    h = embed(dec, tokens, audio, audio_offset)
+    for l in range(t["decoder_layers"]):
+        h = decoder_layer({k: v[l] for k, v in dec["layers"].items()}, t, h)
+    return output_norm(dec, t, h)
 
 
 def lm_logits(dec: dict, h: torch.Tensor) -> torch.Tensor:

@@ -4,16 +4,17 @@
 
 1. Loads the port's kernel library from `build/torch_kernels/` in the
    checkout (the first run of a checkout builds it).
-2. Makes the configuration's dense weights on the device from the seed
-   (`asrbench/weights.py`) and hands them to the front door the mix names
-   (`asrbench/doors/`), which quantizes and packs them as the program's
-   loaders do.
+2. Builds the program behind the front door the mix names
+   (`asrbench/doors/`); the configuration's family (`asrbench/families/`)
+   makes its weights on the device from the seed and hands them to the
+   program's loader, which quantizes and packs them.
 3. Warms up one request at the mix's shortest and one at its longest
    length (the server: also one full batch).
 4. Drives the mix's traffic for `--seconds` (`asrbench/traffic/`); with
    `--trace 1` it then profiles a fixed count of further requests.
 5. Reads the device's peak memory, frees the program, and judges a sample
-   of the window's requests against the plain reference (`check.py`).
+   of the window's requests against the family's plain reference
+   (`check.py`).
 
 The last line of standard output is one JSON object: `correct`,
 `attempted`, `failed`, `metrics` (the cell's end-to-end metrics, or its
@@ -51,13 +52,13 @@ ENV = {"USE_FLAX": "0", "USE_JAX": "0", "OMP_NUM_THREADS": "1"}
 
 
 class Run:
-    """What a metric's reader reads: the cell, its shapes, the window's
-    requests, the set-up time, the program's counters over the window, and
-    the traced sub-window (None without --trace)."""
+    """What a metric's reader reads: the cell, its shapes and family, the
+    window's requests, the set-up time, the program's counters over the
+    window, and the traced sub-window (None without --trace)."""
 
     def __init__(self, cell, kind: str, window, setup_s: float, counters: dict, trace):
         self.cell, self.kind = cell, kind
-        self.config, self.mix = cell.config, cell.mix
+        self.config, self.mix, self.family = cell.config, cell.mix, cell.family
         self.window, self.setup_s = window, setup_s
         self.counters, self.trace = counters, trace
 
@@ -140,7 +141,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
     door_mod = doors.load(mix["door"])
     ctl = mix.get("control", {}) if control else {}
     plan = Plan(mix, seed)
-    door = door_mod.Door(cell.config, mix, seed, device,
+    door = door_mod.Door(cell.family, cell.config, mix, seed, device,
                          quantize=ctl.get("quantize") if ctl.get("kind") == "program" else None)
     warm(door, plan)
     if on_cuda:
@@ -161,7 +162,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
         torch.cuda.empty_cache()
 
     judged = check.sample(window.requests, seed, int(mix["check"]["sample"]))
-    numbers = check.judge(cell.config, door_mod.kind, plan, judged, seed, device,
+    numbers = check.judge(cell.family, cell.config, door_mod.kind, plan, judged, seed, device,
                           reference_control=ctl.get("kind") == "reference")
     numbers["failed"] = sum(1 for r in window.requests if not r.ok)
     limits = {"failed": 0, "malformed": 0, "max_gap": mix["check"]["max_gap"],

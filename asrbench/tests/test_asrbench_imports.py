@@ -49,7 +49,10 @@ def _loaded(code: str) -> set[str]:
 
 
 def test_reference_loads_nothing_of_the_port():
+    """Nor does a family module, which loads the port only inside `load`
+    and `port_config`."""
     code = ("import sys; " + "; ".join(f"import {m}" for m in REFERENCE_SIDE)
+            + "; from asrbench import registry; registry.family({})"
             + "; print('LOADED:' + ','.join(sorted({m.split('.')[0] for m in sys.modules})))")
     loaded = _loaded(code)
     assert PORT not in loaded and not loaded & set(FORBIDDEN)

@@ -12,7 +12,7 @@ import pytest
 import torch
 from conftest import ROOT, tiny_config
 
-from asrbench import doors, weights
+from asrbench import registry, weights
 from asrbench.reference import mel as rmel
 from asrbench.reference import model as rmodel
 from asrbench.reference import prompt as rprompt
@@ -57,7 +57,7 @@ def test_encoder_matches_the_oracle(name):
     cfg, tree, pcm = _setup(name)
     mel = rmel.log_mel(pcm, "cpu")
     got = rmodel.encode(tree["encoder"], cfg, mel)
-    ecfg = doors.port_config(cfg).encoder
+    ecfg = registry.family(cfg).port_config(cfg).encoder
     want = torch_ref.encoder_forward(_np(tree["encoder"]), ecfg, mel.numpy())
     assert got.shape[0] == rprompt.audio_rows(mel.shape[1]) == want.shape[0]
     assert _rel(got, want) < REL
@@ -74,7 +74,7 @@ def test_decoder_and_heads_match_the_oracle(name):
         toks = toks + [5, 77, 300]
     dec = tree["decoder"]
     h = rmodel.decode(dec, cfg, toks, audio, off)
-    dcfg = doors.port_config(cfg).decoder
+    dcfg = registry.family(cfg).port_config(cfg).decoder
     h_ref = torch_ref.decoder_forward(_np(dec), dcfg, np.asarray(toks), audio.double().numpy(), off)
     if cfg.get("classify_num"):
         got = rmodel.classify_logits(dec, h)
@@ -93,3 +93,14 @@ def test_int4_control_rounds_to_sixteen_levels():
     codes = q / s
     assert torch.allclose(codes, codes.round(), atol=1e-4) and codes.abs().max() <= 7.0001
     assert 0.01 < _rel(q, w) < 0.3
+
+
+@pytest.mark.parametrize("extra", (-1, 1))
+def test_prompt_and_audio_rows_must_agree(extra):
+    """A prompt that holds one audio row more or less than the tower gave
+    is refused, not spliced over in part."""
+    cfg, tree, pcm = _setup(CONFIGS[0])
+    audio = rmodel.encode(tree["encoder"], cfg, rmel.log_mel(pcm, "cpu"))
+    toks, off = rprompt.asr_prompt(cfg, audio.shape[0] + extra)
+    with pytest.raises(ValueError, match="audio rows"):
+        rmodel.embed(tree["decoder"], toks, audio, off)

@@ -29,6 +29,19 @@ def test_every_cell_resolves(name):
     assert len(cell.end_to_end) >= 2 and cell.per_layer
     reported = {m["name"] for m in cell.end_to_end}
     assert all(m["moves"] in reported for m in cell.per_layer)
+    assert all(callable(getattr(cell.family, n)) for n in registry.FAMILY_API)
+
+
+@pytest.mark.parametrize("config,found", [
+    ({}, "qwen3_asr"), ({"family": "qwen3_asr"}, "qwen3_asr"),
+    ({"family": "no_such_family"}, FileNotFoundError), ({"family": "../run"}, ValueError)])
+def test_a_family_is_found_by_name(config, found):
+    """A configuration that names no family is qwen3_asr's."""
+    if isinstance(found, str):
+        assert registry.family(config).__name__ == f"asrbench_family_{found}"
+    else:
+        with pytest.raises(found):
+            registry.family(config)
 
 
 @pytest.mark.parametrize("name", METRICS)
@@ -88,3 +101,10 @@ def test_benchmark_json_shape():
         assert NAME.match(m["name"]) and UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
     assert any(m["name"] == "setup_s" for m in BENCH["end_to_end"])
     assert len((ROOT / "BENCHMARK.json").read_bytes()) <= 64 * 1024
+
+
+def test_a_family_must_supply_the_whole_interface(tmp_path, monkeypatch):
+    (tmp_path / "half.py").write_text("def port_config(cfg):\n    return None\n")
+    monkeypatch.setattr(registry, "FAMILIES", tmp_path)
+    with pytest.raises(AttributeError, match="load, prompt, reference"):
+        registry.family({"family": "half"})

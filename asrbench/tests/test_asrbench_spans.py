@@ -93,7 +93,8 @@ def asr_config():
 
 
 def run_of(tr, cfg, kind="asr"):
-    return types.SimpleNamespace(trace=tr, kind=kind, config=cfg, kv="bf16", counters={})
+    return types.SimpleNamespace(trace=tr, kind=kind, config=cfg, kv="bf16", counters={},
+                                 family=registry.family(cfg))
 
 
 def test_k1_graph_captures_counts_spans_per_request(asr_config):

@@ -34,7 +34,7 @@ def test_decode_step_by_hand():
     # two rows share the weights
     nb2, ops2 = work.step_work(ASR, [pos, pos], "bf16")
     assert nb2 - nbytes == (pos + 1) * 114_688 and ops2 == 2 * ops
-    assert work.step_bound(ASR, [pos], "bf16") == pytest.approx(nbytes / 3.35e12)
+    assert work.bound(nbytes, ops, work.INT8_OPS) == pytest.approx(nbytes / 3.35e12)
 
 
 def test_request_shapes():

@@ -44,7 +44,8 @@ def main(argv=None) -> int:
 
     library()
     cell = registry.cell(ROOT, args.workload)
-    door = doors.load(cell.mix["door"]).Door(cell.config, cell.mix, args.seed, "cuda")
+    door = doors.load(cell.mix["door"]).Door(cell.family, cell.config, cell.mix, args.seed,
+                                             "cuda")
     warm(door, Plan(cell.mix, args.seed))
     torch.cuda.synchronize()
     for rate in args.rates:

@@ -1,6 +1,8 @@
 """The yardstick's arithmetic: operations and bytes of the two models'
-requests and of one decode step, counted from the configuration's shapes
-whatever format or kernel runs them, and the H100's published peaks.
+requests and of one decode step (the `qwen3_asr` family's work count,
+`asrbench/families/qwen3_asr.py`), counted from the configuration's shapes
+whatever format or kernel runs them, and the H100's published peaks,
+which every family's count is held against.
 
 Operations are 2 x multiply-adds. A request of Qwen3-ASR counts the conv
 stem (every 100-frame chunk, the tail one padded), the audio encoder, the
@@ -82,11 +84,6 @@ def step_work(cfg: dict, positions: list[int], kv: str) -> tuple[float, float]:
     nbytes = w + scales + sum((p + 1) * row for p in positions)
     ops = 2.0 * w * len(positions) + sum(2.0 * attention_macs(cfg, p + 1) for p in positions)
     return nbytes, ops
-
-
-def step_bound(cfg: dict, positions: list[int], kv: str) -> float:
-    """The least seconds of one decode step (int8 operations)."""
-    return bound(*step_work(cfg, positions, kv), INT8_OPS)
 
 
 def encoder_macs(cfg: dict, n_frames: int) -> int:
