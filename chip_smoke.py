@@ -1281,6 +1281,7 @@ def _wrappers() -> dict:
     from qwen3_asr_tpu_torch.ops import flash_attention as fa
     from qwen3_asr_tpu_torch.ops import megakernel as mk
     from qwen3_asr_tpu_torch.ops import megakernel_batch as mb
+    from qwen3_asr_tpu_torch.ops import moe
     from qwen3_asr_tpu_torch.ops import prefill_fused as pf
     from qwen3_asr_tpu_torch.ops import q8_matmul as q8
 
@@ -1294,12 +1295,18 @@ def _wrappers() -> dict:
             "mb_read": ms.stream_read, "mb_read_ring": ms.stream_read_ring,
             "mb_gemv": ms.stream_gemv, "mb_gemv_i4": ms.stream_gemv_i4,
             "mb_unpack": ms.unpack_probe,
-            **{n: getattr(pf, n) for n in PREFILL_PASSES}}
+            **{n: getattr(pf, n) for n in PREFILL_PASSES},
+            **{n: getattr(moe, n) for n in MOE_WRAPPERS}}
 
 
 # The int8pc prefill's fused passes (`ops/prefill_fused.py`), by the names
 # the launch counts and `models/decoder.py` use.
 PREFILL_PASSES = ("norm_quant_rows", "qkv_epilogue", "residual_norm_quant", "swiglu_quant")
+
+
+# The MoE path's wrappers (`ops/moe.py`): the prefill's router and grouped
+# products and the residual pass after them, and the MoE decode step.
+MOE_WRAPPERS = ("route", "moe_gate_up", "moe_down", "moe_combine", "moe_decode_step")
 
 
 # Every checked window of a path: (label, the decode pack's weight bits or
@@ -3937,6 +3944,247 @@ def phase_batch_modes(q8, auto) -> dict:
     return out
 
 
+# -- the MoE thinker (Qwen3-Omni-30B-A3B's) ---------------------------------------
+
+MOE_LAYERS = 4                   # the thinker's widths, fewer layers
+MOE_REQUESTS = ((5, 18), (30, 105))   # the cell's shortest and longest
+
+
+def moe_prefill_want(n: int, L: int) -> dict:
+    """What n MoE prefills of L layers add to a window's counts: L fused
+    layers a prefill; norm_quant_rows 2 L + 1 (layer 0's norm, each
+    attention output and each layer's SwiGLU rows), qkv_epilogue L and
+    residual_norm_quant L (the attention's); a layer's router, grouped
+    gate-up and down and residual pass; no swiglu_quant."""
+    return {"fused_layers": n * L, "norm_quant_rows": (2 * L + 1) * n, "qkv_epilogue": L * n,
+            "residual_norm_quant": L * n, "route": L * n, "moe_gate_up": L * n,
+            "moe_down": L * n, "moe_combine": L * n}
+
+
+def moe_thinker(L: int = MOE_LAYERS):
+    """Qwen3-Omni-30B-A3B's thinker at its published widths with L decoder
+    layers (random weights, EOS off, int8pc, bf16 cache)."""
+    import torch
+
+    from qwen3_asr_tpu_torch.config import ASRModelConfig, AudioEncoderConfig, MoeDecoderConfig
+    from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR
+
+    cfg = ASRModelConfig(
+        encoder=AudioEncoderConfig(n_layers=32, d_model=1280, n_heads=20, ffn_dim=5120,
+                                   output_dim=2048, n_window_infer=800),
+        decoder=MoeDecoderConfig(vocab_size=152064, hidden_size=2048, n_layers=L, n_heads=32,
+                                 n_kv_heads=4, head_dim=128, intermediate_size=768,
+                                 audio_pad_token_id=151675, eos_token_id=-1))
+    asr = Qwen3ASR(quantize="int8pc", kv_cache="bf16", device="cuda")
+    asr.load_random(cfg, seed=3)
+    torch.cuda.synchronize()
+    return asr
+
+
+def phase_moe_prefill(dec, dcfg) -> dict:
+    """The prefill's router and grouped products at a 5 s and a 30 s
+    prompt's rows (80, 410) on layer 0's experts, against their twins on
+    the same inputs: the SwiGLU rows, their codes (F1) and the weighted
+    slots bit-equal, the residual pass's rows bit-equal and its codes
+    within one; ms (graph of 20), bound (the touched experts' bytes at 3.35
+    TB/s, or the pairs' int8 operations)."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops import moe
+    from qwen3_asr_tpu_torch.ops import prefill_fused as pf
+    from qwen3_asr_tpu_torch.ops.prefill_fused import codes_buffer
+
+    H, F, E, K = dcfg.hidden_size, dcfg.moe_intermediate_size, dcfg.n_experts, dcfg.n_experts_per_tok
+    lay = dec["layers"]
+    gu, dn = ({k: v[0] for k, v in lay[n].items()} for n in ("experts_gu", "experts_down"))
+    g = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    cpu = (lambda t: t.cpu())
+    for N in (80, 410):
+        codes = codes_buffer(N, H, "cuda")
+        codes[:N] = torch.randint(-127, 128, (N, H), generator=g, device="cuda",
+                                  dtype=torch.int8)
+        sx = torch.rand(N, 1, generator=g, device="cuda") * 0.01 + 1e-3
+        res = (torch.randn(N, H, generator=g, device="cuda") * 3).to(torch.bfloat16)
+        wts, order, off = moe.route(codes, sx, lay["router"][0], K)
+        rw, ro, rf = moe.route_ref(*map(cpu, (codes, sx, lay["router"][0])), K)
+        work = moe.prefill_work(N, H, F, K, "cuda")
+        act = moe.moe_gate_up(codes, sx, order, off, gu["q"], gu["s"], K, work)
+        pf.norm_quant_rows(act, None, dcfg.rms_norm_eps, work["fq"], work["fs"])
+        fq, fs = work["fq"], work["fs"]
+        ys = moe.moe_down(fq, fs, order, off, wts, dn["q"], dn["s"], work)
+        oc, osx = codes_buffer(N, H, "cuda"), torch.empty(N, 1, device="cuda")
+        x = moe.moe_combine(res, ys, K, lay["attn_norm"][1 % dcfg.n_layers], dcfg.rms_norm_eps,
+                            oc, osx)
+        torch.cuda.synchronize()
+        cw = moe.prefill_work(N, H, F, K, "cpu")
+        args = (cpu(codes), cpu(sx), cpu(order), cpu(off))
+        ract = moe.moe_gate_up_ref(*args, cpu(gu["q"]), cpu(gu["s"]), K, cw)
+        pf.norm_quant_rows_ref(ract, None, dcfg.rms_norm_eps, cw["fq"], cw["fs"])
+        rq, rs = cw["fq"], cw["fs"]
+        rys = moe.moe_down_ref(rq, rs, cpu(order), cpu(off), cpu(wts), cpu(dn["q"]),
+                               cpu(dn["s"]), cw)
+        rc, rsx = codes_buffer(N, H, "cpu"), torch.empty(N, 1)
+        rx = moe.moe_combine_ref(cpu(res), cpu(ys), K, cpu(lay["attn_norm"][1 % dcfg.n_layers]),
+                                 dcfg.rms_norm_eps, rc, rsx)
+        counts = torch.diff(off).cpu()
+        if not torch.equal(counts, torch.diff(rf)):
+            raise AssertionError(f"moe route N {N}: expert counts differ from the twin's")
+        if not torch.equal(act.cpu(), ract):
+            raise AssertionError(f"moe_gate_up N {N}: SwiGLU rows differ from the twin's")
+        if not (torch.equal(fq.cpu(), rq) and torch.equal(fs.cpu(), rs)):
+            raise AssertionError(f"moe_gate_up N {N}: the rows' codes differ from the twin's")
+        if not torch.equal(ys.cpu(), rys):
+            raise AssertionError(f"moe_down N {N}: slots differ from the twin's")
+        code_err = int((oc[:N].cpu().int() - rc[:N].int()).abs().max())
+        if not torch.equal(x.cpu(), rx) or code_err > 1:
+            raise AssertionError(f"moe_combine N {N}: rows or codes ({code_err}) off")
+        if list(work["stats"].cpu()) != [int((counts > 0).sum()), int(counts.max())]:
+            raise AssertionError(f"moe_gate_up N {N}: counters {work['stats'].tolist()}")
+        touched, pairs = int((counts > 0).sum()), N * K
+        eb_gu, eb_dn = 2 * F * H + 8 * F, F * H + 4 * H
+        ms = {"route": graph_ms(lambda: moe.route(codes, sx, lay["router"][0], K)),
+              "moe_gate_up": graph_ms(lambda: moe.moe_gate_up(codes, sx, order, off, gu["q"],
+                                                              gu["s"], K, work)),
+              "norm_quant_rows": graph_ms(lambda: pf.norm_quant_rows(
+                  act, None, dcfg.rms_norm_eps, fq, fs)),
+              "moe_down": graph_ms(lambda: moe.moe_down(fq, fs, order, off, wts, dn["q"],
+                                                        dn["s"], work)),
+              "moe_combine": graph_ms(lambda: moe.moe_combine(res, ys, K,
+                                                              lay["attn_norm"][0],
+                                                              dcfg.rms_norm_eps, oc, osx))}
+        b = {"route": bound(N * H + H * E * 2, 2.0 * N * H * E, BF16_FLOPS),
+             "moe_gate_up": bound(touched * eb_gu + N * H, 2.0 * pairs * 2 * F * H, INT8_OPS),
+             "norm_quant_rows": bound(pairs * F * 3, 0.0, BF16_FLOPS),
+             "moe_down": bound(touched * eb_dn + pairs * (F + 4 * H), 2.0 * pairs * F * H,
+                               INT8_OPS),
+             "moe_combine": bound(pairs * H * 4 + N * H * 5, 0.0, BF16_FLOPS)}
+        for name in ms:
+            out[(name, N)] = (code_err if name == "moe_combine" else 0.0, ms[name], None,
+                              *b[name])
+        log(f"moe prefill N {N} ({touched} experts, {pairs} pairs): " + ", ".join(
+            f"{n} {ms[n]:.4f} ms (bound {b[n][0]:.4f} {b[n][1]})" for n in ms)
+            + f"; the combine's codes within {code_err} of the twin's")
+    return out
+
+
+def phase_moe_step(dec, dcfg) -> dict:
+    """The MoE decode step on the thinker's layers: each layer alone against
+    the twin on the same input row and cache (h within 1e-2; the routed
+    experts logged), 32 graphed steps bit-equal to 32 eager ones (tokens and
+    caches), kernel launches a step, and ms/step graphed (its bound: the
+    attention's weights, 8 experts and the router a layer, the head, the
+    cache)."""
+    import dataclasses
+
+    import torch
+
+    from qwen3_asr_tpu_torch.ops import moe
+    from qwen3_asr_tpu_torch.ops.megakernel import GraphStep
+    from qwen3_asr_tpu_torch.ops.support import kernels_a_call
+
+    pack, L, S = dec["moe"], dcfg.n_layers, 1024
+    DKV = dcfg.n_kv_heads * dcfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(11)
+    k0 = (torch.randn(L, S, DKV, generator=g, device="cuda") * 2).to(torch.bfloat16)
+    v0 = (torch.randn(L, S, DKV, generator=g, device="cuda") * 2).to(torch.bfloat16)
+    pos, tok = 300, torch.tensor([1234], dtype=torch.int32, device="cuda")
+    step = moe.MoeDecodeStep(pack, dcfg, k0.clone(), v0.clone())
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    step.pos.fill_(pos)
+    n_k = kernels_a_call(lambda: step(tok, step.pos, out))
+    if n_k != moe.step_kernels(L):
+        raise AssertionError(f"MoE step: {n_k} kernels, want {moe.step_kernels(L)}")
+    worst = 0.0
+    c1 = dataclasses.replace(dcfg, n_layers=1)
+    for l in range(L):   # one layer alone, on the twin's input
+        one = {k: (v[l:l + 1] if k not in ("head_q", "head_s", "out_norm", "embd") else v)
+               for k, v in pack.items()}
+        kk, vv = k0[l:l + 1].clone(), v0[l:l + 1].clone()
+        x = (torch.randn(1, dcfg.hidden_size, generator=g, device="cuda") * 3).to(torch.bfloat16)
+        s1 = moe.MoeDecodeStep(one, c1, kk, vv)
+        s1(x, pos, out)
+        ids = s1.ids.clone()
+        _, rh = moe.moe_decode_step_ref(one, c1, x, pos, k0[l:l + 1].clone(),
+                                        v0[l:l + 1].clone())
+        rel = float((s1.h - rh).norm() / rh.norm())
+        worst = max(worst, rel)
+        log(f"MoE step layer {l} alone: h rel {rel:.3g}, experts {ids.tolist()}")
+        if rel > 1e-2:
+            raise AssertionError(f"MoE step layer {l}: h rel {rel}")
+    ka, va, kb, vb = k0.clone(), v0.clone(), k0.clone(), v0.clone()
+    e = moe.MoeDecodeStep(pack, dcfg, ka, va)
+    o1 = torch.zeros(33, dtype=torch.int32, device="cuda")
+    o1[0] = 77
+    for i in range(1, 33):
+        e(o1[i - 1:i], 200 + i - 1, o1[i:i + 1])
+    gs = GraphStep(moe.MoeDecodeStep(pack, dcfg, kb, vb))
+    o2 = torch.zeros(33, dtype=torch.int32, device="cuda")
+    o2[0] = 77
+    for i in range(1, 33):
+        gs(o2, i, 200 + i - 1)
+    torch.cuda.synchronize()
+    if not (torch.equal(o1, o2) and torch.equal(ka, kb) and torch.equal(va, vb)):
+        raise AssertionError("MoE step: 32 graphed steps differ from 32 eager ones")
+    o3 = torch.zeros(130, dtype=torch.int32, device="cuda")
+    gt = GraphStep(moe.MoeDecodeStep(pack, dcfg, k0.clone(), v0.clone()))
+    gt(o3, 1, pos)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(2, 130):
+        gt(o3, i, pos + i - 1)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 128
+    H, F, K, E, V = (dcfg.hidden_size, dcfg.moe_intermediate_size, dcfg.n_experts_per_tok,
+                     dcfg.n_experts, dcfg.vocab_size)
+    DQ = dcfg.n_heads * dcfg.head_dim
+    nbytes = (L * (H * (DQ + 2 * DKV) + DQ * H + 4 * (DQ + 2 * DKV + H) + 2 * H * E
+                   + K * (3 * H * F + 4 * (2 * F + H)))
+              + H * V + 4 * V + L * (pos + 64) * DKV * 2 * 2)
+    b = bound(nbytes, 0.0, INT8_OPS)
+    log(f"MoE step: {n_k} kernels a step at {L} layers, graphed {ms:.4f} ms/step "
+        f"at pos {pos}-{pos + 128} (bound {b[0]:.4f} {b[1]}); layers alone h rel <= "
+        f"{worst:.3g}; 32 graphed steps == eager")
+    return {"err": worst, "ms": ms, "bound": b, "kernels": n_k}
+
+
+def phase_moe():
+    """Qwen3-Omni-30B-A3B's thinker at its published widths with MOE_LAYERS
+    decoder layers: the prefill's products and the decode step against their
+    twins (phase_moe_prefill, phase_moe_step), then the CLI's transcription
+    (fused) of the cell's shortest and longest request, its launches a
+    window (the prefills' passes and products, one MoE step a token) and its
+    decode ms/step."""
+    import torch
+
+    asr = moe_thinker()
+    dec, dcfg = asr.params["decoder"], asr.cfg.decoder
+    prefill = phase_moe_prefill(dec, dcfg)
+    step = phase_moe_step(dec, dcfg)
+    asr.transcribe(pcm(5, 1), tparams(8))   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    times = []
+    for seconds, max_tokens in MOE_REQUESTS:
+        t0 = time.perf_counter()
+        r = asr.transcribe(pcm(seconds), tparams(max_tokens))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if len(r.tokens) != max_tokens or not all(0 <= t < dcfg.vocab_size for t in r.tokens):
+            raise AssertionError(f"MoE {seconds} s: {len(r.tokens)} tokens or one out of range")
+    got = window("MoE thinker (int8pc, bf16 KV)", None, counts())
+    n, L = len(MOE_REQUESTS), dcfg.n_layers
+    want = dict(no_launches(), flash=L * n,
+                moe_decode_step=sum(mt - 1 for _, mt in MOE_REQUESTS), **moe_prefill_want(n, L))
+    log(f"MoE requests {[f'{t:.1f} ms' for t in times]} at {L} layers; launches {got}")
+    if got != want:
+        raise AssertionError(f"MoE launch counts {got} (want {want})")
+    del asr
+    return prefill, step, times
+
+
 def main() -> int:
     import torch
 
@@ -4090,6 +4338,7 @@ def main() -> int:
     window("HTTP (int4 weights)", 4, phase_http(asr))
     del asr
     _, align_stages = phase_aligner()
+    moe_prefill, moe_step, _ = phase_moe()
     mb, mb_res, mb_lib = phase_microbench()
     total = {k: launches_of(k) for k in no_launches()}
     log(f"pool decode {engine_tps:.1f} tokens/s; server default closed batch of 4 decode "
@@ -4221,6 +4470,18 @@ def main() -> int:
                         for s, v in prefill_fused["passes"][name].items()},
               prefill=prefill_fused["prefill"])
           for name in prefill_fused["passes"]),
+        *(row(name, "moe.cu" if name != "moe_combine" else "prefill_fused.cu",
+              "none: the JAX package has no mixture-of-experts model",
+              launches_of(name), *moe_prefill[(name, 410)],
+              by_rows={f"N={N}": dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by"), moe_prefill[(name, N)]))
+                       for N in (80, 410)})
+          for name in ("route", "moe_gate_up", "moe_down", "moe_combine")),
+        row("moe_decode_step (MoE thinker step)", "moe.cu",
+            "none: the JAX package has no mixture-of-experts model",
+            launches_of("moe_decode_step"), moe_step["err"], moe_step["ms"], None,
+            *moe_step["bound"], kernels_a_step=moe_step["kernels"],
+            layers=MOE_LAYERS),
         row("probe (K8, y = 2 x)", "probe.cu", "qwen3_asr_tpu/ops/support.py:35",
             k8_launches, *k8, "bytes", lib=k8[2]),
         row("stream_read (K9 read)", "microbench_stream.cu",

@@ -19,6 +19,11 @@ N_FFT = 400
 HOP_LENGTH = 160
 N_MELS = 128
 
+# What an MoE decoder (MoeDecoderConfig) runs; every other path
+# raises naming itself (DecoderConfig.require_dense)
+MOE_PATHS = ("Qwen3ASR.transcribe's greedy path, fused or staged, on int8pc weights "
+             "(quantize 'int8pc' or 'auto')")
+
 # Chat-template token ids
 IM_START = 151644
 IM_END = 151645
@@ -100,6 +105,36 @@ class DecoderConfig:
     # forced-aligner classification head: its class count (timestamp
     # classes of timestamp_segment_time_ms each); None for the ASR model
     classify_num: int | None = None
+
+    @property
+    def moe(self) -> bool:
+        """True for an MoE decoder (MoeDecoderConfig)."""
+        return False
+
+    def require_dense(self, mode: str) -> None:
+        """Raise for an MoE decoder in `mode`, a path that has only the dense
+        MLP: no path runs a dense feed-forward in the experts' place."""
+        if self.moe:
+            raise NotImplementedError(f"{mode} is not ported for an MoE decoder "
+                                      f"({self.n_experts} experts): it runs {MOE_PATHS}")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoeDecoderConfig(DecoderConfig):
+    """Qwen3-MoE text decoder (Qwen3-Omni's thinker): every layer's MLP is
+    n_experts SwiGLU experts of moe_intermediate_size, each row taking the
+    top n_experts_per_tok of the router's softmax, their weights
+    renormalised over them (norm_topk_prob); no shared expert.
+    intermediate_size is unused. A class of its own, so DecoderConfig keeps
+    the JAX package's fields."""
+
+    n_experts: int = 128
+    n_experts_per_tok: int = 8
+    moe_intermediate_size: int = 768
+
+    @property
+    def moe(self) -> bool:
+        return True
 
 
 @dataclasses.dataclass(frozen=True)

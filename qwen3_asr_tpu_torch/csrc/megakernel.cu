@@ -260,6 +260,20 @@ void launch_gemv(void (*kernel)(Params...), dim3 grid, cudaStream_t st, bool pdl
 
 }  // namespace
 
+// K1's int8 GEMV for the MoE decode step (moe.cu), which launches it between
+// its own kernels (the lm head): the product of the input row `row_in` (a
+// RowIn) with wq int8 [n_in, N] and its column scales ws [N] into terms
+// [N], over the step's iacc / tiles scratch, as run_step launches it for
+// the int8 pack (without programmatic dependent launch).
+extern "C" int qw_k1_gemv_i8(const void* row_in, const void* wq, const void* ws, int n_in,
+                             int N, void* iacc, void* tiles, void* terms, void* stream) {
+  const int kc = split_rows(n_in);
+  launch_gemv(gemv_i8, dim3(N / GEMV_COLS, n_in / kc), (cudaStream_t)stream, false,
+              *(const RowIn*)row_in, (const int8_t*)wq, (const float*)ws, kc, N, (int*)iacc,
+              (int*)tiles, (float*)terms);
+  return 0;
+}
+
 extern "C" size_t qw_mega_scratch_bytes(const MegaDims* d) {
   Scratch s;
   return layout(*d, 1, nullptr, &s);

@@ -16,7 +16,10 @@
 //                          RMSNorm(that) for the next product (gate-up, or
 //                          the next layer's QKV; none after the last layer);
 //   pf_swiglu_quant        the gate-up product dequantized, silu(g) * u,
-//                          then its codes for the down product.
+//                          then its codes for the down product;
+//   pf_moe_combine         in an MoE layer (moe.cu's experts) in place of the
+//                          last residual pass: x + the row's weighted expert
+//                          outputs, then the next layer's codes.
 // Codes land in the caller's zeroed buffer of `_int_mm`'s padded row count,
 // so the product reads them as they lie (no pad copy).
 //
@@ -233,6 +236,43 @@ pf_swiglu_quant(const int* __restrict__ acc, const float* __restrict__ sx,
   r.quantize(codes + row * F, sx_out + row, inv127, red);
 }
 
+// The MoE layer's residual (moe.cu's experts): x = bf16(res + bf16(sum_k
+// ys[row K + k])), the row's K weighted expert outputs summed in f32 in
+// order k = 0 .. K - 1, then as pf_residual_norm_quant.
+__global__ void __launch_bounds__(MAX_THREADS)
+pf_moe_combine(const __nv_bfloat16* __restrict__ res, const float* __restrict__ ys, int K,
+               const __nv_bfloat16* __restrict__ w, float eps, float inv127, int n,
+               __nv_bfloat16* __restrict__ out, int8_t* __restrict__ codes,
+               float* __restrict__ sx_out) {
+  __shared__ float red[32];
+  const size_t row = blockIdx.x;
+  Row r;
+  r.n8 = n >> 3;
+#pragma unroll
+  for (int k = 0; k < MAXCH; ++k) {
+    if (!r.has(k)) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) r.v[k][i] = 0.f;
+      continue;
+    }
+    const int c = r.col(k);
+    float t[8], y[8];
+    load8(ys + row * K * n + c, t);
+    for (int e = 1; e < K; ++e) {
+      load8(ys + (row * K + e) * n + c, y);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) t[i] = __fadd_rn(t[i], y[i]);
+    }
+    load8(res + row * n + c, r.v[k]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) r.v[k][i] = bf16_round(__fadd_rn(r.v[k][i], bf16_round(t[i])));
+    store8(out + row * n + c, r.v[k]);
+  }
+  if (!w) return;
+  r.rms_norm(w, eps, n, red);
+  r.quantize(codes + row * n, sx_out + row, inv127, red);
+}
+
 // One warp a head: lane l holds the pairs (j, j + D/2) for j = l + 32 t.
 __global__ void __launch_bounds__(QKV_THREADS)
 pf_qkv_epilogue(const int* __restrict__ acc, const float* __restrict__ sx,
@@ -364,5 +404,20 @@ extern "C" int qw_pf_swiglu_quant(const void* acc, const void* sx, const void* s
   pf_swiglu_quant<<<N, t, 0, (cudaStream_t)stream>>>(
       (const int*)acc, (const float*)sx, (const float*)s, inv127, F, (int8_t*)codes,
       (float*)sx_out);
+  return (int)cudaGetLastError();
+}
+
+// out bf16 [N, n] = res + bf16 of the sum of each row's K expert outputs ys
+// f32 [N K, n] (pf_moe_combine); with w, codes / sx_out as
+// qw_pf_norm_quant's of out.
+extern "C" int qw_pf_moe_combine(const void* res, const void* ys, int K, const void* w,
+                                 float eps, float inv127, void* out, void* codes, void* sx_out,
+                                 int N, int n, void* stream) {
+  const int t = row_threads(n);
+  if (!t || N < 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  pf_moe_combine<<<N, t, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)res, (const float*)ys, K, (const __nv_bfloat16*)w, eps, inv127, n,
+      (__nv_bfloat16*)out, (int8_t*)codes, (float*)sx_out);
   return (int)cudaGetLastError();
 }

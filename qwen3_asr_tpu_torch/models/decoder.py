@@ -25,6 +25,12 @@ bf16 matrices, Q8_0 leaves or int8pc leaves:
   quantization, dequantization with QK-norm and RoPE, residual, SwiGLU),
   about ten launches a layer and no host wait, at the eager chain's
   rounding points.
+An MoE decoder (`config.MoeDecoderConfig`, Qwen3-Omni's thinker) has int8pc
+attention and the int8 experts of `ops/moe.py` in every layer: its
+prefill is `_prefill_fused` with `_moe` in place of the dense MLP (the
+router and the sort of the pairs on the device, the grouped expert
+products, the residual pass), its decode steps are `ops/moe.py`'s; every
+path with a dense MLP raises for it (`DecoderConfig.require_dense`).
 Attention in the prefill is the flash kernel (`ops/flash_attention.py`),
 causal with the prompt's valid length; in the decode step it is
 `ops/decode_attention.py` (K4; B rows in one launch in the batched step);
@@ -47,7 +53,7 @@ import functools
 import numpy as np
 import torch
 
-from qwen3_asr_tpu_torch.config import DecoderConfig
+from qwen3_asr_tpu_torch.config import MOE_PATHS, DecoderConfig
 from qwen3_asr_tpu_torch.ops.decode_attention import (
     _quantize_kv_rows,
     decode_attention,
@@ -55,6 +61,13 @@ from qwen3_asr_tpu_torch.ops.decode_attention import (
     store_kv_rows,
 )
 from qwen3_asr_tpu_torch.ops.flash_attention import flash_attention_batch
+from qwen3_asr_tpu_torch.ops.moe import (
+    moe_combine,
+    moe_down,
+    moe_gate_up,
+    prefill_work,
+    route,
+)
 from qwen3_asr_tpu_torch.ops.prefill_fused import (
     codes_buffer,
     norm_quant_rows,
@@ -70,6 +83,7 @@ from qwen3_asr_tpu_torch.ops.q8_matmul import (
     q8_mlp,
     q8_norm_matmul,
 )
+from qwen3_asr_tpu_torch.runtime.profiler import span
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor | None, eps: float) -> torch.Tensor:
@@ -172,6 +186,7 @@ def _qkv(layers: dict, l: int, x: torch.Tensor, eps: float) -> torch.Tensor:
 
 def _mlp(layers: dict, l: int, h1: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
     """h1 + the SwiGLU MLP of layer l, h1 [N, hidden]."""
+    cfg.require_dense("the per-layer MLP (the block decode, Q8_0 and dense steps)")
     eps = cfg.rms_norm_eps
     gu, down = _leaf(layers, "w_gate_up", l), _leaf(layers, "w_down", l)
     if is_quant_leaf(gu) and is_quant_leaf(down):   # the whole MLP in K7
@@ -187,8 +202,10 @@ _PC_MATRICES = ("wqkv", "wo", "w_gate_up", "w_down")
 
 def _fusable(layers: dict, h: torch.Tensor) -> bool:
     """Whether `_prefill_layers` takes the fused chain: bf16 rows on int8pc
-    leaves (the fused passes' kernels take bf16)."""
-    return h.dtype == torch.bfloat16 and all(is_pc_leaf(layers[n]) for n in _PC_MATRICES)
+    leaves (the fused passes' kernels take bf16); an MoE layer's experts are
+    int8 leaves of their own (`ops/moe.py`)."""
+    names = _PC_MATRICES[:2] if "experts_gu" in layers else _PC_MATRICES
+    return h.dtype == torch.bfloat16 and all(is_pc_leaf(layers.get(n)) for n in names)
 
 
 def _prefill_layers(dec_params: dict, cfg: DecoderConfig, h: torch.Tensor,
@@ -201,6 +218,9 @@ def _prefill_layers(dec_params: dict, cfg: DecoderConfig, h: torch.Tensor,
     fused chain (`_prefill_fused`), counted in `.fused_layers`; every other
     runs op by op, counted in `.eager_layers`."""
     layers = dec_params["layers"]
+    if cfg.moe and not _fusable(layers, h):
+        raise NotImplementedError(f"the MoE prefill runs bf16 rows on int8pc weights: "
+                                  f"{MOE_PATHS}")
     if _fusable(layers, h):
         _prefill_layers.fused_layers += cfg.n_layers
         return _prefill_fused(layers, cfg, h, valid, on_rows)
@@ -242,13 +262,17 @@ def _prefill_fused(layers: dict, cfg: DecoderConfig, h: torch.Tensor,
     NH, NKV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     F, eps, dev = cfg.intermediate_size, cfg.rms_norm_eps, h.device
     scale = 1.0 / float(np.sqrt(D))
-    xq, aq, fq = (codes_buffer(N, n, dev) for n in (H, NH * D, F))
+    xq, aq = (codes_buffer(N, n, dev) for n in (H, NH * D))
     sx, asx, fsx = (torch.empty(N, 1, dtype=torch.float32, device=dev) for _ in range(3))
+    if cfg.moe:
+        work = prefill_work(N, H, cfg.moe_intermediate_size, cfg.n_experts_per_tok, dev)
+    else:
+        fq = codes_buffer(N, F, dev)
     x = h.reshape(N, H)
     inv_freq = rope_inv_freq(D, float(cfg.rope_theta), dev)
     norm_quant_rows(x, layers["attn_norm"][0], eps, xq, sx)
     for l in range(L):
-        wqkv, wo, gu, down = (_leaf(layers, n, l) for n in _PC_MATRICES)
+        wqkv, wo = _leaf(layers, "wqkv", l), _leaf(layers, "wo", l)
         q, k, v = qkv_epilogue(int8_matmul(xq, wqkv["i8pc:q"]), sx, wqkv["i8pc:s"],
                                layers["q_norm"][l], layers["k_norm"][l], P, NH, NKV, D,
                                eps, inv_freq)
@@ -256,12 +280,52 @@ def _prefill_fused(layers: dict, cfg: DecoderConfig, h: torch.Tensor,
         norm_quant_rows(attn.reshape(N, NH * D), None, eps, aq, asx)
         h1 = residual_norm_quant(x, int8_matmul(aq, wo["i8pc:q"]), asx, wo["i8pc:s"],
                                  layers["ffn_norm"][l], eps, xq, sx)
-        swiglu_quant(int8_matmul(xq, gu["i8pc:q"]), sx, gu["i8pc:s"], F, fq, fsx)
-        x = residual_norm_quant(h1, int8_matmul(fq, down["i8pc:q"]), fsx, down["i8pc:s"],
-                                layers["attn_norm"][l + 1] if l + 1 < L else None, eps,
-                                xq, sx)
+        w_next = layers["attn_norm"][l + 1] if l + 1 < L else None
+        if cfg.moe:
+            x = _moe(layers, l, cfg, h1, xq, sx, w_next, work)
+        else:
+            gu, down = _leaf(layers, "w_gate_up", l), _leaf(layers, "w_down", l)
+            swiglu_quant(int8_matmul(xq, gu["i8pc:q"]), sx, gu["i8pc:s"], F, fq, fsx)
+            x = residual_norm_quant(h1, int8_matmul(fq, down["i8pc:q"]), fsx,
+                                    down["i8pc:s"], w_next, eps, xq, sx)
         on_rows(l, k, v)
+    if cfg.moe:
+        _moe.stats = work["stats"]
     return x.reshape(B, P, H)
+
+
+def _moe(layers: dict, l: int, cfg: DecoderConfig, h1: torch.Tensor, xq: torch.Tensor,
+         sx: torch.Tensor, w_next: torch.Tensor | None, work: dict) -> torch.Tensor:
+    """Layer l's experts in the prefill (`ops/moe.py`), on the codes xq / sx
+    of RMSNorm(h1) that the residual pass left: the router and the sort of
+    the (row, expert) pairs on the device, the grouped gate-up products,
+    the SwiGLU rows' codes (F1), the grouped down products, and the
+    residual h1 + the weighted expert outputs with the
+    next layer's codes (w_next: its attention norm, None after the last
+    layer) written over xq / sx. -> x [N, hidden] bf16.
+
+    Counters: `.pairs` the routed (row, expert) pairs, added as the prefill
+    is enqueued; `.experts_touched` (the experts with a pair, summed over
+    the layers) and `.rows_max` (the most pairs one expert took) from the
+    prefill's device counts (`.stats`, int32 [2]), which the greedy loop
+    fetches with its tokens; `.decode_steps` the MoE decode steps run."""
+    K, eps = cfg.n_experts_per_tok, cfg.rms_norm_eps
+    with span("qwen3.moe"):
+        wts, order, off = route(xq, sx, layers["router"][l], K)
+        gu, dn = _leaf(layers, "experts_gu", l), _leaf(layers, "experts_down", l)
+        act = moe_gate_up(xq, sx, order, off, gu["q"], gu["s"], K, work)
+        norm_quant_rows(act, None, eps, work["fq"], work["fs"])
+        ys = moe_down(work["fq"], work["fs"], order, off, wts, dn["q"], dn["s"], work)
+        x = moe_combine(h1, ys, K, w_next, eps, xq, sx)
+    _moe.pairs += sx.shape[0] * K
+    return x
+
+
+_moe.pairs = 0
+_moe.experts_touched = 0
+_moe.rows_max = 0
+_moe.decode_steps = 0
+_moe.stats = None
 
 
 def _decode_step(dec_params: dict, cfg: DecoderConfig, x: torch.Tensor,

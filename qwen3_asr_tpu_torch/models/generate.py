@@ -15,7 +15,11 @@ follows what the tree holds, as in the reference: a decode pack (`"mega"`,
 int4 or int8 weights) runs each step through the decode megakernel, its
 entry picked by the cache dtype (`mega_decode_step_i8` for int8,
 `mega_decode_step` for bf16, `mega_decode_step_i4` for the int4 cache,
-generate.py:99-178); any other tree (dense bf16 or Q8_0 weights) runs the
+generate.py:99-178); an MoE tree (`"moe"`, Qwen3-Omni's thinker) runs the
+MoE step of `ops/moe.py` (`moe_runner`: one CUDA graph replay a token) in
+the greedy loop alone, its prefill's device counts fetched with the tokens
+(the sampled, speculative, streaming and batched paths raise for it); any
+other tree (dense bf16 or Q8_0 weights) runs the
 per-layer decode step, `decoder_forward` at T = 1, over a bf16 or int8
 cache. The int4 cache exists only as the decode pack's stream: the prefill
 writes the int8 layout, which is packed once before the first step, and
@@ -44,6 +48,7 @@ import torch
 
 from qwen3_asr_tpu_torch.config import DecoderConfig
 from qwen3_asr_tpu_torch.models.decoder import (
+    _moe,
     _prefill_layers,
     _quantize_kv_rows,
     decode_step_batch,
@@ -64,6 +69,7 @@ from qwen3_asr_tpu_torch.ops.megakernel_batch import (
     BatchDecodeStep,
     mega_decode_step_batch_ref,
 )
+from qwen3_asr_tpu_torch.ops.moe import MoeDecodeStep, moe_decode_step_ref
 from qwen3_asr_tpu_torch.runtime.profiler import span
 
 EOS_CHECK_EVERY = 16   # decode steps between the host's reads of the tokens
@@ -182,10 +188,32 @@ def mega_sample_runner(pack: dict, cfg: DecoderConfig, kvs):
     return run
 
 
+def moe_runner(pack: dict, cfg: DecoderConfig, kvs):
+    """run(out, i, pos): one MoE decode step (`ops/moe.py`) consuming out[i -
+    1] at position pos over the flat caches kvs, writing out[i] on the
+    device: on CUDA tensors captured once in a CUDA graph and replayed for
+    every later token (GraphStep), on CPU ones the twin. Counts
+    `_moe.decode_steps`."""
+    if kvs[0].device.type == "cuda":
+        graph = GraphStep(MoeDecodeStep(pack, cfg, *kvs))
+
+        def run(out, i, pos):
+            graph(out, i, pos)
+            _moe.decode_steps += 1
+        return run
+
+    def run(out, i, pos):
+        out[i:i + 1] = moe_decode_step_ref(pack, cfg, out[i - 1:i], pos, *kvs)[0]
+        _moe.decode_steps += 1
+    return run
+
+
 def _step_runner(dec_params: dict, cfg: DecoderConfig, cache: dict,
                  cache_dtype: torch.dtype):
-    """run(out, i, pos) over the prefill's cache: the decode pack's step, or
-    the per-layer step without one."""
+    """run(out, i, pos) over the prefill's cache: the MoE step, the decode
+    pack's step, or the per-layer step without one."""
+    if "moe" in dec_params:
+        return moe_runner(dec_params["moe"], cfg, mega_caches(cfg, cache, cache_dtype))
     if "mega" not in dec_params:
         def run(out, i, pos):
             decode_token(dec_params, cfg, cache, out, i, pos)
@@ -206,14 +234,17 @@ def _hidden_runner(dec_params: dict, cfg: DecoderConfig, cache: dict,
                               mega_caches(cfg, cache, cache_dtype))
 
 
-def _decode_loop(step, out: torch.Tensor, n_prompt: int, eos: int
-                 ) -> tuple[np.ndarray, int]:
-    """step(i, pos) writes out[i] on the device for i = 1, 2, ...; the token
-    of step i sits at position n_prompt + i - 1. The host reads out for EOS
-    every EOS_CHECK_EVERY steps. -> (out on the host, n_kept)."""
+def _decode_loop(step, out: torch.Tensor, n_prompt: int, eos: int,
+                 n_tokens: int | None = None) -> tuple[np.ndarray, int]:
+    """step(i, pos) writes out[i] on the device for i = 1, 2, ... n_tokens -
+    1 (n_tokens: all of out, or its first n_tokens, the rest riding the
+    final fetch); the token of step i sits at position n_prompt + i - 1.
+    The host reads out for EOS every EOS_CHECK_EVERY steps. -> (out on the
+    host, n_kept)."""
+    n_tokens = out.shape[0] if n_tokens is None else n_tokens
     with span("qwen3.decode"):
         i = 1
-        while i < out.shape[0]:
+        while i < n_tokens:
             if (i - 1) % EOS_CHECK_EVERY == 0 and bool((out[:i] == eos).any()):
                 break
             step(i, n_prompt + i - 1)
@@ -236,11 +267,20 @@ def generate_greedy(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
     S = cache_rows(tokens.shape[0], max_tokens)
     first, cache = prefill(dec_params, cfg, tokens, n_prompt, audio, n_audio,
                            audio_offset, S, cache_dtype)
-    out = torch.zeros(max_tokens, dtype=torch.int32, device=tokens.device)
+    # an MoE prefill's device counts (_moe.stats) ride the tokens' fetch
+    moe = "moe" in dec_params
+    out = torch.zeros(max_tokens + (2 if moe else 0), dtype=torch.int32,
+                      device=tokens.device)
     out[:1] = first
+    if moe:
+        out[max_tokens:] = _moe.stats
     run = _step_runner(dec_params, cfg, cache, cache_dtype)
-    return _decode_loop(lambda i, pos: run(out, i, pos), out, n_prompt,
-                        cfg.eos_token_id)
+    host, n_kept = _decode_loop(lambda i, pos: run(out, i, pos), out, n_prompt,
+                                cfg.eos_token_id, max_tokens)
+    if moe:
+        _moe.experts_touched += int(host[max_tokens])
+        _moe.rows_max = max(_moe.rows_max, int(host[max_tokens + 1]))
+    return host[:max_tokens], n_kept
 
 
 # ---------------------------------------------------------------------------
@@ -311,6 +351,7 @@ def generate_sample(dec_params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
     depends on i alone, not on the loop's chunking or graphs. The same seed
     gives the same tokens on one device; the CPU's and the card's generators
     give different ones, and neither matches jax.random's stream."""
+    cfg.require_dense("sampled decoding (temperature > 0)")
     cache_dtype = kv_dtype(dec_params, cache_dtype)
     dev = tokens.device
     S = cache_rows(tokens.shape[0], max_tokens)
@@ -369,6 +410,7 @@ def generate_greedy_spec(dec_params: dict, cfg: DecoderConfig, tokens: torch.Ten
     Unlike the reference there is no guard on the megakernel's VMEM budget
     (long audio): the kernels read any S. -> (out [max_tokens] int32 on the
     host, n_kept, {"rounds", "drafted", "accepted"})."""
+    cfg.require_dense("speculative decoding (spec_k)")
     if k < 1:
         raise ValueError(f"spec k must be >= 1, got {k}")
     if "mega" not in dec_params:
@@ -485,6 +527,7 @@ def generate_greedy_streaming(dec_params: dict, cfg: DecoderConfig,
     `on_token_id(token)` with each token id (the server's SSE streams ride
     it). Decodes `chunk` tokens per host read; the callbacks stay per token.
     Same tokens as generate_greedy. -> the tokens, EOS not included."""
+    cfg.require_dense("the streaming decode (a progress or token callback)")
     cache_dtype = kv_dtype(dec_params, cache_dtype)
     S = cache_rows(tokens.shape[0], max_tokens)
     token, cache = prefill(dec_params, cfg, tokens, n_prompt, audio, n_audio,
@@ -537,6 +580,7 @@ def prefill_batch_mega_cache(dec_params: dict, cfg: DecoderConfig,
     rows). -> (first tokens int32 [B] on the device, k, v [B, L, S, n_kv *
     head_dim] int8 with k_s, v_s [B, L, S, n_kv] f32, or, for a bf16
     cache_dtype, bf16 with k_s = v_s = None), rows >= P zero."""
+    cfg.require_dense("batched decoding (transcribe_batch, the server's closed batches)")
     with span("qwen3.prefill"):
         B, P = tokens.shape
         L, NKV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim

@@ -136,6 +136,7 @@ def pack_megakernel_params(dec_params: dict, cfg: DecoderConfig,
     The lm head's vocab is zero-padded to a multiple of HEAD_PAD (padding
     columns are masked before the argmax). Prefill keeps the int8pc
     leaves."""
+    cfg.require_dense(f"the {'int4' if int4 else 'int8'} decode pack (K1)")
     layers = dec_params["layers"]
     if not (isinstance(layers.get("wqkv"), dict) and "i8pc:q" in layers["wqkv"]
             and "lm_head_pc" in dec_params):
@@ -264,54 +265,77 @@ def mega_decode_step_ref(pack, cfg: DecoderConfig, token_or_x, pos: int,
     uint8 [L, S/2, DKV], each with scales k_s, v_s [L, S, n_kv], or bf16
     (k_s, v_s None). Writes cache row `pos` in place. -> (token int32 [1], h
     f32 [1, H]) or, with return_logits, (token, h, logits f32 [V])."""
-    H, NH, NKV, D = cfg.hidden_size, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     L, FF, eps = cfg.n_layers, cfg.intermediate_size, cfg.rms_norm_eps
-    DQ, DKV, group = NH * D, NKV * D, NH // NKV
-    scale = float(np.float32(1.0 / float(np.sqrt(D))))
-    quant = k_s is not None
-    if token_or_x.dtype == torch.int32:
-        x = pack["embd"][token_or_x.reshape(-1)[0].long()].float()
-    else:
-        x = token_or_x.reshape(H).float()
-    x = _bf(x)
+    x = _embed_ref(pack, cfg, token_or_x)
     for l in range(L):
-        xq, sx = _quant_row(_bf(rms_norm_f32(x, pack["attn_norm"][l], eps)))
-        qkv = _bf(_gemv_ref(xq, sx, pack["qkv_q"][l], pack["qkv_s"][l]))
-        rows = qkv.reshape(NH + 2 * NKV, D)
-        q_all = rope_row(rms_norm_f32(rows[:NH], pack["q_norm"][l], eps), pos,
-                         cfg.rope_theta) * scale
-        k_all = rope_row(rms_norm_f32(rows[NH:NH + NKV], pack["k_norm"][l], eps),
-                         pos, cfg.rope_theta)
-        v_all = rows[NH + NKV:]
-        kc = _cache_rows(k, l, pos).reshape(pos, NKV, D)
-        vc = _cache_rows(v, l, pos).reshape(pos, NKV, D)
-        heads = []
-        for h in range(NKV):
-            q = q_all[h * group:(h + 1) * group]        # [group, D]
-            s_cache = q @ kc[:, h].T
-            p_v = None
-            if quant:   # the row scales on the scores and on the V sum's probs
-                s_cache = s_cache * k_s[l, :pos, h][None, :]
-                p_v = v_s[l, :pos, h][None, :]
-            s_fresh = q @ k_all[h][:, None]             # [group, 1]
-            m = torch.maximum(s_cache.amax(dim=1, keepdim=True), s_fresh)
-            p_cache = torch.exp(s_cache - m)
-            p_fresh = torch.exp(s_fresh - m)
-            denom = p_cache.sum(dim=1, keepdim=True) + p_fresh
-            o = (p_cache if p_v is None else p_cache * p_v) @ vc[:, h]
-            heads.append((o + p_fresh * v_all[h][None, :]) / denom)
-        attn = _bf(torch.cat(heads, dim=0).reshape(DQ))
-        _write_fresh_row(k, k_s, l, pos, k_all)
-        _write_fresh_row(v, v_s, l, pos, v_all)
-        xq, sx = _quant_row(attn)
-        h1 = _bf(x + _bf(_gemv_ref(xq, sx, pack["wo_q"][l], pack["wo_s"][l])))
+        h1 = _attention_ref(pack, cfg, l, x, pos, k, v, k_s, v_s)
         xq, sx = _quant_row(_bf(rms_norm_f32(h1, pack["ffn_norm"][l], eps)))
         gu = _bf(_gemv_ref(xq, sx, pack["gu_q"][l], pack["gu_s"][l]))
         g32, u32 = gu[:FF], gu[FF:]
         act = _bf((g32 * torch.sigmoid(g32)) * u32)
         xq, sx = _quant_row(act)
         x = _bf(h1 + _bf(_gemv_ref(xq, sx, pack["wd_q"][l], pack["wd_s"][l])))
-    xq, sx = _quant_row(_bf(rms_norm_f32(x, pack["out_norm"], eps)))
+    return _head_ref(pack, cfg, x, return_logits)
+
+
+def _embed_ref(pack, cfg: DecoderConfig, token_or_x) -> torch.Tensor:
+    """The step's input row, f32 [H] of bf16 values: the embedding row of an
+    int32 token, or the given row."""
+    if token_or_x.dtype == torch.int32:
+        x = pack["embd"][token_or_x.reshape(-1)[0].long()].float()
+    else:
+        x = token_or_x.reshape(cfg.hidden_size).float()
+    return _bf(x)
+
+
+def _attention_ref(pack, cfg: DecoderConfig, l: int, x, pos: int, k, v, k_s, v_s
+                   ) -> torch.Tensor:
+    """Layer l's attention block of the twin on the row x (f32 [H]): the QKV
+    product, QK-norm, RoPE at pos, attention over the cache rows < pos and
+    the fresh column (written at row pos), the Wo product and the residual.
+    -> h1 f32 [H] of bf16 values."""
+    NH, NKV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    DQ, group, eps = NH * D, NH // NKV, cfg.rms_norm_eps
+    scale = float(np.float32(1.0 / float(np.sqrt(D))))
+    quant = k_s is not None
+    xq, sx = _quant_row(_bf(rms_norm_f32(x, pack["attn_norm"][l], eps)))
+    qkv = _bf(_gemv_ref(xq, sx, pack["qkv_q"][l], pack["qkv_s"][l]))
+    rows = qkv.reshape(NH + 2 * NKV, D)
+    q_all = rope_row(rms_norm_f32(rows[:NH], pack["q_norm"][l], eps), pos,
+                     cfg.rope_theta) * scale
+    k_all = rope_row(rms_norm_f32(rows[NH:NH + NKV], pack["k_norm"][l], eps),
+                     pos, cfg.rope_theta)
+    v_all = rows[NH + NKV:]
+    kc = _cache_rows(k, l, pos).reshape(pos, NKV, D)
+    vc = _cache_rows(v, l, pos).reshape(pos, NKV, D)
+    heads = []
+    for h in range(NKV):
+        q = q_all[h * group:(h + 1) * group]        # [group, D]
+        s_cache = q @ kc[:, h].T
+        p_v = None
+        if quant:   # the row scales on the scores and on the V sum's probs
+            s_cache = s_cache * k_s[l, :pos, h][None, :]
+            p_v = v_s[l, :pos, h][None, :]
+        s_fresh = q @ k_all[h][:, None]             # [group, 1]
+        m = torch.maximum(s_cache.amax(dim=1, keepdim=True), s_fresh)
+        p_cache = torch.exp(s_cache - m)
+        p_fresh = torch.exp(s_fresh - m)
+        denom = p_cache.sum(dim=1, keepdim=True) + p_fresh
+        o = (p_cache if p_v is None else p_cache * p_v) @ vc[:, h]
+        heads.append((o + p_fresh * v_all[h][None, :]) / denom)
+    attn = _bf(torch.cat(heads, dim=0).reshape(DQ))
+    _write_fresh_row(k, k_s, l, pos, k_all)
+    _write_fresh_row(v, v_s, l, pos, v_all)
+    xq, sx = _quant_row(attn)
+    return _bf(x + _bf(_gemv_ref(xq, sx, pack["wo_q"][l], pack["wo_s"][l])))
+
+
+def _head_ref(pack, cfg: DecoderConfig, x, return_logits: bool):
+    """The final norm, the lm head and the argmax of the twin on x (f32
+    [H]). -> (token int32 [1], x [1, H]) or, with return_logits, (token, x,
+    logits f32 [V])."""
+    H = cfg.hidden_size
+    xq, sx = _quant_row(_bf(rms_norm_f32(x, pack["out_norm"], cfg.rms_norm_eps)))
     logits = _gemv_ref(xq, sx, pack["head_q"], pack["head_s"])[:cfg.vocab_size]
     tok = torch.argmax(logits).to(torch.int32).reshape(1)
     if return_logits:
@@ -471,9 +495,12 @@ class DecodeStep:
             self.ptrs.token_in, self.ptrs.x_in = None, token_or_x.data_ptr()
         check(out, "token out", torch.int32, (1,), self.dev)
         self.ptrs.token_out = out.data_ptr()
-        rc = self._fn(ctypes.byref(self.ptrs), ctypes.byref(self.dims),
-                      ctypes.c_void_p(pos.data_ptr()), stream_ptr(self.dev))
-        raise_on_error(rc, self.counter.__name__)
+        raise_on_error(self._launch(pos), self.counter.__name__)
+
+    def _launch(self, pos: torch.Tensor) -> int:
+        """The step's C entry at the device position `pos`."""
+        return self._fn(ctypes.byref(self.ptrs), ctypes.byref(self.dims),
+                        ctypes.c_void_p(pos.data_ptr()), stream_ptr(self.dev))
 
 
 class GraphStep:

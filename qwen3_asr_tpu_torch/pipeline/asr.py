@@ -29,6 +29,11 @@ batched prefill and the lockstep batched decode,
 mode: the decode pack's batched step (K3) over an int8 or a bf16 cache in
 chunks of at most 16 sequences, or without a pack the per-layer step at B
 rows; the int4 cache runs as int8 in a batch.
+
+An MoE model (Qwen3-Omni-30B-A3B's thinker: `config.MoeDecoderConfig`)
+loads under "int8pc" or "auto" (its experts as `ops/moe.py`'s int8 leaves,
+the MoE step's pack under "moe") and runs `transcribe`'s greedy path, fused
+or staged; the other paths and weight modes raise, naming themselves.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from qwen3_asr_tpu_torch.audio.mel import filters_t, generate_mel_filters
 from qwen3_asr_tpu_torch.audio.wav import load_wav
 from qwen3_asr_tpu_torch.models.generate import INT4_KV
 from qwen3_asr_tpu_torch.ops.megakernel import pack_megakernel_params
+from qwen3_asr_tpu_torch.ops.moe import pack_moe_params
 from qwen3_asr_tpu_torch.ops.support import resolve_device
 from qwen3_asr_tpu_torch.runtime.params import (
     assert_on_device,
@@ -141,6 +147,30 @@ class Qwen3ASR:
 
     def _finish_load(self, cfg, params, vocab, merges) -> None:
         dec = params["decoder"]
+        if cfg.decoder.moe:
+            dec = self._moe_decoder(cfg, dec)
+        else:
+            dec = self._dense_decoder(cfg, dec)
+        params["decoder"] = dec
+        assert_on_device(params, self.device)
+        self.cfg, self.params = cfg, params
+        self.tokenizer = BPETokenizer(vocab, merges)
+        self.filters_t = filters_t(generate_mel_filters(), self.device)
+
+    def _moe_decoder(self, cfg, dec: dict) -> dict:
+        """An MoE decoder (Qwen3-Omni's thinker) on int8pc weights: its
+        attention and lm head as int8pc leaves, its experts as `ops/moe.py`'s
+        int8 leaves (dense matrices are rounded here; leaves already int8,
+        as a loader a layer at a time hands them, stay), and the MoE decode
+        step's pack under "moe". "auto" is int8pc; the int4 pack, Q8_0 and
+        dense weights are not ported for it."""
+        if self.quantize not in ("int8pc", "auto"):
+            cfg.decoder.require_dense(f"quantize={self.quantize or False!r}")
+        dec = fuse_decoder_params(quantize_decoder_params(dec, "int8pc"))
+        dec["moe"] = pack_moe_params(dec, cfg.decoder)
+        return dec
+
+    def _dense_decoder(self, cfg, dec: dict) -> dict:
         quantize = self._resolve_quantize(dec)
         if quantize in ("int8pc", "int4"):
             # the decode pack is built from int8pc leaves, so Q8_0 blocks of
@@ -153,11 +183,7 @@ class Qwen3ASR:
         if quantize in ("int8pc", "int4"):
             dec["mega"] = pack_megakernel_params(dec, cfg.decoder,
                                                  int4=quantize == "int4")
-        params["decoder"] = dec
-        assert_on_device(params, self.device)
-        self.cfg, self.params = cfg, params
-        self.tokenizer = BPETokenizer(vocab, merges)
-        self.filters_t = filters_t(generate_mel_filters(), self.device)
+        return dec
 
     def load_random(self, cfg: ASRModelConfig, seed: int = 0,
                     vocab: list[str] | None = None,
@@ -321,6 +347,8 @@ class Qwen3ASR:
             print("Note: temperature>0 — spec_k (greedy-exact speculation) does "
                   "not apply to sampled decoding; using the sampled path.",
                   file=sys.stderr, flush=True)
+        if use_spec:
+            dcfg.require_dense("speculative decoding (spec_k)")
         if use_spec and "mega" not in self.params["decoder"]:
             result.error_msg = SPEC_NEEDS_PACK
             return result
@@ -407,6 +435,7 @@ class Qwen3ASR:
             for r in results:
                 r.error_msg = "Model not loaded"
             return results
+        self.cfg.decoder.require_dense("transcribe_batch (and the server's closed batches)")
         t0 = time.perf_counter()
         samples_list = [self._load_samples(a, r) for a, r in zip(audios, results)]
         feats_list = frontend_feats_batch(self, samples_list, params.mel_bucket)

@@ -103,6 +103,7 @@ class ContinuousEngine:
     def __init__(self, asr, pool: int = 8, round_tokens: int = 64,
                  max_tokens: int = 1024, prompt_bucket: int = 128,
                  mel_bucket: int = 800, s_pool: int | None = None):
+        asr.cfg.decoder.require_dense("the continuous engine (ContinuousEngine)")
         if "mega" not in asr.params["decoder"]:
             raise NotImplementedError(
                 f"the continuous engine runs the batched decode step on the decode "

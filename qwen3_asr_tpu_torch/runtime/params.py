@@ -103,20 +103,31 @@ def resolve_quantize(quantize: str, dec_params: dict) -> str:
 def quantize_decoder_params(dec_params: dict, mode: str = "int8pc",
                             lm_head: bool = True) -> dict:
     """int8 leaves for the per-layer matmul weights (leaves that are already
-    quantized, as a Q8_0 GGUF loads them, stay) and an int8 copy of the tied
-    lm head. mode="int8pc": per-output-channel leaves and `lm_head_pc`
-    [hidden, vocab]; mode="q8_0": Q8_0 leaves (per-32-row-block scales,
-    codes bit-equal to the reference's numpy quantizer) and `lm_head_q8`,
-    its vocab zero-padded to a multiple of 4,096. lm_head=False leaves the
-    head dense: the aligner ends in its classify head and would never read
-    an int8 copy of the 152k-row table."""
+    quantized, as a Q8_0 GGUF loads them, stay) and an int8 copy of the
+    lm head (the tied embedding, or an untied `lm_head` [hidden, vocab]).
+    mode="int8pc": per-output-channel leaves and `lm_head_pc` [hidden,
+    vocab]; an MoE decoder's dense experts (`experts_gate`, `experts_up`
+    [L, E, hidden, F], `experts_down` [L, E, F, hidden]) become the int8
+    expert leaves of `ops/moe.py`; mode="q8_0": Q8_0 leaves (per-32-row-block
+    scales, codes bit-equal to the reference's numpy quantizer) and
+    `lm_head_q8`, its vocab zero-padded to a multiple of 4,096. lm_head=False
+    leaves the head dense: the aligner ends in its classify head and would
+    never read an int8 copy of the 152k-row table."""
     if mode not in ("int8pc", "q8_0"):
         raise NotImplementedError(f"quantize mode {mode!r} is not ported "
                                   "(only 'int8pc' and 'q8_0')")
     out = dict(dec_params)
     layers = dict(dec_params["layers"])
+    if "experts_gate" in layers:
+        if mode != "int8pc":
+            raise NotImplementedError(f"quantize mode {mode!r} for an MoE decoder: "
+                                      "its experts run int8pc only")
+        from qwen3_asr_tpu_torch.ops.moe import expert_leaves
+
+        layers["experts_gu"], layers["experts_down"] = expert_leaves(
+            layers.pop("experts_gate"), layers.pop("experts_up"), layers["experts_down"])
     for key in _DEC_QUANT_KEYS:
-        if isinstance(layers[key], dict):
+        if key not in layers or isinstance(layers[key], dict):
             continue
         if mode == "int8pc":
             q, s = quantize_pc_weights(layers[key])
@@ -127,12 +138,16 @@ def quantize_decoder_params(dec_params: dict, mode: str = "int8pc",
     out["layers"] = layers
     if not lm_head:
         return out
-    head = dec_params["token_embd"].float().T            # [hidden, vocab]
+    def head():   # [hidden, vocab]
+        return (dec_params["lm_head"] if "lm_head" in dec_params
+                else dec_params["token_embd"].T).float()
+
     if mode == "int8pc" and "lm_head_pc" not in out:
-        q, s = quantize_pc_weights(head)
+        q, s = quantize_pc_weights(head())
         out["lm_head_pc"] = {"i8pc:q": q.contiguous(), "i8pc:s": s}
     elif mode == "q8_0" and "lm_head_q8" not in out:
-        out["lm_head_q8"] = quant_leaf(head, pad_out_to=4096)
+        out["lm_head_q8"] = quant_leaf(head(), pad_out_to=4096)
+    out.pop("lm_head", None)   # the int8 copy replaces an untied head
     return out
 
 
@@ -141,7 +156,7 @@ def dequantize_decoder_params(dec_params: dict, dtype=torch.bfloat16) -> dict:
     `dtype`: the input of the int8pc / int4 quantizers."""
     layers = dict(dec_params["layers"])
     for key in _DEC_QUANT_KEYS:
-        leaf = layers[key]
+        leaf = layers.get(key)
         if isinstance(leaf, dict) and "q8:q" in leaf:
             layers[key] = torch.stack([
                 dequantize_q8_weights(q, s).to(dtype)
@@ -246,10 +261,17 @@ def init_decoder_params(cfg: DecoderConfig, gen, dtype, device) -> dict:
             "wo": nrm(L, qd, h),
             "q_norm": o(L, cfg.head_dim), "k_norm": o(L, cfg.head_dim),
             "ffn_norm": o(L, h),
-            "w_gate": nrm(L, h, inter), "w_up": nrm(L, h, inter),
-            "w_down": nrm(L, inter, h),
         },
     }
+    layers = out["layers"]
+    if cfg.moe:   # the router, the experts and an untied head
+        E, F = cfg.n_experts, cfg.moe_intermediate_size
+        layers.update(router=nrm(L, h, E), experts_gate=nrm(L, E, h, F),
+                      experts_up=nrm(L, E, h, F), experts_down=nrm(L, E, F, h))
+        out["lm_head"] = nrm(h, cfg.vocab_size)
+    else:
+        layers.update(w_gate=nrm(L, h, inter), w_up=nrm(L, h, inter),
+                      w_down=nrm(L, inter, h))
     if cfg.classify_num is not None:
         out["classify_w"] = nrm(h, cfg.classify_num)
         out["classify_b"] = torch.zeros(cfg.classify_num, dtype=dtype, device=device)

@@ -1159,3 +1159,169 @@ def test_cli_request_prefills_fused(cuda_kernels):
     assert r.success
     assert (dmod._prefill_layers.fused_layers - counts[0],
             dmod._prefill_layers.eager_layers - counts[1]) == (28, 0)
+
+
+# -- the MoE thinker's kernels (ops/moe.py, csrc/moe.cu) ---------------------------
+
+def _moe_decoder(L: int = 2, E: int = 16, K: int = 4, V: int = 4096):
+    """A Qwen3-MoE decoder at the thinker's widths (hidden 2,048, 32 / 4
+    heads of 128, experts of 768) with E experts, top K, L layers, a V-entry
+    vocabulary: int8pc attention and head, int8 experts, the MoE step's
+    pack."""
+    from qwen3_asr_tpu_torch.config import MoeDecoderConfig
+    from qwen3_asr_tpu_torch.ops import moe
+
+    cfg = MoeDecoderConfig(vocab_size=V, hidden_size=2048, n_layers=L, n_heads=32,
+                           n_kv_heads=4, head_dim=128, intermediate_size=768, n_experts=E,
+                           n_experts_per_tok=K, eos_token_id=-1)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dec = tparams.init_decoder_params(cfg, gen, torch.bfloat16, "cuda")
+    dec = tparams.fuse_decoder_params(tparams.quantize_decoder_params(dec, "int8pc"))
+    dec["moe"] = moe.pack_moe_params(dec, cfg)
+    return cfg, dec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,skewed", [(37, False), (410, False), (200, True)])
+def test_moe_prefill_products_match_twins(cuda_kernels, N, skewed):
+    """The router's sort, the grouped gate-up products (the SwiGLU rows),
+    their codes (F1) and the grouped down products equal their twins on the
+    same inputs bit for bit (integer products are exact), the residual
+    pass's rows too and its codes within one (the norm's sum order); skewed:
+    most rows
+    on two experts (tiles past 32 pairs), two experts with none."""
+    from qwen3_asr_tpu_torch.ops import moe
+    from qwen3_asr_tpu_torch.ops import prefill_fused as pf
+    from qwen3_asr_tpu_torch.ops.prefill_fused import codes_buffer
+
+    cfg, dec = _moe_decoder()
+    H, F, E, K = 2048, 768, 16, 4
+    lay = dec["layers"]
+    g = torch.Generator(device="cuda").manual_seed(N)
+    codes = codes_buffer(N, H, "cuda")
+    codes[:N] = torch.randint(-127, 128, (N, H), generator=g, device="cuda", dtype=torch.int8)
+    router = lay["router"][0].clone()
+    if skewed:
+        codes[:N, :3] = 127
+        codes[N * 4 // 5:N, :2] = -127
+        router[:, :2] = 0
+        router[0, 0] = router[1, 1] = 1.0
+        router[:, E - 2:] = 0
+        router[2, E - 2:] = -1.0
+    sx = torch.rand(N, 1, generator=g, device="cuda") * 0.01 + 1e-3
+    res = (torch.randn(N, H, generator=g, device="cuda") * 3).to(torch.bfloat16)
+    gu = {k: v[0] for k, v in lay["experts_gu"].items()}
+    dn = {k: v[0] for k, v in lay["experts_down"].items()}
+    wts, order, off = moe.route(codes, sx, router, K)
+    work = moe.prefill_work(N, H, F, K, "cuda")
+    act = moe.moe_gate_up(codes, sx, order, off, gu["q"], gu["s"], K, work)
+    pf.norm_quant_rows(act, None, cfg.rms_norm_eps, work["fq"], work["fs"])
+    fq, fs = work["fq"], work["fs"]
+    ys = moe.moe_down(fq, fs, order, off, wts, dn["q"], dn["s"], work)
+    oc, osx = codes_buffer(N, H, "cuda"), torch.empty(N, 1, device="cuda")
+    x = moe.moe_combine(res, ys, K, lay["attn_norm"][1], cfg.rms_norm_eps, oc, osx)
+    c = (lambda t: t.cpu())
+    rw, ro, rf = moe.route_ref(c(codes), c(sx), c(router), K)
+    assert torch.equal(off.cpu(), rf)
+    # the kernel's weights: exp(l - max) over the top k's sum, the twin's the
+    # softmax renormalised: the same numbers within f32 rounding
+    pairs = order.cpu().long()
+    torch.testing.assert_close(wts.cpu(), rw, rtol=1e-5, atol=1e-7)
+    assert torch.equal(torch.sort(pairs).values, torch.arange(N * K))
+    cw = moe.prefill_work(N, H, F, K, "cpu")
+    ract = moe.moe_gate_up_ref(c(codes), c(sx), c(order), c(off), c(gu["q"]), c(gu["s"]), K,
+                               cw)
+    assert torch.equal(act.cpu(), ract)
+    pf.norm_quant_rows_ref(ract, None, cfg.rms_norm_eps, cw["fq"], cw["fs"])
+    rq, rs = cw["fq"], cw["fs"]
+    assert torch.equal(fq.cpu(), rq) and torch.equal(fs.cpu(), rs)
+    rys = moe.moe_down_ref(rq, rs, c(order), c(off), c(wts), c(dn["q"]), c(dn["s"]), cw)
+    assert torch.equal(ys.cpu(), rys)
+    rc, rsx = codes_buffer(N, H, "cpu"), torch.empty(N, 1)
+    rx = moe.moe_combine_ref(c(res), c(ys), K, c(lay["attn_norm"][1]), cfg.rms_norm_eps, rc,
+                             rsx)
+    assert torch.equal(x.cpu(), rx)
+    assert int((oc[:N].cpu().int() - rc[:N].int()).abs().max()) <= 1
+    counts = torch.diff(off).cpu()
+    assert work["stats"].cpu().tolist() == [int((counts > 0).sum()), int(counts.max())]
+    if skewed:
+        assert counts[E - 2:].tolist() == [0, 0] and int(counts.max()) > 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_moe_decode_step_matches_twin(cuda_kernels, kv):
+    """The MoE step: 6 L + 4 kernels a step; each layer alone against the
+    twin on the same input and cache (h within 1e-2, the same experts);
+    32 graphed steps bit-equal to 32 eager ones, caches included."""
+    import dataclasses
+
+    from qwen3_asr_tpu_torch.ops import moe
+    from qwen3_asr_tpu_torch.ops.megakernel import GraphStep
+    from qwen3_asr_tpu_torch.ops.support import kernels_a_call
+
+    cfg, dec = _moe_decoder()
+    pack, L, S, DKV = dec["moe"], cfg.n_layers, 512, 512
+    g = torch.Generator(device="cuda").manual_seed(2)
+    if kv == "bf16":
+        cache = [(torch.randn(L, S, DKV, generator=g, device="cuda") * 2).to(torch.bfloat16)
+                 for _ in range(2)] + [None, None]
+    else:
+        cache = [torch.randint(-100, 101, (L, S, DKV), generator=g, device="cuda",
+                               dtype=torch.int8) for _ in range(2)]
+        cache += [torch.rand(L, S, 4, generator=g, device="cuda") * 0.02 + 1e-3
+                  for _ in range(2)]
+    clone = (lambda ts: [t.clone() if t is not None else None for t in ts])
+    step = moe.MoeDecodeStep(pack, cfg, *clone(cache))
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    tok = torch.tensor([123], dtype=torch.int32, device="cuda")
+    step.pos.fill_(300)
+    assert kernels_a_call(lambda: step(tok, step.pos, out)) == moe.step_kernels(L)
+    c1 = dataclasses.replace(cfg, n_layers=1)
+    for l in range(L):
+        one = {k: (v[l:l + 1] if k not in ("head_q", "head_s", "out_norm", "embd") else v)
+               for k, v in pack.items()}
+        lc = [t[l:l + 1].clone() if t is not None else None for t in cache]
+        x = (torch.randn(1, cfg.hidden_size, generator=g, device="cuda") * 3).to(torch.bfloat16)
+        s1 = moe.MoeDecodeStep(one, c1, *clone(lc))
+        s1(x, 300, out)
+        _, rh = moe.moe_decode_step_ref(one, c1, x, 300, *clone(lc))
+        assert float((s1.h - rh).norm() / rh.norm()) < 1e-2, l
+    a, b = clone(cache), clone(cache)
+    e = moe.MoeDecodeStep(pack, cfg, *a)
+    o1 = torch.zeros(33, dtype=torch.int32, device="cuda")
+    o1[0] = 77
+    for i in range(1, 33):
+        e(o1[i - 1:i], 200 + i - 1, o1[i:i + 1])
+    gs = GraphStep(moe.MoeDecodeStep(pack, cfg, *b))
+    o2 = torch.zeros(33, dtype=torch.int32, device="cuda")
+    o2[0] = 77
+    for i in range(1, 33):
+        gs(o2, i, 200 + i - 1)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2)
+    assert all(torch.equal(x, y) for x, y in zip(a, b) if x is not None)
+
+
+@pytest.mark.cuda
+def test_moe_prefill_waits_on_no_host(cuda_kernels):
+    """The MoE prefill's layer stack (the router's sort, the grouped products,
+    the fused passes) runs under set_sync_debug_mode("error"), counted as
+    fused layers, its rows finite."""
+    from qwen3_asr_tpu_torch.models import decoder as dmod
+
+    cfg, dec = _moe_decoder()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    h = (torch.randn(1, 160, cfg.hidden_size, generator=g, device="cuda") * 0.5).to(
+        torch.bfloat16)
+    valid = torch.tensor([150], dtype=torch.int32, device="cuda")
+    dmod._prefill_layers(dec, cfg, h, valid, lambda *a: None)   # RoPE's table, once a device
+    fused0 = dmod._prefill_layers.fused_layers
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = dmod._prefill_layers(dec, cfg, h, valid, lambda *a: None)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert dmod._prefill_layers.fused_layers == fused0 + cfg.n_layers
+    assert bool(torch.isfinite(out.float()).all())
