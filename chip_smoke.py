@@ -3946,7 +3946,7 @@ def phase_batch_modes(q8, auto) -> dict:
 
 # -- the MoE thinker (Qwen3-Omni-30B-A3B's) ---------------------------------------
 
-MOE_LAYERS = 4                   # the thinker's widths, fewer layers
+MOE_LAYERS = 8                   # the thinker's widths, fewer layers
 MOE_REQUESTS = ((5, 18), (30, 105))   # the cell's shortest and longest
 
 
@@ -4068,13 +4068,32 @@ def phase_moe_prefill(dec, dcfg) -> dict:
     return out
 
 
+def moe_digest(step, tokens) -> str:
+    """The first 16 hex digits of the sha256 of a step's tokens and of its
+    h_out after each of them: a graphed MoE step (`GraphStep`) run over
+    tokens[0] .. at positions 200 ..; tokens int32 [n] on the device, its
+    entries past the first overwritten with the decoded ones."""
+    import hashlib
+
+    import torch
+
+    hs = []
+    for i in range(1, tokens.shape[0]):
+        step(tokens, i, 200 + i - 1)
+        hs.append(step.h.clone())
+    torch.cuda.synchronize()
+    blob = tokens.cpu().numpy().tobytes() + torch.cat(hs).cpu().numpy().tobytes()
+    return hashlib.sha256(blob).hexdigest()[:16]
+
+
 def phase_moe_step(dec, dcfg) -> dict:
     """The MoE decode step on the thinker's layers: each layer alone against
     the twin on the same input row and cache (h within 1e-2; the routed
     experts logged), 32 graphed steps bit-equal to 32 eager ones (tokens and
-    caches), kernel launches a step, and ms/step graphed (its bound: the
-    attention's weights, 8 experts and the router a layer, the head, the
-    cache)."""
+    caches) and their digest (`moe_digest`), kernel launches a step, the
+    persistent attention launch's blocks, and ms/step graphed (its bound:
+    the attention's weights, 8 experts and the router a layer, the head,
+    the cache)."""
     import dataclasses
 
     import torch
@@ -4093,7 +4112,7 @@ def phase_moe_step(dec, dcfg) -> dict:
     out = torch.zeros(1, dtype=torch.int32, device="cuda")
     step.pos.fill_(pos)
     n_k = kernels_a_call(lambda: step(tok, step.pos, out))
-    if n_k != moe.step_kernels(L):
+    if n_k != moe.step_kernels(L) or n_k != 4 * L + 4:
         raise AssertionError(f"MoE step: {n_k} kernels, want {moe.step_kernels(L)}")
     worst = 0.0
     c1 = dataclasses.replace(dcfg, n_layers=1)
@@ -4121,9 +4140,7 @@ def phase_moe_step(dec, dcfg) -> dict:
     gs = GraphStep(moe.MoeDecodeStep(pack, dcfg, kb, vb))
     o2 = torch.zeros(33, dtype=torch.int32, device="cuda")
     o2[0] = 77
-    for i in range(1, 33):
-        gs(o2, i, 200 + i - 1)
-    torch.cuda.synchronize()
+    digest = moe_digest(gs, o2)
     if not (torch.equal(o1, o2) and torch.equal(ka, kb) and torch.equal(va, vb)):
         raise AssertionError("MoE step: 32 graphed steps differ from 32 eager ones")
     o3 = torch.zeros(130, dtype=torch.int32, device="cuda")
@@ -4144,10 +4161,12 @@ def phase_moe_step(dec, dcfg) -> dict:
                    + K * (3 * H * F + 4 * (2 * F + H)))
               + H * V + 4 * V + L * (pos + 64) * DKV * 2 * 2)
     b = bound(nbytes, 0.0, INT8_OPS)
-    log(f"MoE step: {n_k} kernels a step at {L} layers, graphed {ms:.4f} ms/step "
-        f"at pos {pos}-{pos + 128} (bound {b[0]:.4f} {b[1]}); layers alone h rel <= "
-        f"{worst:.3g}; 32 graphed steps == eager")
-    return {"err": worst, "ms": ms, "bound": b, "kernels": n_k}
+    log(f"MoE step: {n_k} kernels a step at {L} layers, moe_attn_layer on {step.attn_blocks} "
+        f"blocks, graphed {ms:.4f} ms/step at pos {pos}-{pos + 128} (bound {b[0]:.4f} "
+        f"{b[1]}); layers alone h rel <= {worst:.3g}; 32 graphed steps == eager, digest "
+        f"{digest}")
+    return {"err": worst, "ms": ms, "bound": b, "kernels": n_k, "attn_blocks": step.attn_blocks,
+            "digest": digest}
 
 
 def phase_moe():
@@ -4481,6 +4500,7 @@ def main() -> int:
             "none: the JAX package has no mixture-of-experts model",
             launches_of("moe_decode_step"), moe_step["err"], moe_step["ms"], None,
             *moe_step["bound"], kernels_a_step=moe_step["kernels"],
+            attn_blocks=moe_step["attn_blocks"], digest=moe_step["digest"],
             layers=MOE_LAYERS),
         row("probe (K8, y = 2 x)", "probe.cu", "qwen3_asr_tpu/ops/support.py:35",
             k8_launches, *k8, "bytes", lib=k8[2]),

@@ -22,14 +22,16 @@
 //                pair's slot, which `pf_moe_combine` (prefill_fused.cu)
 //                sums over the row's experts in order into the residual.
 // Decode (the MoE step, `qw_moe_decode_step_*`): per layer
-//   moe_gemv_dense the QKV and Wo products on output-major copies of the
-//                  int8pc codes, with K1's input prologue (row_codes) and
-//                  its epilogue (megakernel.cuh);
-//   moe_attn       K1's attention with a KV head's 8 q heads split over 4
-//                  blocks;
-//   moe_router     the Wo residual and the FFN norm's row codes (K1's
-//                  prologue, row_codes), 16 experts' logits a block, and in
-//                  the block that finishes last the top-k with its
+//   moe_attn_layer the attention half in one persistent launch, one block
+//                  an SM: the attention norm's row codes (norm_quant's
+//                  arithmetic, as K1's prologue) and the QKV product on
+//                  output-major copies of the int8pc codes, K1's attention
+//                  with a KV head's 8 q heads split over 4 tasks, the Wo
+//                  product, and h1 with the FFN norm's row codes, written
+//                  once; the layer's QKV and Wo rows stream into shared
+//                  memory while the codes and the attention run;
+//   moe_router     16 experts' logits a block on those codes, and in the
+//                  block that finishes last the top-k with its
 //                  renormalised weights;
 //   moe_gemv_gu    the k routed experts' gate-up rows against the codes:
 //                  block (row tile, k) reads expert ids[k] from the device;
@@ -47,11 +49,11 @@
 // reads 8 experts a layer (1.8 GB of 3.1). The grouped products keep an
 // expert's column tile streaming with 16-byte loads two chunks deep and
 // take the few rows a tile has on tensor cores; the GEMVs give each warp a
-// few output rows with all their loads in flight at once. The step is six
-// dependent launches a layer, each ~11-15 us at the thinker's widths (its
-// bytes ~17 us a layer at 3.35 TB/s): it is bound by their latency.
+// few output rows with all their loads in flight at once. A step's layer
+// is four dependent launches (~17 us of bytes a layer at 3.35 TB/s): it is
+// bound by their latency, which is why the attention half is one launch.
 // Programmatic dependent launch made the graphed step slower (8 layers:
-// 0.87 ms against 0.75), so the step launches plainly.
+// 0.87 ms against 0.75, six launches a layer), so the step launches plainly.
 #include "megakernel.cuh"
 
 // The MoE step's arguments beyond K1's (MegaPtrs / MegaDims, whose gate-up
@@ -72,6 +74,8 @@ struct MoePtrs {
   void* tcnt;          // [H / 32] int32, zero between steps: down blocks done
   void* acnt;          // [NH] int32, zero between steps: attention chunks done
   void* gu_terms;      // [K][2F] f32: the routed experts' gate-up terms
+  void* bar;           // [1] uint32: moe_attn_layer's grid barrier, never reset
+  void* done;          // [1] int32, zero between steps: moe_attn_layer's Wo blocks done
 };
 
 struct MoeDims {
@@ -374,65 +378,116 @@ __global__ void __launch_bounds__(ROUTE_THREADS) moe_route(
 // -- the decode step's attention -------------------------------------------------
 //
 // K1's attention (megakernel.cuh, attn_step) with a KV head's q heads split
-// over blocks: the thinker has 8 q heads a KV head (the 0.6B models 2),
-// and attn_step's block per (KV head, chunk) would run 8 heads' scores and
-// sums alone over 4 KV heads' chunks. Block (kvh * QS + qs, c) takes chunk
-// c of KV head kvh for the q heads qs * GS .. qs * GS + GS - 1 (GS = 2 when
+// over tasks: the thinker has 8 q heads a KV head (the 0.6B models 2), and
+// attn_step's block per (KV head, chunk) would run 8 heads' scores and sums
+// alone over 4 KV heads' chunks. Task (vh = kvh * QS + qs, c) takes chunk c
+// of KV head kvh for the q heads qs * GS .. qs * GS + GS - 1 (GS = 2 when
 // the group is even, QS = group / GS): the same operations on each head as
 // attn_step (bf16 q / k / v from the QKV terms, RMSNorm, RoPE at pos, the
-// chunk's max, sums and V sum, the merge with the fresh column by the
-// chunk block that finishes last), with the fresh K/V row stored by the
-// merge of qs = 0. Partials: part[(kvh QS + qs) nchunks + c][GS][D + 2].
+// chunk's max, sums and V sum, the merge with the fresh column by the task
+// that finishes last), with the fresh K/V row stored by the merge of qs =
+// 0. Partials: part[vh stride + c][GS][D + 2]. The QKV terms and the
+// partials come from other blocks of the same launch. Every global input
+// is staged into shared memory by cp.async.cg (from L2) in one batch: the
+// terms, norms and row scales, then the chunk's rows; the merge stages the
+// partials MERGE_TILE chunks at a time. Each batch costs one round trip to
+// memory, where a load in a loop beside a shared store costs one a turn.
+
+constexpr int MERGE_TILE = 16;   // chunks of partials a merge stages at once
+
+// One 16-byte cp.async from global memory (at L2: never a stale L1 line of
+// data another block of the launch wrote) into shared memory.
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// n bytes (a multiple of 16) of global src into shared dst, 16-byte pieces
+// over the block's threads; the caller commits and waits.
+__device__ __forceinline__ void stage(void* dst, const void* src, int n) {
+  for (int i = threadIdx.x; i < n / 16; i += blockDim.x)
+    cp16(static_cast<char*>(dst) + 16 * i, static_cast<const char*>(src) + 16 * i);
+}
+
+// Commits the block's cp.async copies and waits for all of them.
+__device__ __forceinline__ void staged() {
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+}
+
+// Chunk c's K and V rows (< pos) of KV head kvh into kv [2][ATTN_ROWS][D]
+// by cp.async; the caller commits.
 template <typename CT>
-__global__ void __launch_bounds__(ATTN_THREADS) moe_attn(
-    const float* __restrict__ terms, const float* __restrict__ qn,
-    const float* __restrict__ kn, MegaDims d, CT* __restrict__ kc, CT* __restrict__ vc,
-    float* __restrict__ ksc, float* __restrict__ vsc, float* part, int* __restrict__ cnt,
-    __nv_bfloat16* __restrict__ attn_out, const int* __restrict__ pos_arr) {
-  constexpr bool QUANT = scaled_cache<CT>();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int last;
-  const int D = d.D, NKV = d.NKV, G = d.NH / NKV, DKV = NKV * D, DQ = d.NH * D;
-  const int GS = G % 2 ? 1 : 2, QS = G / GS;
-  const int vh = blockIdx.x, kvh = vh / QS, qs = vh % QS, c = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  const int pos = pos_arr[0];
-  if (c * ATTN_ROWS >= pos) return;
-  const int r0 = c * ATTN_ROWS, nr = min(ATTN_ROWS, pos - r0);
-  CT* kv = reinterpret_cast<CT*>(smem_raw);   // [2][ATTN_ROWS][D]
-  float* vec = reinterpret_cast<float*>(smem_raw + 2 * ATTN_ROWS * D * sizeof(CT));
-  float* p = vec + (GS + 2) * D;        // [GS][ATTN_ROWS]
-  float* ml = p + GS * ATTN_ROWS;       // m[GS], l[GS]
-  float* kss = ml + 2 * GS;             // [ATTN_ROWS]
-  float* vss = kss + ATTN_ROWS;
+__device__ __forceinline__ void stage_chunk(CT* kv, const CT* kc, const CT* vc,
+                                            const MegaDims& d, int pos, int kvh, int c) {
+  const int D = d.D, DKV = d.NKV * D, r0 = c * ATTN_ROWS, nr = min(ATTN_ROWS, pos - r0);
   const int pieces = D * (int)sizeof(CT) / 16;
-  for (int i = tid; i < 2 * nr * pieces; i += blockDim.x) {
+  for (int i = threadIdx.x; i < 2 * nr * pieces; i += blockDim.x) {
     const int which = i / (nr * pieces), rem = i % (nr * pieces);
     const int r = rem / pieces, piece = rem % pieces;
     const CT* src = (which ? vc : kc) + (size_t)(r0 + r) * DKV + kvh * D;
-    __pipeline_memcpy_async(
-        reinterpret_cast<unsigned char*>(kv + (which * ATTN_ROWS + r) * D) + piece * 16,
-        reinterpret_cast<const unsigned char*>(src) + piece * 16, 16);
+    cp16(reinterpret_cast<unsigned char*>(kv + (which * ATTN_ROWS + r) * D) + piece * 16,
+         reinterpret_cast<const unsigned char*>(src) + piece * 16);
   }
-  __pipeline_commit();
+}
+
+// Task (vh, c) in shared memory smem_raw (attn_task_smem), its chunk's rows
+// staged here, or already in pre (stage_chunk, committed) where pre is given.
+template <typename CT>
+__device__ void attn_task(const float* terms, const float* qn, const float* kn,
+                          const MegaDims& d, CT* kc, CT* vc, float* ksc, float* vsc,
+                          float* part, int stride, int* cnt, __nv_bfloat16* attn_out, int pos,
+                          int vh, int c, const float* rope, unsigned char* smem_raw,
+                          const CT* pre) {
+  constexpr bool QUANT = scaled_cache<CT>();
+  __shared__ int last;
+  const int D = d.D, NKV = d.NKV, G = d.NH / NKV, DKV = NKV * D, DQ = d.NH * D;
+  const int GS = G % 2 ? 1 : 2, QS = G / GS, PW = GS * (D + 2);
+  const int kvh = vh / QS, qs = vh % QS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int r0 = c * ATTN_ROWS, nr = min(ATTN_ROWS, pos - r0);
+  CT* kv = reinterpret_cast<CT*>(smem_raw);   // [2][ATTN_ROWS][D]
+  const CT* rows = pre ? pre : kv;
+  float* vec = reinterpret_cast<float*>(smem_raw + 2 * ATTN_ROWS * D * sizeof(CT));
+  float* p = vec + (GS + 2) * D;        // [GS][ATTN_ROWS]
+  float* ml = p + GS * ATTN_ROWS;       // m[GS], l[GS] (4 floats: keeps what follows 16-aligned)
+  float* kss = ml + 4;                  // [ATTN_ROWS]
+  float* vss = kss + ATTN_ROWS;
+  float* nw = vss + ATTN_ROWS;          // q_norm [D], k_norm [D]
+  float* ob = nw + 2 * D;               // the merge's running V sums [GS D]
+  float* pt = ob + GS * D;              // the merge's staged partials [MERGE_TILE][PW]
+  // the task's q heads kvh G + qs GS + j (j < GS), k and v of kvh, the norms
+  // and the chunk's row scales; then the chunk's K and V rows
+  stage(vec, terms + (kvh * G + qs * GS) * D, 4 * GS * D);
+  stage(vec + GS * D, terms + DQ + kvh * D, 4 * D);
+  stage(vec + (GS + 1) * D, terms + DQ + DKV + kvh * D, 4 * D);
+  stage(nw, qn, 4 * D);
+  stage(nw + D, kn, 4 * D);
   if constexpr (QUANT) {
     for (int r = tid; r < nr; r += blockDim.x) {
-      kss[r] = ksc[(size_t)(r0 + r) * NKV + kvh];
-      vss[r] = vsc[(size_t)(r0 + r) * NKV + kvh];
+      __pipeline_memcpy_async(kss + r, ksc + (size_t)(r0 + r) * NKV + kvh, 4);
+      __pipeline_memcpy_async(vss + r, vsc + (size_t)(r0 + r) * NKV + kvh, 4);
     }
   }
-  // q heads kvh G + qs GS + j (j < GS), then k and v of kvh: bf16 of the
-  // terms, RMSNorm of q (q_norm) and k (k_norm), NEOX RoPE at pos, q scaled
-  for (int i = tid; i < (GS + 2) * D; i += blockDim.x) {
-    const int j = i / D, e = i % D;
-    const int col = j < GS ? (kvh * G + qs * GS + j) * D + e
-                           : (j == GS ? DQ + kvh * D + e : DQ + DKV + kvh * D + e);
-    vec[i] = bf16_round(terms[col]);
+  __pipeline_commit();
+  if (pre) {
+    __pipeline_wait_prior(0);
+  } else {
+    stage_chunk(kv, kc, vc, d, pos, kvh, c);
+    __pipeline_commit();
+    __pipeline_wait_prior(1);
   }
+  __syncthreads();
+  // bf16 of the terms, RMSNorm of q (q_norm) and k (k_norm), NEOX RoPE at
+  // pos, q scaled
+  for (int i = tid; i < (GS + 2) * D; i += blockDim.x) vec[i] = bf16_round(vec[i]);
   __syncthreads();
   for (int j = warp; j < GS + 1; j += nwarps) {
     float* x = vec + j * D;
-    const float* w = j < GS ? qn : kn;
+    const float* w = j < GS ? nw : nw + D;
     float ss = 0.f;
     for (int e = lane; e < D; e += 32) ss += x[e] * x[e];
     ss = warp_sum(ss);
@@ -445,9 +500,7 @@ __global__ void __launch_bounds__(ATTN_THREADS) moe_attn(
   for (int i = tid; i < (GS + 1) * half; i += blockDim.x) {
     const int j = i / half, e = i % half;
     float* x = vec + j * D;
-    const float inv = expf((float)e * d.rope_coef);
-    const float ang = (float)pos * inv;
-    const float cs = cosf(ang), sn = sinf(ang);
+    const float cs = rope[e], sn = rope[half + e];
     const float x1 = x[e], x2 = x[e + half];
     float y1 = x1 * cs - x2 * sn, y2 = x2 * cs + x1 * sn;
     if (j < GS) {
@@ -457,22 +510,44 @@ __global__ void __launch_bounds__(ATTN_THREADS) moe_attn(
     x[e] = y1;
     x[e + half] = y2;
   }
-  __syncthreads();
   __pipeline_wait_prior(0);
   __syncthreads();
-  const CT* ks_rows = kv;
-  const CT* vs_rows = kv + ATTN_ROWS * D;
-  for (int r = warp; r < nr; r += nwarps) {
-    for (int j = 0; j < GS; ++j) {
-      const float* qj = vec + j * D;
-      float sc = 0.f;
-      for (int e = 4 * lane; e < D; e += 128) {
-        float k4[4];
-        row4(ks_rows, r, D, e, k4);
-        sc += qj[e] * k4[0] + qj[e + 1] * k4[1] + qj[e + 2] * k4[2] + qj[e + 3] * k4[3];
+  const CT* ks_rows = rows;
+  const CT* vs_rows = rows + ATTN_ROWS * D;
+  // scores (times the row's k scale): a warp a row, 4 elements a lane (D <=
+  // 256: two pieces), the lane's q elements of both heads in registers, both
+  // heads from one load of the row, their warp sums interleaved
+  float qr[2][2][4];
+#pragma unroll
+  for (int pc = 0; pc < 2; ++pc)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int e = 4 * lane + 128 * pc;
+        qr[pc][j][k] = j < GS && e < D ? vec[j * D + e + k] : 0.f;
       }
-      sc = warp_sum(sc);
-      if (lane == 0) p[j * ATTN_ROWS + r] = QUANT ? sc * kss[r] : sc;
+  for (int r = warp; r < nr; r += nwarps) {
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int pc = 0; pc < 2; ++pc) {
+      const int e = 4 * lane + 128 * pc;
+      if (e >= D) continue;
+      float k4[4];
+      row4(ks_rows, r, D, e, k4);
+      s0 += qr[pc][0][0] * k4[0] + qr[pc][0][1] * k4[1] + qr[pc][0][2] * k4[2] +
+            qr[pc][0][3] * k4[3];
+      s1 += qr[pc][1][0] * k4[0] + qr[pc][1][1] * k4[1] + qr[pc][1][2] * k4[2] +
+            qr[pc][1][3] * k4[3];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    }
+    if (lane == 0) {
+      p[r] = QUANT ? s0 * kss[r] : s0;
+      if (GS > 1) p[ATTN_ROWS + r] = QUANT ? s1 * kss[r] : s1;
     }
   }
   __syncthreads();
@@ -494,7 +569,7 @@ __global__ void __launch_bounds__(ATTN_THREADS) moe_attn(
     }
   }
   __syncthreads();
-  float* out = part + ((size_t)vh * gridDim.y + c) * GS * (D + 2);
+  float* out = part + ((size_t)vh * stride + c) * PW;
   for (int pr = tid; pr < GS * D; pr += blockDim.x) {
     const int j = pr / D, e = pr % D;
     const float* pj = p + j * ATTN_ROWS;
@@ -515,45 +590,68 @@ __global__ void __launch_bounds__(ATTN_THREADS) moe_attn(
   }
   __syncthreads();
   if (!last) return;
-  // the merge (attn_merge's, for this block's q heads)
+  // the merge (attn_merge's, for this task's q heads), over the partials
+  // staged a tile of chunks at a time; a lane's chunks (cc = lane mod 32)
+  // and a thread's V sums run in attn_merge's order across the tiles
   const int nchunks = n_attn_chunks(pos);
   float* wc = reinterpret_cast<float*>(smem_raw);   // [nchunks][GS], over the staging
   float* misc = kss;                                // p_fresh[GS], m[GS], den[GS]
   const float* kf = vec + GS * D;
   const float* vf = kf + D;
-  const float* pk = part + (size_t)vh * gridDim.y * GS * (D + 2);
-  __syncthreads();
+  const float* pk = part + (size_t)vh * stride * PW;
+  stage(pt, pk, 4 * min(MERGE_TILE, nchunks) * PW);
+  staged();
   for (int j = warp; j < GS; j += nwarps) {
     float sf = 0.f;
     for (int e = lane; e < D; e += 32) sf += vec[j * D + e] * kf[e];
     sf = warp_sum(sf);
     float mx = sf;
     for (int cc = lane; cc < nchunks; cc += 32)
-      mx = fmaxf(mx, __ldcg(pk + ((size_t)cc * GS + j) * (D + 2)));
+      mx = fmaxf(mx, cc < MERGE_TILE ? pt[cc * PW + j * (D + 2)]
+                                     : __ldcg(pk + (size_t)cc * PW + j * (D + 2)));
     mx = warp_max(mx);
-    float den = 0.f;
-    for (int cc = lane; cc < nchunks; cc += 32) {
-      const float* pc = pk + ((size_t)cc * GS + j) * (D + 2);
-      const float w = expf(__ldcg(pc) - mx);
-      wc[cc * GS + j] = w;
-      den += __ldcg(pc + 1) * w;
-    }
-    den = warp_sum(den);
-    const float pf = expf(sf - mx);
     if (lane == 0) {
-      misc[j] = pf;
+      misc[j] = expf(sf - mx);
       misc[GS + j] = mx;
-      misc[2 * GS + j] = den + pf;
     }
+  }
+  for (int pr = tid; pr < GS * D; pr += blockDim.x) ob[pr] = 0.f;
+  float den = 0.f;   // warp j < GS: its lane's share of head j's denominator
+  for (int c0 = 0; c0 < nchunks; c0 += MERGE_TILE) {
+    const int c1 = min(c0 + MERGE_TILE, nchunks);
+    if (c0 > 0) {
+      __syncthreads();
+      stage(pt, pk + (size_t)c0 * PW, 4 * (c1 - c0) * PW);
+    }
+    staged();
+    if (warp < GS) {
+      const int j = warp;
+      const float mx = misc[GS + j];
+      for (int cc = c0 + (lane - c0 % 32 + 32) % 32; cc < c1; cc += 32) {
+        const float* pc = pt + (cc - c0) * PW + j * (D + 2);
+        const float w = expf(pc[0] - mx);
+        wc[cc * GS + j] = w;
+        den += pc[1] * w;
+      }
+    }
+    __syncthreads();
+    for (int pr = tid; pr < GS * D; pr += blockDim.x) {
+      const int j = pr / D, e = pr % D;
+      float o = ob[pr];
+#pragma unroll 4
+      for (int cc = c0; cc < c1; ++cc) o = fmaf(pt[(cc - c0) * PW + j * (D + 2) + 2 + e],
+                                                 wc[cc * GS + j], o);
+      ob[pr] = o;
+    }
+  }
+  if (warp < GS) {
+    den = warp_sum(den);
+    if (lane == 0) misc[2 * GS + warp] = den + misc[warp];
   }
   __syncthreads();
   for (int pr = tid; pr < GS * D; pr += blockDim.x) {
     const int j = pr / D, e = pr % D;
-    float o = 0.f;
-#pragma unroll 4
-    for (int cc = 0; cc < nchunks; ++cc)
-      o = fmaf(__ldcg(pk + ((size_t)cc * GS + j) * (D + 2) + 2 + e), wc[cc * GS + j], o);
-    const float res = (o + misc[j] * vf[e]) / misc[2 * GS + j];
+    const float res = (ob[pr] + misc[j] * vf[e]) / misc[2 * GS + j];
     attn_out[(kvh * G + qs * GS + j) * D + e] = __float2bfloat16_rn(res);
   }
   if (qs != 0 || warp >= 2) return;
@@ -572,29 +670,29 @@ __global__ void __launch_bounds__(ATTN_THREADS) moe_attn(
   }
 }
 
-// Dynamic shared memory of moe_attn: the chunk's K and V rows, then
-// vec[(GS + 2) D], p[GS][ATTN_ROWS], ml[2 GS], kss and vss[ATTN_ROWS]; the
-// merge's weights [nchunks][GS] reuse the rows' bytes.
+// Shared memory of an attention task: the chunk's K and V rows (the merge's
+// weights [nchunks][GS] reuse their bytes), then vec[(GS + 2) D],
+// p[GS][ATTN_ROWS], ml[4], kss and vss[ATTN_ROWS], the norms [2 D], the
+// merge's V sums [GS D] and a tile of partials [MERGE_TILE][GS (D + 2)].
 template <typename CT>
-inline size_t moe_attn_smem(const MegaDims& d) {
+inline size_t attn_task_smem(const MegaDims& d) {
   const int G = d.NH / d.NKV, GS = G % 2 ? 1 : 2;
   return 2 * (size_t)ATTN_ROWS * d.D * sizeof(CT) +
-         sizeof(float) * ((size_t)(GS + 2) * d.D + GS * (ATTN_ROWS + 2) + 2 * ATTN_ROWS);
+         sizeof(float) * ((size_t)(GS + 2) * d.D + GS * ATTN_ROWS + 4 + 2 * ATTN_ROWS +
+                          2 * d.D + GS * d.D + (size_t)MERGE_TILE * GS * (d.D + 2));
 }
 
 // -- the decode step's expert kernels -------------------------------------------
 
 constexpr int GV_THREADS = 256;    // = PRO_THREADS: the blocks run row_codes
-constexpr int GV_MAX_IN = 4096;    // widest input row of a GEMV here (Wo's)
+constexpr int GV_MAX_IN = 4096;    // widest input row of a product here (Wo's)
 constexpr int ROUTER_EXPERTS = 16;                          // experts a router block
 constexpr int ROUTER_SUBS = GV_THREADS / ROUTER_EXPERTS;     // threads an expert
 constexpr int ROUTER_SLICE = 256;                            // input rows a router block
 constexpr int MAX_EXPERTS = 256;
 constexpr int MAX_TOPK = 16;
-// (rows a warp, 16-byte pieces a lane a row) of each GEMV: every load of a
-// block's rows is in flight at once (16 pieces a lane)
-constexpr int QKV_ROWS = 4, QKV_CPL = 4;   // input 2,048
-constexpr int WO_ROWS = 2, WO_CPL = 8;     // input 4,096
+// (rows a warp, 16-byte pieces a lane a row) of each expert GEMV: every
+// load of a block's rows is in flight at once (16 pieces a lane)
 constexpr int GU_ROWS = 4, GU_CPL = 4;     // input 2,048
 constexpr int DN_ROWS = 8, DN_CPL = 2;     // input 768
 __host__ __device__ constexpr int block_rows(int rows) { return rows * GV_THREADS / 32; }
@@ -650,56 +748,375 @@ struct GvRows {
   }
 };
 
-// The attention's QKV and Wo products (block x: output rows [x B, x B + B),
-// B = block_rows(ROWS)) on the output-major int8 copies of the pack (wt
-// [N, n_in], the rows of the int8pc leaf's columns), the input row's codes
-// made by K1's prologue (row_codes of `in`): terms[n] = f32(acc) * (sx *
-// ws[n]), K1's gemv_i8 epilogue. The weight loads go out before the
-// prologue.
-template <int ROWS, int CPL>
-__global__ void __launch_bounds__(GV_THREADS) moe_gemv_dense(
-    RowIn in, const int8_t* __restrict__ wt, const float* __restrict__ ws, int n_in, int N,
-    float* __restrict__ terms) {
-  __shared__ GvSmem sm;
-  const int n0 = blockIdx.x * block_rows(ROWS) + (threadIdx.x >> 5) * ROWS;
-  GvRows<ROWS, CPL> rows;
-  rows.load(wt, n_in, n0, N);
-  const float sx = row_codes(in, 0, n_in, sm.codes, sm.ys, sm.red);
-  int acc[ROWS];
-  rows.dots(sm.codes, n_in, n0, N, acc);
-  if ((threadIdx.x & 31) == 0)
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-      if (n0 + r < N) terms[n0 + r] = (float)acc[r] * (sx * ws[n0 + r]);
+// -- the attention half of a layer: one persistent launch ----------------------
+//
+// moe_attn_layer runs a layer's attention half on one block an SM, all of
+// them resident (a cooperative launch), in four phases:
+//   1  the attention norm's row codes (every block), then the QKV product
+//      of the block's share of output rows;
+//   2  the attention tasks (attn_task) over the blocks in turn;
+//   3  the attention row's codes (every block), the Wo product of the
+//      block's share of rows and h1 = x + bf16(wo) for them;
+//   4  in the block that finishes Wo last: the FFN norm's row codes xq /
+//      sx of h1, written once for the router and the experts' gate-up GEMV.
+// Grid barriers separate 1 | 2 | 3 (flags a block and a head group, so
+// that a task waits only for its own inputs, measured no faster); a ticket
+// hands 3 to 4. What bounds it is the chain of round trips to memory and
+// the bytes: every phase stages its inputs into shared memory in batches
+// that each cost one round trip (the QKV rows and the block's first cache
+// chunk are on their way while the codes are made; the Wo rows, 8 MB a
+// layer, stream in by TMA from the end of phase 1). The codes are
+// norm_quant's and row_codes' bits (block_codes), the products and
+// epilogues moe_gemv_dense's were: exact int32 dots, f32(acc) * (sx *
+// ws[n]). Data written by another block of the launch is read from L2
+// (cp.async.cg), never from a possibly stale L1 line.
+
+constexpr int AL_THREADS = 512;
+constexpr int AL_VIRT = NORM_THREADS / AL_THREADS;   // norm_quant's threads a thread plays
+constexpr int AL_PER = NORM_MAX / NORM_THREADS;      // elements a norm_quant thread takes at most
+
+// Byte offsets of the dynamic shared memory: the block's Wo rows, then one
+// region for its QKV rows (phase 1), an attention task's staging (2) or the
+// attention row (3), then a row's codes, a norm row's staged inputs (1, 4),
+// the rows of the block's first attention chunk (staged in 1 for 2) and
+// RoPE's cos and sin at pos [D].
+struct AlLayout {
+  int qkv, codes, row, pre, rope, bytes;
+};
+
+struct AlArgs {
+  const __nv_bfloat16* base;     // [H] phase 1's row: h1, or x_in, or null: embd[*token]
+  const __nv_bfloat16* embd;     // [V, H]
+  const int* token;              // [1]
+  const float* terms;            // [H] the down product's terms to add to h1, or null
+  const float* attn_w;           // [H] the attention norm
+  const int8_t* qkv_t;           // [NQKV, H] int8, output-major
+  const float* qkv_s;            // [NQKV]
+  const int8_t* wo_t;            // [H, DQ]
+  const float* wo_s;             // [H]
+  const float* qn;               // [D] q_norm, k_norm
+  const float* kn;
+  const float* ffn_w;            // [H] the FFN norm
+  void* kc;                      // the layer's cache (CT) and scales
+  void* vc;
+  float* ksc;
+  float* vsc;
+  float* qkv_terms;              // [NQKV]
+  float* part;                   // the attention's partials
+  int* acnt;                     // [NH] attention chunks done, zero between launches
+  __nv_bfloat16* attn;           // [DQ] the attention row
+  __nv_bfloat16* h1;             // [H] out: x + bf16(wo), a block's Wo rows each
+  int8_t* xq;                    // [H] out: the FFN norm's row codes
+  float* sx;                     // [1] out: their scale
+  unsigned* bar;                 // [1] the grid barrier's word, never reset
+  int* done;                     // [1] Wo blocks done, zero between launches
+  const int* pos;                // [1] the position
+  int stride;                    // the partials' chunks a vh: n_attn_chunks(d.pos)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Block (g, b): the row codes of `in` (the Wo residual under the FFN norm;
-// block (0, 0) also leaves them, and x = h1, for the expert GEMVs), and the
-// sums of experts [16g, 16g + 16) over input rows [256b, 256b + 256):
-// thread (sub, e) adds code[r] * router[r][e] over its 16 rows in order,
-// the 16 subs meet in order into part[b][e]. The block that finishes last
-// forms logits[e] = sx * the sum over b in order, and takes the top K by
-// logit (ties to the lower index), with weights exp(l - max) over their sum
-// (renormalised over the k).
-__global__ void __launch_bounds__(GV_THREADS) moe_router(
-    RowIn in, const __nv_bfloat16* __restrict__ router, int H, int E, int K,
-    int8_t* __restrict__ xq_out, float* __restrict__ sx_out, float* __restrict__ part,
-    int* __restrict__ cnt, int* __restrict__ ids, float* __restrict__ wts) {
-  __shared__ GvSmem sm;
-  __shared__ float sums[GV_THREADS];
-  __shared__ int last;
-  const float sx = row_codes(in, 0, H, sm.codes, sm.ys, sm.red);
-  if (blockIdx.x == 0 && blockIdx.y == 0) {
-    for (int i = threadIdx.x; i < H; i += GV_THREADS) xq_out[i] = sm.codes[i];
-    if (threadIdx.x == 0) *sx_out = sx;
+// Bytes [0, n) of global src into shared dst (n a multiple of 16, under
+// the mbarrier's 1 MB of transactions) by one bulk copy (TMA) that
+// completes on the mbarrier mb (one arrival expected). One thread calls it.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t n, uint64_t* mb) {
+  const uint32_t bar = smem_u32(mb);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(n)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(n), "r"(bar)
+      : "memory");
+}
+
+// Waits for the mbarrier's first phase (every thread that reads the bytes).
+__device__ __forceinline__ void bulk_wait(uint64_t* mb) {
+  const uint32_t bar = smem_u32(mb);
+  uint32_t ok = 0;
+  while (!ok)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(bar), "r"(0u)
+        : "memory");
+}
+
+// Every block of the (co-resident) grid waits here for all the others. The
+// word gains 2^31 a barrier (block 0 adds 2^31 - (blocks - 1), the others
+// 1): its top bit flips when the last block arrives and its low bits come
+// back to where they were, so nothing resets it between launches or graph
+// replays.
+__device__ __forceinline__ void grid_barrier(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    __threadfence();
+    const unsigned old = atomicAdd(bar, add);
+    while (((old ^ *(volatile unsigned*)bar) & 0x80000000u) == 0) {
+    }
+    __threadfence();
   }
+  __syncthreads();
+}
+
+// t[r] = f32(rows[r] . codes) * (sx * ws[r]) for the n shared rows of n_in
+// int8 (a multiple of 16): a warp a row, 16-byte pieces a lane; out[r] = t
+// (f32), or with x (shared bf16), h[r] = bf16(x[r] + bf16(t)), the
+// residual (resid_of).
+__device__ __forceinline__ void smem_dots(const int8_t* rows, int n, int n_in,
+                                          const int8_t* codes, float sx,
+                                          const float* __restrict__ ws, float* out,
+                                          const __nv_bfloat16* x = nullptr,
+                                          __nv_bfloat16* h = nullptr) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, np = n_in / 16;
+  const int4* xw = reinterpret_cast<const int4*>(codes);
+  for (int r = warp; r < n; r += AL_THREADS / 32) {
+    const int4* w = reinterpret_cast<const int4*>(rows + (size_t)r * n_in);
+    int a = 0;
+#pragma unroll 4
+    for (int c = lane; c < np; c += 32) {
+      const int4 wv = w[c], xv = xw[c];
+      a = __dp4a(wv.x, xv.x, a);
+      a = __dp4a(wv.y, xv.y, a);
+      a = __dp4a(wv.z, xv.z, a);
+      a = __dp4a(wv.w, xv.w, a);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+    if (lane != 0) continue;
+    const float t = (float)a * (sx * ws[r]);
+    if (x)
+      h[r] = __float2bfloat16_rn(resid_of(bf2f(x[r]), t));
+    else
+      out[r] = t;
+  }
+}
+
+// The int8 codes of a row of N bf16 values xs (shared memory) into codes,
+// and its scale, returned to every thread: with a norm weight ws, x =
+// resid_of(xs, ts) (ts the residual terms, or none: x = xs) and y =
+// bf16(rms(x) * ws), else y = xs. norm_quant's arithmetic and its sum of
+// squares in its order: thread tid plays its threads tid + AL_THREADS j,
+// whose strided sums meet in its warp butterflies, the codes and scale of
+// row_codes bit for bit; the row stays in registers, and with ts the sum x
+// goes back into xs (bf16, exact).
+__device__ float block_codes(__nv_bfloat16* xs, const float* ts, const float* ws, float eps,
+                            int N, int8_t* codes, float* red) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float v[AL_VIRT][AL_PER], sq[AL_VIRT];
+#pragma unroll
+  for (int j = 0; j < AL_VIRT; ++j) {
+    sq[j] = 0.f;
+#pragma unroll
+    for (int k = 0; k < AL_PER; ++k) {
+      const int i = tid + j * AL_THREADS + k * NORM_THREADS;
+      if (i < N) {
+        float x = bf2f(xs[i]);
+        if (ts) {
+          x = resid_of(x, ts[i]);
+          xs[i] = __float2bfloat16_rn(x);
+        }
+        v[j][k] = x;
+        sq[j] = fmaf(x, x, sq[j]);
+      }
+    }
+  }
+  float r = 1.f;
+  if (ws) {
+#pragma unroll
+    for (int j = 0; j < AL_VIRT; ++j) {
+      const float s = warp_sum(sq[j]);
+      if (lane == 0) red[warp + j * (AL_THREADS / 32)] = s;
+    }
+    __syncthreads();
+    const float tot = warp_sum(red[lane]);
+    r = rsqrtf(tot / (float)N + eps);
+  }
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < AL_VIRT; ++j)
+#pragma unroll
+    for (int k = 0; k < AL_PER; ++k) {
+      const int i = tid + j * AL_THREADS + k * NORM_THREADS;
+      if (i < N) {
+        float y = v[j][k];
+        if (ws) y = bf16_round(y * r * ws[i]);
+        v[j][k] = y;
+        amax = fmaxf(amax, fabsf(y));
+      }
+    }
+  amax = warp_max(amax);
+  __syncthreads();   // red is free again
+  if (lane == 0) red[warp] = amax;
+  __syncthreads();
+  amax = warp_max(lane < AL_THREADS / 32 ? red[lane] : 0.f);
+  const float sx = quant_scale(amax);
+#pragma unroll
+  for (int j = 0; j < AL_VIRT; ++j)
+#pragma unroll
+    for (int k = 0; k < AL_PER; ++k) {
+      const int i = tid + j * AL_THREADS + k * NORM_THREADS;
+      if (i < N) codes[i] = quant_code(v[j][k], sx);
+    }
+  __syncthreads();
+  return sx;
+}
+
+template <typename CT>
+__global__ void __launch_bounds__(AL_THREADS, 1) moe_attn_layer(AlArgs a, MegaDims d,
+                                                                  AlLayout lay) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t mb;   // the Wo rows
+  __shared__ float red[32];
+  __shared__ int last;
+  const int H = d.H, DQ = d.NH * d.D, DKV = d.NKV * d.D, NQKV = DQ + 2 * DKV;
+  const int nb = gridDim.x, b = blockIdx.x, tid = threadIdx.x;
+  const int q0 = (int)((long long)b * NQKV / nb), q1 = (int)((long long)(b + 1) * NQKV / nb);
+  const int o0 = (int)((long long)b * H / nb), o1 = (int)((long long)(b + 1) * H / nb);
+  int8_t* wo_rows = reinterpret_cast<int8_t*>(smem);
+  unsigned char* region = smem + lay.qkv;
+  int8_t* codes = reinterpret_cast<int8_t*>(smem + lay.codes);
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + lay.row);
+  float* ts = reinterpret_cast<float*>(smem + lay.row + 2 * H);
+  float* ws = ts + H;
+  CT* pre = reinterpret_cast<CT*>(smem + lay.pre);
+  float* rope = reinterpret_cast<float*>(smem + lay.rope);
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(&mb)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  const int pos = a.pos[0];
+  const int G = d.NH / d.NKV, GS = G % 2 ? 1 : 2, QS = G / GS, nvh = d.NH / GS;
+  const int nch = n_attn_chunks(pos);
+  // 1: staged in three batches, each on its way before the last lands: the
+  // attention norm's row (x: h1 + the down terms, or the input row) and
+  // weight; the block's QKV rows; the rows of its first attention chunk
+  // (cache rows < pos, which no block of this launch writes). The codes (x
+  // stays in xs), QKV, then the Wo rows sent for (TMA) while the rest runs.
+  stage(xs, a.base ? a.base : a.embd + (size_t)(*a.token) * H, 2 * H);
+  if (a.terms) stage(ts, a.terms, 4 * H);
+  stage(ws, a.attn_w, 4 * H);
+  __pipeline_commit();
+  stage(region, a.qkv_t + (size_t)q0 * H, (q1 - q0) * H);
+  __pipeline_commit();
+  if (b < nvh * nch) stage_chunk(pre, (const CT*)a.kc, (const CT*)a.vc, d, pos, b / nch / QS,
+                                 b % nch);
+  __pipeline_commit();
+  __pipeline_wait_prior(2);
+  __syncthreads();
+  float sx = block_codes(xs, a.terms ? ts : nullptr, ws, d.eps, H, codes, red);
+  for (int e = tid; e < d.D / 2; e += AL_THREADS) {   // every task's RoPE, once
+    const float inv = expf((float)e * d.rope_coef);
+    const float ang = (float)pos * inv;
+    rope[e] = cosf(ang);
+    rope[d.D / 2 + e] = sinf(ang);
+  }
+  __pipeline_wait_prior(1);
+  __syncthreads();
+  if (tid == 0) bulk_load(wo_rows, a.wo_t + (size_t)o0 * DQ, (uint32_t)(o1 - o0) * DQ, &mb);
+  smem_dots(reinterpret_cast<const int8_t*>(region), q1 - q0, H, codes, sx, a.qkv_s + q0,
+            a.qkv_terms + q0);
+  grid_barrier(a.bar);
+  // 2: the attention tasks
+  for (int t = b; t < nvh * nch; t += nb) {
+    attn_task<CT>(a.qkv_terms, a.qn, a.kn, d, (CT*)a.kc, (CT*)a.vc, a.ksc, a.vsc, a.part,
+                  a.stride, a.acnt, a.attn, pos, t / nch, t % nch, rope, region,
+                  t == b ? pre : nullptr);
+    __syncthreads();
+  }
+  grid_barrier(a.bar);
+  // 3: the attention row's codes (the FFN norm's weight staged beside it),
+  // then Wo and h1 = x + bf16(wo), the block's rows
+  __nv_bfloat16* row = reinterpret_cast<__nv_bfloat16*>(region);
+  stage(row, a.attn, 2 * DQ);
+  stage(ws, a.ffn_w, 4 * H);
+  staged();
+  sx = block_codes(row, nullptr, nullptr, 0.f, DQ, codes, red);
+  bulk_wait(&mb);
+  smem_dots(wo_rows, o1 - o0, DQ, codes, sx, a.wo_s + o0, nullptr, xs + o0, a.h1 + o0);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    last = atomicAdd(a.done, 1) == nb - 1;
+    if (last) *a.done = 0;
+  }
+  __syncthreads();
+  if (!last) return;
+  // 4: the FFN norm's codes of h1, once
+  stage(xs, a.h1, 2 * H);
+  staged();
+  sx = block_codes(xs, nullptr, ws, d.eps, H, codes, red);
+  for (int i = tid; i < H / 16; i += AL_THREADS)
+    reinterpret_cast<uint4*>(a.xq)[i] = reinterpret_cast<const uint4*>(codes)[i];
+  if (tid == 0) *a.sx = sx;
+}
+
+// The layout of moe_attn_layer's dynamic shared memory at nb blocks.
+template <typename CT>
+inline AlLayout al_layout(const MegaDims& d, int nb) {
+  const int H = d.H, DQ = d.NH * d.D, NQKV = DQ + 2 * d.NKV * d.D;
+  auto up = [](size_t n) { return (int)((n + 127) & ~(size_t)127); };
+  size_t region = (size_t)ceil_div(NQKV, nb) * H;
+  const size_t other[2] = {attn_task_smem<CT>(d), 2 * (size_t)DQ};
+  for (size_t o : other) region = region > o ? region : o;
+  AlLayout l;
+  l.qkv = up((size_t)ceil_div(H, nb) * DQ);
+  l.codes = l.qkv + up(region);
+  l.row = l.codes + up(H > DQ ? H : DQ);
+  l.pre = l.row + up(10 * (size_t)H);
+  l.rope = l.pre + up(2 * (size_t)ATTN_ROWS * d.D * sizeof(CT));
+  l.bytes = l.rope + up(4 * (size_t)d.D);
+  return l;
+}
+
+// The grid of moe_attn_layer (one block an SM of the current device) and
+// its layout; an error when a block does not fit on an SM.
+template <typename CT>
+int al_grid(const MegaDims& d, int* nb, AlLayout* lay) {
+  int dev = 0, nsm = 0, occ = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (!rc) rc = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (rc) return (int)rc;
+  *lay = al_layout<CT>(d, nsm);
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, moe_attn_layer<CT>, AL_THREADS,
+                                                     lay->bytes);
+  if (rc) return (int)rc;
+  if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  *nb = nsm;
+  return 0;
+}
+
+// Block (g, b): the sums of experts [16g, 16g + 16) over input rows [256b,
+// 256b + 256) of the FFN norm's row codes (xq, sx; moe_attn_layer's phase
+// 4): thread (sub, e) adds code[r] * router[r][e] over its 16 rows in
+// order, its router weights loaded before the codes; the 16 subs meet in
+// order into part[b][e]. The block that finishes last forms logits[e] = sx
+// * the sum over b in order, and takes the top K by logit (ties to the
+// lower index), with weights exp(l - max) over their sum (renormalised
+// over the k).
+__global__ void __launch_bounds__(GV_THREADS) moe_router(
+    const int8_t* __restrict__ xq, const float* __restrict__ sxp,
+    const __nv_bfloat16* __restrict__ router, int H, int E, int K, float* __restrict__ part,
+    int* __restrict__ cnt, int* __restrict__ ids, float* __restrict__ wts) {
+  constexpr int PER = ROUTER_SLICE / ROUTER_SUBS;
+  __shared__ int8_t codes[ROUTER_SLICE];
+  __shared__ float sums[GV_THREADS];
+  __shared__ float ps[NORM_MAX];
+  __shared__ int last;
   const int e = blockIdx.x * ROUTER_EXPERTS + threadIdx.x % ROUTER_EXPERTS;
-  const int sub = threadIdx.x / ROUTER_EXPERTS, per = ROUTER_SLICE / ROUTER_SUBS;
-  const int r0 = blockIdx.y * ROUTER_SLICE + sub * per;
-  const __nv_bfloat16* w = router + (size_t)r0 * E + e;
+  const int sub = threadIdx.x / ROUTER_EXPERTS, rb = blockIdx.y * ROUTER_SLICE;
+  const __nv_bfloat16* w = router + (size_t)(rb + sub * PER) * E + e;
+  float wv[PER];
+#pragma unroll
+  for (int r = 0; r < PER; ++r) wv[r] = bf2f(w[(size_t)r * E]);
+  for (int i = threadIdx.x; i < ROUTER_SLICE; i += GV_THREADS) codes[i] = xq[rb + i];
+  __syncthreads();
   float acc = 0.f;
 #pragma unroll
-  for (int r = 0; r < per; ++r) acc = fmaf((float)sm.codes[r0 + r], bf2f(w[(size_t)r * E]), acc);
+  for (int r = 0; r < PER; ++r) acc = fmaf((float)codes[sub * PER + r], wv[r], acc);
   sums[threadIdx.x] = acc;
   __syncthreads();
   if (threadIdx.x < ROUTER_EXPERTS) {
@@ -717,10 +1134,10 @@ __global__ void __launch_bounds__(GV_THREADS) moe_router(
   if (!last) return;
   // the slices' sums into shared memory, every load in flight at once, then
   // each expert's logit with the slices in order
-  float* ps = sm.ys;   // [gridDim.y][E], free after the prologue
   for (int i = threadIdx.x; i < (int)gridDim.y * E; i += GV_THREADS) ps[i] = __ldcg(part + i);
   __syncthreads();
   if (threadIdx.x >= 32) return;
+  const float sx = *sxp;
   const int lane = threadIdx.x;
   float lg[MAX_EXPERTS / 32];
 #pragma unroll
@@ -847,10 +1264,9 @@ inline bool moe_ok(const MegaDims& d, const MoeDims& m) {
   return m.E > 0 && m.E <= MAX_EXPERTS && m.E % ROUTER_EXPERTS == 0 && m.K > 0 &&
          m.K <= m.E && m.K <= MAX_TOPK && m.K <= 32 && d.H % ROUTER_SLICE == 0 &&
          d.H % 16 == 0 && d.FF % 16 == 0 && DQ % 16 == 0 && d.wbits == 8 &&
-         d.H <= 512 * QKV_CPL && d.H <= 512 * GU_CPL && DQ <= 512 * WO_CPL &&
-         d.FF <= 512 * DN_CPL && d.H <= GV_MAX_IN && DQ <= GV_MAX_IN && d.FF <= NORM_MAX &&
-         (2 * d.FF) % block_rows(GU_ROWS) == 0 && d.H % block_rows(DN_ROWS) == 0 &&
-         d.H / ROUTER_SLICE * m.E <= NORM_MAX;
+         d.H <= 512 * GU_CPL && d.FF <= 512 * DN_CPL && d.H <= GV_MAX_IN &&
+         DQ <= GV_MAX_IN && d.FF <= NORM_MAX && (2 * d.FF) % block_rows(GU_ROWS) == 0 &&
+         d.H % block_rows(DN_ROWS) == 0 && d.H / ROUTER_SLICE * m.E <= NORM_MAX && d.D <= 256;
 }
 
 // One MoE decode step over a cache of element type CT.
@@ -860,15 +1276,19 @@ int moe_step(const MegaPtrs* p, const MegaDims* dp, const MoePtrs* mp, const Moe
   const MegaDims d = *dp;
   const MoeDims md = *mdp;
   cudaStream_t st = (cudaStream_t)stream;
-  if (!pos || !step_ok<CT>(d, 64, 1024) || !moe_ok(d, md) || moe_attn_smem<CT>(d) > 48 * 1024 ||
-      sizeof(float) * n_attn_chunks(d.S) * 2 > 2 * ATTN_ROWS * d.D * sizeof(CT))
+  const int GS = (d.NH / d.NKV) % 2 ? 1 : 2;
+  if (!pos || !step_ok<CT>(d, 64, 1024) || !moe_ok(d, md) || (GS * (d.D + 2)) % 4 ||
+      (uintptr_t)p->x_in % 16 ||
+      sizeof(float) * n_attn_chunks(d.S) * GS > 2 * ATTN_ROWS * d.D * sizeof(CT))
     return (int)cudaErrorInvalidValue;
+  int nb = 0;
+  AlLayout lay;
+  int rc = al_grid<CT>(d, &nb, &lay);
+  if (rc) return rc;
   constexpr bool QUANT = scaled_cache<CT>();
   const int DQ = d.NH * d.D, DKV = d.NKV * d.D, F = d.FF, H = d.H, E = md.E, K = md.K;
   const int SE = d.S / rows_per_elem<CT>();
-  const int nchunks = n_attn_chunks(d.pos);
   const size_t ts = terms_floats(d), qs = (size_t)widest_row(d);
-  const int GS = (d.NH / d.NKV) % 2 ? 1 : 2;
   Scratch s;
   layout(d, 1, (char*)p->scratch, &s);
   float* ta = s.terms[0];
@@ -880,51 +1300,53 @@ int moe_step(const MegaPtrs* p, const MegaDims* dp, const MoePtrs* mp, const Moe
   const int8_t* dn_q = (const int8_t*)mp->dn_q;
   const float* dn_s = (const float*)mp->dn_s;
   const int NQKV = DQ + 2 * DKV;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nb);
+  cfg.blockDim = dim3(AL_THREADS);
+  cfg.dynamicSmemBytes = lay.bytes;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
   for (int l = 0; l < d.L; ++l) {
-    RowIn in{};
-    in.kind = ROW_NORM;
-    in.N = H;
-    in.embd = (const __nv_bfloat16*)p->embd;
+    AlArgs a{};
+    a.embd = (const __nv_bfloat16*)p->embd;
     if (l == 0) {
-      in.base = (const __nv_bfloat16*)p->x_in;
-      in.token = (const int*)p->token_in;
+      a.base = (const __nv_bfloat16*)p->x_in;
+      a.token = (const int*)p->token_in;
     } else {
-      in.base = s.h1;
-      in.terms = tb;
-      in.n_g = 1;
+      a.base = s.h1;
+      a.terms = tb;
     }
-    in.w = (const float*)p->attn_norm + (size_t)l * H;
-    in.eps = d.eps;
-    in.x_out = s.x;
-    moe_gemv_dense<QKV_ROWS, QKV_CPL><<<ceil_div(NQKV, block_rows(QKV_ROWS)), GV_THREADS, 0, st>>>(
-        in, (const int8_t*)mp->qkv_t + (size_t)l * NQKV * H,
-        (const float*)p->qkv_s + (size_t)l * NQKV, H, NQKV, ta);
-    CT* kl = (CT*)p->k_cache + (size_t)l * SE * DKV;
-    CT* vl = (CT*)p->v_cache + (size_t)l * SE * DKV;
-    float* ksl = QUANT ? (float*)p->k_scale + (size_t)l * d.S * d.NKV : nullptr;
-    float* vsl = QUANT ? (float*)p->v_scale + (size_t)l * d.S * d.NKV : nullptr;
-    moe_attn<CT><<<dim3(d.NH / GS, nchunks), ATTN_THREADS, moe_attn_smem<CT>(d), st>>>(
-        ta, (const float*)p->q_norm + (size_t)l * d.D, (const float*)p->k_norm + (size_t)l * d.D,
-        d, kl, vl, ksl, vsl, s.part, (int*)mp->acnt, s.attn, pos);
-    in = RowIn{};
-    in.kind = ROW_QUANT;
-    in.N = DQ;
-    in.base = s.attn;
-    moe_gemv_dense<WO_ROWS, WO_CPL><<<ceil_div(H, block_rows(WO_ROWS)), GV_THREADS, 0, st>>>(
-        in, (const int8_t*)mp->wo_t + (size_t)l * H * DQ, (const float*)p->wo_s + (size_t)l * H,
-        DQ, H, tb);
-    // h1 = x + bf16(wo): the router's prologue, which leaves h1 and its codes
-    in = RowIn{};
-    in.kind = ROW_NORM;
-    in.N = H;
-    in.base = s.x;
-    in.terms = tb;
-    in.n_g = 1;
-    in.w = (const float*)p->ffn_norm + (size_t)l * H;
-    in.eps = d.eps;
-    in.x_out = s.h1;
+    a.attn_w = (const float*)p->attn_norm + (size_t)l * H;
+    a.qkv_t = (const int8_t*)mp->qkv_t + (size_t)l * NQKV * H;
+    a.qkv_s = (const float*)p->qkv_s + (size_t)l * NQKV;
+    a.wo_t = (const int8_t*)mp->wo_t + (size_t)l * H * DQ;
+    a.wo_s = (const float*)p->wo_s + (size_t)l * H;
+    a.qn = (const float*)p->q_norm + (size_t)l * d.D;
+    a.kn = (const float*)p->k_norm + (size_t)l * d.D;
+    a.ffn_w = (const float*)p->ffn_norm + (size_t)l * H;
+    a.kc = (CT*)p->k_cache + (size_t)l * SE * DKV;
+    a.vc = (CT*)p->v_cache + (size_t)l * SE * DKV;
+    a.ksc = QUANT ? (float*)p->k_scale + (size_t)l * d.S * d.NKV : nullptr;
+    a.vsc = QUANT ? (float*)p->v_scale + (size_t)l * d.S * d.NKV : nullptr;
+    a.qkv_terms = ta;
+    a.part = s.part;
+    a.acnt = (int*)mp->acnt;
+    a.attn = s.attn;
+    a.h1 = s.h1;
+    a.xq = s.xq;
+    a.sx = s.sx;
+    a.bar = (unsigned*)mp->bar;
+    a.done = (int*)mp->done;
+    a.pos = pos;
+    a.stride = n_attn_chunks(d.pos);
+    rc = (int)cudaLaunchKernelEx(&cfg, moe_attn_layer<CT>, a, d, lay);
+    if (rc) return rc;
     moe_router<<<dim3(E / ROUTER_EXPERTS, H / ROUTER_SLICE), GV_THREADS, 0, st>>>(
-        in, router + (size_t)l * H * E, H, E, K, s.xq, s.sx, (float*)mp->part, (int*)mp->cnt,
+        s.xq, s.sx, router + (size_t)l * H * E, H, E, K, (float*)mp->part, (int*)mp->cnt,
         (int*)mp->ids, (float*)mp->wts);
     moe_gemv_gu<<<dim3(2 * F / block_rows(GU_ROWS), K), GV_THREADS, 0, st>>>(
         (const int*)mp->ids, gu_q + (size_t)l * E * 2 * F * H, gu_s + (size_t)l * E * 2 * F, H,
@@ -941,10 +1363,10 @@ int moe_step(const MegaPtrs* p, const MegaDims* dp, const MoePtrs* mp, const Moe
   in.kind = ROW_CODES;
   in.xq = s.xq;
   in.sx = s.sx;
-  const int rc = qw_k1_gemv_i8(&in, p->head_q, p->head_s, H, d.Vp, s.iacc, s.tiles, ta, st);
-  const int nb = n_argmax_blocks(d);
-  argmax_partial<<<dim3(nb, 1), ARGMAX_THREADS, 0, st>>>(ta, 1, d.Vp, d.V, s.pmax, s.pidx, ts);
-  argmax_final<<<1, ARGMAX_THREADS, 0, st>>>(s.pmax, s.pidx, nb, (int*)p->token_out);
+  rc = qw_k1_gemv_i8(&in, p->head_q, p->head_s, H, d.Vp, s.iacc, s.tiles, ta, st);
+  const int nab = n_argmax_blocks(d);
+  argmax_partial<<<dim3(nab, 1), ARGMAX_THREADS, 0, st>>>(ta, 1, d.Vp, d.V, s.pmax, s.pidx, ts);
+  argmax_final<<<1, ARGMAX_THREADS, 0, st>>>(s.pmax, s.pidx, nab, (int*)p->token_out);
   return rc ? rc : (int)cudaGetLastError();
 }
 
@@ -990,6 +1412,37 @@ extern "C" int qw_moe_down(const void* fq, const void* fs, const void* order, co
       (const int8_t*)fq, (const float*)fs, (const int*)order, (const int*)off,
       (const float*)wts, (const int8_t*)wq, (const float*)ws, H, F, (float*)ys);
   return (int)cudaGetLastError();
+}
+
+// Raises moe_attn_layer's dynamic shared memory limit to what the device
+// leaves beside its static bytes (once, at load: not inside a graph's
+// capture).
+template <typename CT>
+static int al_init(int optin) {
+  cudaFuncAttributes fa;
+  cudaError_t rc = cudaFuncGetAttributes(&fa, moe_attn_layer<CT>);
+  if (!rc)
+    rc = cudaFuncSetAttribute(moe_attn_layer<CT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              optin - (int)fa.sharedSizeBytes);
+  return (int)rc;
+}
+
+extern "C" int qw_moe_init() {
+  int dev = 0, optin = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (!rc) rc = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (rc) return (int)rc;
+  const int r8 = al_init<int8_t>(optin);
+  return r8 ? r8 : al_init<__nv_bfloat16>(optin);
+}
+
+// The blocks of the step's persistent attention launch (moe_attn_layer) for
+// dp over an int8 (int8_cache != 0) or a bf16 cache, into *blocks: one an
+// SM; an error when a block does not fit.
+extern "C" int qw_moe_attn_blocks(const MegaDims* dp, int int8_cache, int* blocks) {
+  AlLayout lay;
+  return int8_cache ? al_grid<int8_t>(*dp, blocks, &lay)
+                    : al_grid<__nv_bfloat16>(*dp, blocks, &lay);
 }
 
 // One greedy MoE decode step over an int8 (scales set) or a bf16 KV cache at

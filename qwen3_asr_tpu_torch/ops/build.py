@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # such as a dynamic shared-memory limit above 48 KB), so that no first call
 # sets them lazily, inside a CUDA graph's capture for one.
 INIT_ENTRIES = ("qw_flash_init", "qw_mega_batch_init", "qw_q8_init",
-                "qw_decode_attention_init")
+                "qw_decode_attention_init", "qw_moe_init")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -291,15 +291,24 @@ def _embed_ref(pack, cfg: DecoderConfig, token_or_x) -> torch.Tensor:
 def _attention_ref(pack, cfg: DecoderConfig, l: int, x, pos: int, k, v, k_s, v_s
                    ) -> torch.Tensor:
     """Layer l's attention block of the twin on the row x (f32 [H]): the QKV
-    product, QK-norm, RoPE at pos, attention over the cache rows < pos and
-    the fresh column (written at row pos), the Wo product and the residual.
-    -> h1 f32 [H] of bf16 values."""
+    product, attention at pos (`_attend_ref`, which writes the fresh row at
+    pos), the Wo product and the residual. -> h1 f32 [H] of bf16 values."""
+    xq, sx = _quant_row(_bf(rms_norm_f32(x, pack["attn_norm"][l], cfg.rms_norm_eps)))
+    qkv = _bf(_gemv_ref(xq, sx, pack["qkv_q"][l], pack["qkv_s"][l]))
+    xq, sx = _quant_row(_attend_ref(pack, cfg, l, qkv, pos, k, v, k_s, v_s))
+    return _bf(x + _bf(_gemv_ref(xq, sx, pack["wo_q"][l], pack["wo_s"][l])))
+
+
+def _attend_ref(pack, cfg: DecoderConfig, l: int, qkv, pos: int, k, v, k_s, v_s
+                ) -> torch.Tensor:
+    """Layer l's attention of the twin on its bf16 QKV row (f32 [DQ + 2
+    DKV]): QK-norm, RoPE at pos, attention over the cache rows < pos and the
+    fresh column, whose K/V row is written at row pos. -> the attention row
+    f32 [DQ] of bf16 values."""
     NH, NKV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     DQ, group, eps = NH * D, NH // NKV, cfg.rms_norm_eps
     scale = float(np.float32(1.0 / float(np.sqrt(D))))
     quant = k_s is not None
-    xq, sx = _quant_row(_bf(rms_norm_f32(x, pack["attn_norm"][l], eps)))
-    qkv = _bf(_gemv_ref(xq, sx, pack["qkv_q"][l], pack["qkv_s"][l]))
     rows = qkv.reshape(NH + 2 * NKV, D)
     q_all = rope_row(rms_norm_f32(rows[:NH], pack["q_norm"][l], eps), pos,
                      cfg.rope_theta) * scale
@@ -326,8 +335,7 @@ def _attention_ref(pack, cfg: DecoderConfig, l: int, x, pos: int, k, v, k_s, v_s
     attn = _bf(torch.cat(heads, dim=0).reshape(DQ))
     _write_fresh_row(k, k_s, l, pos, k_all)
     _write_fresh_row(v, v_s, l, pos, v_all)
-    xq, sx = _quant_row(attn)
-    return _bf(x + _bf(_gemv_ref(xq, sx, pack["wo_q"][l], pack["wo_s"][l])))
+    return attn
 
 
 def _head_ref(pack, cfg: DecoderConfig, x, return_logits: bool):

@@ -29,11 +29,13 @@ row codes xq / sx of RMSNorm(h1) that the layer's residual pass left:
                  then the next layer's codes (F3's form)
 
 A decode step (`MoeDecodeStep`, the C entry `qw_moe_decode_step_*`) runs,
-a layer, the QKV GEMV, attention, the Wo GEMV (K1's prologues and
-epilogues, on output-major copies of the int8pc codes), the router (top-k
-on the device), the routed experts' gate-up and down GEMVs; then K1's
-final norm, lm head and argmax; every token one CUDA graph replay
-(`ops/megakernel.py::GraphStep`). The twins are plain torch in
+a layer, `moe_attn_layer`: the attention half as one persistent launch
+(the QKV product, attention, the Wo product, h1 and the FFN norm's row
+codes, one block an SM, on output-major copies of the int8pc codes
+streamed into shared memory; twin `moe_attn_layer_ref`); the router on
+those codes (top-k on the device); the routed experts' gate-up and down
+GEMVs; then K1's final norm, lm head and argmax; every token one CUDA
+graph replay (`ops/megakernel.py::GraphStep`). The twins are plain torch in
 the kernels' order of operations: integer dots exact (float64), the same
 bf16 roundings and the same quantizer; only f32 sums of the router, the
 norms and the softmax may differ in order. CPU tensors take the twin; CUDA
@@ -52,7 +54,7 @@ from qwen3_asr_tpu_torch.ops.decode_attention import rope_coef
 from qwen3_asr_tpu_torch.ops.megakernel import (
     HEAD_PAD,
     DecodeStep,
-    _attention_ref,
+    _attend_ref,
     _bf,
     _Dims,
     _embed_ref,
@@ -364,20 +366,40 @@ def router_ref(xq: torch.Tensor, sx, router: torch.Tensor, k: int):
     return ids, ex / ex.sum()
 
 
+def moe_attn_layer_ref(pack, cfg: DecoderConfig, l: int, x, pos: int, k, v, k_s=None,
+                       v_s=None):
+    """Plain twin of `moe_attn_layer`, layer l's attention half on the row
+    x (f32 [H] of bf16 values), phase by phase on the output-major copies
+    the kernel reads: the attention norm's codes and the QKV terms (f32(dot)
+    * (sx * s)), attention at pos (its fresh K/V row written at row pos),
+    the attention row's codes and the Wo terms, h1 = bf16(x + bf16(wo)) and
+    the FFN norm's codes. -> (h1 f32 [H], xq int8 [H], sx f32 scalar, the
+    cache row at pos: (k, v) or, with scales, (k, v, k_s, v_s))."""
+    eps = cfg.rms_norm_eps
+    xq, sx = _quant_row(_bf(rms_norm_f32(x, pack["attn_norm"][l], eps)))
+    qkv = _bf(_dot(xq[None], pack["qkv_t"][l])[0].float() * (sx * pack["qkv_s"][l]))
+    aq, asx = _quant_row(_attend_ref(pack, cfg, l, qkv, pos, k, v, k_s, v_s))
+    wo = _dot(aq[None], pack["wo_t"][l])[0].float() * (asx * pack["wo_s"][l])
+    h1 = _bf(x + _bf(wo))
+    xq, sx = _quant_row(_bf(rms_norm_f32(h1, pack["ffn_norm"][l], eps)))
+    row = (k[l, pos], v[l, pos]) if k_s is None else (k[l, pos], v[l, pos], k_s[l, pos],
+                                                      v_s[l, pos])
+    return h1, xq, sx, row
+
+
 def moe_decode_step_ref(pack, cfg: DecoderConfig, token_or_x, pos: int, k, v,
                         k_s=None, v_s=None, return_logits: bool = False):
     """Plain twin of the MoE decode step over an int8 (k_s, v_s given) or a
-    bf16 cache: K1's twin's attention and head, and per layer the router
-    and the k routed experts: gate-up terms f32(dot) * (sx * s), the SwiGLU
-    row bf16(silu(bf16 g) * bf16 u) and its codes, the down terms weighted,
-    summed over the experts in order into the residual. Writes cache row
-    `pos`. -> (token int32 [1], h f32 [1, H]) or, with return_logits,
-    (token, h, logits f32 [V])."""
-    F, K, eps = cfg.moe_intermediate_size, cfg.n_experts_per_tok, cfg.rms_norm_eps
+    bf16 cache: per layer the attention half (`moe_attn_layer_ref`), the
+    router and the k routed experts: gate-up terms f32(dot) * (sx * s), the
+    SwiGLU row bf16(silu(bf16 g) * bf16 u) and its codes, the down terms
+    weighted, summed over the experts in order into the residual; K1's
+    twin's head. Writes cache row `pos`. -> (token int32 [1], h f32 [1, H])
+    or, with return_logits, (token, h, logits f32 [V])."""
+    F, K = cfg.moe_intermediate_size, cfg.n_experts_per_tok
     x = _embed_ref(pack, cfg, token_or_x)
     for l in range(cfg.n_layers):
-        h1 = _attention_ref(pack, cfg, l, x, pos, k, v, k_s, v_s)
-        xq, sx = _quant_row(_bf(rms_norm_f32(h1, pack["ffn_norm"][l], eps)))
+        h1, xq, sx, _ = moe_attn_layer_ref(pack, cfg, l, x, pos, k, v, k_s, v_s)
         ids, wts = router_ref(xq, sx, pack["router"][l], K)
         moe = None
         for j, e in enumerate(ids.tolist()):
@@ -394,7 +416,7 @@ def moe_decode_step_ref(pack, cfg: DecoderConfig, token_or_x, pos: int, k, v,
 class _MoePtrs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "qkv_t", "wo_t", "router", "gu_q", "gu_s", "dn_q", "dn_s", "part", "ids", "wts", "cnt", "slices",
-        "tcnt", "acnt", "gu_terms")]
+        "tcnt", "acnt", "gu_terms", "bar", "done")]
 
 
 class _MoeDims(ctypes.Structure):
@@ -421,11 +443,11 @@ _MOE_ENTRIES = {torch.int8: "qw_moe_decode_step_i8", torch.bfloat16: "qw_moe_dec
 
 
 def step_kernels(n_layers: int) -> int:
-    """Kernel launches of one MoE step: per layer the QKV GEMV, attention,
-    the Wo GEMV, the router and the two expert GEMVs; then the final norm,
-    the lm head and the two argmax passes (the scratch memset is no
+    """Kernel launches of one MoE step: per layer the attention half
+    (`moe_attn_layer`), the router and the two expert GEMVs; then the final
+    norm, the lm head and the two argmax passes (the scratch memset is no
     kernel)."""
-    return 6 * n_layers + 4
+    return 4 * n_layers + 4
 
 
 class MoeDecodeStep(DecodeStep):
@@ -433,7 +455,10 @@ class MoeDecodeStep(DecodeStep):
     int8 (with scales) or bf16 cache [L, S, n_kv * head_dim], as
     `DecodeStep` binds K1's: its checks, scratch and device position once,
     then a step a call (`qw_moe_decode_step_i8` / `qw_moe_decode_step`),
-    capturable in a CUDA graph (`GraphStep`)."""
+    capturable in a CUDA graph (`GraphStep`). `attn_blocks`: the grid of the
+    persistent attention launch, one block an SM, every block resident (a
+    cooperative launch; the constructor raises where a block does not
+    fit)."""
 
     def __init__(self, pack, cfg: DecoderConfig, k, v, k_s=None, v_s=None):
         from qwen3_asr_tpu_torch.ops.build import kernel
@@ -481,6 +506,14 @@ class MoeDecodeStep(DecodeStep):
         self.tcnt = torch.zeros(-(-H // 32), dtype=I32, device=dev)
         self.acnt = torch.zeros(cfg.n_heads, dtype=I32, device=dev)
         self.gu_terms = torch.empty(K * 2 * F, dtype=F32, device=dev)
+        self.done = torch.zeros(1, dtype=I32, device=dev)
+        blocks = ctypes.c_int(0)
+        grid = kernel("qw_moe_attn_blocks",
+                      [ctypes.POINTER(_Dims), _INT, ctypes.POINTER(ctypes.c_int)])
+        raise_on_error(grid(ctypes.byref(self.dims), int(k.dtype == torch.int8),
+                            ctypes.byref(blocks)), "moe_attn_layer's grid")
+        self.attn_blocks = blocks.value
+        self.bar = torch.zeros(1, dtype=I32, device=dev)
         p = {n: pack[n].data_ptr() for n in (
             "embd", "attn_norm", "ffn_norm", "q_norm", "k_norm", "out_norm",
             "qkv_q", "qkv_s", "wo_q", "wo_s", "head_q", "head_s")}
@@ -493,7 +526,8 @@ class MoeDecodeStep(DecodeStep):
                                                "dn_q", "dn_s")},
             part=self.part.data_ptr(), ids=self.ids.data_ptr(), wts=self.wts.data_ptr(),
             cnt=self.cnt.data_ptr(), slices=self.slices.data_ptr(), tcnt=self.tcnt.data_ptr(),
-            acnt=self.acnt.data_ptr(), gu_terms=self.gu_terms.data_ptr())
+            acnt=self.acnt.data_ptr(), gu_terms=self.gu_terms.data_ptr(),
+            bar=self.bar.data_ptr(), done=self.done.data_ptr())
         self.moe_dims = _MoeDims(E=E, K=K)
 
     def _launch(self, pos: torch.Tensor) -> int:

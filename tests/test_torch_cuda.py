@@ -1248,59 +1248,97 @@ def test_moe_prefill_products_match_twins(cuda_kernels, N, skewed):
         assert counts[E - 2:].tolist() == [0, 0] and int(counts.max()) > 32
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kv", ["bf16", "int8"])
-def test_moe_decode_step_matches_twin(cuda_kernels, kv):
-    """The MoE step: 6 L + 4 kernels a step; each layer alone against the
-    twin on the same input and cache (h within 1e-2, the same experts);
-    32 graphed steps bit-equal to 32 eager ones, caches included."""
+def _moe_cache(L: int, S: int, kv: str, g) -> list:
+    """A random bf16 cache, or int8 with its scales, [L, S, 512] (the
+    thinker's 4 KV heads of 128): [k, v, k_s, v_s], the scales None for
+    bf16."""
+    if kv == "bf16":
+        return [(torch.randn(L, S, 512, generator=g, device="cuda") * 2).to(torch.bfloat16)
+                for _ in range(2)] + [None, None]
+    cache = [torch.randint(-100, 101, (L, S, 512), generator=g, device="cuda",
+                           dtype=torch.int8) for _ in range(2)]
+    return cache + [torch.rand(L, S, 4, generator=g, device="cuda") * 0.02 + 1e-3
+                    for _ in range(2)]
+
+
+def _moe_step_checks(cfg, pack, cache, pos: int, n_steps: int, g) -> None:
+    """Each layer of the MoE step alone against the twin on the same input
+    row and cache at pos (h within 1e-2), then n_steps graphed steps from
+    pos bit-equal to as many eager ones, caches included."""
     import dataclasses
 
     from qwen3_asr_tpu_torch.ops import moe
     from qwen3_asr_tpu_torch.ops.megakernel import GraphStep
-    from qwen3_asr_tpu_torch.ops.support import kernels_a_call
 
-    cfg, dec = _moe_decoder()
-    pack, L, S, DKV = dec["moe"], cfg.n_layers, 512, 512
-    g = torch.Generator(device="cuda").manual_seed(2)
-    if kv == "bf16":
-        cache = [(torch.randn(L, S, DKV, generator=g, device="cuda") * 2).to(torch.bfloat16)
-                 for _ in range(2)] + [None, None]
-    else:
-        cache = [torch.randint(-100, 101, (L, S, DKV), generator=g, device="cuda",
-                               dtype=torch.int8) for _ in range(2)]
-        cache += [torch.rand(L, S, 4, generator=g, device="cuda") * 0.02 + 1e-3
-                  for _ in range(2)]
     clone = (lambda ts: [t.clone() if t is not None else None for t in ts])
-    step = moe.MoeDecodeStep(pack, cfg, *clone(cache))
     out = torch.zeros(1, dtype=torch.int32, device="cuda")
-    tok = torch.tensor([123], dtype=torch.int32, device="cuda")
-    step.pos.fill_(300)
-    assert kernels_a_call(lambda: step(tok, step.pos, out)) == moe.step_kernels(L)
     c1 = dataclasses.replace(cfg, n_layers=1)
-    for l in range(L):
+    for l in range(cfg.n_layers):
         one = {k: (v[l:l + 1] if k not in ("head_q", "head_s", "out_norm", "embd") else v)
                for k, v in pack.items()}
         lc = [t[l:l + 1].clone() if t is not None else None for t in cache]
         x = (torch.randn(1, cfg.hidden_size, generator=g, device="cuda") * 3).to(torch.bfloat16)
         s1 = moe.MoeDecodeStep(one, c1, *clone(lc))
-        s1(x, 300, out)
-        _, rh = moe.moe_decode_step_ref(one, c1, x, 300, *clone(lc))
+        s1(x, pos, out)
+        _, rh = moe.moe_decode_step_ref(one, c1, x, pos, *clone(lc))
         assert float((s1.h - rh).norm() / rh.norm()) < 1e-2, l
     a, b = clone(cache), clone(cache)
     e = moe.MoeDecodeStep(pack, cfg, *a)
-    o1 = torch.zeros(33, dtype=torch.int32, device="cuda")
+    o1 = torch.zeros(n_steps + 1, dtype=torch.int32, device="cuda")
     o1[0] = 77
-    for i in range(1, 33):
-        e(o1[i - 1:i], 200 + i - 1, o1[i:i + 1])
+    for i in range(1, n_steps + 1):
+        e(o1[i - 1:i], pos + i - 1, o1[i:i + 1])
     gs = GraphStep(moe.MoeDecodeStep(pack, cfg, *b))
-    o2 = torch.zeros(33, dtype=torch.int32, device="cuda")
+    o2 = torch.zeros(n_steps + 1, dtype=torch.int32, device="cuda")
     o2[0] = 77
-    for i in range(1, 33):
-        gs(o2, i, 200 + i - 1)
+    for i in range(1, n_steps + 1):
+        gs(o2, i, pos + i - 1)
     torch.cuda.synchronize()
     assert torch.equal(o1, o2)
     assert all(torch.equal(x, y) for x, y in zip(a, b) if x is not None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_moe_decode_step_matches_twin(cuda_kernels, kv):
+    """The MoE step: 4 L + 4 kernels a step, its attention half on one block
+    an SM; each layer alone against the twin on the same input and cache (h
+    within 1e-2); 32 graphed steps bit-equal to 32 eager ones, caches
+    included."""
+    from qwen3_asr_tpu_torch.ops import moe
+    from qwen3_asr_tpu_torch.ops.support import kernels_a_call
+
+    cfg, dec = _moe_decoder()
+    pack, L = dec["moe"], cfg.n_layers
+    g = torch.Generator(device="cuda").manual_seed(2)
+    cache = _moe_cache(L, 512, kv, g)
+    step = moe.MoeDecodeStep(pack, cfg, *[t.clone() if t is not None else None for t in cache])
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    tok = torch.tensor([123], dtype=torch.int32, device="cuda")
+    step.pos.fill_(300)
+    assert kernels_a_call(lambda: step(tok, step.pos, out)) == moe.step_kernels(L) == 4 * L + 4
+    assert step.attn_blocks == torch.cuda.get_device_properties(0).multi_processor_count
+    _moe_step_checks(cfg, pack, cache, 300, 32, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_moe_attn_layer_loops_over_more_chunks_than_blocks(cuda_kernels, kv):
+    """At a position whose attention chunks alone outnumber the persistent
+    launch's blocks (each block then takes several tasks, and the merges
+    fall to whichever finishes a head last): each layer within 1e-2 of the
+    twin, 8 graphed steps bit-equal to 8 eager ones."""
+    from qwen3_asr_tpu_torch.ops import moe
+
+    cfg, dec = _moe_decoder()
+    blocks = torch.cuda.get_device_properties(0).multi_processor_count
+    pos = 64 * blocks + 150
+    S = pos + 64
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cache = _moe_cache(cfg.n_layers, S, kv, g)
+    step = moe.MoeDecodeStep(dec["moe"], cfg, *cache)
+    assert -(-pos // 64) > step.attn_blocks
+    _moe_step_checks(cfg, dec["moe"], cache, pos, 8, g)
 
 
 @pytest.mark.cuda

@@ -29,8 +29,9 @@ from qwen3_asr_tpu_torch.models.e2e import _pad_pcm
 from qwen3_asr_tpu_torch.models.encoder import encode
 from qwen3_asr_tpu_torch.models.generate import mega_caches, prefill_hidden
 from qwen3_asr_tpu_torch.ops import moe as tmoe
+from qwen3_asr_tpu_torch.ops.megakernel import _attention_ref, _bf, _quant_row
 from qwen3_asr_tpu_torch.ops.prefill_fused import codes_buffer, norm_quant_rows
-from qwen3_asr_tpu_torch.ops.q8_matmul import quantize_rows
+from qwen3_asr_tpu_torch.ops.q8_matmul import quantize_rows, rms_norm_f32
 from qwen3_asr_tpu_torch.pipeline.asr import Qwen3ASR, TranscribeParams
 from qwen3_asr_tpu_torch.text.prompt import audio_start_pos, build_asr_prompt
 
@@ -368,6 +369,38 @@ def test_decode_step_follows_the_prefill():
     full = lm_logits(dec, dcfg, h_full)
     assert float((step - full).norm() / full.norm()) < 0.05
 
+
+
+@pytest.mark.parametrize("kv,pos", [("bf16", 5), ("bf16", 70), ("int8", 5), ("int8", 70)])
+def test_attention_half_twin_equals_the_reference_path(thinker, kv, pos):
+    """`moe_attn_layer`'s twin, phase by phase on the pack's output-major
+    QKV and Wo copies, gives every layer the bits of the reference path the
+    step's twin took before it (K1's attention twin, then the FFN norm's
+    codes): h1, the codes, their scale and the cache row written at pos;
+    and the step launches four kernels a layer, then the head's four."""
+    dcfg, pack = thinker.cfg.decoder, thinker.params["decoder"]["moe"]
+    L, NKV, S = dcfg.n_layers, dcfg.n_kv_heads, 128
+    DKV = NKV * dcfg.head_dim
+    g = torch.Generator().manual_seed(pos)
+    if kv == "bf16":
+        cache = [(torch.randn(L, S, DKV, generator=g) * 2).to(torch.bfloat16)
+                 for _ in range(2)] + [None, None]
+    else:
+        cache = [torch.randint(-100, 101, (L, S, DKV), generator=g, dtype=torch.int8)
+                 for _ in range(2)]
+        cache += [torch.rand(L, S, NKV, generator=g) * 0.02 + 1e-3 for _ in range(2)]
+    a, b = ([t.clone() if t is not None else None for t in cache] for _ in range(2))
+    x = _bf(torch.randn(dcfg.hidden_size, generator=g) * 3)
+    for l in range(L):
+        h1, xq, sx, row = tmoe.moe_attn_layer_ref(pack, dcfg, l, x, pos, *a)
+        want = _attention_ref(pack, dcfg, l, x, pos, *b)
+        wq, wsx = _quant_row(_bf(rms_norm_f32(want, pack["ffn_norm"][l], dcfg.rms_norm_eps)))
+        assert torch.equal(h1, want) and torch.equal(xq, wq) and torch.equal(sx, wsx), l
+        assert len(row) == (2 if kv == "bf16" else 4)
+        assert all(torch.equal(r, t[l, pos]) for r, t in zip(row, b))
+        x = h1
+    assert all(torch.equal(s, t) for s, t in zip(a, b) if s is not None)
+    assert tmoe.step_kernels(L) == 4 * L + 4
 
 # -- the door: transcribe ----------------------------------------------------------
 
